@@ -1,0 +1,99 @@
+"""Weight bridge: flax variable collections -> the port's state_dicts.
+
+The port names its parameters after the JAX package's leaves, so a leaf's
+key is its flax path joined with dots, with these layout rules:
+
+* conv kernels: WIO ``kernel`` (K, C_in, C_out) -> ``weight`` (C_out, C_in, K);
+  weight-norm ``v`` likewise, ``g`` per output channel unchanged;
+* ``Linear`` ``kernel`` (C_in, C_out) -> ``weight`` (C_out, C_in);
+* ``nn.Embed`` ``embedding`` -> ``nn.Embedding`` ``weight``;
+* LSTM ``wi_*`` (C, 4H), ``wh_*`` (H, 4H), ``b_ih_*``, ``b_hh_*``: unchanged
+  (the kernel takes Wh as (H, 4H));
+* spectral norm ``spectral/.../SpectralNormedParam_i/wh_{d}_u`` ->
+  ``...sn_{d}.u``;
+* the flow steps ``decoder/flow_i`` -> ``decoder.flows.i``; the 1x1s'
+  ``p``, ``lower``, ``upper``, ``upper_diag``, ``input_mean`` and
+  ``initialized`` unchanged;
+* HiFi-GAN: ``*_v`` (K, C_in, C_out) -> (C_out, C_in, K), except the
+  upsampling ConvTranspose ``up_i_v`` -> (C_in, C_out, K) with ``up_i_g``
+  per input channel.
+
+Inputs are nested dicts of numpy arrays (``jax.tree.map(np.asarray, ...)``
+of the flax variables); nothing here imports JAX.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+_TTS_COLLECTIONS = ("params", "buffers", "spectral")
+
+
+def _flatten(tree, prefix: Tuple[str, ...] = ()
+             ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _put(sd: Dict[str, torch.Tensor], path, value: np.ndarray) -> None:
+    key = ".".join(path)
+    if key in sd:
+        raise ValueError(f"two flax leaves map to {key}")
+    sd[key] = torch.from_numpy(np.array(value))   # a C-ordered copy
+
+
+def _tts_leaf(collection: str, path: Tuple[str, ...], a: np.ndarray):
+    path = list(path)
+    if collection == "spectral":
+        m = re.fullmatch(r"wh_(fwd|bwd)_u", path[-1])
+        if not (m and path[-2].startswith("SpectralNormedParam_")):
+            raise ValueError(f"unexpected spectral leaf {'/'.join(path)}")
+        return path[:-2] + [f"sn_{m.group(1)}", "u"], a
+    if len(path) > 1 and path[0] == "decoder" and path[1].startswith("flow_"):
+        path[1:2] = ["flows", path[1][len("flow_"):]]
+    leaf = path[-1]
+    if leaf == "kernel" and a.ndim == 3:
+        return path[:-1] + ["weight"], a.transpose(2, 1, 0)
+    if leaf == "v" and a.ndim == 3:
+        return path, a.transpose(2, 1, 0)
+    if leaf == "kernel" and a.ndim == 2:
+        return path[:-1] + ["weight"], a.T
+    if leaf == "embedding":
+        return path[:-1] + ["weight"], a
+    return path, a
+
+
+def tts_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """State dict of ``radmmm_torch.models.tts.TTSModel`` from the flax
+    collections of a JAX ``TTSModel`` (params, buffers, spectral)."""
+    extra = set(variables) - set(_TTS_COLLECTIONS)
+    if extra:
+        raise ValueError(f"collections {sorted(extra)} have no port "
+                         "counterpart yet")
+    sd: Dict[str, torch.Tensor] = {}
+    for col in _TTS_COLLECTIONS:
+        for path, a in _flatten(variables.get(col, {})):
+            key, value = _tts_leaf(col, path, a)
+            _put(sd, key, value)
+    return sd
+
+
+def hifigan_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """State dict of ``radmmm_torch.vocoder.hifigan.Generator`` from the
+    flax variables of a JAX ``Generator``."""
+    extra = set(variables) - {"params"}
+    if extra:
+        raise ValueError(f"unexpected collections {sorted(extra)}")
+    sd: Dict[str, torch.Tensor] = {}
+    for path, a in _flatten(variables["params"]):
+        if path[-1].endswith("_v"):
+            a = (a.transpose(1, 2, 0) if re.fullmatch(r"up_\d+_v", path[-1])
+                 else a.transpose(2, 1, 0))
+        _put(sd, path, a)
+    return sd

@@ -1,0 +1,102 @@
+"""Affine coupling of the flow and its WaveNet-style parameter predictor.
+
+Counterpart of ``radmmm_tpu/ops/coupling.py`` (``WN``, ``AffineCoupling``,
+``scaling_and_logs``); this slice serves, so the coupling runs its inverse.
+The WN ``start``, ``res_skip`` and ``end`` convolutions take no mask, as in
+the JAX module; only the dilated ``in`` layers see it.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from radmmm_torch.ops.conv import MaskedConv1d
+
+
+class WN(nn.Module):
+    """(z_half (B,T,C_half), context (B,T,C_ctx)) -> (B, T, 2*C_half)."""
+
+    def __init__(self, n_in_channels: int, n_context_channels: int,
+                 n_layers: int = 4, n_channels: int = 1024,
+                 kernel_size: int = 5, affine_activation: str = "softplus",
+                 use_partial_padding: bool = True, use_dilation: bool = True):
+        super().__init__()
+        self.n_layers = n_layers
+        self.act = F.softplus if affine_activation == "softplus" else F.relu
+        self.start = MaskedConv1d(n_in_channels + n_context_channels,
+                                  n_channels, 1, use_weight_norm=True)
+        for i in range(n_layers):
+            dilation = 2 ** i if use_dilation else 1
+            setattr(self, f"in_{i}", MaskedConv1d(
+                n_channels, n_channels, kernel_size, dilation=dilation,
+                use_partial_padding=use_partial_padding,
+                use_weight_norm=True))
+            setattr(self, f"res_skip_{i}", MaskedConv1d(
+                n_channels, n_channels, 1, use_weight_norm=True))
+        self.end = MaskedConv1d(n_channels, 2 * n_in_channels, 1,
+                                zero_init=True)
+
+    def forward(self, z, context, mask=None):
+        h = self.start(torch.cat([z, context], dim=-1))
+        output = torch.zeros_like(h)
+        for i in range(self.n_layers):
+            h = self.act(getattr(self, f"in_{i}")(h, mask))
+            output = output + self.act(getattr(self, f"res_skip_{i}")(h))
+        return self.end(output)
+
+
+def scaling_and_logs(u: torch.Tensor,
+                     scaling_fn: Union[str, Sequence[str]]):
+    """Constrained scale and its log; 'tanh' (the shipped config) is
+    s = tanh(u) + 1 + 1e-6."""
+    def one(u, fn):
+        if fn == "translate":
+            return torch.ones_like(u), torch.zeros_like(u)
+        if fn == "exp":
+            return torch.exp(u), u
+        if fn == "tanh":
+            s = torch.tanh(u) + 1.0 + 1e-6
+            return s, torch.log(s)
+        if fn == "sigmoid":
+            s = torch.sigmoid(u + 10.0) + 1e-6
+            return s, torch.log(s)
+        raise ValueError(f"unsupported scaling fn {fn}")
+
+    if isinstance(scaling_fn, str):
+        return one(u, scaling_fn)
+    outs = [one(u[..., i:i + 1], fn) for i, fn in enumerate(scaling_fn)]
+    return (torch.cat([s for s, _ in outs], dim=-1),
+            torch.cat([l for _, l in outs], dim=-1))
+
+
+class AffineCoupling(nn.Module):
+    """Split-half affine coupling z1 <- s(z0, ctx) * z1 + b(z0, ctx), with
+    a WaveNet parameter predictor."""
+
+    def __init__(self, n_mel_channels: int, n_context_channels: int,
+                 n_layers: int, affine_model: str = "wavenet",
+                 scaling_fn: Union[str, Sequence[str]] = "exp",
+                 affine_activation: str = "softplus",
+                 with_dilation: bool = True, kernel_size: int = 5,
+                 n_channels: int = 1024, use_partial_padding: bool = False):
+        super().__init__()
+        if affine_model != "wavenet":
+            raise ValueError(
+                f"affine_model {affine_model!r} is not ported yet (wavenet "
+                "only)")
+        self.n_half = n_mel_channels // 2
+        self.scaling_fn = scaling_fn
+        # the JAX module leaves WN's dilation at its default whatever
+        # with_dilation says; so does this one
+        self.wn = WN(self.n_half, n_context_channels, n_layers, n_channels,
+                     kernel_size, affine_activation, use_partial_padding)
+
+    def inverse(self, z, context, mask=None):
+        z0, z1 = z[..., :self.n_half], z[..., self.n_half:]
+        params = self.wn(z0, context, mask)
+        s, _ = scaling_and_logs(params[..., :self.n_half], self.scaling_fn)
+        b = params[..., self.n_half:]
+        return torch.cat([z0, (z1 - b) / s], dim=-1)

@@ -1,0 +1,100 @@
+"""Invertible 1x1 channel mixes of the flow, inverse direction.
+
+Counterpart of ``radmmm_tpu/ops/invertible.py`` (``InvertibleLU`` and
+``WhiteningConv``). Channels-last: y[t] = W @ x[t] is ``x @ W.T``.
+
+The inverse W^-1 depends only on the weights, so ``cache_inverse()``
+computes it once after the weights are loaded (the serving loader calls it
+through ``TTSModel.cache_inverses``) and stores it in a non-persistent
+buffer that follows the module across devices. Without the cache the
+inverse is computed on each call. It is computed in float64: the
+whitening W is ill-conditioned (cond ~ 200 at 160 channels), and an
+inverse taken while TF32 matmuls are enabled would carry their error
+into every mel. The LU factors of the initial W come from
+numpy/scipy QR + LU on the host, as in the JAX package, so a module
+initialised from a seed starts from a consistent orthonormal W.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import scipy.linalg
+import torch
+from torch import nn
+
+
+@functools.lru_cache(maxsize=None)
+def _lu_factors_host(seed: int, c: int):
+    """Random orthonormal (det=+1) W and its P, L, U factors."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((c, c)).astype(np.float64)
+    q, _ = np.linalg.qr(w)
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    p, l, u = scipy.linalg.lu(q)
+    return (p.astype(np.float32), np.tril(l, -1).astype(np.float32),
+            np.triu(u, 1).astype(np.float32),
+            np.diagonal(u).astype(np.float32).copy())
+
+
+class _Invertible1x1(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.register_buffer("w_inv", None, persistent=False)
+
+    def weight(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def inverse_weight(self) -> torch.Tensor:
+        w = self.weight()
+        return torch.linalg.inv(w.double()).to(w.dtype)
+
+    def cache_inverse(self) -> None:
+        with torch.no_grad():
+            self.w_inv = self.inverse_weight()
+
+    def _inverse_mix(self, z: torch.Tensor) -> torch.Tensor:
+        w_inv = (self.w_inv if self.w_inv is not None
+                 else self.inverse_weight())
+        return torch.matmul(z, w_inv.t())
+
+
+class InvertibleLU(_Invertible1x1):
+    """W = P·L·U; P a fixed buffer, L unit lower and U upper triangular."""
+
+    def __init__(self, channels: int, init_seed: int = 0):
+        super().__init__()
+        p, lower, upper, upper_diag = _lu_factors_host(init_seed, channels)
+        self.register_buffer("p", torch.from_numpy(p.copy()))
+        self.lower = nn.Parameter(torch.from_numpy(lower.copy()))
+        self.upper = nn.Parameter(torch.from_numpy(upper.copy()))
+        self.upper_diag = nn.Parameter(torch.from_numpy(upper_diag.copy()))
+
+    def weight(self) -> torch.Tensor:
+        eye = torch.eye(self.lower.shape[0], device=self.lower.device)
+        lower = torch.tril(self.lower, -1) + eye
+        upper = torch.triu(self.upper, 1) + torch.diag(self.upper_diag)
+        return self.p @ (lower @ upper)
+
+    def inverse(self, z: torch.Tensor) -> torch.Tensor:
+        return self._inverse_mix(z)
+
+
+class WhiteningConv(_Invertible1x1):
+    """Data-initialised whitening 1x1: y = U (x - mean); the inverse is
+    x = U^-1 y + mean."""
+
+    def __init__(self, channels: int, init_seed: int = 0):
+        super().__init__()
+        _, _, upper, upper_diag = _lu_factors_host(init_seed + 7919, channels)
+        self.upper = nn.Parameter(torch.from_numpy(upper.copy()))
+        self.upper_diag = nn.Parameter(torch.from_numpy(upper_diag.copy()))
+        self.register_buffer("input_mean", torch.zeros(channels))
+        self.register_buffer("initialized", torch.zeros((), dtype=torch.bool))
+
+    def weight(self) -> torch.Tensor:
+        return torch.triu(self.upper, 1) + torch.diag(self.upper_diag)
+
+    def inverse(self, z: torch.Tensor) -> torch.Tensor:
+        return self._inverse_mix(z) + self.input_mean
