@@ -1,18 +1,32 @@
 #!/usr/bin/env python3
-"""Smoke run of the radmmm_torch serving path on one CUDA card.
+"""Smoke run of the radmmm_torch serving and training paths on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,serve,parity] [--seed 0]
+    python3 chip_smoke.py [--phases build,kernels,serve,parity,train,
+                           train_parity] [--seed 0]
 
 Phases (all by default):
 
-1. build    compile csrc/lstm_recurrence.cu for sm_90a into build/ and
-            print the build time and the card's name and power limit;
-2. kernels  the LSTM recurrence kernel against its plain PyTorch twin at
-            the four shapes of the serving path (TextEncoder BiLSTM H=260,
-            duration DAP H=128, six ganged frame-DAP lanes H=128, flow
-            context BiLSTM H=528 with input 1060), B=1 and B=8, ragged
-            masks, TF32 off; times of kernel, twin, cuDNN nn.LSTM and the
-            card's lower bound for the same work;
+1. build    compile every kernel source under radmmm_torch/csrc/ for sm_90a
+            into build/ (one nvcc each, all at once) and print the build
+            time, ptxas's register counts and the card's name and power
+            limit;
+2. kernels  each kernel against its plain PyTorch twin, TF32 off, with
+            the times of kernel, twin, a PyTorch library call computing the
+            same function (where there is one) and the card's lower bound
+            for the same work:
+            - K4 forward, the LSTM recurrence, at the serving path's four
+              shapes (TextEncoder BiLSTM H=260, duration DAP H=128, six
+              ganged frame-DAP lanes H=128, flow context BiLSTM H=528 with
+              input 1060), B=1 and B=8, and at the training step's four
+              shapes (B=8, T_text 96, T_mel 512) with its saved states;
+              library: cuDNN nn.LSTM over packed sequences;
+            - K4 backward at the training shapes; library: the backward of
+              cuDNN nn.LSTM over packed sequences;
+            - K1 and K2, the CTC alpha and beta DPs, at B=8, T_mel=512,
+              2*96+1 states; library: F.ctc_loss forward and its backward
+              on the equivalent targets 1..96 with the blank column;
+            - K3, width-1 MAS, at (8, 512, 96), bit for bit; no PyTorch
+              call computes MAS, so no library time;
 3. serve    the full-width RADMMM model and HiFi-GAN v1 (22,050 Hz) with
             random weights from --seed, exported as a serving artifact,
             served over HTTP by radmmm_torch.server on 127.0.0.1; four
@@ -20,10 +34,21 @@ Phases (all by default):
             checked and the kernel's launches on them counted;
 4. parity   one 12-token request through stage A+B at sigma=0, mel only,
             on the card and on the CPU: stage A compared on its float
-            outputs, stage B on the same integer durations.
+            outputs, stage B on the same integer durations;
+5. train    the full-width model from --seed and the benchmark's batch
+            (B=8, T_text=96, T_mel=512, full lengths): the whitening init,
+            one warm-up step, then TRAIN_STEPS (3) steps of
+            make_train_step(binarize=True, kl_on=True) with RAdam, in full
+            f32 (TF32 off); every loss term and the grad norm finite, the
+            launches per step exactly K1 1, K2 1, K3 1, K4 forward 4, K4
+            backward 4; ms/step, mel frames/s and a profile of one step;
+6. train_parity  one step at full width and short lengths (B=2, T_text 12,
+            T_mel 64, dropout off) on the card and on the CPU from the same
+            weights and batch, TF32 off: loss terms, grad norm and every
+            parameter's gradient compared.
 
 Any failure exits non-zero. The line before the last is a JSON object
-with the kernel's numbers; the last line is
+with the kernels' numbers; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -31,6 +56,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import http.client
 import io
 import json
@@ -46,15 +72,34 @@ import wave
 import numpy as np
 import torch
 
-PHASES = ("build", "kernels", "serve", "parity")
+PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity")
 # (name, lanes, hidden, time steps, LSTM input width) on the serving path
 # at text bucket 96 and frame bucket 800 (the flow context runs at 800/2)
 PATH_SHAPES = (("text_encoder", 2, 260, 96, 520),
                ("duration_dap", 2, 128, 96, 256),
                ("frame_daps_ganged", 6, 128, 800, 256),
                ("flow_context", 2, 528, 400, 1060))
+# the same four recurrences in the training step at T_text 96, T_mel 512
+TRAIN_SHAPES = (("text_encoder", 2, 260, 96, 520),
+                ("duration_dap", 2, 128, 96, 256),
+                ("frame_daps_ganged", 6, 128, 512, 256),
+                ("flow_context", 2, 528, 256, 1060))
+TRAIN_B, TRAIN_T_TEXT, TRAIN_T_MEL = 8, 96, 512
+TRAIN_STEPS = 3
 KERNEL_ATOL = 1e-5
+# the backward's dgates and the CTC band values grow with depth: held to
+# 1e-5 relative to their magnitude, with a 1e-5 floor
+KERNEL_RTOL = 1e-5
 PARITY_ATOL = 1e-3
+TRAIN_PARITY_RTOL = 1e-3
+# each parameter's gradient, card against CPU, over its leaf's largest
+# (at least GRAD_FLOOR of the tree's). Read on an H100: 1.8e-6 at worst
+# in the leaves the flow loss does not reach, up to 1.7e-3 in those it
+# does, since the whitening 1x1 fitted to this short batch (57 frames for
+# 160 channels, held invertible by a 1e-5 ridge) scales rounding in its
+# null directions by about 300
+GRAD_PARITY_RTOL = 5e-3
+GRAD_FLOOR = 1e-6
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
 TEXT_BUCKETS = [(1, 32), (4, 96)]
@@ -101,14 +146,16 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def phase_build():
-    from radmmm_torch.ops import lstm_kernel
+    from radmmm_torch.utils import cuda_build
     t0 = time.perf_counter()
-    lib = lstm_kernel.build(force=True)
-    log(f"[build] {lib.name} built in {time.perf_counter() - t0:.2f} s")
-    ptxas = lib.parent / "lstm_recurrence.ptxas.txt"
-    for line in ptxas.read_text().splitlines():
-        if "registers" in line or "smem" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    libs = cuda_build.build(force=True)
+    log(f"[build] {len(libs)} kernel libraries built in "
+        f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
+    for name in libs:
+        ptxas = cuda_build.BUILD_DIR / f"{name}.ptxas.txt"
+        for line in ptxas.read_text().splitlines():
+            if "registers" in line or "smem" in line:
+                log(f"[build] {name} ptxas: {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -123,63 +170,277 @@ def _lengths(T: int, B: int) -> torch.Tensor:
     return torch.tensor([T - i * T // (B + 1) for i in range(B)])
 
 
-def bound_ms(L, T, B, H, valid_frames) -> tuple:
-    """Least time for the recurrence: each input read once, the output
-    written once; 8H² FLOP per (lane, valid frame) for h @ Wh."""
-    n_bytes = 4 * (L * T * B * 4 * H + T * B + L * H * 4 * H + L * T * B * H)
-    flops = 8.0 * H * H * L * valid_frames
+def _bound(n_bytes: float, flops: float) -> tuple:
+    """(least ms, what bounds it): the bytes at the HBM rate or the f32
+    operations at the f32 rate, whichever takes longer."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bound_ms(L, T, B, H, valid_frames, save=False) -> tuple:
+    """Least time for the recurrence: each input read once, the output
+    (and in training the saved gates, c and h) written once; 8H² FLOP per
+    (lane, valid frame) for h @ Wh."""
+    n_out = L * T * B * H * (7 if save else 1)
+    n_bytes = 4 * (L * T * B * 4 * H + T * B + L * H * 4 * H + n_out)
+    return _bound(n_bytes, 8.0 * H * H * L * valid_frames)
+
+
+def bound_bwd_ms(L, T, B, H, valid_frames) -> tuple:
+    """The backward reads dout, the saved gates and c, the mask and Wh and
+    writes dgates; 8H² FLOP per (lane, valid frame) for dgates @ Wh^T."""
+    n_bytes = 4 * (L * T * B * H * 2 + L * T * B * 4 * H * 2 + T * B
+                   + L * H * 4 * H)
+    return _bound(n_bytes, 8.0 * H * H * L * valid_frames)
+
+
+def _rel_err_ok(got, want) -> tuple:
+    """(max abs error, within KERNEL_RTOL of the magnitude with a 1e-5
+    floor)."""
+    diff = (got - want).abs()
+    ok = bool((diff <= 1e-5 + KERNEL_RTOL * want.abs()).all())
+    return diff.max().item(), ok
+
+
+def _cudnn_lstms(L, H, cin, dev):
+    return [torch.nn.LSTM(cin, H, bidirectional=True).to(dev)
+            for _ in range(L // 2)]
+
+
+def _lstm_rows(gen, dev, name, L, H, T, cin, B, train: bool):
+    """K4 forward (and in training K4 backward) at one shape: error
+    against the twin, times of kernel, twin and cuDNN, the bound."""
+    from radmmm_torch.ops.lstm_kernel import (
+        _backward_kernel, _forward_kernel, lstm_recurrence,
+        lstm_recurrence_backward_reference, lstm_recurrence_reference)
+    lens = _lengths(T, B)
+    mask = (torch.arange(T)[:, None] < lens[None, :]).float().to(dev)
+    xp = torch.randn((L, T, B, 4 * H), generator=gen, device=dev)
+    wh = (torch.rand((L, H, 4 * H), generator=gen, device=dev)
+          * 2 - 1) / H ** 0.5
+    rev = [bool(l % 2) for l in range(L)]
+    valid = int(lens.sum())
+    # cuDNN yardstick: L/2 bidirectional nn.LSTM calls over packed
+    # sequences of the layer's real input (its x @ W_ih included)
+    lstms = _cudnn_lstms(L, H, cin, dev)
+    x = torch.randn((T, B, cin), generator=gen, device=dev,
+                    requires_grad=train)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(x, lens,
+                                                     enforce_sorted=False)
+    tag = "train" if train else "serve"
+    if not train:
+        got = lstm_recurrence(xp, mask, wh, rev)
+        want = lstm_recurrence_reference(xp, mask, wh, rev)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ok = err <= KERNEL_ATOL
+        k_ms = cuda_ms(lambda: lstm_recurrence(xp, mask, wh, rev), 20)
+        p_ms = cuda_ms(
+            lambda: lstm_recurrence_reference(xp, mask, wh, rev), 2)
+    else:
+        got = _forward_kernel(xp, mask, wh, rev, save=True)
+        want = lstm_recurrence_reference(xp, mask, wh, rev, save=True)
+        torch.cuda.synchronize()
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        ok = err <= KERNEL_ATOL
+        k_ms = cuda_ms(lambda: _forward_kernel(xp, mask, wh, rev, True), 20)
+        p_ms = cuda_ms(lambda: lstm_recurrence_reference(
+            xp, mask, wh, rev, save=True), 2)
+
+    def library():
+        for m in lstms:
+            m(packed)
+    with torch.no_grad():
+        lib_ms = cuda_ms(library, 10)
+    b_ms, b_by = bound_ms(L, T, B, H, valid, save=train)
+    fwd = dict(kernel="lstm_recurrence", path=tag, shape=name, L=L, H=H,
+               T=T, B=B, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"[kernels] K4 {tag} {name} L={L} H={H} T={T} B={B}: max_abs_err "
+        f"{err:.3e} (atol {KERNEL_ATOL:g}), kernel_ms {k_ms:.4f}, plain_ms "
+        f"{p_ms:.3f}, library_ms {lib_ms:.4f}, bound_ms {b_ms:.5f} "
+        f"({b_by})")
+    if not ok:
+        fail(f"K4 forward disagrees with its twin at {tag} {name} B={B}")
+    if not train:
+        return fwd, None
+
+    _, act, cs, _ = got
+    dout = torch.randn((L, T, B, H), generator=gen, device=dev)
+    g = _backward_kernel(dout, act, cs, mask, wh, rev)
+    w = lstm_recurrence_backward_reference(dout, act, cs, mask, wh, rev)
+    torch.cuda.synchronize()
+    err_b, ok_b = _rel_err_ok(g, w)
+    kb_ms = cuda_ms(lambda: _backward_kernel(dout, act, cs, mask, wh, rev),
+                    20)
+    pb_ms = cuda_ms(lambda: lstm_recurrence_backward_reference(
+        dout, act, cs, mask, wh, rev), 2)
+    outs = [m(packed)[0].data for m in lstms]
+    grads = [torch.randn_like(o) for o in outs]
+    inputs = [x] + [p for m in lstms for p in m.parameters()]
+    libb_ms = cuda_ms(lambda: torch.autograd.grad(
+        outs, inputs, grads, retain_graph=True), 10)
+    bb_ms, bb_by = bound_bwd_ms(L, T, B, H, valid)
+    bwd = dict(kernel="lstm_recurrence_bwd", path=tag, shape=name, L=L, H=H,
+               T=T, B=B, max_abs_err=err_b, ms=kb_ms, plain_ms=pb_ms,
+               library_ms=libb_ms, bound_ms=bb_ms, bound_by=bb_by)
+    log(f"[kernels] K4-backward {name} L={L} H={H} T={T} B={B}: "
+        f"max_abs_err {err_b:.3e} (rtol {KERNEL_RTOL:g}, floor 1e-5, of "
+        f"|dgates| up to {w.abs().max().item():.2f}), kernel_ms "
+        f"{kb_ms:.4f}, plain_ms {pb_ms:.3f}, library_ms {libb_ms:.4f}, "
+        f"bound_ms {bb_ms:.5f} ({bb_by})")
+    if not ok_b:
+        fail(f"K4 backward disagrees with its twin at {name}")
+    return fwd, bwd
+
+
+def _ctc_inputs(gen, dev, ragged: bool):
+    from radmmm_torch.losses.ctc import _ctc_setup
+    B, Tm, Tt = TRAIN_B, TRAIN_T_MEL, TRAIN_T_TEXT
+    logits = torch.randn((B, Tm, Tt), generator=gen, device=dev) * 2
+    if ragged:
+        tl = torch.tensor([Tt - 9 * i for i in range(B)], dtype=torch.int32)
+        ml = torch.tensor([Tm - 41 * i for i in range(B)], dtype=torch.int32)
+        tl[-1], ml[-2] = 1, 40             # one token; fewer frames than text
+    else:                                  # the benchmark batch: full lengths
+        tl = torch.full((B,), Tt, dtype=torch.int32)
+        ml = torch.full((B,), Tm, dtype=torch.int32)
+    tl, ml = tl.to(dev), ml.to(dev)
+    _, emit, _ = _ctc_setup(logits, tl, -1.0)
+    return logits, emit, tl, ml
+
+
+def _ctc_library(logits, tl, ml):
+    """F.ctc_loss on the equivalent problem: targets 1..S per item, the
+    blank (log-prob -1 before the softmax) as class 0."""
+    import torch.nn.functional as F
+    B, Tm, Tt = logits.shape
+    lp = torch.log_softmax(torch.cat([logits.new_full((B, Tm, 1), -1.0),
+                                      logits], dim=-1), dim=-1)
+    lp = lp.transpose(0, 1).contiguous().requires_grad_()
+    targets = torch.arange(1, Tt + 1, device=logits.device).repeat(B, 1)
+
+    def fwd():
+        return F.ctc_loss(lp, targets, ml.long(), tl.long(), blank=0,
+                          reduction="sum", zero_infinity=True)
+    with torch.no_grad():
+        f_ms = cuda_ms(fwd, 20)
+    loss = fwd()
+    b_ms = cuda_ms(lambda: torch.autograd.grad(loss, lp, retain_graph=True),
+                   20)
+    return f_ms, b_ms
+
+
+def _band_err(got, want) -> tuple:
+    """CTC band: both at the NEG_INF floor together, else within
+    KERNEL_RTOL of the magnitude (with a 1e-5 floor)."""
+    floor = want < -1e29
+    if not torch.equal(got < -1e29, floor):
+        return float("inf"), False
+    return _rel_err_ok(got[~floor], want[~floor])
+
+
+def _ctc_rows(gen, dev) -> list:
+    from radmmm_torch.losses import ctc_kernel
+    rows = []
+    for which, fn, ref, src in (
+            ("alpha", ctc_kernel.ctc_alpha, ctc_kernel.ctc_alpha_reference,
+             "radmmm_tpu/losses/ctc_pallas.py:33"),
+            ("beta", ctc_kernel.ctc_beta, ctc_kernel.ctc_beta_reference,
+             "radmmm_tpu/losses/ctc_pallas.py:75")):
+        _, emit, tl, ml = _ctc_inputs(gen, dev, ragged=True)
+        err_r, ok_r = _band_err(fn(emit, tl, ml), ref(emit, tl, ml))
+        logits, emit, tl, ml = _ctc_inputs(gen, dev, ragged=False)
+        want = ref(emit, tl, ml)
+        err, ok = _band_err(fn(emit, tl, ml), want)
+        k_ms = cuda_ms(lambda: fn(emit, tl, ml), 20)
+        p_ms = cuda_ms(lambda: ref(emit, tl, ml), 2)
+        lib_f, lib_b = _ctc_library(logits, tl, ml)
+        lib_ms = lib_f if which == "alpha" else lib_b
+        B, T, S = emit.shape
+        # read emit once, write every row once; a lse3 (3 exp, 1 log, 8
+        # adds/compares) per state of each row after the first
+        b_ms, b_by = _bound(4 * (2 * B * T * S + 2 * B),
+                            12.0 * B * (T - 1) * S)
+        log(f"[kernels] K{1 if which == 'alpha' else 2} ctc_{which} B={B} "
+            f"T_mel={T} S={S}: max_abs_err {err:.3e} (rtol "
+            f"{KERNEL_RTOL:g} of |band| up to "
+            f"{want[want > -1e29].abs().max().item():.0f}; ragged lengths "
+            f"{err_r:.3e}), kernel_ms {k_ms:.4f}, plain_ms {p_ms:.3f}, "
+            f"library_ms {lib_ms:.4f} (F.ctc_loss "
+            f"{'forward' if which == 'alpha' else 'backward'}), bound_ms "
+            f"{b_ms:.5f} ({b_by})")
+        if not (ok and ok_r):
+            fail(f"ctc_{which} disagrees with its twin")
+        rows.append(dict(kernel=f"ctc_{which}", src=src, max_abs_err=err,
+                         ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def _mas_rows(gen, dev) -> list:
+    from radmmm_torch.ops import alignment
+    B, Tm, Tt = TRAIN_B, TRAIN_T_MEL, TRAIN_T_TEXT
+    a = torch.softmax(torch.randn((B, Tm, Tt), generator=gen, device=dev)
+                      * 3, dim=-1)
+    tl = torch.full((B,), Tt, dtype=torch.int32, device=dev)
+    ml = torch.full((B,), Tm, dtype=torch.int32, device=dev)
+    # corner cases on a copy: one token, one frame, no frames, all ties
+    ac, tlc, mlc = a.clone(), tl.clone(), ml.clone()
+    tlc[1], mlc[2], mlc[3], tlc[4] = 1, 1, 0, 0
+    ac[5] = 1.0 / Tt
+    pairs = [(alignment.mas_width1(x, t, m),
+              alignment.mas_width1_reference(alignment._log_attention(x, t),
+                                             t, m))
+             for x, t, m in ((a, tl, ml), (ac, tlc, mlc))]
+    ok = all(torch.equal(got, want) for got, want in pairs)
+    err = max((got - want).abs().max().item() for got, want in pairs)
+    log_attn = alignment._log_attention(a, tl)
+    k_ms = cuda_ms(lambda: alignment._launch(log_attn, tl, ml), 20)
+    p_ms = cuda_ms(lambda: alignment.mas_width1_reference(log_attn, tl, ml),
+                   2)
+    # read the log attention once, write the alignment once; an add and a
+    # compare per cell
+    b_ms, b_by = _bound(4 * (2 * B * Tm * Tt + 2 * B), 2.0 * B * Tm * Tt)
+    log(f"[kernels] K3 mas_width1 B={B} T_mel={Tm} T_text={Tt}: bit for bit "
+        f"{'yes' if ok else 'NO'} (with corner cases; max_abs_err "
+        f"{err:.3e}), kernel_ms {k_ms:.4f}, "
+        f"plain_ms {p_ms:.3f}, library_ms "
+        f"none (no PyTorch call computes MAS), bound_ms {b_ms:.5f} ({b_by})")
+    if not ok:
+        fail("mas_width1 disagrees with its twin")
+    return [dict(kernel="mas_width1", src="radmmm_tpu/ops/alignment.py:47",
+                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+                 bound_ms=b_ms, bound_by=b_by)]
+
+
 @tf32_off()
 def phase_kernels(seed: int) -> list:
-    from radmmm_torch.ops.lstm_kernel import (lstm_recurrence,
-                                              lstm_recurrence_reference)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     rows = []
     for name, L, H, T, cin in PATH_SHAPES:
         for B in (1, 8):
-            lens = _lengths(T, B)
-            mask = (torch.arange(T)[:, None] < lens[None, :]).float().to(dev)
-            xp = torch.randn((L, T, B, 4 * H), generator=gen, device=dev)
-            wh = (torch.rand((L, H, 4 * H), generator=gen, device=dev)
-                  * 2 - 1) / H ** 0.5
-            rev = [bool(l % 2) for l in range(L)]
-            got = lstm_recurrence(xp, mask, wh, rev)
-            want = lstm_recurrence_reference(xp, mask, wh, rev)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            k_ms = cuda_ms(lambda: lstm_recurrence(xp, mask, wh, rev), 20)
-            p_ms = cuda_ms(
-                lambda: lstm_recurrence_reference(xp, mask, wh, rev), 2)
-            # cuDNN yardstick: L/2 bidirectional nn.LSTM calls over packed
-            # sequences of the layer's real input (its x @ W_ih included)
-            lstms = [torch.nn.LSTM(cin, H, bidirectional=True).to(dev)
-                     for _ in range(L // 2)]
-            x = torch.randn((T, B, cin), generator=gen, device=dev)
-            packed = torch.nn.utils.rnn.pack_padded_sequence(
-                x, lens, enforce_sorted=False)
-
-            def library():
-                for m in lstms:
-                    m(packed)
-            with torch.no_grad():
-                lib_ms = cuda_ms(library, 10)
-            b_ms, b_by = bound_ms(L, T, B, H, int(lens.sum()))
-            row = dict(shape=name, L=L, H=H, T=T, B=B, max_abs_err=err,
-                       ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by)
-            log(f"[kernels] {name} L={L} H={H} T={T} B={B}: max_abs_err "
-                f"{err:.3e} (atol {KERNEL_ATOL:g}), kernel_ms {k_ms:.4f}, "
-                f"plain_ms {p_ms:.3f}, library_ms {lib_ms:.4f}, bound_ms "
-                f"{b_ms:.5f} ({b_by})")
-            if not err <= KERNEL_ATOL:
-                fail(f"kernel disagrees with its twin at {name} B={B}")
-            rows.append(row)
+            rows.append(_lstm_rows(gen, dev, name, L, H, T, cin, B,
+                                   train=False)[0])
+    for name, L, H, T, cin in TRAIN_SHAPES:
+        rows.extend(_lstm_rows(gen, dev, name, L, H, T, cin, TRAIN_B,
+                               train=True))
+    rows.extend(_ctc_rows(gen, dev))
+    rows.extend(_mas_rows(gen, dev))
     return rows
+
+
+def _nudge_couplings(model) -> None:
+    """Small random weights in the couplings' zero-initialised output
+    convs, so that no coupling is the identity."""
+    from radmmm_torch.ops.coupling import WN
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, WN):
+                m.end.weight.normal_(0.0, 1e-3)
+                m.end.bias.normal_(0.0, 1e-3)
 
 
 def build_models(seed: int):
@@ -191,15 +452,11 @@ def build_models(seed: int):
     hop 256, so the requests spread over the frame buckets as real text
     does (at init most tokens round to one frame)."""
     from radmmm_torch.models.tts import TTSModel, default_radmmm_config
-    from radmmm_torch.ops.coupling import WN
     from radmmm_torch.vocoder.hifigan import Generator, HiFiGANConfig
     torch.manual_seed(seed)
     model = TTSModel(default_radmmm_config()).eval()
+    _nudge_couplings(model)
     with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, WN):
-                m.end.weight.normal_(0.0, 1e-3)
-                m.end.bias.normal_(0.0, 1e-3)
         model.duration_predictor.backbone.dense.bias.fill_(math.log(8.0))
     vocoder = Generator(HiFiGANConfig()).eval()
     return model, vocoder
@@ -312,7 +569,8 @@ def phase_serve(seed: int, model, vocoder, model_gpu) -> int:
         launches = lstm_kernel.launches
         # where the device time of one warm 96-token request goes, through
         # the callable the daemon dispatches to
-        profile_call(httpd.service.tts, calls[2])
+        profile(lambda: httpd.service.tts(*calls[2]),
+                f"one request ({calls[2][0].shape[1]} tokens, traced)")
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -325,18 +583,19 @@ def phase_serve(seed: int, model, vocoder, model_gpu) -> int:
     return launches
 
 
-def profile_call(tts, args, top: int = 12):
-    """torch.profiler over one call: device time by kernel (kernels only,
-    not the operators that launch them, so nothing counts twice), and
-    device busy time against the wall time of the traced call."""
+def profile(fn, what: str, top: int = 12):
+    """torch.profiler over one call of ``fn``: device time by kernel
+    (kernels only, not the operators that launch them, so nothing counts
+    twice), and device busy time against the wall time of the traced
+    call."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    tts(*args)
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tts(*args)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernels (and copies) only: an operator's device time is its kernels'
@@ -347,10 +606,9 @@ def profile_call(tts, args, top: int = 12):
     if busy_ms == 0:
         log("[profile] the profiler saw no device time: not measured")
         return
-    log(f"[profile] one request ({args[0].shape[1]} tokens, traced): wall "
-        f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%), {sum(r[2] for r in rows)} "
-        "kernels")
+    log(f"[profile] {what}: wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+        f"{sum(r[2] for r in rows)} kernels")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"[profile]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% "
             f"x{n:<5d} {key[:90]}")
@@ -413,6 +671,266 @@ def phase_parity(seed: int, model, model_gpu):
         fail("card and CPU mels disagree")
 
 
+def _counters() -> dict:
+    from radmmm_torch.losses import ctc_kernel
+    from radmmm_torch.ops import alignment, lstm_kernel
+    return {"lstm_recurrence": lstm_kernel.launches,
+            "lstm_recurrence_bwd": lstm_kernel.backward_launches,
+            "ctc_alpha": ctc_kernel.alpha_launches,
+            "ctc_beta": ctc_kernel.beta_launches,
+            "mas_width1": alignment.launches}
+
+
+def _zero_counters() -> None:
+    from radmmm_torch.losses import ctc_kernel
+    from radmmm_torch.ops import alignment, lstm_kernel
+    lstm_kernel.launches = lstm_kernel.backward_launches = 0
+    ctc_kernel.alpha_launches = ctc_kernel.beta_launches = 0
+    alignment.launches = 0
+
+
+# launches of each kernel in one step of make_train_step(binarize=True):
+# the encoder, duration-DAP, ganged frame-DAP and flow-context recurrences
+# forward and backward, one CTC loss (alpha; beta in its backward), one MAS
+PER_STEP = {"lstm_recurrence": 4, "lstm_recurrence_bwd": 4, "ctc_alpha": 1,
+            "ctc_beta": 1, "mas_width1": 1}
+
+
+def train_batch(seed: int, B: int, T_text: int, T_mel: int, device,
+                text_lens=None, mel_lens=None) -> dict:
+    """The benchmark's training batch (random features from ``seed``, a
+    normalised random alignment prior), full lengths unless given."""
+    rng = np.random.default_rng(seed)
+    prior = rng.uniform(0.1, 1.0, (B, T_mel, T_text)).astype(np.float32)
+    prior /= prior.sum(-1, keepdims=True)
+    arrays = {
+        "text": rng.integers(0, 426, (B, T_text)).astype(np.int32),
+        "input_lengths": np.asarray(
+            [T_text] * B if text_lens is None else text_lens, np.int32),
+        "mel": rng.standard_normal((B, T_mel, 80)).astype(np.float32),
+        "output_lengths": np.asarray(
+            [T_mel] * B if mel_lens is None else mel_lens, np.int32),
+        "speaker_ids": rng.integers(0, 21, (B,)).astype(np.int32),
+        "accent_ids": rng.integers(0, 7, (B,)).astype(np.int32),
+        "f0": rng.uniform(4, 6, (B, T_mel)).astype(np.float32),
+        "voiced_mask": rng.integers(0, 2, (B, T_mel)).astype(np.float32),
+        "energy_avg": rng.uniform(0, 1, (B, T_mel)).astype(np.float32),
+        "attn_prior": prior,
+        "speaker_f0_mean": np.full((B,), 5.0, np.float32),
+        "speaker_f0_std": np.full((B,), 0.3, np.float32),
+    }
+    return {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
+
+
+def _loss_config():
+    from radmmm_torch.training.step import LossConfig
+    # the benchmark's loss settings
+    return LossConfig(n_group_size=2, cross_covariance_weight=1.0,
+                      speaker_reg={"variance": 0.0, "covariance": 0.0})
+
+
+@tf32_off()
+def phase_train(seed: int) -> dict:
+    """The flagship training step at full width, f32 (TF32 off), on the
+    benchmark's batch. Returns the kernels' launches on the timed steps."""
+    from radmmm_torch.models.tts import TTSModel, default_radmmm_config
+    from radmmm_torch.training.step import (create_train_state,
+                                            make_train_step,
+                                            make_whitening_init)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    torch.manual_seed(seed)
+    model = TTSModel(default_radmmm_config())
+    _nudge_couplings(model)
+    state = create_train_state(model, device="cuda")
+    batch = train_batch(seed, TRAIN_B, TRAIN_T_TEXT, TRAIN_T_MEL, dev)
+    make_whitening_init(model)(state, batch)
+    step = make_train_step(model, _loss_config(), binarize=True, kl_on=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[train] full-width model ({n_params / 1e6:.1f} M parameters) on "
+        f"the card with the whitening init in {time.perf_counter() - t0:.2f}"
+        " s")
+    t0 = time.perf_counter()
+    state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    log(f"[train] warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts from zero, the timed steps, counts read after
+    _zero_counters()
+    times, mets = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, met = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        mets.append({k: v.item() for k, v in met.items()})
+    launches = _counters()
+    for i, (ms, m) in enumerate(zip(times, mets)):
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        log(f"[train] step {i}: {ms:.1f} ms, loss {m['loss']:.4f}, "
+            f"grad_norm {m['grad_norm']:.4f}, "
+            + ", ".join(f"{k} {v:.4f}" for k, v in m.items()
+                        if k not in ("loss", "grad_norm")))
+        if bad:
+            fail(f"training step {i}: non-finite {bad}")
+    want = {k: n * TRAIN_STEPS for k, n in PER_STEP.items()}
+    log(f"[train] kernel launches on {TRAIN_STEPS} steps: {launches} "
+        f"(expected {want})")
+    if launches != want:
+        fail("the training step did not launch each kernel as expected")
+    ms = sum(times) / len(times)
+    log(f"[train] {ms:.2f} ms/step (mean of {TRAIN_STEPS} warm steps), "
+        f"{TRAIN_B * TRAIN_T_MEL / ms * 1e3:.0f} mel frames/s, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(B={TRAIN_B}, T_text={TRAIN_T_TEXT}, T_mel={TRAIN_T_MEL}, f32)")
+    profile(lambda: step(state, batch, gen),
+            f"one training step (B={TRAIN_B}, T_mel={TRAIN_T_MEL}, traced)",
+            top=15)
+    return launches
+
+
+@tf32_off()
+def phase_train_parity(seed: int):
+    """One training step at full width and short lengths on the card and
+    on the CPU from the same weights and batch, dropout off (the card's
+    and the CPU's generators draw other bits)."""
+    from radmmm_torch.models.tts import TTSModel, default_radmmm_config
+    from radmmm_torch.training.step import (create_train_state,
+                                            make_train_step,
+                                            make_whitening_init)
+    c = default_radmmm_config(encoder_p_dropout=0.0)
+    cfg = dataclasses.replace(c, **{
+        k: dict(getattr(c, k), p_dropout=0.0)
+        for k in ("f0_predictor", "energy_predictor", "voiced_predictor",
+                  "duration_predictor")})
+    torch.manual_seed(seed + 2)
+    cpu_model = TTSModel(cfg)
+    _nudge_couplings(cpu_model)
+    models = {"cuda": copy.deepcopy(cpu_model), "cpu": cpu_model}
+    res = {}
+    for where, m in models.items():
+        batch = train_batch(seed + 3, 2, 12, 64, where, text_lens=[12, 9],
+                            mel_lens=[64, 50])
+        state = create_train_state(m, device=where)
+        make_whitening_init(m)(state, batch)
+        step = make_train_step(m, _loss_config(), binarize=True, kl_on=True)
+        t0 = time.perf_counter()
+        state, met = step(state, batch, torch.Generator(device=where))
+        res[where] = {k: v.item() for k, v in met.items()}
+        log(f"[train_parity] {where}: one step in "
+            f"{time.perf_counter() - t0:.2f} s, loss {res[where]['loss']:.6f}"
+            f", grad_norm {res[where]['grad_norm']:.6f}")
+    worst = 0.0
+    for k, want in res["cpu"].items():
+        got = res["cuda"][k]
+        err = abs(got - want)
+        worst = max(worst, err / (1e-5 + abs(want)))
+        log(f"[train_parity]   {k}: card {got:.6f}, cpu {want:.6f}, abs err "
+            f"{err:.3e}")
+        if not (math.isfinite(got) and err <= 1e-5 + TRAIN_PARITY_RTOL
+                * abs(want)):
+            fail(f"card and CPU disagree on {k}")
+    log(f"[train_parity] worst relative error {worst:.3e} (rtol "
+        f"{TRAIN_PARITY_RTOL:g}: f32 on both, TF32 off, sums in another "
+        "order through the encoder, the attention, 8 flows and the "
+        "backward)")
+    errs = leaf_grad_errors(models["cuda"], models["cpu"])
+    log(f"[train_parity] gradients of {len(errs)} parameters; worst, as max "
+        f"|card - cpu| over the leaf's max |cpu| (at least {GRAD_FLOOR:g} "
+        f"of the tree's; bound {GRAD_PARITY_RTOL:g}):")
+    for err, name, mag in errs[:6]:
+        log(f"[train_parity]   {err:.3e} {name} (max |grad| {mag:.3e})")
+    by_module = {}
+    for err, name, _ in errs:
+        by_module.setdefault(name.split(".")[0], []).append(err)
+    log("[train_parity] by module, worst and median: " + ", ".join(
+        f"{k} {max(v):.2e} {sorted(v)[len(v) // 2]:.2e}"
+        for k, v in by_module.items()))
+    if not errs[0][0] <= GRAD_PARITY_RTOL:
+        fail(f"card and CPU gradients disagree on {errs[0][1]}")
+
+
+def leaf_grad_errors(got_model, want_model) -> list:
+    """(error, name, max |want grad|) for every parameter of two copies of
+    one model after a step, worst first: the largest difference of the
+    gradients over the largest magnitude of ``want_model``'s, that
+    magnitude taken as at least GRAD_FLOOR of the largest in the whole
+    tree. The floor is for leaves whose gradient is zero in exact
+    arithmetic (a conv bias or weight-norm gain before an instance norm):
+    both sides hold rounding noise there, 1e-13 against 1e-13. A
+    parameter with a gradient on one side only counts as infinitely
+    wrong."""
+    want = dict(want_model.named_parameters())
+    tree = max(w.grad.abs().max().item() for w in want.values()
+               if w.grad is not None)
+    out = []
+    for name, p in got_model.named_parameters():
+        g, w = p.grad, want[name].grad
+        if g is None or w is None:
+            out.append((0.0 if g is w else math.inf, name, 0.0))
+            continue
+        diff = (g.detach().cpu() - w.detach()).abs().max().item()
+        mag = w.detach().abs().max().item()
+        out.append((diff / max(mag, GRAD_FLOOR * tree), name, mag))
+    return sorted(out, key=lambda e: -e[0])
+
+
+def kernel_entries(rows: list, serve_launches, train_launches) -> list:
+    """The kernels' JSON entries. K4 forward keeps its serving numbers (one
+    B=1 request at text bucket 96 / frame bucket 800 makes one launch at
+    each serving shape: the sums of those rows) and lists every shape; K4
+    backward sums the four training shapes (one step's launches); K1-K3 are
+    one launch each at the training batch. ``launches`` come from the
+    main paths' runs: serving and training for K4 forward, training for
+    the rest."""
+    def by(kernel, **kw):
+        return [r for r in rows if r["kernel"] == kernel
+                and all(r.get(k) == v for k, v in kw.items())]
+
+    def summed(rs):
+        return {k: sum(r[k] for r in rs)
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+
+    def trained(name):
+        return None if train_launches is None else train_launches[name]
+
+    fwd_paths = {"serve": serve_launches,
+                 "train": trained("lstm_recurrence")}
+    fwd_n = [n for n in fwd_paths.values() if n is not None]
+    serve_b1, bwd = by("lstm_recurrence", path="serve", B=1), \
+        by("lstm_recurrence_bwd")
+    entries = [
+        dict(name="lstm_recurrence", route="cuda",
+             source="radmmm_torch/csrc/lstm_recurrence.cu",
+             replaces="radmmm_tpu/ops/lstm_pallas.py:35",
+             launches=sum(fwd_n) if fwd_n else None,
+             launches_by_path=fwd_paths,
+             max_abs_err=max(r["max_abs_err"]
+                             for r in by("lstm_recurrence")),
+             **summed(serve_b1),
+             bound_by=max(serve_b1, key=lambda r: r["bound_ms"])["bound_by"],
+             shapes=by("lstm_recurrence")),
+        # no Pallas counterpart: the JAX package differentiates the scan
+        dict(name="lstm_recurrence_bwd", route="cuda",
+             source="radmmm_torch/csrc/lstm_recurrence_bwd.cu",
+             replaces="radmmm_tpu/ops/lstm.py:103",
+             launches=trained("lstm_recurrence_bwd"),
+             max_abs_err=max(r["max_abs_err"] for r in bwd), **summed(bwd),
+             bound_by=max(bwd, key=lambda r: r["bound_ms"])["bound_by"],
+             shapes=bwd)]
+    for name, source in (("ctc_alpha", "radmmm_torch/csrc/ctc_band_dp.cu"),
+                         ("ctc_beta", "radmmm_torch/csrc/ctc_band_dp.cu"),
+                         ("mas_width1", "radmmm_torch/csrc/mas_width1.cu")):
+        (r,) = by(name)
+        entries.append(dict(name=name, route="cuda", source=source,
+                            replaces=r["src"], launches=trained(name),
+                            **{k: r[k] for k in (
+                                "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}))
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -426,7 +944,7 @@ def main() -> int:
     from radmmm_torch.ops import lstm_kernel  # noqa: F401
 
     t_start = time.perf_counter()
-    rows, launches = [], None
+    rows, serve_launches, train_launches = [], None, None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -439,28 +957,25 @@ def main() -> int:
         log(f"[models] full-width models built in "
             f"{time.perf_counter() - t0:.2f} s")
         if "serve" in phases:
-            launches = phase_serve(args.seed, model, vocoder, model_gpu)
+            serve_launches = phase_serve(args.seed, model, vocoder,
+                                         model_gpu)
         if "parity" in phases:
             phase_parity(args.seed, model, model_gpu)
+        del model, vocoder, model_gpu
+    if "train" in phases:
+        train_launches = phase_train(args.seed)
+    if "train_parity" in phases:
+        phase_train_parity(args.seed)
     if rows:
-        b1 = [r for r in rows if r["B"] == 1]
-        entry = {
-            "name": "lstm_recurrence", "route": "cuda",
-            "source": "radmmm_torch/csrc/lstm_recurrence.cu",
-            "replaces": "radmmm_tpu/ops/lstm_pallas.py:35",
-            "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            # one B=1 request at text bucket 96 / frame bucket 800 makes
-            # one launch at each path shape: its numbers are their sums
-            "ms": sum(r["ms"] for r in b1),
-            "plain_ms": sum(r["plain_ms"] for r in b1),
-            "bound_ms": sum(r["bound_ms"] for r in b1),
-            "bound_by": max(b1, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": sum(r["library_ms"] for r in b1),
-            "shapes": rows,
-        }
-        log(json.dumps({"kernels": [entry]}))
+        log(json.dumps({"kernels": kernel_entries(rows, serve_launches,
+                                                  train_launches)}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    log(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+        else f"nvidia-smi failed: {smi.stderr.strip()}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

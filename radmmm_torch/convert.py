@@ -16,7 +16,9 @@ key is its flax path joined with dots, with these layout rules:
   ``initialized`` unchanged;
 * HiFi-GAN: ``*_v`` (K, C_in, C_out) -> (C_out, C_in, K), except the
   upsampling ConvTranspose ``up_i_v`` -> (C_in, C_out, K) with ``up_i_g``
-  per input channel.
+  per input channel;
+* a training state: the optimizer's moments are parameter-shaped trees and
+  take the parameters' rules (``load_jax_train_state``).
 
 Inputs are nested dicts of numpy arrays (``jax.tree.map(np.asarray, ...)``
 of the flax variables); nothing here imports JAX.
@@ -82,6 +84,44 @@ def tts_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
             key, value = _tts_leaf(col, path, a)
             _put(sd, key, value)
     return sd
+
+
+def _moments(opt_state):
+    """(count, first, second moment trees) of the RAdam or Adam state in a
+    (possibly chained) optax state, found by field name."""
+    if hasattr(opt_state, "exp_avg"):
+        return int(opt_state.count), opt_state.exp_avg, opt_state.exp_avg_sq
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return int(opt_state.count), opt_state.mu, opt_state.nu
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _moments(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def load_jax_train_state(state, jax_state) -> None:
+    """Load a JAX ``TrainState`` (its leaves as numpy arrays) into a port
+    ``training.step.TrainState`` in place: the model's parameters, buffers
+    and spectral-norm vectors, the step count, and the optimizer's moments
+    and count, so that both continue from the same point."""
+    variables = {"params": jax_state.params, "buffers": jax_state.buffers,
+                 "spectral": jax_state.spectral}
+    state.model.load_state_dict(tts_state_dict_from_jax(variables))
+    state.step = int(jax_state.step)
+    found = _moments(jax_state.opt_state)
+    if found is None:
+        raise ValueError("no RAdam or Adam moments in the optimizer state")
+    count, first, second = found
+    opt = state.optimizer
+    name_of = {id(p): n for n, p in state.model.named_parameters()}
+    for bufs, tree in ((opt.exp_avg, first), (opt.exp_avg_sq, second)):
+        sd = tts_state_dict_from_jax({"params": tree})
+        with torch.no_grad():
+            for buf, p in zip(bufs, opt.params):
+                buf.copy_(sd[name_of[id(p)]])
+    opt.count = count
 
 
 def hifigan_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:

@@ -12,6 +12,11 @@
 // package's flip-then-scan. A BiLSTM is one launch with L = 2 lanes, the
 // three ganged frame predictors one launch with L = 6.
 //
+// For training the launch also writes what the backward kernel
+// (lstm_recurrence_bwd.cu) needs: the gate activations (i, f, g, o after
+// their sigmoid/tanh) and the carried c and h after every step. Serving
+// passes null pointers and writes nothing extra.
+//
 // What bounds it: a chain of T dependent steps, each a (B,H)x(H,4H) product
 // whose input is the whole h of the step before. At serving batch sizes
 // (B = 1..8) the product is a few hundred kFLOP, so neither the card's
@@ -72,6 +77,9 @@ struct Params {
   const float* wh;     // (L, H, 4H)
   float* out;          // (L, T, B, H)
   float* hbuf;         // (2, L, B, H) scratch
+  float* act;          // (L, T, B, 4H) gate activations, or null
+  float* cs;           // (L, T, B, H) carried c after each step, or null
+  float* hs;           // (L, T, B, H) carried h after each step, or null
   int L, T, B, H, hb, blocks_per_lane;
   long long mask_lane_stride;
   unsigned long long reverse_bits;
@@ -180,13 +188,23 @@ lstm_recurrence_kernel(const Params p) {
         gate[g] = xg[g] + acc;
       }
       const float c_old = c_s[threadIdx.x];
-      const float c_new = sigmoidf_(gate[1]) * c_old
-                          + sigmoidf_(gate[0]) * tanhf(gate[2]);
-      const float h_new = sigmoidf_(gate[3]) * tanhf(c_new);
+      const float ai = sigmoidf_(gate[0]), af = sigmoidf_(gate[1]);
+      const float ag = tanhf(gate[2]), ao = sigmoidf_(gate[3]);
+      const float c_new = af * c_old + ai * ag;
+      const float h_new = ao * tanhf(c_new);
       const bool keep = m > 0.f;
-      c_s[threadIdx.x] = keep ? c_new : c_old;
-      hout[(size_t)cb * H + cu] = keep ? h_new : h_s[(size_t)cb * s.hp + cu];
+      const float c_keep = keep ? c_new : c_old;
+      const float h_keep = keep ? h_new : h_s[(size_t)cb * s.hp + cu];
+      c_s[threadIdx.x] = c_keep;
+      hout[(size_t)cb * H + cu] = h_keep;
+      const size_t cell = ((size_t)lane * T + t) * B + cb;
       out[((size_t)t * B + cb) * H + cu] = h_new * m;
+      if (p.act) {
+        float* a = p.act + cell * G + cu;
+        a[0] = ai; a[H] = af; a[2 * H] = ag; a[3 * H] = ao;
+        p.cs[cell * H + cu] = c_keep;
+        p.hs[cell * H + cu] = h_keep;
+      }
     }
     grid.sync();   // orders this step's h writes before the next step's reads
   }
@@ -218,14 +236,17 @@ int lstm_recurrence_capacity(int B, int H, int hb, int* capacity) {
 
 // Launches the recurrence on `stream`. Returns cudaGetLastError() after the
 // launch (0 on success).
+// act, cs and hs are null when serving, all three set when training.
 int lstm_recurrence_launch(const float* xp, const float* mask, const float* wh,
-                           float* out, float* hbuf, int L, int T, int B, int H,
+                           float* out, float* hbuf, float* act, float* cs,
+                           float* hs, int L, int T, int B, int H,
                            long long mask_lane_stride,
                            unsigned long long reverse_bits, int hb,
                            void* stream) {
   const Layout s = make_layout(H, B, hb);
   Params p;
   p.xp = xp; p.mask = mask; p.wh = wh; p.out = out; p.hbuf = hbuf;
+  p.act = act; p.cs = cs; p.hs = hs;
   p.L = L; p.T = T; p.B = B; p.H = H; p.hb = hb;
   p.blocks_per_lane = (H + hb - 1) / hb;
   p.mask_lane_stride = mask_lane_stride;
@@ -242,7 +263,7 @@ int lstm_recurrence_launch(const float* xp, const float* mask, const float* wh,
   return (int)cudaGetLastError();
 }
 
-const char* lstm_recurrence_error_string(int code) {
+const char* radmmm_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -4,7 +4,10 @@ Counterpart of ``radmmm_tpu/models/attributes.py`` (``BottleneckLayer``,
 ``ConvLSTMLinear``, ``ConvLSTMLinearDAP`` and the target transforms). A
 bottleneck conv compresses the text encodings, speaker (and accent) vectors
 are broadcast over time and concatenated, then a conv -> BiLSTM -> linear
-backbone predicts the attribute. Dropout is training-only and absent here.
+backbone predicts the attribute. In training (``train=True``) each backbone
+conv ends in dropout drawn from the caller's generator, the BiLSTM's
+spectral norms update their ``u``, and ``targets`` maps the ground truth
+into the space the predictor regresses in (``tx_target``).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from radmmm_torch.ops.conv import Linear, MaskedConv1d
+from radmmm_torch.ops.conv import Linear, MaskedConv1d, dropout
 from radmmm_torch.ops.lstm import MaskedLSTM
 from radmmm_torch.utils.masking import SeqLens
 
@@ -87,10 +90,12 @@ class ConvLSTMLinear(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int, n_layers: int = 2,
                  n_channels: int = 256, kernel_size: int = 3,
+                 p_dropout: float = 0.1,
                  lstm_type: Optional[str] = "bilstm", use_linear: bool = True,
                  spectral_norm: bool = True):
         super().__init__()
         self.n_layers = n_layers
+        self.p_dropout = p_dropout
         self.use_linear = use_linear
         n_channels = n_channels if use_linear else out_dim
         for i in range(n_layers):
@@ -107,7 +112,9 @@ class ConvLSTMLinear(nn.Module):
         if use_linear:
             self.dense = Linear(n_channels, out_dim)
 
-    def forward(self, x, lens: SeqLens, phase: str = "all"):
+    def forward(self, x, lens: SeqLens, phase: str = "all",
+                train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """phase 'all' runs the whole stack; 'pre' runs the convs and
         returns (conv_out, stacked LSTM weights) so the caller can gang
         several same-shape BiLSTMs into one launch; 'post' takes the LSTM
@@ -115,11 +122,12 @@ class ConvLSTMLinear(nn.Module):
         if phase in ("all", "pre"):
             for i in range(self.n_layers):
                 x = torch.relu(getattr(self, f"conv_{i}")(x, lens.mask))
+                x = dropout(x, self.p_dropout, generator if train else None)
             if phase == "pre":
-                return x, (self.lstm.weights() if self.lstm is not None
-                           else None)
+                return x, (self.lstm.weights(update_sn=train)
+                           if self.lstm is not None else None)
             if self.lstm is not None:
-                x = self.lstm(x, lens.mask)
+                x = self.lstm(x, lens.mask, update_sn=train)
         if self.use_linear:
             x = self.dense(x)
         return x
@@ -141,7 +149,6 @@ class ConvLSTMLinearDAP(nn.Module):
                  normalize_target: bool = False,
                  normalization_type: Optional[str] = None):
         super().__init__()
-        del p_dropout  # training-only
         self.n_hidden = n_hidden
         self.lstm_type = lstm_type
         self.use_speaker_embedding = use_speaker_embedding
@@ -157,10 +164,11 @@ class ConvLSTMLinearDAP(nn.Module):
                        + (n_accent_dim if use_accent_embedding else 0))
         self.backbone = ConvLSTMLinear(backbone_in, out_dim,
                                        n_backbone_layers, n_hidden,
-                                       kernel_size, lstm_type)
+                                       kernel_size, p_dropout, lstm_type)
 
     def forward(self, text_enc, spk_emb, lens: SeqLens, accent_emb=None,
-                phase: str = "all", lstm_out=None):
+                phase: str = "all", lstm_out=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """Returns x_hat (B, T, out_dim) in the transformed target space.
         phase='pre' returns {'conv', 'lstm'} for a ganged recurrence and
         phase='post' consumes its output ``lstm_out``."""
@@ -175,9 +183,14 @@ class ConvLSTMLinearDAP(nn.Module):
             parts.append(accent_emb[:, None, :].expand(B, T, -1))
         h = torch.cat(parts, dim=-1)
         if phase == "pre":
-            conv, ws = self.backbone(h, lens, phase="pre")
+            conv, ws = self.backbone(h, lens, phase="pre", train=train,
+                                     generator=generator)
             return {"conv": conv, "lstm": ws}
-        return self.backbone(h, lens)
+        return self.backbone(h, lens, train=train, generator=generator)
+
+    def targets(self, x, x_mean=None, x_std=None):
+        """Ground truth (B, T, 1) in the predictor's target space."""
+        return tx_target(x, x_mean=x_mean, x_std=x_std, **self._tx_kwargs)
 
     def infer(self, text_enc, spk_emb, lens: SeqLens, x_mean=None,
               x_std=None, accent_emb=None):

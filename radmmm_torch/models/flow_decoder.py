@@ -1,10 +1,13 @@
-"""RADMMM normalizing-flow mel decoder, sampling direction.
+"""RADMMM normalizing-flow mel decoder.
 
 Counterpart of ``radmmm_tpu/models/flow_decoder.py`` (``squeeze_time``,
-``unsqueeze_time``, ``RADMMMFlow.preprocess_context`` and
-``RADMMMFlow.infer``). Context: the aligned text states squeezed in time by
-n_group_size, the speaker vector and the F0/energy channels, through a
-context BiLSTM. Sampling: z ~ N(0, sigma²) (drawn from an explicit
+``unsqueeze_time``, ``RADMMMFlow.preprocess_context``, ``RADMMMFlow.forward``
+and ``RADMMMFlow.infer``). Context: the aligned text states squeezed in time
+by n_group_size, the speaker vector and the F0/energy channels, through a
+context BiLSTM. Training (``forward``): mel -> z through the flow steps,
+each a 1x1 mix then an affine coupling, with n_early_size channels leaving
+every n_early_every steps; it returns z and every step's log s and
+log|det W|. Sampling: z ~ N(0, sigma²) (drawn from an explicit
 ``torch.Generator``) runs through the flow steps in reverse, each an
 affine-coupling inverse followed by the 1x1 inverse, with the early-exit
 channels re-inserted where the forward direction split them off.
@@ -60,6 +63,12 @@ class FlowStep(nn.Module):
             n_channels, n_context_dim, n_layers, affine_model=affine_model,
             scaling_fn=scaling_fn, affine_activation=affine_activation,
             use_partial_padding=use_partial_padding)
+
+    def forward(self, z, context, mask=None):
+        """(z', log|det W|, log s)."""
+        z, log_det_W = self.invtbl_conv(z)
+        z, log_s = self.coupling(z, context, mask)
+        return z, log_det_W, log_s
 
     def inverse(self, z, context, mask=None):
         z = self.coupling.inverse(z, context, mask)
@@ -137,7 +146,8 @@ class RADMMMFlow(nn.Module):
         return sizes
 
     def preprocess_context(self, context, spk_vecs, lens: SeqLens, f0=None,
-                           energy_avg=None, accent_vecs=None):
+                           energy_avg=None, accent_vecs=None,
+                           train: bool = False):
         g = self.n_group_size
         context = squeeze_time(context, g)
         B, T = context.shape[:2]
@@ -153,8 +163,34 @@ class RADMMMFlow(nn.Module):
                 parts.append(squeeze_time(energy_avg[..., None], g))
         ctx = torch.cat(parts, dim=-1)
         if self.context_lstm is not None:
-            ctx = self.context_lstm(ctx, lens.downsample(g).mask)
+            ctx = self.context_lstm(ctx, lens.downsample(g).mask,
+                                    update_sn=train)
         return ctx
+
+    def forward(self, mel, spk_vecs, context, lens: SeqLens, f0=None,
+                energy_avg=None, accent_vecs=None, train: bool = True):
+        """Training direction mel -> z. mel (B, T, n_mel); context
+        (B, T, n_text_dim), aligned to the mel frames. Returns {'z_mel'
+        (B, T//g, n_mel*g), 'log_det_W_list', 'log_s_list',
+        'context_w_spkvec'}."""
+        ctx = self.preprocess_context(context, spk_vecs, lens, f0,
+                                      energy_avg, accent_vecs, train=train)
+        g = self.n_group_size
+        z = squeeze_time(mel, g)
+        mask = lens.downsample(g).mask
+        z_out, log_s_list, log_det_W_list = [], [], []
+        exits = set(self.exit_steps)
+        for i, step in enumerate(self.flows):
+            if i in exits:
+                z_out.append(z[..., :self.n_early_size])
+                z = z[..., self.n_early_size:]
+            z, log_det_W, log_s = step(z, ctx, mask)
+            log_s_list.append(log_s)
+            log_det_W_list.append(log_det_W)
+        z_out.append(z)
+        return {"z_mel": torch.cat(z_out, dim=-1),
+                "log_det_W_list": log_det_W_list, "log_s_list": log_s_list,
+                "context_w_spkvec": ctx}
 
     def infer(self, spk_vecs, txt_enc, sigma, dur=None, f0=None,
               energy_avg=None, lens: Optional[SeqLens] = None,

@@ -1,13 +1,17 @@
-"""Top-level TTS model, inference direction.
+"""Top-level TTS model.
 
 Counterpart of ``radmmm_tpu/models/tts.py``: ``TTSConfig``,
-``default_radmmm_config`` and ``TTSModel`` with the serving stages
-``infer_durations`` (text -> encoder states and token durations) and
-``infer_decode`` (length regulation, voiced/F0/energy prediction with the
-three frame-level BiLSTMs ganged into one six-lane recurrence, F0 stat
-shifting, flow sampling, mel descale), and ``infer`` composing both. The
-training forward, the losses and MAS reconstruction come with the training
-slice.
+``default_radmmm_config`` and ``TTSModel`` with
+
+* the training forward ``forward(batch, binarize, train, generator)``:
+  text encoder, alignment attention (hard MAS alignment when
+  ``binarize``), context = attn @ txt_enc, the flow mel -> z, and the four
+  attribute predictors on the detached context, the frame-level three
+  ganged into one six-lane recurrence as in serving;
+* the serving stages ``infer_durations`` (text -> encoder states and token
+  durations) and ``infer_decode`` (length regulation, voiced/F0/energy
+  prediction, F0 stat shifting, flow sampling, mel descale), and ``infer``
+  composing both.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from torch import nn
 from radmmm_torch.models.attributes import ConvLSTMLinearDAP
 from radmmm_torch.models.encoder import TextEncoder
 from radmmm_torch.models.flow_decoder import RADMMMFlow
+from radmmm_torch.ops.alignment import binarize_attention
 from radmmm_torch.ops.attention import ConvAttention
 from radmmm_torch.ops.invertible import InvertibleLU, WhiteningConv
 from radmmm_torch.ops.length_regulator import regulate_length
@@ -120,7 +125,7 @@ class TTSModel(nn.Module):
                                                   c.n_accent_dim)
         self.text_encoder = TextEncoder(c.encoder_n_convolutions,
                                         c.encoder_dim, c.encoder_kernel_size,
-                                        c.lstm_norm_fn)
+                                        c.lstm_norm_fn, c.encoder_p_dropout)
         attention_key_dim = c.n_text_dim
         if c.use_accent_emb_for_alignment:
             attention_key_dim += c.n_accent_dim
@@ -148,7 +153,9 @@ class TTSModel(nn.Module):
         return self
 
     # ---- pieces -----------------------------------------------------------
-    def encode_text(self, text, lens: SeqLens, accent_vecs=None):
+    def encode_text(self, text, lens: SeqLens, accent_vecs=None,
+                    train: bool = False,
+                    generator: Optional[torch.Generator] = None):
         """-> (txt_enc (B,T,encoder_dim), txt_emb (B,T,n_text_dim))."""
         txt_emb = self.text_embeddings(text)
         enc_in = txt_emb
@@ -157,7 +164,30 @@ class TTSModel(nn.Module):
                 [txt_emb,
                  accent_vecs[:, None, :].expand(*txt_emb.shape[:2], -1)],
                 dim=-1)
-        return self.text_encoder(enc_in, lens.mask), txt_emb
+        return (self.text_encoder(enc_in, lens.mask, train=train,
+                                  generator=generator), txt_emb)
+
+    def compute_attention(self, mel, txt_emb, spk_vecs, accent_vecs,
+                          out_lens: SeqLens, in_lens: SeqLens, attn_prior,
+                          binarize: bool):
+        """(attn, attn_soft, attn_hard, attn_logprob). The keys are the
+        text embeddings with the detached speaker (or accent) vector; with
+        ``binarize`` attn is the detached hard MAS alignment."""
+        c = self.config
+        extra = (accent_vecs if c.use_accent_emb_for_alignment
+                 else spk_vecs if c.use_speaker_emb_for_alignment else None)
+        keys = txt_emb
+        if extra is not None:
+            keys = torch.cat([keys, extra.detach()[:, None, :].expand(
+                *keys.shape[:2], -1)], dim=-1)
+        attn_soft, attn_logprob = self.attention(
+            mel, keys, key_mask=in_lens.mask, attn_prior=attn_prior)
+        attn_hard = None
+        attn = attn_soft
+        if binarize:
+            attn = attn_hard = binarize_attention(attn_soft, in_lens.lengths,
+                                                  out_lens.lengths)
+        return attn, attn_soft, attn_hard, attn_logprob
 
     def _gangable(self, mods) -> bool:
         """True when the frame-level predictors' BiLSTMs have identical
@@ -169,6 +199,20 @@ class TTSModel(nn.Module):
         return all(m.lstm_type == "bilstm" and m.n_hidden == mods[0].n_hidden
                    for m in mods)
 
+    def _gang_frame_predictors(self, mods, context, spks, out_lens, **kw):
+        """Each predictor's x_hat, their BiLSTMs run as one multi-lane
+        recurrence (one kernel launch forward, one backward). ``kw`` goes
+        to each predictor's 'pre' phase."""
+        pre = [m(context, s, out_lens, phase="pre", **kw)
+               for m, s in zip(mods, spks)]
+        ys = multi_bilstm_scan(
+            torch.stack([p["conv"] for p in pre]), out_lens.mask,
+            torch.stack([p["lstm"]["wi"] for p in pre]),
+            torch.stack([p["lstm"]["wh"] for p in pre]),
+            torch.stack([p["lstm"]["bias"] for p in pre]))
+        return [m(None, None, out_lens, phase="post", lstm_out=ys[i])
+                for i, m in enumerate(mods)]
+
     def _infer_frame_attrs(self, context, f0_spk, energy_spk, out_lens,
                            accent_vecs, f0_mean, f0_std):
         """(voiced_logits, f0, energy). The three predictors are
@@ -177,16 +221,9 @@ class TTSModel(nn.Module):
         mods = [self.voiced_predictor, self.f0_predictor,
                 self.energy_predictor]
         if self._gangable(mods):
-            spks = [f0_spk, f0_spk, energy_spk]
-            pre = [m(context, s, out_lens, accent_emb=accent_vecs,
-                     phase="pre") for m, s in zip(mods, spks)]
-            ys = multi_bilstm_scan(
-                torch.stack([p["conv"] for p in pre]), out_lens.mask,
-                torch.stack([p["lstm"]["wi"] for p in pre]),
-                torch.stack([p["lstm"]["wh"] for p in pre]),
-                torch.stack([p["lstm"]["bias"] for p in pre]))
-            hats = [m(None, None, out_lens, phase="post", lstm_out=ys[i])
-                    for i, m in enumerate(mods)]
+            hats = self._gang_frame_predictors(
+                mods, context, [f0_spk, f0_spk, energy_spk], out_lens,
+                accent_emb=accent_vecs)
             return (mods[0].inv_tx(hats[0]),
                     mods[1].inv_tx(hats[1], f0_mean, f0_std),
                     mods[2].inv_tx(hats[2]))
@@ -197,6 +234,80 @@ class TTSModel(nn.Module):
         energy = self.energy_predictor.infer(context, energy_spk, out_lens,
                                              accent_emb=accent_vecs)
         return voiced_logits, f0, energy
+
+    # ---- training forward -------------------------------------------------
+    def forward(self, batch: Dict[str, torch.Tensor], binarize: bool = False,
+                train: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """Training / validation forward. batch: text (B,Tt) int,
+        input_lengths, mel (B,Tm,n_mel) unscaled, output_lengths,
+        speaker_ids, accent_ids, f0 (B,Tm), voiced_mask, energy_avg,
+        attn_prior (B,Tm,Tt), speaker_f0_mean/std. ``generator`` draws the
+        dropout masks; ``train`` also updates the spectral norms' u. The
+        predictors' outputs are {'x_hat', 'x'} dicts (prediction, target)."""
+        c = self.config
+        in_lens = SeqLens.create(batch["input_lengths"],
+                                 batch["text"].shape[1])
+        out_lens = SeqLens.create(batch["output_lengths"],
+                                  batch["mel"].shape[1])
+        mel = mel_scale(batch["mel"]) if c.scale_mel else batch["mel"]
+        spk_vecs = self.speaker_embeddings(batch["speaker_ids"])
+        accent_vecs = (self.accent_embeddings(batch["accent_ids"])
+                       if c.use_accent else None)
+        txt_enc, txt_emb = self.encode_text(batch["text"], in_lens,
+                                            accent_vecs, train, generator)
+        attn, attn_soft, _, attn_logprob = self.compute_attention(
+            mel, txt_emb, spk_vecs, accent_vecs, out_lens, in_lens,
+            batch.get("attn_prior"), binarize)
+        context = torch.bmm(attn, txt_enc)                    # (B, Tm, C)
+
+        outputs = self.decoder(mel, spk_vecs, context, out_lens,
+                               f0=batch.get("f0"),
+                               energy_avg=batch.get("energy_avg"),
+                               accent_vecs=accent_vecs, train=train)
+        outputs.update(attn=attn, attn_soft=attn_soft,
+                       attn_logprob=attn_logprob, context=context,
+                       spk_vecs=spk_vecs, accent_vecs=accent_vecs,
+                       txt_enc=txt_enc)
+
+        # the predictors train on detached inputs
+        ctx_d, spk_d = context.detach(), spk_vecs.detach()
+        acc_d = accent_vecs.detach() if accent_vecs is not None else None
+        kw = dict(train=train, generator=generator)
+        frame_preds = []          # (output key, module, target)
+        if self.f0_predictor is not None:
+            frame_preds.append(("f0_outputs", self.f0_predictor,
+                                self.f0_predictor.targets(
+                                    batch["f0"][..., None],
+                                    batch.get("speaker_f0_mean"),
+                                    batch.get("speaker_f0_std"))))
+        if self.energy_predictor is not None:
+            frame_preds.append(("energy_outputs", self.energy_predictor,
+                                self.energy_predictor.targets(
+                                    batch["energy_avg"][..., None])))
+        if self.voiced_predictor is not None:
+            frame_preds.append(("voiced_outputs", self.voiced_predictor,
+                                self.voiced_predictor.targets(
+                                    batch["voiced_mask"][..., None])))
+        mods = [m for _, m, _ in frame_preds]
+        if self._gangable(mods):
+            hats = self._gang_frame_predictors(
+                mods, ctx_d, [spk_d] * len(mods), out_lens,
+                accent_emb=acc_d, **kw)
+            for (key, _, target), x_hat in zip(frame_preds, hats):
+                outputs[key] = {"x_hat": x_hat, "x": target}
+        else:
+            for key, m, target in frame_preds:
+                outputs[key] = {"x_hat": m(ctx_d, spk_d, out_lens,
+                                           accent_emb=acc_d, **kw),
+                                "x": target}
+        if self.duration_predictor is not None:
+            dur_target = attn.detach().sum(dim=1)[..., None]  # (B, Tt, 1)
+            outputs["duration_outputs"] = {
+                "x_hat": self.duration_predictor(
+                    txt_enc.detach(), spk_d, in_lens, accent_emb=acc_d, **kw),
+                "x": self.duration_predictor.targets(dur_target)}
+        return outputs
 
     # ---- inference --------------------------------------------------------
     def infer_durations(self, text, text_lens, duration_speaker_ids,

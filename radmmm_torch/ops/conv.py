@@ -107,6 +107,18 @@ class MaskedConv1d(nn.Module):
         return out
 
 
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with a Bernoulli mask drawn from ``generator`` (the
+    caller's explicit stream, where the JAX package passes its dropout
+    key); identity when ``generator`` is None or ``p`` is 0."""
+    if generator is None or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
 class Linear(nn.Module):
     """LinearNorm equivalent: xavier-uniform weight (C_out, C_in), torch's
     default bias init."""

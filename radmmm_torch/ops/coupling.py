@@ -1,8 +1,8 @@
 """Affine coupling of the flow and its WaveNet-style parameter predictor.
 
 Counterpart of ``radmmm_tpu/ops/coupling.py`` (``WN``, ``AffineCoupling``,
-``scaling_and_logs``); this slice serves, so the coupling runs its inverse.
-The WN ``start``, ``res_skip`` and ``end`` convolutions take no mask, as in
+``scaling_and_logs``): the forward (training) direction returns the
+coupled z and log s, the inverse (sampling) direction undoes it. The WN ``start``, ``res_skip`` and ``end`` convolutions take no mask, as in
 the JAX module; only the dilated ``in`` layers see it.
 """
 from __future__ import annotations
@@ -93,6 +93,15 @@ class AffineCoupling(nn.Module):
         # with_dilation says; so does this one
         self.wn = WN(self.n_half, n_context_channels, n_layers, n_channels,
                      kernel_size, affine_activation, use_partial_padding)
+
+    def forward(self, z, context, mask=None):
+        """(concat(z0, s * z1 + b), log s)."""
+        z0, z1 = z[..., :self.n_half], z[..., self.n_half:]
+        params = self.wn(z0, context, mask)
+        s, log_s = scaling_and_logs(params[..., :self.n_half],
+                                    self.scaling_fn)
+        b = params[..., self.n_half:]
+        return torch.cat([z0, s * z1 + b], dim=-1), log_s
 
     def inverse(self, z, context, mask=None):
         z0, z1 = z[..., :self.n_half], z[..., self.n_half:]

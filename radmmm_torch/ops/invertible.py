@@ -1,16 +1,21 @@
-"""Invertible 1x1 channel mixes of the flow, inverse direction.
+"""Invertible 1x1 channel mixes of the flow.
 
-Counterpart of ``radmmm_tpu/ops/invertible.py`` (``InvertibleLU`` and
-``WhiteningConv``). Channels-last: y[t] = W @ x[t] is ``x @ W.T``.
+Counterpart of ``radmmm_tpu/ops/invertible.py`` (``InvertibleLU``,
+``WhiteningConv``, ``whitening_stats`` and ``whitening_params_from_stats``).
+Channels-last: y[t] = W @ x[t] is ``x @ W.T``. The forward (training)
+direction returns y and log|det W| = sum log|upper_diag|; the inverse
+direction (sampling) applies W^-1.
 
 The inverse W^-1 depends only on the weights, so ``cache_inverse()``
 computes it once after the weights are loaded (the serving loader calls it
 through ``TTSModel.cache_inverses``) and stores it in a non-persistent
-buffer that follows the module across devices. Without the cache the
-inverse is computed on each call. It is computed in float64: the
-whitening W is ill-conditioned (cond ~ 200 at 160 channels), and an
-inverse taken while TF32 matmuls are enabled would carry their error
-into every mel. The LU factors of the initial W come from
+buffer that follows the module across devices. ``train()`` and
+``drop_inverse()`` drop the cache, since the weights may change from then
+on; without a cache the inverse is computed on each call. It is computed in
+float64: the whitening W is ill-conditioned (cond ~ 200 at 160 channels),
+and an inverse taken while TF32 matmuls are enabled would carry their
+error into every mel. The whitening init takes its inverse and Cholesky in
+float64 for the same reason. The LU factors of the initial W come from
 numpy/scipy QR + LU on the host, as in the JAX package, so a module
 initialised from a seed starts from a consistent orthonormal W.
 """
@@ -54,6 +59,17 @@ class _Invertible1x1(nn.Module):
         with torch.no_grad():
             self.w_inv = self.inverse_weight()
 
+    def drop_inverse(self) -> None:
+        self.w_inv = None
+
+    def train(self, mode: bool = True):
+        if mode:
+            self.drop_inverse()
+        return super().train(mode)
+
+    def log_det(self) -> torch.Tensor:
+        return torch.log(torch.abs(self.upper_diag)).sum()
+
     def _inverse_mix(self, z: torch.Tensor) -> torch.Tensor:
         w_inv = (self.w_inv if self.w_inv is not None
                  else self.inverse_weight())
@@ -77,6 +93,10 @@ class InvertibleLU(_Invertible1x1):
         upper = torch.triu(self.upper, 1) + torch.diag(self.upper_diag)
         return self.p @ (lower @ upper)
 
+    def forward(self, z: torch.Tensor):
+        """(z @ W.T, log|det W|)."""
+        return torch.matmul(z, self.weight().t()), self.log_det()
+
     def inverse(self, z: torch.Tensor) -> torch.Tensor:
         return self._inverse_mix(z)
 
@@ -96,5 +116,37 @@ class WhiteningConv(_Invertible1x1):
     def weight(self) -> torch.Tensor:
         return torch.triu(self.upper, 1) + torch.diag(self.upper_diag)
 
+    def forward(self, z: torch.Tensor):
+        """((z - mean) @ W.T, log|det W|)."""
+        return (torch.matmul(z - self.input_mean, self.weight().t()),
+                self.log_det())
+
     def inverse(self, z: torch.Tensor) -> torch.Tensor:
         return self._inverse_mix(z) + self.input_mean
+
+
+def whitening_stats(data: torch.Tensor, mask: torch.Tensor):
+    """Masked mean (C,) and covariance (C, C) over the valid frames of
+    data (B, T, C), mask (B, T); the covariance from the centred data
+    (two passes: E[x^2] - E[x]^2 cancels in f32 at the mel floor)."""
+    m = mask.to(data.dtype)
+    n = m.sum()
+    mean = torch.einsum("btc,bt->c", data, m) / n
+    centered = (data - mean) * m[..., None]
+    covar = torch.einsum("btc,btd->cd", centered, centered) / n
+    return mean, covar
+
+
+def whitening_params_from_stats(mean: torch.Tensor, covar: torch.Tensor,
+                                ridge: float = 1e-5) -> dict:
+    """The upper Cholesky factor U of covar^-1 (so cov(U (x - mean)) = I),
+    as {upper, upper_diag, input_mean}. A trace-scaled ridge keeps the
+    inverse finite when the batch has fewer valid frames than channels.
+    Inverse and Cholesky run in float64."""
+    c = covar.shape[0]
+    cov = covar.double()
+    cov = cov + (ridge * torch.trace(cov) / c) * torch.eye(
+        c, dtype=cov.dtype, device=cov.device)
+    w = torch.linalg.cholesky(torch.linalg.inv(cov)).t().to(covar.dtype)
+    return {"upper": torch.triu(w, 1), "upper_diag": torch.diagonal(w).clone(),
+            "input_mean": mean}

@@ -5,7 +5,8 @@ masked (padding) steps unchanged and outputs are zero there, which is
 packed-sequence semantics for prefix masks. The input projection
 ``x @ Wi + b`` is one ``torch.matmul`` over all frames; the recurrence
 itself goes through ``lstm_kernel.lstm_recurrence`` (the CUDA kernel on the
-card, its plain twin on the CPU), one call per (Bi)LSTM.
+card, its plain twin on the CPU), one call per (Bi)LSTM, differentiable in
+every weight (the backward is a kernel too).
 
 Weights keep the JAX layout: Wi (C_in, 4H), Wh (H, 4H), b_ih and b_hh
 (4H,), gate order (i, f, g, o).
@@ -44,22 +45,27 @@ def multi_bilstm_scan(xs: torch.Tensor, mask: torch.Tensor, wi: torch.Tensor,
 
 
 class SpectralNormedParam(nn.Module):
-    """Spectral norm of a recurrent weight, as the JAX module computes it at
-    inference: one power iteration from the stored ``u`` on every call,
-    ``u`` not updated. (``torch.nn.utils.spectral_norm`` in eval mode runs
-    no iteration, so it would give another sigma.)"""
+    """Spectral norm of a recurrent weight, as the JAX module computes it:
+    one power iteration from the stored ``u`` on every call, under
+    ``no_grad`` (sigma's gradient flows through W only); with ``update``
+    (training) the new ``u`` is written back. (``torch.nn.utils.
+    spectral_norm`` in eval mode runs no iteration, so it would give
+    another sigma.)"""
 
     def __init__(self, rows: int):
         super().__init__()
         self.register_buffer("u", torch.randn(rows))
 
-    def forward(self, w: torch.Tensor) -> torch.Tensor:
+    def forward(self, w: torch.Tensor, update: bool = False) -> torch.Tensor:
         w2d = w.t()                                           # (4H, H)
-        u = self.u / torch.linalg.vector_norm(self.u).clamp_min(1e-12)
-        v = w2d.t() @ u
-        v = v / torch.linalg.vector_norm(v).clamp_min(1e-12)
-        u_new = w2d @ v
-        u_new = u_new / torch.linalg.vector_norm(u_new).clamp_min(1e-12)
+        with torch.no_grad():
+            u = self.u / torch.linalg.vector_norm(self.u).clamp_min(1e-12)
+            v = w2d.t() @ u
+            v = v / torch.linalg.vector_norm(v).clamp_min(1e-12)
+            u_new = w2d @ v
+            u_new = u_new / torch.linalg.vector_norm(u_new).clamp_min(1e-12)
+            if update:
+                self.u.copy_(u_new)
         sigma = u_new @ (w2d @ v)
         return w / sigma
 
@@ -87,33 +93,34 @@ class MaskedLSTM(nn.Module):
             if spectral_norm:
                 setattr(self, f"sn_{d}", SpectralNormedParam(4 * hidden))
 
-    def _weights(self, d: str):
+    def _weights(self, d: str, update_sn: bool = False):
         wh = getattr(self, f"wh_{d}")
         if self.spectral_norm:
-            wh = getattr(self, f"sn_{d}")(wh)
+            wh = getattr(self, f"sn_{d}")(wh, update_sn)
         return (getattr(self, f"wi_{d}"), wh,
                 getattr(self, f"b_ih_{d}") + getattr(self, f"b_hh_{d}"))
 
-    def weights(self) -> dict:
+    def weights(self, update_sn: bool = False) -> dict:
         """Stacked [fwd | bwd] weights for ``multi_bilstm_scan`` (gang
-        mode): wi (C, 8H), wh (2, H, 4H), bias (2, 4H)."""
+        mode): wi (C, 8H), wh (2, H, 4H), bias (2, 4H). ``update_sn``
+        writes back the spectral norms' new ``u`` (training)."""
         if not self.bidirectional:
             raise ValueError("gang mode is bidirectional-only")
-        (wi_f, wh_f, b_f), (wi_b, wh_b, b_b) = (self._weights("fwd"),
-                                                self._weights("bwd"))
+        (wi_f, wh_f, b_f), (wi_b, wh_b, b_b) = (
+            self._weights("fwd", update_sn), self._weights("bwd", update_sn))
         return {"wi": torch.cat([wi_f, wi_b], dim=1),
                 "wh": torch.stack([wh_f, wh_b]),
                 "bias": torch.stack([b_f, b_b])}
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                update_sn: bool = False) -> torch.Tensor:
         """x: (B, T, C); mask: (B, T). Returns (B, T, H * directions)."""
         m = x.new_ones(x.shape[:2]) if mask is None else mask.to(x.dtype)
         if self.bidirectional:
-            w = self.weights()
+            w = self.weights(update_sn)
             return multi_bilstm_scan(x[None], m, w["wi"][None],
                                      w["wh"][None], w["bias"][None])[0]
-        wi, wh, b = self._weights("fwd")
+        wi, wh, b = self._weights("fwd", update_sn)
         xp = (torch.matmul(x, wi) + b).transpose(0, 1)[None].contiguous()
         ys = lstm_recurrence(xp, m.t().contiguous(), wh[None].contiguous(),
                              [False])

@@ -1,5 +1,5 @@
-"""The masked LSTM recurrence: CUDA kernel wrapper, its plain PyTorch twin
-and its launch counter.
+"""The masked LSTM recurrence: CUDA kernel wrappers (forward and backward),
+their plain PyTorch twins and their launch counters.
 
 Counterpart of ``radmmm_tpu/ops/lstm_pallas.py``. Given the precomputed
 input projection, every lane ``l`` runs, for t in its walking order,
@@ -13,74 +13,139 @@ flipping the sequence, scanning and flipping back: leading padding in
 reversed order leaves the zero state untouched. A BiLSTM is one call with
 two lanes; the three ganged frame predictors are one call with six.
 
-Tensors on the CPU run ``lstm_recurrence_reference``. Tensors on a CUDA
-device launch ``csrc/lstm_recurrence.cu`` (built with nvcc on first use
-into ``build/radmmm_torch/`` at the repository root and loaded with ctypes)
-or raise; nothing falls back.
+``lstm_recurrence`` is differentiable in ``x_proj`` and ``wh``. When
+autograd needs it, the forward also saves the gate activations and the
+carried c and h of every step, and the backward runs the reverse-time
+recurrence (``csrc/lstm_recurrence_bwd.cu`` on the card,
+``lstm_recurrence_backward_reference`` on the CPU); dWh is one batched
+matmul over the saved h. Without autograd (serving) nothing extra is
+written.
+
+Tensors on the CPU run the twins. Tensors on a CUDA device launch
+``csrc/lstm_recurrence.cu`` and ``csrc/lstm_recurrence_bwd.cu`` (built by
+``utils/cuda_build``) or raise; nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Sequence
 
 import torch
 
-# kernel launches since the last reset; chip_smoke.py and the tests read it
+from radmmm_torch.utils import cuda_build
+
+# kernel launches since the last reset; chip_smoke.py and the tests read
+# them: the forward kernel, and the backward kernel
 launches = 0
+backward_launches = 0
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "lstm_recurrence.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "radmmm_torch"
-_LIB_NAME = "liblstm_recurrence.so"
-_THREADS = 256            # kThreads in the .cu
-# hidden units per block, in order of preference (4*hb must divide _THREADS)
+_THREADS = 256            # kThreads in both .cu files
+# hidden units per block, in order of preference (4*hb must divide _THREADS
+# in the forward)
 _SLICE_WIDTHS = (8, 16, 4, 32, 2, 1)
-
-_lib = None
-_lib_lock = threading.Lock()
 _plans: dict = {}
 
 
+def _walk(T: int, reverse: Sequence[bool], device):
+    """(lanes, rev flags, (T, L) time index of each lane's step s)."""
+    L = len(reverse)
+    lanes = torch.arange(L, device=device)
+    rev = torch.as_tensor([bool(r) for r in reverse], device=device)
+    s = torch.arange(T, device=device)[:, None]
+    return lanes, rev, torch.where(rev[None, :], T - 1 - s, s)
+
+
 def lstm_recurrence_reference(x_proj: torch.Tensor, mask: torch.Tensor,
-                              wh: torch.Tensor,
-                              reverse: Sequence[bool]) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel: a Python loop over time of
-    ``torch.bmm`` and elementwise gates.
+                              wh: torch.Tensor, reverse: Sequence[bool],
+                              save: bool = False):
+    """Plain PyTorch twin of the forward kernel: a Python loop over time
+    of ``torch.bmm`` and elementwise gates.
 
     x_proj (L, T, B, 4H); mask (T, B) or (L, T, B); wh (L, H, 4H);
-    reverse: L flags. Returns out (L, T, B, H), zero at masked frames.
-    """
+    reverse: L flags. Returns out (L, T, B, H), zero at masked frames;
+    with ``save`` also the gate activations (L, T, B, 4H) and the carried
+    c and h after every step (L, T, B, H) each, as the backward needs."""
     L, T, B, G = x_proj.shape
     H = G // 4
     m = mask.expand(L, T, B) if mask.dim() == 2 else mask
-    lanes = torch.arange(L, device=x_proj.device)
-    rev = torch.as_tensor([bool(r) for r in reverse], device=x_proj.device)
+    lanes, _, order = _walk(T, reverse, x_proj.device)
     h = x_proj.new_zeros((L, B, H))
     c = x_proj.new_zeros((L, B, H))
     out = x_proj.new_empty((L, T, B, H))
+    if save:
+        act, cs, hs = (x_proj.new_empty((L, T, B, G)),
+                       x_proj.new_empty((L, T, B, H)),
+                       x_proj.new_empty((L, T, B, H)))
     for s in range(T):
-        t = torch.where(rev, T - 1 - s, s)
+        t = order[s]
         gates = x_proj[lanes, t] + torch.bmm(h, wh)
         i, f, g, o = gates.split(H, dim=-1)
-        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
         mt = m[lanes, t][..., None]
         h = torch.where(mt > 0, h_new, h)
         c = torch.where(mt > 0, c_new, c)
         out[lanes, t] = h_new * mt
-    return out
+        if save:
+            act[lanes, t] = torch.cat([i, f, g, o], dim=-1)
+            cs[lanes, t] = c
+            hs[lanes, t] = h
+    return (out, act, cs, hs) if save else out
 
 
-def lstm_recurrence(x_proj: torch.Tensor, mask: torch.Tensor,
-                    wh: torch.Tensor, reverse: Sequence[bool]) -> torch.Tensor:
-    """The masked multi-lane LSTM recurrence (see the module docstring).
+def lstm_recurrence_backward_reference(dout: torch.Tensor, act: torch.Tensor,
+                                       cs: torch.Tensor, mask: torch.Tensor,
+                                       wh: torch.Tensor,
+                                       reverse: Sequence[bool]
+                                       ) -> torch.Tensor:
+    """Plain PyTorch twin of the backward kernel: reverse-time BPTT over
+    the saved gate activations ``act`` and carried cell states ``cs``.
+    Returns d x_proj (L, T, B, 4H): the gate pre-activations' gradient,
+    zero at masked frames, where dh and dc pass through unchanged."""
+    L, T, B, H = dout.shape
+    m = mask.expand(L, T, B) if mask.dim() == 2 else mask
+    lanes, _, order = _walk(T, reverse, dout.device)
+    dxp = dout.new_zeros((L, T, B, 4 * H))
+    dh_pass = dout.new_zeros((L, B, H))
+    dc_pass = dout.new_zeros((L, B, H))
+    rec = dout.new_zeros((L, B, H))
+    for s in range(T - 1, -1, -1):
+        t = order[s]
+        c_prev = (cs[lanes, order[s - 1]] if s > 0
+                  else torch.zeros_like(dh_pass))
+        i, f, g, o = act[lanes, t].split(H, dim=-1)
+        tc = torch.tanh(cs[lanes, t])
+        mt = m[lanes, t][..., None]
+        keep = mt > 0
+        dh = dh_pass + rec
+        dhn = dh + dout[lanes, t] * mt
+        dcn = dc_pass + dhn * o * (1 - tc * tc)
+        dgates = torch.cat([dcn * g * i * (1 - i),
+                            dcn * c_prev * f * (1 - f),
+                            dcn * i * (1 - g * g),
+                            dhn * tc * o * (1 - o)], dim=-1)
+        dgates = torch.where(keep, dgates, torch.zeros_like(dgates))
+        dh_pass = torch.where(keep, torch.zeros_like(dh), dh)
+        dc_pass = torch.where(keep, dcn * f, dc_pass)
+        rec = torch.bmm(dgates, wh.transpose(1, 2))
+        dxp[lanes, t] = dgates
+    return dxp
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel."""
-    global launches
+
+def _h_before(hs: torch.Tensor, reverse: Sequence[bool]) -> torch.Tensor:
+    """The carried h entering each step (zero at each lane's first)."""
+    prev = torch.zeros_like(hs)
+    for l, r in enumerate(reverse):
+        if r:
+            prev[l, :-1] = hs[l, 1:]
+        else:
+            prev[l, 1:] = hs[l, :-1]
+    return prev
+
+
+def _check(x_proj, mask, wh, reverse):
     L, T, B, G = x_proj.shape
     H = G // 4
     if (G != 4 * H or wh.shape != (L, H, G) or len(reverse) != L
@@ -98,104 +163,156 @@ def lstm_recurrence(x_proj: torch.Tensor, mask: torch.Tensor,
                              f"x_proj on {x_proj.device}")
         if not t.is_contiguous():
             raise ValueError(f"lstm_recurrence: {name} must be contiguous")
-    if x_proj.device.type == "cpu":
-        return lstm_recurrence_reference(x_proj, mask, wh, reverse)
-    if x_proj.device.type != "cuda":
+    if x_proj.device.type not in ("cpu", "cuda"):
         raise RuntimeError(
             f"lstm_recurrence: no kernel for device {x_proj.device}")
-    if L > 64:
+    if x_proj.device.type == "cuda" and L > 64:
         raise ValueError("lstm_recurrence: at most 64 lanes per launch")
 
-    out = torch.empty((L, T, B, H), dtype=torch.float32,
-                      device=x_proj.device)
-    if T == 0 or B == 0:
+
+class _LSTMRecurrence(torch.autograd.Function):
+    """The recurrence with its backward: the kernels on the card, the
+    twins on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x_proj, mask, wh, reverse):
+        if x_proj.device.type == "cpu":
+            out, act, cs, hs = lstm_recurrence_reference(
+                x_proj, mask, wh, reverse, save=True)
+        else:
+            out, act, cs, hs = _forward_kernel(x_proj, mask, wh, reverse,
+                                               save=True)
+        ctx.reverse = tuple(reverse)
+        ctx.save_for_backward(mask, wh, act, cs, hs)
         return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        mask, wh, act, cs, hs = ctx.saved_tensors
+        dout = dout.contiguous()
+        if dout.device.type == "cpu":
+            dxp = lstm_recurrence_backward_reference(dout, act, cs, mask, wh,
+                                                     ctx.reverse)
+        else:
+            dxp = _backward_kernel(dout, act, cs, mask, wh, ctx.reverse)
+        L, T, B, G = dxp.shape
+        h_prev = _h_before(hs, ctx.reverse).view(L, T * B, G // 4)
+        dwh = torch.bmm(h_prev.transpose(1, 2), dxp.view(L, T * B, G))
+        return dxp, None, dwh, None
+
+
+def lstm_recurrence(x_proj: torch.Tensor, mask: torch.Tensor,
+                    wh: torch.Tensor, reverse: Sequence[bool]) -> torch.Tensor:
+    """The masked multi-lane LSTM recurrence (see the module docstring).
+
+    CPU tensors run the plain twins; CUDA tensors launch the kernels."""
+    _check(x_proj, mask, wh, reverse)
+    if torch.is_grad_enabled() and (x_proj.requires_grad
+                                    or wh.requires_grad):
+        return _LSTMRecurrence.apply(x_proj, mask, wh, list(reverse))
+    if x_proj.device.type == "cpu":
+        return lstm_recurrence_reference(x_proj, mask, wh, reverse)
+    return _forward_kernel(x_proj, mask, wh, reverse, save=False)
+
+
+def _forward_kernel(x_proj, mask, wh, reverse, save: bool):
+    global launches
+    L, T, B, G = x_proj.shape
+    H = G // 4
+    dev = x_proj.device
+    out = torch.empty((L, T, B, H), dtype=torch.float32, device=dev)
+    saved = ((torch.empty((L, T, B, G), dtype=torch.float32, device=dev),
+              torch.empty((L, T, B, H), dtype=torch.float32, device=dev),
+              torch.empty((L, T, B, H), dtype=torch.float32, device=dev))
+             if save else None)
+    if T == 0 or B == 0:
+        return (out, *saved) if save else out
     lib = _library()
-    with torch.cuda.device(x_proj.device):
-        hb = _plan(lib, L, B, H)
+    with torch.cuda.device(dev):
+        hb = _plan(lib.lstm_recurrence_capacity, "fwd", L, B, H)
         # double-buffered h of the previous step, shared by a lane's blocks
-        hbuf = torch.empty((2, L, B, H), dtype=torch.float32,
-                           device=x_proj.device)
-        bits = sum(1 << l for l, r in enumerate(reverse) if r)
+        hbuf = torch.empty((2, L, B, H), dtype=torch.float32, device=dev)
+        ptrs = [t.data_ptr() for t in saved] if save else [None] * 3
         err = lib.lstm_recurrence_launch(
             x_proj.data_ptr(), mask.data_ptr(), wh.data_ptr(),
-            out.data_ptr(), hbuf.data_ptr(), L, T, B, H,
-            T * B if mask.dim() == 3 else 0, bits, hb,
+            out.data_ptr(), hbuf.data_ptr(), *ptrs, L, T, B, H,
+            T * B if mask.dim() == 3 else 0, _bits(reverse), hb,
             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            "lstm_recurrence kernel launch failed: "
-            f"{lib.lstm_recurrence_error_string(err).decode()} ({err})")
+    cuda_build.check(lib, err, "lstm_recurrence")
     launches += 1
-    return out
+    return (out, *saved) if save else out
 
 
-def _plan(lib, L: int, B: int, H: int) -> int:
+def _backward_kernel(dout, act, cs, mask, wh, reverse):
+    global backward_launches
+    L, T, B, H = dout.shape
+    dev = dout.device
+    dxp = torch.empty((L, T, B, 4 * H), dtype=torch.float32, device=dev)
+    if T == 0 or B == 0:
+        return dxp
+    lib = _bwd_library()
+    with torch.cuda.device(dev):
+        hb = _plan(lib.lstm_recurrence_bwd_capacity, "bwd", L, B, H)
+        err = lib.lstm_recurrence_bwd_launch(
+            dout.data_ptr(), act.data_ptr(), cs.data_ptr(), mask.data_ptr(),
+            wh.data_ptr(), dxp.data_ptr(), L, T, B, H,
+            T * B if mask.dim() == 3 else 0, _bits(reverse), hb,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(lib, err, "lstm_recurrence_bwd")
+    backward_launches += 1
+    return dxp
+
+
+def _bits(reverse) -> int:
+    return sum(1 << l for l, r in enumerate(reverse) if r)
+
+
+def _plan(capacity_fn, which: str, L: int, B: int, H: int) -> int:
     """Hidden units per block: the first width in _SLICE_WIDTHS whose grid
-    (L * ceil(H / hb) blocks) is co-resident on the card, as the kernel's
+    (L * ceil(H / hb) blocks) is co-resident on the card, as the kernels'
     grid-wide barrier needs. Raises when no width fits."""
-    key = (torch.cuda.current_device(), L, B, H)
+    key = (which, torch.cuda.current_device(), L, B, H)
     if key not in _plans:
         for hb in _SLICE_WIDTHS:
             if B * hb > _THREADS:
                 continue
             cap = ctypes.c_int(0)
-            if lib.lstm_recurrence_capacity(B, H, hb, ctypes.byref(cap)) != 0:
+            if capacity_fn(B, H, hb, ctypes.byref(cap)) != 0:
                 continue    # this slice's shared memory exceeds a block's
             if L * -(-H // hb) <= cap.value:
                 _plans[key] = hb
                 break
         else:
             raise RuntimeError(
-                f"lstm_recurrence: no slice width puts the L={L}, B={B}, "
-                f"H={H} recurrence's blocks on the card at once")
+                f"lstm_recurrence ({which}): no slice width puts the L={L}, "
+                f"B={B}, H={H} recurrence's blocks on the card at once")
     return _plans[key]
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"),
-                 shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+def _declare_fwd(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_recurrence_launch.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_longlong,
+        ctypes.c_ulonglong, ci, vp]
+    lib.lstm_recurrence_launch.restype = ci
+    lib.lstm_recurrence_capacity.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+    lib.lstm_recurrence_capacity.restype = ci
 
 
-def build(force: bool = False) -> Path:
-    """Compile csrc/lstm_recurrence.cu for sm_90a into the build directory
-    (when the library is missing or older than its source). Returns the
-    library's path."""
-    lib_path = _BUILD_DIR / _LIB_NAME
-    if (not force and lib_path.exists()
-            and lib_path.stat().st_mtime >= _SRC.stat().st_mtime):
-        return lib_path
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    (_BUILD_DIR / "lstm_recurrence.ptxas.txt").write_text(res.stderr)
-    os.replace(tmp, lib_path)
-    return lib_path
+def _declare_bwd(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_recurrence_bwd_launch.argtypes = [
+        vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_longlong,
+        ctypes.c_ulonglong, ci, vp]
+    lib.lstm_recurrence_bwd_launch.restype = ci
+    lib.lstm_recurrence_bwd_capacity.argtypes = [
+        ci, ci, ci, ctypes.POINTER(ci)]
+    lib.lstm_recurrence_bwd_capacity.restype = ci
 
 
 def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.lstm_recurrence_launch.argtypes = [
-                vp, vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_longlong,
-                ctypes.c_ulonglong, ci, vp]
-            lib.lstm_recurrence_launch.restype = ci
-            lib.lstm_recurrence_capacity.argtypes = [
-                ci, ci, ci, ctypes.POINTER(ci)]
-            lib.lstm_recurrence_capacity.restype = ci
-            lib.lstm_recurrence_error_string.argtypes = [ci]
-            lib.lstm_recurrence_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+    return cuda_build.load("lstm_recurrence", _declare_fwd)
+
+
+def _bwd_library():
+    return cuda_build.load("lstm_recurrence_bwd", _declare_bwd)

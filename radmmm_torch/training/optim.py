@@ -1,0 +1,122 @@
+"""Optimizers: exact RAdam and AdamW, after a global-norm clip.
+
+Counterpart of ``radmmm_tpu/training/optim.py``. The reference insists on
+the original Liu et al. RAdam rather than a framework's built-in, whose
+below-threshold branch differs; ``torch.optim.RAdam`` divides by the second
+moment there too. So the update is written out here:
+
+* the variance-rectified step when the SMA length N_sma >= 5,
+* a plain momentum SGD step (no second-moment denominator) otherwise,
+* weight decay applied to the parameters with the update
+  (p -= wd * lr * p).
+
+Gradients are clipped to a global norm first (optax.clip_by_global_norm:
+unchanged below the limit, g / norm * limit above it). The arithmetic runs
+as multi-tensor ``torch._foreach_*`` ops over every parameter at once;
+the step's scalars (bias corrections, rectification) are float32, as in
+the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Iterable, List, Optional
+
+import numpy as np
+import torch
+
+
+class Optimizer:
+    """``step()`` reads every parameter's ``.grad`` (None counts as zero),
+    clips, updates the parameters in place and returns the global norm of
+    the gradients before the clip (a 0-d tensor on their device)."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], algo: str,
+                 learning_rate: float, weight_decay: float = 0.0,
+                 grad_clip_val: Optional[float] = None, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        if algo not in ("RAdam", "Adam"):
+            raise ValueError(f"Unrecognized optimizer {algo}")
+        self.params: List[torch.nn.Parameter] = list(params)
+        self.algo = algo
+        self.lr, self.wd, self.clip = learning_rate, weight_decay, grad_clip_val
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.count = 0
+        self.exp_avg = [torch.zeros_like(p) for p in self.params]
+        self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def _grads(self) -> List[torch.Tensor]:
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in self.params]
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        grads = self._grads()
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if self.clip:
+            # below the limit the gradients pass unchanged
+            scale = torch.where(norm < self.clip, torch.ones_like(norm),
+                                self.clip / norm)
+            grads = torch._foreach_mul(grads, scale)
+        self.count += 1
+        t = np.float32(self.count)
+        b1, b2 = np.float32(self.b1), np.float32(self.b2)
+        torch._foreach_mul_(self.exp_avg, self.b1)
+        torch._foreach_add_(self.exp_avg, grads, alpha=1 - self.b1)
+        torch._foreach_mul_(self.exp_avg_sq, self.b2)
+        torch._foreach_addcmul_(self.exp_avg_sq, grads, grads,
+                                value=1 - self.b2)
+        bias1 = np.float32(1) - b1 ** t
+        beta2_t = b2 ** t
+        if self.algo == "RAdam":
+            # the constants in float64, then float32 arithmetic in the
+            # JAX package's order: n_sma cancels (1999 - 1993 at step 6),
+            # so a rounding here moves the whole step
+            n_sma_max = 2.0 / (1 - self.b2) - 1.0
+            f32 = np.float32
+            n_sma = f32(n_sma_max) - f32(2) * t * beta2_t / (f32(1) - beta2_t)
+            if n_sma >= 5.0:
+                rect = np.sqrt((f32(1) - beta2_t) * (n_sma - f32(4))
+                               / f32(n_sma_max - 4) * (n_sma - f32(2))
+                               / n_sma * f32(n_sma_max)
+                               / f32(n_sma_max - 2))
+                denom = torch._foreach_sqrt(self.exp_avg_sq)
+                torch._foreach_add_(denom, self.eps)
+                delta = torch._foreach_mul(self.exp_avg,
+                                           float(self.lr * rect / bias1))
+                torch._foreach_div_(delta, denom)
+            else:
+                delta = torch._foreach_mul(self.exp_avg,
+                                           float(self.lr / bias1))
+        else:                                   # AdamW
+            bias2 = np.float32(1) - beta2_t
+            denom = torch._foreach_div(self.exp_avg_sq, float(bias2))
+            denom = torch._foreach_sqrt(denom)
+            torch._foreach_add_(denom, self.eps)
+            delta = torch._foreach_div(
+                torch._foreach_div(self.exp_avg, float(bias1)), denom)
+            torch._foreach_mul_(delta, self.lr)
+        if self.wd:
+            torch._foreach_add_(delta, self.params, alpha=self.wd * self.lr)
+        torch._foreach_sub_(self.params, delta)
+        return norm
+
+
+def radam_exact(params: Iterable[torch.nn.Parameter], learning_rate: float,
+                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                weight_decay: float = 0.0) -> Optimizer:
+    """The exact RAdam update, no clip."""
+    return Optimizer(params, "RAdam", learning_rate, weight_decay, None,
+                     b1=b1, b2=b2, eps=eps)
+
+
+def build_optimizer(params: Iterable[torch.nn.Parameter],
+                    optim_algo: str = "RAdam", learning_rate: float = 1e-4,
+                    weight_decay: float = 1e-6,
+                    grad_clip_val: Optional[float] = 1.0) -> Optimizer:
+    """RAdam (exact) or AdamW, after a global-norm clip to
+    ``grad_clip_val`` (none when it is 0 or None)."""
+    return Optimizer(params, optim_algo, learning_rate, weight_decay,
+                     grad_clip_val)

@@ -1,0 +1,216 @@
+"""The training and validation steps: loss terms, gradients, optimizer,
+phases, and the whitening init.
+
+Counterpart of ``radmmm_tpu/training/step.py``. PyTorch keeps the
+parameters in the model and the moments in the optimizer, so a
+``TrainState`` holds the step count, the model and its optimizer, and a
+step updates them in place. Where the JAX step takes a dropout key, this
+one takes a ``torch.Generator`` on the model's device. The step functions
+act on the model they were made for; the state is what a checkpoint
+saves and resumes (``convert.load_jax_train_state``). Each step puts the
+model in train mode, which drops its cached flow inverses, so sampling
+after a step uses the new weights. The phase flags (binarize, kl_on) are plain Python booleans,
+one step function per phase, as in the JAX package.
+
+    model = TTSModel(default_radmmm_config())
+    state = create_train_state(model)            # to CUDA, RAdam, clip 1.0
+    make_whitening_init(model)(state, batch)     # batch on the same device
+    step = make_train_step(model, LossConfig(), binarize=True, kl_on=True)
+    state, metrics = step(state, batch, torch.Generator("cuda"))
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+
+from radmmm_torch.losses.flow import (AttributeBCELoss,
+                                      AttributeRegressionLoss, RADMMMLoss)
+from radmmm_torch.losses.regularizers import (
+    AttributeMinCrossCovarianceRegLoss, VarianceCovarianceEmbeddingRegLoss)
+from radmmm_torch.models.flow_decoder import squeeze_time
+from radmmm_torch.models.tts import TTSModel, mel_scale
+from radmmm_torch.ops.invertible import (whitening_params_from_stats,
+                                         whitening_stats)
+from radmmm_torch.training.optim import Optimizer, build_optimizer
+from radmmm_torch.utils.device import resolve_device
+from radmmm_torch.utils.masking import SeqLens
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    model: TTSModel
+    optimizer: Optimizer
+
+
+@dataclasses.dataclass
+class LossConfig:
+    """Loss weights and switches (the JAX package's LossConfig)."""
+    sigma: float = 1.0
+    n_group_size: int = 2
+    ctc_blank_logprob: float = -1.0
+    binarization_loss_weight: float = 1.0
+    ctc_loss_weight: float = 0.1
+    f0_loss_voiced_only: bool = True
+    f0_weight: float = 1.0
+    energy_weight: float = 1.0
+    vpred_weight: float = 1.0
+    duration_weight: float = 1.0
+    # 'regression' (masked MSE) or 'bce'
+    f0_loss_type: str = "regression"
+    energy_loss_type: str = "regression"
+    vpred_loss_type: str = "bce"
+    duration_loss_type: str = "regression"
+    speaker_reg: Optional[Dict[str, float]] = None    # variance/covariance
+    accent_reg: Optional[Dict[str, float]] = None
+    cross_covariance_weight: Optional[float] = None
+    binarization_start_iter: int = 20000
+    kl_loss_start_iter: int = 25000
+
+
+def compute_losses(model: TTSModel, cfg: LossConfig, outputs, batch,
+                   binarization_on: bool):
+    """Every loss term as {name: (value, weight)}."""
+    in_lens = SeqLens.create(batch["input_lengths"], batch["text"].shape[1])
+    out_lens = SeqLens.create(batch["output_lengths"], batch["mel"].shape[1])
+    ld = RADMMMLoss(
+        sigma=cfg.sigma, n_group_size=cfg.n_group_size,
+        ctc_blank_logprob=cfg.ctc_blank_logprob,
+        binarization_loss_weight=cfg.binarization_loss_weight,
+        ctc_loss_weight=cfg.ctc_loss_weight)(
+            outputs, in_lens, out_lens, binarization_on=binarization_on)
+
+    def attr_loss(loss_type, prefix, weight):
+        cls = (AttributeBCELoss if loss_type == "bce"
+               else AttributeRegressionLoss)
+        return cls(prefix, weight)
+
+    if "f0_outputs" in outputs:
+        mask = (batch["voiced_mask"][..., None]
+                if cfg.f0_loss_voiced_only else None)
+        ld.update(attr_loss(cfg.f0_loss_type, "f0_", cfg.f0_weight)(
+            outputs["f0_outputs"], out_lens, mask=mask))
+    if "energy_outputs" in outputs:
+        ld.update(attr_loss(cfg.energy_loss_type, "energy_",
+                            cfg.energy_weight)(
+            outputs["energy_outputs"], out_lens))
+    if "voiced_outputs" in outputs:
+        ld.update(attr_loss(cfg.vpred_loss_type, "vpred_", cfg.vpred_weight)(
+            outputs["voiced_outputs"], out_lens))
+    if "duration_outputs" in outputs:
+        ld.update(attr_loss(cfg.duration_loss_type, "duration_",
+                            cfg.duration_weight)(
+            outputs["duration_outputs"], None, mask=in_lens.mask[..., None]))
+
+    spk_table = model.speaker_embeddings.weight
+    use_accent = model.config.use_accent
+    if cfg.speaker_reg is not None:
+        ld.update(VarianceCovarianceEmbeddingRegLoss(
+            "speaker", cfg.speaker_reg.get("variance", 0.0),
+            cfg.speaker_reg.get("covariance", 0.0))(spk_table))
+    if cfg.accent_reg is not None and use_accent:
+        ld.update(VarianceCovarianceEmbeddingRegLoss(
+            "accent", cfg.accent_reg.get("variance", 0.0),
+            cfg.accent_reg.get("covariance", 0.0))(
+                model.accent_embeddings.weight))
+    if cfg.cross_covariance_weight is not None and use_accent:
+        ld.update(AttributeMinCrossCovarianceRegLoss(
+            "speaker", "accent", cfg.cross_covariance_weight)(
+                outputs["spk_vecs"], outputs["accent_vecs"], spk_table,
+                model.accent_embeddings.weight))
+    return ld
+
+
+def total_loss(loss_dict):
+    return sum(v * w for v, w in loss_dict.values())
+
+
+def create_train_state(model: TTSModel, device: str = "cuda",
+                       **optimizer_kw) -> TrainState:
+    """Step 0: the model (weights drawn from a seed or loaded) moved to
+    ``device`` in train mode, and an optimizer over its parameters
+    (``build_optimizer``'s keywords; RAdam, lr 1e-4, decay 1e-6, clip 1.0
+    by default)."""
+    model.to(resolve_device(device)).train()
+    return TrainState(step=0, model=model,
+                      optimizer=build_optimizer(model.parameters(),
+                                                **optimizer_kw))
+
+
+def _metrics(ld, loss) -> Dict[str, torch.Tensor]:
+    metrics = {k: v.detach() for k, (v, _) in ld.items()}
+    metrics["loss"] = loss.detach()
+    return metrics
+
+
+def make_train_step(model: TTSModel, cfg: LossConfig, binarize: bool,
+                    kl_on: bool) -> Callable:
+    """One phase of the training step: ``step(state, batch, generator)``
+    -> (state, metrics), metrics 0-d tensors on the model's device (every
+    loss term, 'loss' and 'grad_norm', the norm before the clip)."""
+
+    def train_step(state: TrainState, batch, generator: torch.Generator):
+        model.train()           # also drops the cached flow inverses
+        state.optimizer.zero_grad()
+        outputs = model(batch, binarize=binarize, train=True,
+                        generator=generator)
+        ld = compute_losses(model, cfg, outputs, batch,
+                            binarization_on=(binarize and kl_on))
+        loss = total_loss(ld)
+        loss.backward()
+        grad_norm = state.optimizer.step()
+        state.step += 1
+        metrics = _metrics(ld, loss)
+        metrics["grad_norm"] = grad_norm
+        return state, metrics
+
+    return train_step
+
+
+def make_val_step(model: TTSModel, cfg: LossConfig,
+                  binarize: bool = True) -> Callable:
+    """``val(state, batch)`` -> metrics, no dropout, no spectral-norm
+    update, no gradients."""
+
+    @torch.no_grad()
+    def val_step(state: TrainState, batch):
+        outputs = model(batch, binarize=binarize, train=False)
+        ld = compute_losses(model, cfg, outputs, batch,
+                            binarization_on=binarize)
+        return _metrics(ld, total_loss(ld))
+
+    return val_step
+
+
+def make_whitening_init(model: TTSModel) -> Callable:
+    """The data-dependent init of the step-0 whitening 1x1, run once
+    before training: ``init(state, batch)`` sets its (upper, upper_diag,
+    input_mean) from the batch's masked mel statistics and returns the
+    state."""
+    g = model.config.decoder.get("n_group_size", 1)
+
+    @torch.no_grad()
+    def init_pass(state: TrainState, batch):
+        mel = (mel_scale(batch["mel"]) if model.config.scale_mel
+               else batch["mel"])
+        out_lens = SeqLens.create(batch["output_lengths"], mel.shape[1])
+        mean, covar = whitening_stats(squeeze_time(mel, g),
+                                      out_lens.downsample(g).mask)
+        new = whitening_params_from_stats(mean, covar)
+        w = model.decoder.flows[0].invtbl_conv
+        w.upper.copy_(new["upper"])
+        w.upper_diag.copy_(new["upper_diag"])
+        w.input_mean.copy_(new["input_mean"])
+        w.initialized.fill_(True)
+        w.drop_inverse()
+        return state
+
+    return init_pass
+
+
+def phase_flags(step: int, cfg: LossConfig):
+    """(binarize, kl_on) for a global step."""
+    return (step >= cfg.binarization_start_iter,
+            step > cfg.kl_loss_start_iter)

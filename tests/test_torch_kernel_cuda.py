@@ -1,4 +1,4 @@
-"""The LSTM recurrence kernel on the card, against its plain twin.
+"""The port's CUDA kernels on the card, against their plain twins.
 
 A CUDA kernel has no CPU mode, so these tests carry the ``cuda`` marker
 and skip without a card. The file imports torch and the port only, so it
@@ -6,14 +6,21 @@ runs where JAX is not installed:
 
     python -m pytest tests/test_torch_kernel_cuda.py -m cuda
 
-Tolerance 1e-5: f32 on both sides (TF32 off), the kernel sums h @ Wh in
-another order than torch.bmm."""
+Tolerances: the LSTM kernels 1e-5 (f32 on both sides, TF32 off, the kernel
+sums its products in another order than torch.bmm); the CTC DPs 1e-5
+relative to the magnitude (alphas reach -2,500 at 512 frames, where one
+f32 ulp is 2.4e-4; both sides do the same ops in the same order); MAS bit
+for bit (adds and compares of the same f32 values)."""
 import pytest
 import torch
 
-from radmmm_torch.ops import lstm_kernel
+from radmmm_torch.losses import ctc_kernel
+from radmmm_torch.losses.ctc import _ctc_setup
+from radmmm_torch.ops import alignment, lstm_kernel
 from radmmm_torch.ops.lstm import MaskedLSTM
-from radmmm_torch.ops.lstm_kernel import (lstm_recurrence,
+from radmmm_torch.ops.lstm_kernel import (_backward_kernel,
+                                          lstm_recurrence,
+                                          lstm_recurrence_backward_reference,
                                           lstm_recurrence_reference)
 
 pytestmark = pytest.mark.cuda
@@ -32,16 +39,23 @@ def cuda():
      torch.backends.cudnn.allow_tf32) = old
 
 
+def _lstm_inputs(dev, L, H, T, B, seed=0, non_prefix=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xp = torch.randn((L, T, B, 4 * H), generator=g, device=dev)
+    wh = (torch.rand((L, H, 4 * H), generator=g, device=dev) * 2 - 1) \
+        / H ** 0.5
+    lens = torch.tensor([T - i * T // (B + 1) for i in range(B)])
+    mask = (torch.arange(T)[:, None] < lens[None, :]).float()
+    if non_prefix:
+        mask[T // 3, 0] = 0.0
+    rev = [bool(l % 2) for l in range(L)]
+    return xp, mask.to(dev), wh, rev
+
+
 @pytest.mark.parametrize("L,H,T,B", [(2, 260, 96, 8), (6, 128, 200, 1),
                                      (2, 528, 64, 3), (1, 20, 7, 2)])
 def test_kernel_matches_twin(cuda, L, H, T, B):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    xp = torch.randn((L, T, B, 4 * H), generator=g, device=cuda)
-    wh = (torch.rand((L, H, 4 * H), generator=g, device=cuda) * 2 - 1) \
-        / H ** 0.5
-    lens = torch.tensor([T - i * T // (B + 1) for i in range(B)])
-    mask = (torch.arange(T)[:, None] < lens[None, :]).float().to(cuda)
-    rev = [bool(l % 2) for l in range(L)]
+    xp, mask, wh, rev = _lstm_inputs(cuda, L, H, T, B)
     before = lstm_kernel.launches
     got = lstm_recurrence(xp, mask, wh, rev)
     assert lstm_kernel.launches == before + 1
@@ -60,3 +74,189 @@ def test_masked_lstm_on_the_card_matches_the_cpu(cuda):
         got = lstm.to(cuda)(x.to(cuda), mask.to(cuda))
     assert lstm_kernel.launches == before + 1
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("L,H,T,B", [(2, 260, 96, 8), (6, 128, 512, 8),
+                                     (2, 528, 256, 8), (2, 20, 9, 3)])
+def test_backward_kernel_matches_twin(cuda, L, H, T, B):
+    """The saved forward states of the kernel, then the backward kernel
+    and the BPTT twin on them, with a mask that is not a prefix."""
+    xp, mask, wh, rev = _lstm_inputs(cuda, L, H, T, B, non_prefix=True)
+    out, act, cs, hs = lstm_recurrence_reference(xp, mask, wh, rev,
+                                                 save=True)
+    dout = torch.randn_like(out)
+    before = lstm_kernel.backward_launches
+    got = _backward_kernel(dout, act, cs, mask, wh, rev)
+    assert lstm_kernel.backward_launches == before + 1
+    want = lstm_recurrence_backward_reference(dout, act, cs, mask, wh, rev)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_function_returns_gradients_on_the_card(cuda):
+    """The recurrence under autograd on the card: a grad_fn, both kernels
+    launched once, gradients equal to autograd through the plain twin, and
+    a central finite difference along a random direction."""
+    xp, mask, wh, rev = _lstm_inputs(cuda, 2, 12, 9, 3, non_prefix=True)
+    xp.requires_grad_()
+    wh.requires_grad_()
+    f0, b0 = lstm_kernel.launches, lstm_kernel.backward_launches
+    out = lstm_recurrence(xp, mask, wh, rev)
+    assert out.grad_fn is not None
+    w = torch.randn_like(out)
+    gx, gw = torch.autograd.grad((out * w).sum(), (xp, wh))
+    assert (lstm_kernel.launches, lstm_kernel.backward_launches) == (f0 + 1,
+                                                                     b0 + 1)
+    want = torch.autograd.grad(
+        (lstm_recurrence_reference(xp, mask, wh, rev) * w).sum(), (xp, wh))
+    torch.testing.assert_close(gx, want[0], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(gw, want[1], atol=1e-5, rtol=1e-5)
+    # finite difference in f32: eps 1e-2, so tolerance 1e-2 relative
+    dx, dw = torch.randn_like(xp), torch.randn_like(wh)
+    eps = 1e-2
+    with torch.no_grad():
+        f = lambda s: (lstm_recurrence(xp + s * dx, mask, wh + s * dw, rev)
+                       * w).sum()
+        fd = (f(eps) - f(-eps)) / (2 * eps)
+    an = (gx * dx).sum() + (gw * dw).sum()
+    torch.testing.assert_close(fd, an, rtol=1e-2, atol=1e-3)
+
+
+def _ctc_inputs(dev, B, T_mel, T_text, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((B, T_mel, T_text), generator=g, device=dev) * 2
+    tl = torch.tensor([T_text - i * T_text // (B + 1) for i in range(B)],
+                      dtype=torch.int32, device=dev)
+    ml = torch.tensor([T_mel - i * T_mel // (B + 1) for i in range(B)],
+                      dtype=torch.int32, device=dev)
+    tl[-1], ml[-1] = 1, max(T_mel // 5, 1)
+    _, emit, _ = _ctc_setup(logits, tl, -1.0)
+    return emit, tl, ml
+
+
+def _close_band(got, want):
+    """Equal where finite; both at the NEG_INF floor elsewhere."""
+    floor = want < -1e29
+    assert torch.equal(got < -1e29, floor)
+    torch.testing.assert_close(got[~floor], want[~floor], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("B,T_mel,T_text", [(8, 512, 96), (3, 37, 11)])
+def test_ctc_dps_match_twins(cuda, B, T_mel, T_text):
+    emit, tl, ml = _ctc_inputs(cuda, B, T_mel, T_text)
+    a0, b0 = ctc_kernel.alpha_launches, ctc_kernel.beta_launches
+    alphas = ctc_kernel.ctc_alpha(emit, tl, ml)
+    betas = ctc_kernel.ctc_beta(emit, tl, ml)
+    assert (ctc_kernel.alpha_launches, ctc_kernel.beta_launches) == (a0 + 1,
+                                                                     b0 + 1)
+    _close_band(alphas, ctc_kernel.ctc_alpha_reference(emit, tl, ml))
+    _close_band(betas, ctc_kernel.ctc_beta_reference(emit, tl, ml))
+
+
+def _mas_inputs(dev, B, T_mel, T_text, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.rand((B, T_mel, T_text), generator=g, device=dev) + 0.01
+    a = a / a.sum(-1, keepdim=True)
+    tl = torch.tensor([T_text - i * T_text // (B + 1) for i in range(B)],
+                      dtype=torch.int32, device=dev)
+    ml = torch.tensor([T_mel - i * T_mel // (B + 1) for i in range(B)],
+                      dtype=torch.int32, device=dev)
+    return a, tl, ml
+
+
+@pytest.mark.parametrize("B,T_mel,T_text", [(8, 512, 96), (3, 40, 17)])
+def test_mas_matches_twin_bit_for_bit(cuda, B, T_mel, T_text):
+    a, tl, ml = _mas_inputs(cuda, B, T_mel, T_text)
+    # corner cases: one token, one frame, no frames, uniform (all ties)
+    tl[1], ml[2] = 1, 1
+    ml[-1] = 0
+    a[0] = 1.0 / T_text
+    before = alignment.launches
+    got = alignment.mas_width1(a, tl, ml)
+    assert alignment.launches == before + 1
+    log_attn = alignment._log_attention(a, tl)
+    want = alignment.mas_width1_reference(log_attn, tl, ml)
+    assert torch.equal(got, want)
+    assert got[-1].sum() == 0
+
+
+def _tiny_tts_config():
+    """The CPU tests' tiny model shape, dropout off."""
+    from radmmm_torch.models.tts import TTSConfig
+    dap = dict(n_speaker_dim=4, n_accent_dim=2, use_accent_embedding=True,
+               in_dim=18, out_dim=1, reduction_factor=2, n_backbone_layers=1,
+               n_hidden=8, kernel_size=3, p_dropout=0.0, lstm_type="bilstm")
+    return TTSConfig(
+        n_text_tokens=30, n_text_dim=16, n_speakers=3, n_speaker_dim=4,
+        n_accents=2, n_accent_dim=2, n_mel_channels=8, encoder_p_dropout=0.0,
+        decoder=dict(n_speaker_dim=4, use_accent=True, n_accent_dim=2,
+                     n_text_dim=18, n_f0_dims=1, n_energy_avg_dims=1,
+                     n_mel_channels=8, n_flows=2, n_conv_layers_per_step=1,
+                     n_early_size=2, n_early_every=2, n_group_size=2,
+                     scaling_fn="tanh"),
+        f0_predictor=dict(dap, target_offset=-5.0),
+        energy_predictor=dict(dap, target_offset=-0.75),
+        voiced_predictor=dict(dap),
+        duration_predictor=dict(dap, log_target=True))
+
+
+def test_training_step_on_the_card_matches_the_cpu(cuda):
+    """One make_train_step(binarize=True, kl_on=True) at the tiny shape on
+    the card and on the CPU from the same weights and batch: every loss
+    term and the grad norm within 1e-4 relative (f32, TF32 off, sums in
+    another order), every parameter's gradient within 1e-4 of its leaf's
+    largest magnitude (at least 1e-6 of the tree's: a leaf whose gradient
+    is zero in exact arithmetic holds rounding noise on both sides; the
+    worst read 2.8e-6 on an H100), and each kernel launched as often as
+    one step needs."""
+    import copy
+    from radmmm_torch.models.tts import TTSModel
+    from radmmm_torch.training import step
+    torch.manual_seed(0)
+    cpu_model = TTSModel(_tiny_tts_config())
+    g = torch.Generator().manual_seed(1)
+    B, Tt, Tm = 2, 7, 16
+    prior = torch.rand((B, Tm, Tt), generator=g) + 0.1
+    batch = {"text": torch.randint(0, 30, (B, Tt), generator=g),
+             "input_lengths": torch.tensor([7, 5]),
+             "mel": torch.randn((B, Tm, 8), generator=g),
+             "output_lengths": torch.tensor([16, 10]),
+             "speaker_ids": torch.tensor([0, 2]),
+             "accent_ids": torch.tensor([0, 1]),
+             "f0": torch.rand((B, Tm), generator=g) * 2 + 4,
+             "voiced_mask": (torch.rand((B, Tm), generator=g) > 0.5).float(),
+             "energy_avg": torch.rand((B, Tm), generator=g),
+             "attn_prior": prior / prior.sum(-1, keepdim=True),
+             "speaker_f0_mean": torch.tensor([5.0, 5.2]),
+             "speaker_f0_std": torch.tensor([0.3, 0.4])}
+    metrics = {}
+    models = {"cuda": copy.deepcopy(cpu_model), "cpu": cpu_model}
+    for where, m in models.items():
+        state = step.create_train_state(m, device=where)
+        fn = step.make_train_step(m, step.LossConfig(), True, True)
+        b = {k: v.to(where) for k, v in batch.items()}
+        before = (lstm_kernel.launches, lstm_kernel.backward_launches,
+                  ctc_kernel.alpha_launches, ctc_kernel.beta_launches,
+                  alignment.launches)
+        _, met = fn(state, b, torch.Generator(device=where))
+        after = (lstm_kernel.launches, lstm_kernel.backward_launches,
+                 ctc_kernel.alpha_launches, ctc_kernel.beta_launches,
+                 alignment.launches)
+        want = (4, 4, 1, 1, 1) if where == "cuda" else (0, 0, 0, 0, 0)
+        assert tuple(a - b for a, b in zip(after, before)) == want
+        metrics[where] = {k: v.item() for k, v in met.items()}
+    for k, want in metrics["cpu"].items():
+        assert abs(metrics["cuda"][k] - want) <= 1e-5 + 1e-4 * abs(want), k
+    want = dict(models["cpu"].named_parameters())
+    tree = max(w.grad.abs().max().item() for w in want.values()
+               if w.grad is not None)
+    errs = {}
+    for name, p in models["cuda"].named_parameters():
+        g, w = p.grad, want[name].grad
+        assert (g is None) == (w is None), name
+        if g is not None:
+            diff = (g.cpu() - w).abs().max().item()
+            errs[name] = diff / max(w.abs().max().item(), 1e-6 * tree)
+    worst = max(errs, key=errs.get)
+    print(f"worst leaf gradient error {errs[worst]:.3e} at {worst}")
+    assert errs[worst] <= 1e-4, (worst, errs[worst])

@@ -1,7 +1,9 @@
 """radmmm_torch LSTM recurrence: the kernel's plain twin against the JAX
 Pallas kernel (interpret mode) and the ganged scan, MaskedLSTM with
-spectral norm against the JAX module. The kernel itself against the twin
-on a card: tests/test_torch_kernel_cuda.py.
+spectral norm against the JAX module; the recurrence's gradients (the
+plain BPTT twin of the backward kernel, through the autograd Function)
+against jax.grad through the JAX scan. The kernels themselves against the
+twins on a card: tests/test_torch_kernel_cuda.py.
 
 Tolerance 1e-5 throughout: both sides run the same f32 recurrence
 (matmul precision 'highest' in JAX, full f32 in torch on the CPU), and
@@ -19,6 +21,7 @@ from radmmm_torch.convert import tts_state_dict_from_jax
 from radmmm_torch.ops import lstm_kernel
 from radmmm_torch.ops.lstm import MaskedLSTM, multi_bilstm_scan
 from radmmm_torch.ops.lstm_kernel import (lstm_recurrence,
+                                          lstm_recurrence_backward_reference,
                                           lstm_recurrence_reference)
 from tests.test_torch_convert import perturb
 
@@ -114,3 +117,104 @@ def test_wrapper_rejects_bad_inputs():
     # per-lane masks are accepted
     out = lstm_recurrence(xp, torch.ones(2, 5, 3), wh, [False, True])
     assert out.shape == (2, 5, 3, 4)
+
+
+def _gang_inputs(rng, P=3, B=3, T=11, C=5, H=6):
+    xs = rng.standard_normal((P, B, T, C)).astype(np.float32)
+    mask = (np.arange(T)[None, :] < np.array([[11], [7], [1]])).astype(
+        np.float32)
+    wi = (rng.standard_normal((P, C, 8 * H)) * 0.3).astype(np.float32)
+    wh = (rng.standard_normal((P, 2, H, 4 * H)) * 0.3).astype(np.float32)
+    bias = (rng.standard_normal((P, 2, 4 * H)) * 0.1).astype(np.float32)
+    return xs, mask, wi, wh, bias
+
+
+def test_gradients_match_jax_grad_through_the_scan(rng):
+    """P=3 ganged BiLSTMs: d/d(xs, wi, wh, bias) of a weighted sum of the
+    outputs, through the Function (BPTT twin + one bmm for dWh) against
+    jax.grad through multi_bilstm_scan."""
+    args = _gang_inputs(rng)
+    w = rng.standard_normal((3, 3, 11, 12)).astype(np.float32)
+    want = jax.grad(
+        lambda xs, wi, wh, b: jnp.sum(jax_multi_bilstm_scan(
+            xs, jnp.asarray(args[1]), wi, wh, b) * w),
+        argnums=(0, 1, 2, 3))(*[jnp.asarray(args[i]) for i in (0, 2, 3, 4)])
+    t = [torch.from_numpy(a) for a in args]
+    for i in (0, 2, 3, 4):
+        t[i].requires_grad_()
+    (multi_bilstm_scan(*t) * torch.from_numpy(w)).sum().backward()
+    for g_want, i in zip(want, (0, 2, 3, 4)):
+        np.testing.assert_allclose(t[i].grad.numpy(), np.asarray(g_want),
+                                   atol=ATOL)
+
+
+def test_bptt_twin_with_a_mask_that_is_not_a_prefix(rng):
+    """Masked frames inside a sequence pass dh and dc through and give
+    zero gate gradients: the twin against autograd through the forward
+    twin's own ops."""
+    x_proj, mask, wh = _ragged(rng)
+    mask[4, 0] = mask[9, 1] = 0.0
+    xp = torch.from_numpy(x_proj)[None].repeat(2, 1, 1, 1)
+    whs = torch.from_numpy(wh)[None].repeat(2, 1, 1)
+    m = torch.from_numpy(mask)
+    rev = [False, True]
+    dout = torch.from_numpy(rng.standard_normal(
+        (2, *x_proj.shape[:2], wh.shape[0])).astype(np.float32))
+    xp_a = xp.clone().requires_grad_()
+    (lstm_recurrence_reference(xp_a, m, whs, rev) * dout).sum().backward()
+    _, act, cs, _ = lstm_recurrence_reference(xp, m, whs, rev, save=True)
+    got = lstm_recurrence_backward_reference(dout, act, cs, m, whs, rev)
+    np.testing.assert_allclose(got.numpy(), xp_a.grad.numpy(), atol=ATOL)
+    assert got[0, 4, 0].abs().max() == 0 and got[1, 9, 1].abs().max() == 0
+
+
+@pytest.mark.parametrize("bidirectional", [True, False])
+def test_masked_lstm_training_matches_jax(rng, bidirectional):
+    """update_sn=True: the output, the u written back to the spectral
+    state, and the gradients of every weight (sigma's gradient through W
+    only) against jax.grad of the JAX module."""
+    B, T, C, H = 2, 9, 6, 5
+    x = rng.standard_normal((B, T, C)).astype(np.float32)
+    mask = np.ones((B, T), np.float32)
+    mask[1, 6:] = 0
+    w = rng.standard_normal((B, T, H * (2 if bidirectional else 1))).astype(
+        np.float32)
+    mod = JaxMaskedLSTM(H, bidirectional=bidirectional, spectral_norm=True)
+    variables = perturb(mod.init(jax.random.key(0), jnp.asarray(x),
+                                 jnp.asarray(mask)))
+
+    def loss(params):
+        y, mut = mod.apply({"params": params,
+                            "spectral": variables["spectral"]},
+                           jnp.asarray(x), jnp.asarray(mask), True,
+                           mutable=["spectral"])
+        return jnp.sum(y * w), mut
+
+    (_, mut), g = jax.value_and_grad(loss, has_aux=True)(
+        jax.tree_util.tree_map(jnp.asarray, variables["params"]))
+    port = MaskedLSTM(C, H, bidirectional=bidirectional, spectral_norm=True)
+    port.load_state_dict(tts_state_dict_from_jax(variables))
+    (port(torch.from_numpy(x), torch.from_numpy(mask), update_sn=True)
+     * torch.from_numpy(w)).sum().backward()
+    want_u = tts_state_dict_from_jax({"spectral": mut["spectral"]})
+    for k, v in want_u.items():
+        np.testing.assert_allclose(port.get_buffer(k).numpy(), v.numpy(),
+                                   atol=ATOL, err_msg=k)
+    want_g = tts_state_dict_from_jax({"params": g})
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_g[name].numpy(),
+                                   atol=ATOL, err_msg=name)
+
+
+def test_serving_call_writes_nothing_for_the_backward(rng):
+    """Without autograd the recurrence is the plain forward: no grad_fn,
+    and a spectral norm's u is left alone."""
+    lstm = MaskedLSTM(4, 3, spectral_norm=True)
+    u = lstm.sn_fwd.u.clone()
+    x = torch.from_numpy(rng.standard_normal((2, 7, 4)).astype(np.float32))
+    with torch.inference_mode():
+        y = lstm(x, torch.ones(2, 7))
+    assert y.grad_fn is None
+    assert torch.equal(lstm.sn_fwd.u, u)
+    lstm(x, torch.ones(2, 7), update_sn=True)
+    assert not torch.equal(lstm.sn_fwd.u, u)
