@@ -2,7 +2,7 @@
 """Smoke run of the radmmm_torch serving and training paths on one CUDA card.
 
     python3 chip_smoke.py [--phases build,kernels,serve,parity,train,
-                           train_parity] [--seed 0]
+                           train_parity,wn,featurize] [--seed 0]
 
 Phases (all by default):
 
@@ -27,6 +27,10 @@ Phases (all by default):
               on the equivalent targets 1..96 with the blank column;
             - K3, width-1 MAS, at (8, 512, 96), bit for bit; no PyTorch
               call computes MAS, so no library time;
+            - K5, the fused dilated conv + softplus of the WN stack, at the
+              bench script's shape (B 32, T 256, C 1024, K 5) for each
+              dilation 1, 2, 4, 8, and at a ragged one (B 3, T 250);
+              library: F.conv1d in bf16 through cuDNN plus softplus;
 3. serve    the full-width RADMMM model and HiFi-GAN v1 (22,050 Hz) with
             random weights from --seed, exported as a serving artifact,
             served over HTTP by radmmm_torch.server on 127.0.0.1; four
@@ -45,7 +49,18 @@ Phases (all by default):
 6. train_parity  one step at full width and short lengths (B=2, T_text 12,
             T_mel 64, dropout off) on the card and on the CPU from the same
             weights and batch, TF32 off: loss terms, grad norm and every
-            parameter's gradient compared.
+            parameter's gradient compared;
+7. wn       the bench entry point radmmm_torch.scripts.bench_wn_kernel at
+            B 32, T 256: exactly 4 K5 launches per fused stack call, the
+            fused stack against variant A (cuDNN bf16) within bf16
+            rounding, and its table of the three variants;
+8. featurize  TF32 off: eight synthetic voiced utterances (harmonic tones
+            with vibrato, an unvoiced gap, silence; 131,071 samples, so 512
+            mel frames; 96 text tokens), collated and quantised to int16,
+            featurized on the card and on the CPU and compared key by key;
+            then TRAIN_STEPS flagship training steps from that batch with
+            the launch counts of the train phase, featurize and step times,
+            and one reconstruct at sigma 0 on the card.
 
 Any failure exits non-zero. The line before the last is a JSON object
 with the kernels' numbers; the last line is
@@ -62,7 +77,6 @@ import io
 import json
 import math
 import struct
-import subprocess
 import sys
 import tempfile
 import threading
@@ -72,7 +86,8 @@ import wave
 import numpy as np
 import torch
 
-PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity")
+PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity",
+          "wn", "featurize")
 # (name, lanes, hidden, time steps, LSTM input width) on the serving path
 # at text bucket 96 and frame bucket 800 (the flow context runs at 800/2)
 PATH_SHAPES = (("text_encoder", 2, 260, 96, 520),
@@ -102,6 +117,15 @@ GRAD_PARITY_RTOL = 5e-3
 GRAD_FLOOR = 1e-6
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
+PEAK_BF16_FLOP_PER_S = 989e12   # H100 SXM, bf16 dense tensor cores
+# K5 against its twin: the same bf16 products, 5,120 of them per output,
+# summed in f32 in another order
+K5_ATOL = 1e-4
+WN_B, WN_T = 32, 256
+# the fused stack against variant A, which rounds each conv output to bf16
+# (2^-9 relative) before the softplus: 2^-6 of the largest magnitude
+# covers four layers
+WN_PARITY_RTOL = 2.0 ** -6
 TEXT_BUCKETS = [(1, 32), (4, 96)]
 FRAME_BUCKETS = (192, 384, 576, 800)
 SR, HOP = 22050, 256
@@ -147,6 +171,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 def phase_build():
     from radmmm_torch.utils import cuda_build
+    from radmmm_torch.utils.device import card_line
     t0 = time.perf_counter()
     libs = cuda_build.build(force=True)
     log(f"[build] {len(libs)} kernel libraries built in "
@@ -156,12 +181,7 @@ def phase_build():
         for line in ptxas.read_text().splitlines():
             if "registers" in line or "smem" in line:
                 log(f"[build] {name} ptxas: {line.strip()}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    log(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
-        else f"nvidia-smi failed: {smi.stderr.strip()}")
+    log(card_line())
 
 
 def _lengths(T: int, B: int) -> torch.Tensor:
@@ -170,11 +190,13 @@ def _lengths(T: int, B: int) -> torch.Tensor:
     return torch.tensor([T - i * T // (B + 1) for i in range(B)])
 
 
-def _bound(n_bytes: float, flops: float) -> tuple:
-    """(least ms, what bounds it): the bytes at the HBM rate or the f32
-    operations at the f32 rate, whichever takes longer."""
+def _bound(n_bytes: float, flops: float,
+           peak_flops: float = PEAK_F32_FLOP_PER_S) -> tuple:
+    """(least ms, what bounds it): the bytes at the HBM rate or the
+    operations at the peak rate of their type (f32 unless given),
+    whichever takes longer."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -415,6 +437,56 @@ def _mas_rows(gen, dev) -> list:
                  bound_ms=b_ms, bound_by=b_by)]
 
 
+def _conv_softplus_rows(gen, dev) -> list:
+    """K5 at the bench shape for each dilation (and checked at a ragged
+    shape): error against the twin, times of kernel, twin and cuDNN, the
+    bound."""
+    import torch.nn.functional as F
+    from radmmm_torch.ops import wn_kernel
+    from radmmm_torch.scripts.bench_wn_kernel import C, DILATIONS, K
+    rows = []
+    for d in DILATIONS:
+        errs = []
+        for B, T in ((3, 250), (WN_B, WN_T)):
+            x = torch.randn((B, T, C), generator=gen, device=dev).to(
+                torch.bfloat16)
+            w = (torch.randn((K, C, C), generator=gen, device=dev)
+                 * 0.02).to(torch.bfloat16)
+            b = torch.randn((C,), generator=gen, device=dev) * 0.1
+            got = wn_kernel.conv_softplus(x, w, b, d)
+            want = wn_kernel.conv_softplus_reference(x, w, b, d)
+            torch.cuda.synchronize()
+            errs.append((got - want).abs().max().item())
+        k_ms = cuda_ms(lambda: wn_kernel.conv_softplus(x, w, b, d), 20)
+        p_ms = cuda_ms(lambda: wn_kernel.conv_softplus_reference(x, w, b, d),
+                       5)
+        # cuDNN in its own layout, prepared outside the timed call
+        x_ncw = x.transpose(1, 2).contiguous()
+        w_oik = w.permute(2, 1, 0).contiguous()
+        lib_ms = cuda_ms(lambda: F.softplus(F.conv1d(
+            x_ncw, w_oik, padding=d * (K - 1) // 2, dilation=d).float()
+            + b[:, None]), 20)
+        # x and w in bf16 read once, the bias read and the f32 output
+        # written once; 2 K C^2 operations per output row
+        b_ms, b_by = _bound(2 * WN_B * WN_T * C + 2 * K * C * C
+                            + 4 * C + 4 * WN_B * WN_T * C,
+                            2.0 * K * C * C * WN_B * WN_T,
+                            PEAK_BF16_FLOP_PER_S)
+        log(f"[kernels] K5 conv_softplus B={WN_B} T={WN_T} C={C} K={K} "
+            f"d={d}: max_abs_err {errs[1]:.3e} (atol {K5_ATOL:g}; ragged "
+            f"B=3 T=250 {errs[0]:.3e}), kernel_ms {k_ms:.4f} "
+            f"({2 * K * C * C * WN_B * WN_T / k_ms / 1e9:.1f} TFLOP/s), "
+            f"plain_ms {p_ms:.3f}, library_ms {lib_ms:.4f} (cuDNN bf16 "
+            f"conv + softplus), bound_ms {b_ms:.5f} ({b_by})")
+        if max(errs) > K5_ATOL:
+            fail(f"conv_softplus disagrees with its twin at dilation {d}")
+        rows.append(dict(kernel="conv_softplus", dilation=d, B=WN_B, T=WN_T,
+                         C=C, K=K, max_abs_err=max(errs), ms=k_ms,
+                         plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by))
+    return rows
+
+
 @tf32_off()
 def phase_kernels(seed: int) -> list:
     dev = torch.device("cuda")
@@ -429,6 +501,7 @@ def phase_kernels(seed: int) -> list:
                                train=True))
     rows.extend(_ctc_rows(gen, dev))
     rows.extend(_mas_rows(gen, dev))
+    rows.extend(_conv_softplus_rows(gen, dev))
     return rows
 
 
@@ -673,27 +746,30 @@ def phase_parity(seed: int, model, model_gpu):
 
 def _counters() -> dict:
     from radmmm_torch.losses import ctc_kernel
-    from radmmm_torch.ops import alignment, lstm_kernel
+    from radmmm_torch.ops import alignment, lstm_kernel, wn_kernel
     return {"lstm_recurrence": lstm_kernel.launches,
             "lstm_recurrence_bwd": lstm_kernel.backward_launches,
             "ctc_alpha": ctc_kernel.alpha_launches,
             "ctc_beta": ctc_kernel.beta_launches,
-            "mas_width1": alignment.launches}
+            "mas_width1": alignment.launches,
+            "conv_softplus": wn_kernel.launches}
 
 
 def _zero_counters() -> None:
     from radmmm_torch.losses import ctc_kernel
-    from radmmm_torch.ops import alignment, lstm_kernel
+    from radmmm_torch.ops import alignment, lstm_kernel, wn_kernel
     lstm_kernel.launches = lstm_kernel.backward_launches = 0
     ctc_kernel.alpha_launches = ctc_kernel.beta_launches = 0
     alignment.launches = 0
+    wn_kernel.launches = 0
 
 
 # launches of each kernel in one step of make_train_step(binarize=True):
 # the encoder, duration-DAP, ganged frame-DAP and flow-context recurrences
-# forward and backward, one CTC loss (alpha; beta in its backward), one MAS
+# forward and backward, one CTC loss (alpha; beta in its backward), one
+# MAS; the package's WN layers do not run K5
 PER_STEP = {"lstm_recurrence": 4, "lstm_recurrence_bwd": 4, "ctc_alpha": 1,
-            "ctc_beta": 1, "mas_width1": 1}
+            "ctc_beta": 1, "mas_width1": 1, "conv_softplus": 0}
 
 
 def train_batch(seed: int, B: int, T_text: int, T_mel: int, device,
@@ -729,10 +805,12 @@ def _loss_config():
                       speaker_reg={"variance": 0.0, "covariance": 0.0})
 
 
-@tf32_off()
-def phase_train(seed: int) -> dict:
-    """The flagship training step at full width, f32 (TF32 off), on the
-    benchmark's batch. Returns the kernels' launches on the timed steps."""
+def _flagship_training(seed: int, batch: dict, tag: str):
+    """The full-width model from ``seed`` on the card, its whitening init
+    on ``batch``, one warm-up step, then TRAIN_STEPS timed steps of
+    make_train_step(binarize=True, kl_on=True) with the kernels' counts
+    from zero: every metric finite and each kernel launched as PER_STEP
+    says. Returns (model, step, state, generator, launches, mean ms)."""
     from radmmm_torch.models.tts import TTSModel, default_radmmm_config
     from radmmm_torch.training.step import (create_train_state,
                                             make_train_step,
@@ -743,18 +821,17 @@ def phase_train(seed: int) -> dict:
     model = TTSModel(default_radmmm_config())
     _nudge_couplings(model)
     state = create_train_state(model, device="cuda")
-    batch = train_batch(seed, TRAIN_B, TRAIN_T_TEXT, TRAIN_T_MEL, dev)
     make_whitening_init(model)(state, batch)
     step = make_train_step(model, _loss_config(), binarize=True, kl_on=True)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[train] full-width model ({n_params / 1e6:.1f} M parameters) on "
+    log(f"[{tag}] full-width model ({n_params / 1e6:.1f} M parameters) on "
         f"the card with the whitening init in {time.perf_counter() - t0:.2f}"
         " s")
     t0 = time.perf_counter()
     state, _ = step(state, batch, gen)
     torch.cuda.synchronize()
-    log(f"[train] warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    log(f"[{tag}] warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms")
     torch.cuda.reset_peak_memory_stats()
     # the main path: counts from zero, the timed steps, counts read after
     _zero_counters()
@@ -768,22 +845,35 @@ def phase_train(seed: int) -> dict:
     launches = _counters()
     for i, (ms, m) in enumerate(zip(times, mets)):
         bad = [k for k, v in m.items() if not math.isfinite(v)]
-        log(f"[train] step {i}: {ms:.1f} ms, loss {m['loss']:.4f}, "
+        log(f"[{tag}] step {i}: {ms:.1f} ms, loss {m['loss']:.4f}, "
             f"grad_norm {m['grad_norm']:.4f}, "
             + ", ".join(f"{k} {v:.4f}" for k, v in m.items()
                         if k not in ("loss", "grad_norm")))
         if bad:
-            fail(f"training step {i}: non-finite {bad}")
+            fail(f"{tag} training step {i}: non-finite {bad}")
     want = {k: n * TRAIN_STEPS for k, n in PER_STEP.items()}
-    log(f"[train] kernel launches on {TRAIN_STEPS} steps: {launches} "
+    log(f"[{tag}] kernel launches on {TRAIN_STEPS} steps: {launches} "
         f"(expected {want})")
     if launches != want:
-        fail("the training step did not launch each kernel as expected")
+        fail(f"the {tag} training step did not launch each kernel as "
+             "expected")
+    B, T_mel = batch["mel"].shape[:2]
     ms = sum(times) / len(times)
-    log(f"[train] {ms:.2f} ms/step (mean of {TRAIN_STEPS} warm steps), "
-        f"{TRAIN_B * TRAIN_T_MEL / ms * 1e3:.0f} mel frames/s, peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-        f"(B={TRAIN_B}, T_text={TRAIN_T_TEXT}, T_mel={TRAIN_T_MEL}, f32)")
+    log(f"[{tag}] {ms:.2f} ms/step (mean of {TRAIN_STEPS} warm steps), "
+        f"{B * T_mel / ms * 1e3:.0f} mel frames/s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (B={B}, "
+        f"T_text={batch['text'].shape[1]}, T_mel={T_mel}, f32)")
+    return model, step, state, gen, launches, ms
+
+
+@tf32_off()
+def phase_train(seed: int) -> dict:
+    """The flagship training step at full width, f32 (TF32 off), on the
+    benchmark's batch. Returns the kernels' launches on the timed steps."""
+    batch = train_batch(seed, TRAIN_B, TRAIN_T_TEXT, TRAIN_T_MEL,
+                        torch.device("cuda"))
+    _, step, state, gen, launches, _ = _flagship_training(seed, batch,
+                                                          "train")
     profile(lambda: step(state, batch, gen),
             f"one training step (B={TRAIN_B}, T_mel={TRAIN_T_MEL}, traced)",
             top=15)
@@ -876,14 +966,215 @@ def leaf_grad_errors(got_model, want_model) -> list:
     return sorted(out, key=lambda e: -e[0])
 
 
-def kernel_entries(rows: list, serve_launches, train_launches) -> list:
+def phase_wn() -> int:
+    """The bench entry point's path at B 32, T 256: one fused stack call
+    with the counts from zero (exactly one K5 launch per layer), then the
+    script's parity line and table. Returns the K5 launches of that call."""
+    from radmmm_torch.scripts import bench_wn_kernel as wn
+    params, x = wn.make_inputs(WN_B, WN_T, "cuda")
+    with torch.no_grad():
+        wn.wn_stack_fused(params, x)                 # first use
+        torch.cuda.synchronize()
+        # the main path: counts from zero, one stack call, counts read after
+        _zero_counters()
+        h, skip = wn.wn_stack_fused(params, x)
+        torch.cuda.synchronize()
+    launches = _counters()
+    want = dict.fromkeys(launches, 0)
+    want["conv_softplus"] = len(wn.DILATIONS)
+    log(f"[wn] kernel launches on one fused stack call: {launches} "
+        f"(expected {want})")
+    if launches != want:
+        fail("the fused WN stack did not launch K5 once per layer")
+    if not (torch.isfinite(h).all() and torch.isfinite(skip).all()):
+        fail("the fused WN stack gave non-finite values")
+    res = wn.run(params, x, iters=20)
+    for part in ("h", "skip"):
+        err, mag = res[f"err_A_C_{part}"], res[f"max_A_{part}"]
+        log(f"[wn] fused stack against variant A, {part}: max_abs_err "
+            f"{err:.3e} (bound {WN_PARITY_RTOL:g} of max |A| {mag:.2f}: A "
+            "rounds each conv output to bf16)")
+        if not err <= WN_PARITY_RTOL * mag:
+            fail(f"the fused WN stack disagrees with variant A in {part}")
+    return launches["conv_softplus"]
+
+
+FEAT_B, FEAT_SAMPLES, FEAT_TEXT = 8, 131071, 96
+# card against CPU, featurized batch (f32, TF32 off). The mel goes through
+# cuFFT on the card and pocketfft on the CPU, whose rounding is relative to
+# the frame's largest coefficient: it is held in the linear domain, to
+# FEAT_MEL_RTOL of the utterance's largest mel value (the log of a bin far
+# below that, a window sidelobe between harmonics, is rounding noise on
+# both sides); the energy, a mean of 80 log bins over 20, to
+# FEAT_ENERGY_ATOL; the prior, float64 on both sides, to FEAT_PRIOR_RTOL
+FEAT_MEL_RTOL = 1e-5
+FEAT_ENERGY_ATOL = 1e-4
+FEAT_PRIOR_RTOL = 1e-5
+# voicing, F0 and p_voiced are decisions on thresholds and a Viterbi path
+# that can tip on the last bit of an f32 sum; each must agree on all but
+# this share of the valid frames
+FEAT_OFF_SHARE = 5e-3
+
+
+def featurize_items(seed: int) -> list:
+    """Eight synthetic voiced utterances of FEAT_SAMPLES samples at
+    22,050 Hz: a three-harmonic tone with 5 Hz vibrato (110-250 Hz), an
+    unvoiced noise burst, a second tone a fifth higher, then silence;
+    FEAT_TEXT random tokens each."""
+    rng = np.random.default_rng(seed)
+    n = FEAT_SAMPLES
+    t = np.arange(n) / SR
+    items = []
+    for b in range(FEAT_B):
+        audio = np.zeros(n)
+        for lo, hi, f in ((0.0, 0.4, 110.0 + 20.0 * b),
+                          (0.5, 0.85, 1.5 * (110.0 + 20.0 * b))):
+            seg = slice(int(lo * n), int(hi * n))
+            phase = (2 * np.pi * f * t[seg]
+                     + f * 0.03 / 5.0 * np.sin(2 * np.pi * 5.0 * t[seg]))
+            audio[seg] = (0.4 * np.sin(phase) + 0.25 * np.sin(2 * phase)
+                          + 0.12 * np.sin(3 * phase))
+        gap = slice(int(0.4 * n), int(0.5 * n))
+        audio[gap] = 0.05 * rng.standard_normal(gap.stop - gap.start)
+        items.append({
+            "audio": audio.astype(np.float32),
+            "text_encoded": rng.integers(1, 426, FEAT_TEXT),
+            "speaker_id": b % 21, "accent_id": b % 7,
+            "speaker_f0_mean": float(np.log(130.0 + 20.0 * b)),
+            "speaker_f0_std": 0.25, "speaker_energy_mean": 0.5,
+            "speaker_energy_std": 0.15, "audiopath": f"synthetic_{b}.wav",
+            "text_raw": "synthetic", "language": "en_US", "idx": b})
+    return items
+
+
+def _compare_featurized(got: dict, want: dict) -> None:
+    """Card batch against CPU batch, key by key, every difference
+    printed."""
+    valid = (torch.arange(want["mel"].shape[1])[None, :]
+             < want["output_lengths"][:, None])
+    n_valid = int(valid.sum())
+    for k, w in want.items():
+        if not isinstance(w, torch.Tensor):
+            if got[k] != w:
+                fail(f"featurize: {k} differs")
+            continue
+        g = got[k].cpu()
+        if k == "mel":
+            lin_g, lin_w = g.exp() * valid[..., None], w.exp() * valid[..., None]
+            scale = lin_w.amax(dim=(1, 2), keepdim=True)
+            err = ((lin_g - lin_w).abs() / scale).max().item()
+            ok = err <= FEAT_MEL_RTOL
+            log(f"[featurize]   mel: max |card - cpu| of exp(log-mel) over "
+                f"the utterance's largest {err:.3e} (rtol {FEAT_MEL_RTOL:g}); "
+                f"log-mel max_abs_err {(g - w).abs().max().item():.3e}, "
+                f"median {(g - w).abs().median().item():.3e}")
+        elif k in ("energy_avg", "attn_prior"):
+            err = (g - w).abs().max().item()
+            if k == "attn_prior":
+                ok = bool(((g - w).abs() <= 1e-12 + FEAT_PRIOR_RTOL
+                           * w.abs()).all())
+                tol = f"rtol {FEAT_PRIOR_RTOL:g}"
+            else:
+                ok = err <= FEAT_ENERGY_ATOL
+                tol = f"atol {FEAT_ENERGY_ATOL:g}"
+            log(f"[featurize]   {k}: max_abs_err {err:.3e} ({tol})")
+        elif k in ("voiced_mask", "p_voiced", "f0"):
+            if k == "f0":          # log F0 where both call the frame voiced
+                where = (got["voiced_mask"].cpu() > 0) & (
+                    want["voiced_mask"] > 0)
+                off, tol = (g - w).abs() > 1e-4 * w.abs(), "1e-4 relative"
+            else:
+                where = valid
+                atol = 0 if k == "voiced_mask" else 1e-4
+                off, tol = (g - w).abs() > atol, f"atol {atol:g}"
+            n_off = int((off & where).sum())
+            ok = n_off <= FEAT_OFF_SHARE * n_valid
+            log(f"[featurize]   {k}: {n_off} of {n_valid} valid frames "
+                f"beyond {tol} (at most a share of {FEAT_OFF_SHARE:g}), "
+                f"max_abs_err {(g - w)[where].abs().max().item():.3e}")
+        else:
+            ok = torch.equal(g, w)
+            if not ok:
+                log(f"[featurize]   {k}: differs")
+        if not ok:
+            fail(f"featurize: card and CPU disagree on {k}")
+
+
+@tf32_off()
+def phase_featurize(seed: int) -> dict:
+    """int16 audio -> the training batch on the card, against the CPU;
+    then TRAIN_STEPS training steps from it and one reconstruct at sigma
+    0. Returns the kernels' launches on the timed steps."""
+    from radmmm_torch.data import pitch
+    from radmmm_torch.data.collate import Featurizer, collate_host
+    host = collate_host(featurize_items(seed))
+    B, T_audio = host["audio"].shape
+    feat = Featurizer(device="cuda")
+    batch = feat(host)                               # first use: FFT plans
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        batch = feat(host)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    feat_ms = sum(times) / len(times)
+    t0 = time.perf_counter()
+    cpu = Featurizer(device="cpu")(host)
+    cpu_s = time.perf_counter() - t0
+    T_mel = batch["mel"].shape[1]
+    log(f"[featurize] B={B}, {T_audio} samples (int16), T_mel={T_mel}, "
+        f"T_text={batch['text'].shape[1]}: {feat_ms:.2f} ms on the card "
+        f"(mean of 3: {', '.join(f'{t:.1f}' for t in times)}), "
+        f"{B * T_mel / feat_ms * 1e3:.0f} mel frames/s; on the host CPU "
+        f"{cpu_s:.2f} s; voiced share "
+        f"{batch['voiced_mask'].sum().item() / B / T_mel:.3f}")
+    _compare_featurized(batch, cpu)
+    # pYIN and its Viterbi DP alone (the DP at the shape pYIN gives it:
+    # 1 + T_audio // 256 frames, 2 x 181 states)
+    audio = batch["audio"]
+    pyin_ms = cuda_ms(lambda: pitch.pyin_f0(audio), 3)
+    n_bins = int(np.ceil(60 * np.log2(640.0 / 80.0))) + 1
+    log_obs = torch.log(torch.rand((B, 1 + T_audio // 256, 2, n_bins),
+                                   device=audio.device))
+    log_P = torch.log(torch.rand((n_bins, n_bins), device=audio.device))
+    log_V = torch.log(torch.rand((2, 2), device=audio.device))
+    viterbi_ms = cuda_ms(lambda: pitch.viterbi(log_obs, log_P, log_V), 3)
+    log(f"[featurize] of the featurize {feat_ms:.2f} ms: pyin_f0 alone "
+        f"{pyin_ms:.2f} ms, its Viterbi DP and backtrack {viterbi_ms:.2f} "
+        f"ms ({log_obs.shape[1]} frames)")
+    profile(lambda: feat(host), f"one featurize call (B={B}, T_mel={T_mel}, "
+            "traced)", top=10)
+
+    model, _, _, _, launches, step_ms = _flagship_training(seed, batch,
+                                                           "featurize")
+    log(f"[featurize] featurize {feat_ms:.2f} ms + step {step_ms:.2f} ms "
+        f"per batch of {B} x {T_mel} frames from int16 audio")
+    model.eval()
+    with torch.inference_mode():
+        out = model.reconstruct(batch, sigma=0.0)
+    torch.cuda.synchronize()
+    mel, dur = out["mel"], out["durations"]
+    log(f"[featurize] reconstruct at sigma 0: mel {tuple(mel.shape)}, "
+        f"|mel| max {mel.abs().max().item():.2f}, MAS durations per item "
+        f"{dur.sum(1).tolist()}")
+    if not (mel.shape == batch["mel"].shape and torch.isfinite(mel).all()
+            and torch.equal(dur.sum(1), batch["output_lengths"])):
+        fail("reconstruct gave a wrong shape, non-finite values or "
+             "durations that do not cover the frames")
+    return launches
+
+
+def kernel_entries(rows: list, serve_launches, train_launches,
+                   wn_launches) -> list:
     """The kernels' JSON entries. K4 forward keeps its serving numbers (one
     B=1 request at text bucket 96 / frame bucket 800 makes one launch at
     each serving shape: the sums of those rows) and lists every shape; K4
     backward sums the four training shapes (one step's launches); K1-K3 are
-    one launch each at the training batch. ``launches`` come from the
-    main paths' runs: serving and training for K4 forward, training for
-    the rest."""
+    one launch each at the training batch; K5 sums its four dilations (one
+    WN stack's launches) and lists each. ``launches`` come from the main
+    paths' runs: serving and training for K4 forward, the wn phase for K5,
+    training for the rest."""
     def by(kernel, **kw):
         return [r for r in rows if r["kernel"] == kernel
                 and all(r.get(k) == v for k, v in kw.items())]
@@ -928,6 +1219,14 @@ def kernel_entries(rows: list, serve_launches, train_launches) -> list:
                             **{k: r[k] for k in (
                                 "max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")}))
+    k5 = by("conv_softplus")
+    entries.append(dict(
+        name="conv_softplus", route="cuda",
+        source="radmmm_torch/csrc/conv_softplus.cu",
+        replaces="scripts/bench_wn_kernel.py:133", launches=wn_launches,
+        max_abs_err=max(r["max_abs_err"] for r in k5), **summed(k5),
+        bound_by=max(k5, key=lambda r: r["bound_ms"])["bound_by"],
+        shapes=k5))
     return entries
 
 
@@ -941,10 +1240,10 @@ def main() -> int:
         log("chip_smoke: no CUDA device; this script runs only on the card")
         return 2
     # outside a checkout of the repository this import fails
-    from radmmm_torch.ops import lstm_kernel  # noqa: F401
+    from radmmm_torch.utils.device import card_line
 
     t_start = time.perf_counter()
-    rows, serve_launches, train_launches = [], None, None
+    rows, serve_launches, train_launches, wn_launches = [], None, None, None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -966,16 +1265,15 @@ def main() -> int:
         train_launches = phase_train(args.seed)
     if "train_parity" in phases:
         phase_train_parity(args.seed)
+    if "wn" in phases:
+        wn_launches = phase_wn()
+    if "featurize" in phases:
+        phase_featurize(args.seed)
     if rows:
-        log(json.dumps({"kernels": kernel_entries(rows, serve_launches,
-                                                  train_launches)}))
+        log(json.dumps({"kernels": kernel_entries(
+            rows, serve_launches, train_launches, wn_launches)}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    log(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
-        else f"nvidia-smi failed: {smi.stderr.strip()}")
+    log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

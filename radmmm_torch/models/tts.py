@@ -11,7 +11,9 @@ Counterpart of ``radmmm_tpu/models/tts.py``: ``TTSConfig``,
 * the serving stages ``infer_durations`` (text -> encoder states and token
   durations) and ``infer_decode`` (length regulation, voiced/F0/energy
   prediction, F0 stat shifting, flow sampling, mel descale), and ``infer``
-  composing both.
+  composing both;
+* ``reconstruct``: MAS durations from a featurized batch's own mel, then
+  the flow sampled on its ground-truth F0 and energy.
 """
 from __future__ import annotations
 
@@ -402,3 +404,34 @@ class TTSModel(nn.Module):
             f0_mean=f0_mean, f0_std=f0_std, sigma=sigma,
             max_frames=max_frames, shift_stats=shift_stats,
             generator=generator, residual=residual)
+
+    def reconstruct(self, batch: Dict[str, torch.Tensor], sigma: float = 1.0,
+                    generator: Optional[torch.Generator] = None,
+                    residual: Optional[torch.Tensor] = None):
+        """Reconstruction (voice cloning) from a featurized batch: token
+        durations from the hard MAS alignment of the batch's own mel, then
+        the flow sampled on the batch's ground-truth F0 and energy. Returns
+        {'mel' (descaled), 'attn', 'attn_soft', 'durations', 'lens'}."""
+        c = self.config
+        in_lens = SeqLens.create(batch["input_lengths"],
+                                 batch["text"].shape[1])
+        out_lens = SeqLens.create(batch["output_lengths"],
+                                  batch["mel"].shape[1])
+        mel = mel_scale(batch["mel"]) if c.scale_mel else batch["mel"]
+        spk_vecs = self.speaker_embeddings(batch["speaker_ids"])
+        accent_vecs = (self.accent_embeddings(batch["accent_ids"])
+                       if c.use_accent else None)
+        txt_enc, txt_emb = self.encode_text(batch["text"], in_lens,
+                                            accent_vecs)
+        attn, attn_soft, _, _ = self.compute_attention(
+            mel, txt_emb, spk_vecs, accent_vecs, out_lens, in_lens,
+            batch.get("attn_prior"), binarize=True)
+        durations = attn.sum(dim=1).to(torch.int32)          # (B, T_text)
+        dec_out = self.decoder.infer(
+            spk_vecs, txt_enc, sigma, dur=durations, f0=batch.get("f0"),
+            energy_avg=batch.get("energy_avg"), lens=out_lens,
+            accent_vecs=accent_vecs, residual=residual, generator=generator)
+        out_mel = (mel_descale(dec_out["mel"]) if c.scale_mel
+                   else dec_out["mel"])
+        return {"mel": out_mel, "attn": attn, "attn_soft": attn_soft,
+                "durations": durations, "lens": out_lens}

@@ -1,6 +1,8 @@
 """Device selection for the port's entry points."""
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -13,3 +15,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (a card's rates
+    depend on its power limit, so every measurement is printed beside
+    it)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        return f"nvidia-smi failed: {smi.stderr.strip()}"
+    return smi.stdout.strip().splitlines()[0]

@@ -10,13 +10,15 @@ Tolerances: the LSTM kernels 1e-5 (f32 on both sides, TF32 off, the kernel
 sums its products in another order than torch.bmm); the CTC DPs 1e-5
 relative to the magnitude (alphas reach -2,500 at 512 frames, where one
 f32 ulp is 2.4e-4; both sides do the same ops in the same order); MAS bit
-for bit (adds and compares of the same f32 values)."""
+for bit (adds and compares of the same f32 values); the fused conv +
+softplus 1e-4 (the same exact bf16 products, up to 5,120 per output, summed
+in f32 in another order)."""
 import pytest
 import torch
 
 from radmmm_torch.losses import ctc_kernel
 from radmmm_torch.losses.ctc import _ctc_setup
-from radmmm_torch.ops import alignment, lstm_kernel
+from radmmm_torch.ops import alignment, lstm_kernel, wn_kernel
 from radmmm_torch.ops.lstm import MaskedLSTM
 from radmmm_torch.ops.lstm_kernel import (_backward_kernel,
                                           lstm_recurrence,
@@ -178,6 +180,37 @@ def test_mas_matches_twin_bit_for_bit(cuda, B, T_mel, T_text):
     want = alignment.mas_width1_reference(log_attn, tl, ml)
     assert torch.equal(got, want)
     assert got[-1].sum() == 0
+
+
+# K5 is CUDA C++, not Triton: a tensor-core implicit GEMM whose tap rows
+# are read with a data-dependent halo (zero outside [0, T)), not a fused
+# elementwise pass, the case the port keeps Triton for.
+@pytest.mark.parametrize("B,T,C_in,C_out", [(32, 256, 1024, 1024),
+                                            (3, 250, 1024, 1024),
+                                            (2, 37, 24, 40)])
+@pytest.mark.parametrize("dilation", [1, 2, 4, 8])
+def test_conv_softplus_matches_twin(cuda, B, T, C_in, C_out, dilation):
+    """The bench shape, a ragged one (T not a multiple of the 128-row
+    tile) and narrow channels (a partial input chunk and output tile)."""
+    g = torch.Generator(device=cuda).manual_seed(dilation)
+    x = torch.randn((B, T, C_in), generator=g, device=cuda)
+    w = torch.randn((5, C_in, C_out), generator=g, device=cuda) * 0.02
+    b = torch.randn((C_out,), generator=g, device=cuda) * 0.1
+    before = wn_kernel.launches
+    got = wn_kernel.conv_softplus(x, w, b, dilation)
+    assert wn_kernel.launches == before + 1
+    want = wn_kernel.conv_softplus_reference(x, w, b, dilation)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("C_in,C_out", [(12, 16), (16, 20)])
+def test_conv_softplus_refuses_channel_counts_on_the_card(cuda, C_in, C_out):
+    before = wn_kernel.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        wn_kernel.conv_softplus(torch.zeros((1, 8, C_in), device=cuda),
+                                torch.zeros((5, C_in, C_out), device=cuda),
+                                torch.zeros(C_out, device=cuda), 1)
+    assert wn_kernel.launches == before
 
 
 def _tiny_tts_config():
