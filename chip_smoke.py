@@ -20,8 +20,10 @@ Phases (all by default):
               input 1060), B=1 and B=8, and at the training step's four
               shapes (B=8, T_text 96, T_mel 512) with its saved states;
               library: cuDNN nn.LSTM over packed sequences;
-            - K4 backward at the training shapes; library: the backward of
-              cuDNN nn.LSTM over packed sequences;
+            - K4 backward at the training shapes, with the route its plan
+              took (a cluster per lane, or the cooperative grid) and its
+              us per step; library: the backward of cuDNN nn.LSTM over
+              packed sequences;
             - K1 and K2, the CTC alpha and beta DPs, at B=8, T_mel=512,
               2*96+1 states; library: F.ctc_loss forward and its backward
               on the equivalent targets 1..96 with the blank column;
@@ -30,7 +32,10 @@ Phases (all by default):
             - K5, the fused dilated conv + softplus of the WN stack, at the
               bench script's shape (B 32, T 256, C 1024, K 5) for each
               dilation 1, 2, 4, 8, and at a ragged one (B 3, T 250);
-              library: F.conv1d in bf16 through cuDNN plus softplus;
+              library: F.conv1d in bf16 through cuDNN plus softplus,
+              timed with cudnn.benchmark on (and its default algorithm
+              logged beside); gemm_ms: a bf16 torch.matmul of the same
+              (B T, K Cin) x (K Cin, Cout) size;
 3. serve    the full-width RADMMM model and HiFi-GAN v1 (22,050 Hz) with
             random weights from --seed, exported as a serving artifact,
             served over HTTP by radmmm_torch.server on 127.0.0.1; four
@@ -179,7 +184,8 @@ def phase_build():
     for name in libs:
         ptxas = cuda_build.BUILD_DIR / f"{name}.ptxas.txt"
         for line in ptxas.read_text().splitlines():
-            if "registers" in line or "smem" in line:
+            if any(k in line for k in ("registers", "smem", "spill",
+                                       "arning")):
                 log(f"[build] {name} ptxas: {line.strip()}")
     log(card_line())
 
@@ -234,8 +240,9 @@ def _lstm_rows(gen, dev, name, L, H, T, cin, B, train: bool):
     """K4 forward (and in training K4 backward) at one shape: error
     against the twin, times of kernel, twin and cuDNN, the bound."""
     from radmmm_torch.ops.lstm_kernel import (
-        _backward_kernel, _forward_kernel, lstm_recurrence,
-        lstm_recurrence_backward_reference, lstm_recurrence_reference)
+        _backward_kernel, _forward_kernel, card_backward_plan,
+        lstm_recurrence, lstm_recurrence_backward_reference,
+        lstm_recurrence_reference)
     lens = _lengths(T, B)
     mask = (torch.arange(T)[:, None] < lens[None, :]).float().to(dev)
     xp = torch.randn((L, T, B, 4 * H), generator=gen, device=dev)
@@ -304,13 +311,18 @@ def _lstm_rows(gen, dev, name, L, H, T, cin, B, train: bool):
     libb_ms = cuda_ms(lambda: torch.autograd.grad(
         outs, inputs, grads, retain_graph=True), 10)
     bb_ms, bb_by = bound_bwd_ms(L, T, B, H, valid)
+    plan = card_backward_plan(L, B, H)
     bwd = dict(kernel="lstm_recurrence_bwd", path=tag, shape=name, L=L, H=H,
                T=T, B=B, max_abs_err=err_b, ms=kb_ms, plain_ms=pb_ms,
-               library_ms=libb_ms, bound_ms=bb_ms, bound_by=bb_by)
+               library_ms=libb_ms, bound_ms=bb_ms, bound_by=bb_by,
+               us_per_step=kb_ms * 1e3 / T, route=plan.route,
+               ctas_per_lane=plan.n_cta, hb=plan.hb)
     log(f"[kernels] K4-backward {name} L={L} H={H} T={T} B={B}: "
         f"max_abs_err {err_b:.3e} (rtol {KERNEL_RTOL:g}, floor 1e-5, of "
         f"|dgates| up to {w.abs().max().item():.2f}), kernel_ms "
-        f"{kb_ms:.4f}, plain_ms {pb_ms:.3f}, library_ms {libb_ms:.4f}, "
+        f"{kb_ms:.4f} ({kb_ms * 1e3 / T:.2f} us/step, route {plan.route}: "
+        f"{plan.n_cta} CTAs a lane of {plan.hb} units, ks {plan.ks}), "
+        f"plain_ms {pb_ms:.3f}, library_ms {libb_ms:.4f}, "
         f"bound_ms {bb_ms:.5f} ({bb_by})")
     if not ok_b:
         fail(f"K4 backward disagrees with its twin at {name}")
@@ -437,13 +449,36 @@ def _mas_rows(gen, dev) -> list:
                  bound_ms=b_ms, bound_by=b_by)]
 
 
+@contextlib.contextmanager
+def cudnn_benchmark():
+    """cuDNN picks each convolution's algorithm by timing them
+    (torch.backends.cudnn.benchmark); the previous setting comes back
+    after."""
+    old = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = old
+
+
 def _conv_softplus_rows(gen, dev) -> list:
     """K5 at the bench shape for each dilation (and checked at a ragged
-    shape): error against the twin, times of kernel, twin and cuDNN, the
-    bound."""
+    shape): error against the twin, times of kernel, twin, cuDNN (with its
+    default algorithm choice and with cudnn.benchmark, the library time)
+    and a bf16 GEMM of the same size, the bound."""
     import torch.nn.functional as F
     from radmmm_torch.ops import wn_kernel
     from radmmm_torch.scripts.bench_wn_kernel import C, DILATIONS, K
+    flops = 2.0 * K * C * C * WN_B * WN_T
+    # cuBLAS on equal work: (B T, K Cin) x (K Cin, Cout) in bf16, operands
+    # made outside the timed call; a yardstick the port never calls
+    a_mat = torch.randn((WN_B * WN_T, K * C), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    b_mat = torch.randn((K * C, C), generator=gen, device=dev).to(
+        torch.bfloat16)
+    gemm_ms = cuda_ms(lambda: torch.matmul(a_mat, b_mat), 20)
+    del a_mat, b_mat
     rows = []
     for d in DILATIONS:
         errs = []
@@ -463,27 +498,38 @@ def _conv_softplus_rows(gen, dev) -> list:
         # cuDNN in its own layout, prepared outside the timed call
         x_ncw = x.transpose(1, 2).contiguous()
         w_oik = w.permute(2, 1, 0).contiguous()
-        lib_ms = cuda_ms(lambda: F.softplus(F.conv1d(
-            x_ncw, w_oik, padding=d * (K - 1) // 2, dilation=d).float()
-            + b[:, None]), 20)
+
+        def library():
+            return F.softplus(F.conv1d(
+                x_ncw, w_oik, padding=d * (K - 1) // 2, dilation=d).float()
+                + b[:, None])
+        default_ms = cuda_ms(library, 20)
+        with cudnn_benchmark():
+            lib_ms = cuda_ms(library, 20)
         # x and w in bf16 read once, the bias read and the f32 output
         # written once; 2 K C^2 operations per output row
         b_ms, b_by = _bound(2 * WN_B * WN_T * C + 2 * K * C * C
-                            + 4 * C + 4 * WN_B * WN_T * C,
-                            2.0 * K * C * C * WN_B * WN_T,
+                            + 4 * C + 4 * WN_B * WN_T * C, flops,
                             PEAK_BF16_FLOP_PER_S)
         log(f"[kernels] K5 conv_softplus B={WN_B} T={WN_T} C={C} K={K} "
             f"d={d}: max_abs_err {errs[1]:.3e} (atol {K5_ATOL:g}; ragged "
             f"B=3 T=250 {errs[0]:.3e}), kernel_ms {k_ms:.4f} "
-            f"({2 * K * C * C * WN_B * WN_T / k_ms / 1e9:.1f} TFLOP/s), "
-            f"plain_ms {p_ms:.3f}, library_ms {lib_ms:.4f} (cuDNN bf16 "
-            f"conv + softplus), bound_ms {b_ms:.5f} ({b_by})")
+            f"({flops / k_ms / 1e9:.1f} TFLOP/s, "
+            f"{flops / k_ms / 1e9 / (PEAK_BF16_FLOP_PER_S / 1e12):.1%} of "
+            f"the bf16 dense peak), plain_ms {p_ms:.3f}, library_ms "
+            f"{lib_ms:.4f} (cuDNN bf16 conv + softplus, cudnn.benchmark on;"
+            f" default algorithm {default_ms:.4f}; kernel "
+            f"{'no slower' if k_ms <= lib_ms else 'SLOWER'}), gemm_ms "
+            f"{gemm_ms:.4f} (bf16 matmul of the same size, "
+            f"{flops / gemm_ms / 1e9:.1f} TFLOP/s), bound_ms {b_ms:.5f} "
+            f"({b_by})")
         if max(errs) > K5_ATOL:
             fail(f"conv_softplus disagrees with its twin at dilation {d}")
         rows.append(dict(kernel="conv_softplus", dilation=d, B=WN_B, T=WN_T,
                          C=C, K=K, max_abs_err=max(errs), ms=k_ms,
-                         plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by))
+                         plain_ms=p_ms, library_ms=lib_ms,
+                         cudnn_default_ms=default_ms, gemm_ms=gemm_ms,
+                         bound_ms=b_ms, bound_by=b_by))
     return rows
 
 

@@ -20,21 +20,39 @@
 // dgates is the gradient of x_proj. The wrapper forms dWh = sum_t
 // h(t_prev)^T dgates(t) with one batched matmul outside the kernel.
 //
-// What bounds it: as in the forward, a chain of T dependent steps, each a
-// (B,4H)x(4H,H) product whose input is the whole dgates of the step before,
-// so latency is the limit (the spread of dgates to every block and the
-// barrier), not FLOPs or bytes; each step moves 4x the forward's h through
-// L2 (B*4H floats instead of B*H).
+// What bounds it: a chain of T dependent steps, each a (B,4H)x(4H,H)
+// product whose input is the whole dgates of the step before, so latency is
+// the limit (the exchange between the CTAs of a lane and the barrier that
+// orders the steps), not FLOPs or bytes.
 //
-// Design: the forward's layout. The grid is L * ceil(H / hb) blocks; each
-// block owns one lane and hb hidden units, keeps the Wh rows of those units
-// (hb x 4H) in shared memory for the whole run, and carries their dh/dc in
-// registers. At each step it reads the previous step's dgates of its lane
-// (B x 4H) with __ldcg from the output tensor itself (each step writes its
-// own row of dx_proj, so no extra buffer is needed), reduces them against
-// its Wh rows (threads split the 4H reduction, partial sums meet in shared
-// memory), updates its cells, writes their four dgates and meets every
-// other block at a grid-wide barrier (cooperative launch).
+// Design: a reduce-scatter per step in place of an all-gather. Each CTA
+// owns one lane's hb hidden units with all four of their gate columns (the
+// forward's slice), so the dgates it computes for them stay local. It keeps
+// Wh[:, its 4 hb columns] in shared memory for the whole run, multiplies
+// its own dgates by it into a partial dh of all H units for all B rows
+// (f32 FMAs on the CUDA cores, a thread two units by 8 rows; the 4 hb
+// reduction split into ks chunks that meet in shared memory), and sends
+// each CTA of its lane the partials of that CTA's units: B x H floats out
+// per step, a quarter of the B x 4H an all-gather of dgates would read in,
+// as 16-byte stores of four batch rows of one unit. A CTA sums what it received for its units,
+// updates its cells and writes their dgates; the next step's saved forward
+// values are loaded while the product and the exchange run, off the chain.
+// Lanes are independent: nothing spans two lanes. The per-step product sets
+// the pace, so a lane takes as many CTAs as its route allows.
+// Two routes, picked by the wrapper's plan:
+// - cluster: a lane is one thread-block cluster of up to 16 CTAs (Hopper's
+//   non-portable size; 8 where only portable clusters are resident), for
+//   every lane whose Wh slices fit the cluster's shared memory: H <= 260
+//   in the model. Partials go straight into the owner's shared memory
+//   (distributed shared memory), double-buffered by step parity, and
+//   barrier.cluster arrive.release / wait.acquire orders the steps.
+// - grid: a cooperative launch for lanes whose Wh is too large for a
+//   cluster (H = 528, 4.46 MB). Partials go through L2 (a buffer of
+//   (L, 2, CTAs, H, B) floats, read with __ldcg and summed by all threads),
+//   and each lane's CTAs meet at a barrier of their own: a release
+//   atomicAdd on the lane's counter and an acquire spin until it reaches
+//   step x CTAs. The launch is cooperative, so every CTA is resident and the
+//   spin cannot deadlock.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -42,27 +60,37 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileB = 8;
+constexpr int kThreads = 384;
+constexpr int kTileB = 8;    // batch rows a thread accumulates at once
 
+__host__ __device__ inline size_t up4(size_t n) { return (n + 3) / 4 * 4; }
+
+// shared memory of one CTA, in floats, each part on a 16-byte boundary;
+// ops/lstm_kernel.py::_bwd_smem mirrors the byte count
 struct Layout {
-  int ks;      // threads sharing one unit's 4H reduction
-  int kc;      // reduction chunk per thread, a multiple of 4
-  int gp;      // padded 4H: ks * kc
-  size_t w_off, dg_off, part_off, bytes;
+  int Bp;      // B rounded up to 4, for float4 reads of dgates
+  int nc;      // this CTA's gate columns: 4 hb
+  int kc;      // columns per chunk of the partial product
+  int gp;      // nc padded to ks * kc
+  size_t w_off, dg_off, part_off, rx_off, bytes;
 };
 
-__host__ __device__ inline Layout make_layout(int H, int B, int hb) {
+__host__ __device__ inline Layout make_layout(int B, int H, int hb, int ks,
+                                              int n_cta, bool cluster) {
   Layout s;
-  s.ks = kThreads / hb;
-  const int G = 4 * H;
-  int kc = (G + s.ks - 1) / s.ks;
-  s.kc = (kc + 3) / 4 * 4;
-  s.gp = s.kc * s.ks;
-  s.w_off = 0;                                         // gp x hb   Wh rows
-  s.dg_off = s.w_off + (size_t)s.gp * hb;              // B x gp    dgates
-  s.part_off = s.dg_off + (size_t)B * s.gp;            // ks x B x hb
-  s.bytes = (s.part_off + (size_t)s.ks * B * hb) * sizeof(float);
+  s.Bp = (B + 3) / 4 * 4;
+  s.nc = 4 * hb;
+  s.kc = (s.nc + ks - 1) / ks;
+  s.gp = s.kc * ks;
+  s.w_off = 0;                                          // gp x H    Wh^T
+  s.dg_off = up4(s.w_off + (size_t)s.gp * H);           // gp x Bp   dgates
+  s.part_off = up4(s.dg_off + (size_t)s.gp * s.Bp);     // ks x H x Bp
+  s.rx_off = up4(s.part_off + (ks > 1 ? (size_t)ks * H * s.Bp : 0));
+  // cluster: 2 x n_cta x hb x Bp partials received; grid: the gather's
+  // sums
+  const size_t rx =
+      cluster ? (size_t)2 * n_cta * hb * s.Bp : (size_t)kThreads;
+  s.bytes = (s.rx_off + rx) * sizeof(float);
   return s;
 }
 
@@ -73,32 +101,57 @@ struct Params {
   const float* mask;   // (T, B), or (L, T, B) with mask_lane_stride = T*B
   const float* wh;     // (L, H, 4H)
   float* dxp;          // (L, T, B, 4H) out: dgates
-  int L, T, B, H, hb, blocks_per_lane;
+  float* part;         // grid: (L, 2, n_cta, H, Bp) partials; else null
+  unsigned* arrived;   // grid: (L,) zeroed counters; cluster: null
+  int L, T, B, H, hb, ks, n_cta;
   long long mask_lane_stride;
   unsigned long long reverse_bits;
 };
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+template <bool kCluster>
+__global__ void __launch_bounds__(kThreads, 1)
 lstm_recurrence_bwd_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  cg::grid_group grid = cg::this_grid();
-
-  const int H = p.H, B = p.B, T = p.T, G = 4 * H, hb = p.hb;
-  const Layout s = make_layout(H, B, hb);
-  const int lane = blockIdx.x / p.blocks_per_lane;
-  const int j0 = (blockIdx.x % p.blocks_per_lane) * hb;
+  const int H = p.H, B = p.B, T = p.T, G = 4 * H, hb = p.hb, ks = p.ks;
+  const int n_cta = p.n_cta, tid = threadIdx.x;
+  const Layout s = make_layout(B, H, hb, ks, n_cta, kCluster);
+  const int lane = blockIdx.x / n_cta;
+  const int rank = blockIdx.x % n_cta;    // the cluster rank on that route
+  const int j0 = rank * hb;
   const bool rev = (p.reverse_bits >> lane) & 1ULL;
 
   float* w_s = smem + s.w_off;
   float* dg_s = smem + s.dg_off;
   float* part_s = smem + s.part_off;
+  float* rx_s = smem + s.rx_off;
 
-  // Wh rows of this block's units: w_s[k * hb + c] = Wh[j0 + c, k]
+  // this CTA's Wh columns, transposed: w_s[k * H + j] = Wh[j, gate * H +
+  // j0 + u] for the local column k = gate * hb + u; zero past 4 hb and for
+  // units past H. k runs fastest, so Wh is read in runs of hb floats.
   const float* wh = p.wh + (size_t)lane * H * G;
-  for (int i = threadIdx.x; i < s.gp * hb; i += kThreads) {
-    const int k = i / hb, u = j0 + i % hb;
-    w_s[i] = (k < G && u < H) ? wh[(size_t)u * G + k] : 0.f;
+  for (int i = tid; i < s.gp * H; i += kThreads) {
+    const int j = i / s.gp, k = i % s.gp, u = j0 + k % hb;
+    w_s[(size_t)k * H + j] =
+        (k < s.nc && u < H) ? wh[(size_t)j * G + (k / hb) * H + u] : 0.f;
   }
+  for (int i = tid; i < s.gp * s.Bp; i += kThreads) dg_s[i] = 0.f;
 
   const float* dout = p.dout + (size_t)lane * T * B * H;
   const float* act = p.act + (size_t)lane * T * B * G;
@@ -106,85 +159,110 @@ lstm_recurrence_bwd_kernel(const Params p) {
   const float* mk = p.mask + (size_t)lane * p.mask_lane_stride;
   float* dxp = p.dxp + (size_t)lane * T * B * G;
 
-  const int col = threadIdx.x % hb;     // unit this thread reduces for
-  const int ks_me = threadIdx.x / hb;   // and its chunk of the 4H reduction
-  const int k_lo = ks_me * s.kc;
-  const int cb = threadIdx.x / hb, cj = threadIdx.x % hb, cu = j0 + cj;
-  const bool owns_cell = threadIdx.x < B * hb && cu < H;
+  // one cell (b, unit) per thread: the plan keeps B * hb <= kThreads
+  const int cb = tid / hb, cj = tid % hb, cu = j0 + cj;
+  const bool owns_cell = tid < B * hb && cu < H;
   float dh_pass = 0.f, dc_pass = 0.f;
 
-  for (int step = 0; step < T; ++step) {
-    // the forward's step T-1-step; its neighbours in the forward's order
-    const int t = rev ? step : T - 1 - step;
-    const int t_next = rev ? t - 1 : t + 1;   // processed one step ago
-    const int t_prev = rev ? t + 1 : t - 1;   // c before this step
-    const bool first = rev ? t == T - 1 : t == 0;
-
-    // this step's saved forward values, off the dgates dependency chain
-    float a[4] = {0.f, 0.f, 0.f, 0.f}, c_new = 0.f, c_prev = 0.f;
-    float d_out = 0.f, m = 0.f;
+  // the saved forward values a cell needs at a step: its gates, c after
+  // and before the step, dout and the mask
+  struct Saved { float a[4], c_new, c_prev, d_out, m; };
+  auto load_saved = [&](int step) {
+    Saved v = {{0.f, 0.f, 0.f, 0.f}, 0.f, 0.f, 0.f, 0.f};
     if (owns_cell) {
+      const int t = rev ? step : T - 1 - step;
       const size_t cell = (size_t)t * B + cb;
-      m = mk[cell];
-      if (m > 0.f) {
+      v.m = mk[cell];
+      if (v.m > 0.f) {
 #pragma unroll
-        for (int g = 0; g < 4; ++g) a[g] = act[cell * G + g * H + cu];
-        c_new = cs[cell * H + cu];
-        if (!first) c_prev = cs[((size_t)t_prev * B + cb) * H + cu];
-        d_out = dout[cell * H + cu];
+        for (int g = 0; g < 4; ++g) v.a[g] = act[cell * G + g * H + cu];
+        v.c_new = cs[cell * H + cu];
+        if (rev ? t != T - 1 : t != 0)
+          v.c_prev = cs[((size_t)(rev ? t + 1 : t - 1) * B + cb) * H + cu];
+        v.d_out = dout[cell * H + cu];
       }
     }
+    return v;
+  };
 
-    // dgates of the step processed before (zero at the first); written by
-    // other SMs, so read past the incoherent L1
-    for (int i = threadIdx.x; i < B * s.gp; i += kThreads) {
-      const int b = i / s.gp, k = i % s.gp;
-      dg_s[i] = (step > 0 && k < G)
-                    ? __ldcg(dxp + ((size_t)t_next * B + b) * G + k) : 0.f;
+  // hands the partial dh of unit j, rows b .. b+3, to the unit's CTA
+  auto send4 = [&](int par, int j, int b, float4 v) {
+    if constexpr (kCluster) {
+      float* dst = cg::this_cluster().map_shared_rank(rx_s, j / hb);
+      *reinterpret_cast<float4*>(
+          dst + (((size_t)par * n_cta + rank) * hb + j % hb) * s.Bp + b) = v;
+    } else {
+      __stcg(reinterpret_cast<float4*>(
+                 p.part + ((((size_t)lane * 2 + par) * n_cta + rank) * H + j)
+                              * s.Bp + b), v);
     }
-    __syncthreads();
+  };
 
-    for (int b0 = 0; b0 < B; b0 += kTileB) {
-      float acc[kTileB];
-#pragma unroll
-      for (int q = 0; q < kTileB; ++q) acc[q] = 0.f;
-      for (int k = k_lo; k < k_lo + s.kc; k += 4) {
-        const float w0 = w_s[(k + 0) * hb + col];
-        const float w1 = w_s[(k + 1) * hb + col];
-        const float w2 = w_s[(k + 2) * hb + col];
-        const float w3 = w_s[(k + 3) * hb + col];
-#pragma unroll
-        for (int q = 0; q < kTileB; ++q) {
-          if (b0 + q < B) {
-            const float4 d = *reinterpret_cast<const float4*>(
-                dg_s + (size_t)(b0 + q) * s.gp + k);
-            acc[q] = fmaf(d.x, w0, acc[q]);
-            acc[q] = fmaf(d.y, w1, acc[q]);
-            acc[q] = fmaf(d.z, w2, acc[q]);
-            acc[q] = fmaf(d.w, w3, acc[q]);
-          }
+  // every CTA of the cluster runs before any writes another's memory
+  if constexpr (kCluster) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+
+  Saved cur = load_saved(0);
+  for (int step = 0; step < T; ++step) {
+    // the forward's step T-1-step
+    const int t = rev ? step : T - 1 - step;
+
+    // dgates(t_next) @ Wh^T for my units: the partials the lane's CTAs
+    // sent one step ago (none at the first step)
+    float rec = 0.f;
+    if (step > 0) {
+      const int par = (step - 1) & 1;
+      if constexpr (kCluster) {
+        cluster_wait();
+        if (owns_cell) {
+          const float* r = rx_s + ((size_t)par * n_cta * hb + cj) * s.Bp + cb;
+          for (int src = 0; src < n_cta; ++src)
+            rec += r[(size_t)src * hb * s.Bp];
         }
+      } else {
+        if (tid == 0) {
+          const unsigned want = (unsigned)step * n_cta;
+          while (ld_acquire(p.arrived + lane) < want) {
+          }
+          __threadfence();
+        }
+        __syncthreads();
+        // all threads gather: group g sums sources g, g + ngrp, ... of the
+        // element e = (unit, row)
+        const int E = B * hb, ngrp = kThreads / E;
+        const int e = tid % E, grp = tid / E;
+        if (grp < ngrp) {
+          const int u = j0 + e / B, b = e % B;
+          float acc = 0.f;
+          if (u < H) {
+            const float* src =
+                p.part + (((size_t)lane * 2 + par) * n_cta * H + u) * s.Bp + b;
+            for (int q = grp; q < n_cta; q += ngrp)
+              acc += __ldcg(src + (size_t)q * H * s.Bp);
+          }
+          rx_s[grp * E + e] = acc;
+        }
+        __syncthreads();
+        if (owns_cell)
+          for (int g = 0; g < ngrp; ++g) rec += rx_s[g * E + cj * B + cb];
       }
-#pragma unroll
-      for (int q = 0; q < kTileB; ++q)
-        if (b0 + q < B)
-          part_s[((size_t)ks_me * B + b0 + q) * hb + col] = acc[q];
     }
-    __syncthreads();
 
     if (owns_cell) {
-      float rec = 0.f;
-      for (int q = 0; q < s.ks; ++q)
-        rec += part_s[((size_t)q * B + cb) * hb + cj];
       const float dh = dh_pass + rec;
       float dg[4] = {0.f, 0.f, 0.f, 0.f};
-      if (m > 0.f) {
-        const float ai = a[0], af = a[1], ag = a[2], ao = a[3];
-        const float dhn = dh + d_out * m;
-        const float tc = tanhf(c_new);
+      if (cur.m > 0.f) {
+        const float ai = cur.a[0], af = cur.a[1], ag = cur.a[2];
+        const float ao = cur.a[3];
+        const float dhn = dh + cur.d_out * cur.m;
+        const float tc = tanhf(cur.c_new);
         const float dcn = dc_pass + dhn * ao * (1.f - tc * tc);
         dg[0] = dcn * ag * ai * (1.f - ai);
-        dg[1] = dcn * c_prev * af * (1.f - af);
+        dg[1] = dcn * cur.c_prev * af * (1.f - af);
         dg[2] = dcn * ai * (1.f - ag * ag);
         dg[3] = dhn * tc * ao * (1.f - ao);
         dh_pass = 0.f;
@@ -194,9 +272,90 @@ lstm_recurrence_bwd_kernel(const Params p) {
       }
       float* o = dxp + ((size_t)t * B + cb) * G + cu;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) o[g * H] = dg[g];
+      for (int g = 0; g < 4; ++g) {
+        o[g * H] = dg[g];
+        dg_s[(size_t)(g * hb + cj) * s.Bp + cb] = dg[g];
+      }
     }
-    grid.sync();   // orders this step's dgates before the next step's reads
+    if (step + 1 == T) break;
+    // the next step's saved values, in flight through this step's product
+    // and exchange
+    cur = load_saved(step + 1);
+    __syncthreads();
+
+    // partial dh of every unit of the lane from my columns, then out. A
+    // thread takes units j and j + Hh for 8 batch rows at a time. Reads
+    // past Bp rows (or past unit H - 1 when H is odd) stay inside shared
+    // memory and feed only sums that are never stored.
+    const int par = step & 1;
+    const int Hh = (H + 1) / 2;
+    for (int item = tid; item < Hh * ks; item += kThreads) {
+      const int j = item % Hh, chunk = item / Hh, j2 = j + Hh;
+      const int k_lo = chunk * s.kc;
+      for (int b0 = 0; b0 < B; b0 += kTileB) {
+        float acc[2][kTileB];
+#pragma unroll
+        for (int q = 0; q < kTileB; ++q) acc[0][q] = acc[1][q] = 0.f;
+#pragma unroll 4
+        for (int k = k_lo; k < k_lo + s.kc; ++k) {
+          const float w[2] = {w_s[(size_t)k * H + j], w_s[(size_t)k * H + j2]};
+          const float4* d =
+              reinterpret_cast<const float4*>(dg_s + (size_t)k * s.Bp + b0);
+          const float4 d0 = d[0], d1 = d[1];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            acc[c][0] = fmaf(d0.x, w[c], acc[c][0]);
+            acc[c][1] = fmaf(d0.y, w[c], acc[c][1]);
+            acc[c][2] = fmaf(d0.z, w[c], acc[c][2]);
+            acc[c][3] = fmaf(d0.w, w[c], acc[c][3]);
+            acc[c][4] = fmaf(d1.x, w[c], acc[c][4]);
+            acc[c][5] = fmaf(d1.y, w[c], acc[c][5]);
+            acc[c][6] = fmaf(d1.z, w[c], acc[c][6]);
+            acc[c][7] = fmaf(d1.w, w[c], acc[c][7]);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int u = c ? j2 : j;
+          if (u >= H) continue;
+#pragma unroll
+          for (int q4 = 0; q4 < kTileB / 4; ++q4) {
+            if (b0 + 4 * q4 >= B) continue;
+            const float4 v =
+                make_float4(acc[c][4 * q4], acc[c][4 * q4 + 1],
+                            acc[c][4 * q4 + 2], acc[c][4 * q4 + 3]);
+            if (ks == 1)
+              send4(par, u, b0 + 4 * q4, v);
+            else
+              *reinterpret_cast<float4*>(
+                  part_s + ((size_t)chunk * H + u) * s.Bp + b0 + 4 * q4) = v;
+          }
+        }
+      }
+    }
+    if (ks > 1) {
+      __syncthreads();
+      const int Q = s.Bp / 4;
+      for (int e = tid; e < H * Q; e += kThreads) {
+        const float4* src =
+            reinterpret_cast<const float4*>(part_s) + e;   // (j, b/4)
+        float4 v = src[0];
+        for (int c = 1; c < ks; ++c) {
+          const float4 w = src[(size_t)c * H * Q];
+          v.x += w.x; v.y += w.y; v.z += w.z; v.w += w.w;
+        }
+        send4(par, e / Q, 4 * (e % Q), v);
+      }
+    }
+    if constexpr (kCluster) {
+      cluster_arrive();
+    } else {
+      __syncthreads();
+      if (tid == 0) {
+        __threadfence();
+        atomicAdd(p.arrived + lane, 1u);
+      }
+    }
   }
 }
 
@@ -204,52 +363,121 @@ lstm_recurrence_bwd_kernel(const Params p) {
 
 extern "C" {
 
-// Co-resident blocks of the kernel on the current device for slice width
-// hb, in *capacity. Returns a CUDA error code (non-zero when the slice's
-// shared memory does not fit a block).
-int lstm_recurrence_bwd_capacity(int B, int H, int hb, int* capacity) {
-  const Layout s = make_layout(H, B, hb);
-  cudaError_t e = cudaFuncSetAttribute(
-      lstm_recurrence_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)s.bytes);
-  if (e != cudaSuccess) { cudaGetLastError(); return (int)e; }
-  int dev = 0, sms = 0, per_sm = 0;
+// The current device's limits for the plan: SMs, the dynamic shared memory
+// a block may opt into, shared memory per SM, and the registers a thread of
+// the grid-route kernel uses as compiled. Returns a CUDA error code.
+int lstm_recurrence_bwd_limits(int* sms, int* smem_block, int* smem_sm,
+                               int* regs_grid) {
+  int dev = 0;
+  cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+  if ((e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev))
       != cudaSuccess) return (int)e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, lstm_recurrence_bwd_kernel, kThreads, s.bytes))
-      != cudaSuccess)
-    return (int)e;
-  *capacity = per_sm * sms;
+  if ((e = cudaDeviceGetAttribute(
+           smem_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
+      != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(
+           smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev))
+      != cudaSuccess) return (int)e;
+  cudaFuncAttributes fa;
+  if ((e = cudaFuncGetAttributes(&fa, lstm_recurrence_bwd_kernel<false>))
+      != cudaSuccess) return (int)e;
+  *regs_grid = fa.numRegs;
   return 0;
 }
 
-// Launches the backward on `stream`. Returns cudaGetLastError() after the
-// launch (0 on success).
+// Clusters of n_cta CTAs of the cluster-route kernel for (B, H, hb, ks) that
+// the current device holds at once, in *n_clusters (0: none fits, also when
+// the driver refuses the size). Returns 0.
+int lstm_recurrence_bwd_clusters(int B, int H, int hb, int ks, int n_cta,
+                                 int* n_clusters) {
+  const Layout s = make_layout(B, H, hb, ks, n_cta, true);
+  auto kern = lstm_recurrence_bwd_kernel<true>;
+  *n_clusters = 0;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)s.bytes) != cudaSuccess ||
+      cudaFuncSetAttribute(kern,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1) != cudaSuccess) {
+    cudaGetLastError();     // a size the kernel cannot take: none fits
+    return 0;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_cta;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_cta);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = s.bytes;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (cudaOccupancyMaxActiveClusters(n_clusters, kern, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    *n_clusters = 0;
+  }
+  return 0;
+}
+
+// Launches the backward on `stream` by the route of the wrapper's plan:
+// `cluster` non-zero for one cluster of n_cta CTAs per lane, else the
+// cooperative grid with `part` and the zeroed `arrived`. Returns
+// cudaGetLastError() after the launch (0 on success).
 int lstm_recurrence_bwd_launch(const float* dout, const float* act,
                                const float* cs, const float* mask,
-                               const float* wh, float* dxp, int L, int T,
-                               int B, int H, long long mask_lane_stride,
-                               unsigned long long reverse_bits, int hb,
-                               void* stream) {
-  const Layout s = make_layout(H, B, hb);
+                               const float* wh, float* dxp, float* part,
+                               unsigned* arrived, int L, int T, int B, int H,
+                               long long mask_lane_stride,
+                               unsigned long long reverse_bits, int cluster,
+                               int n_cta, int hb, int ks, void* stream) {
+  if (B * hb > kThreads || n_cta * hb < H || ks < 1 || L < 1 || L > 64)
+    return (int)cudaErrorInvalidValue;
+  const Layout s = make_layout(B, H, hb, ks, n_cta, cluster != 0);
   Params p;
   p.dout = dout; p.act = act; p.cs = cs; p.mask = mask; p.wh = wh;
-  p.dxp = dxp;
-  p.L = L; p.T = T; p.B = B; p.H = H; p.hb = hb;
-  p.blocks_per_lane = (H + hb - 1) / hb;
+  p.dxp = dxp; p.part = part; p.arrived = arrived;
+  p.L = L; p.T = T; p.B = B; p.H = H; p.hb = hb; p.ks = ks; p.n_cta = n_cta;
   p.mask_lane_stride = mask_lane_stride;
   p.reverse_bits = reverse_bits;
-  cudaError_t e = cudaFuncSetAttribute(
-      lstm_recurrence_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)s.bytes);
-  if (e != cudaSuccess) return (int)e;
-  void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)lstm_recurrence_bwd_kernel,
-                                  dim3(L * p.blocks_per_lane), dim3(kThreads),
-                                  args, s.bytes, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e;
+  if (cluster) {
+    auto kern = lstm_recurrence_bwd_kernel<true>;
+    if ((e = cudaFuncSetAttribute(kern,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)s.bytes)) != cudaSuccess)
+      return (int)e;
+    if (n_cta > 8 &&        // past the portable cluster size
+        (e = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1))
+            != cudaSuccess)
+      return (int)e;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n_cta;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(L * n_cta);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = s.bytes;
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if ((e = cudaLaunchKernelEx(&cfg, kern, p)) != cudaSuccess) return (int)e;
+  } else {
+    auto kern = lstm_recurrence_bwd_kernel<false>;
+    if ((e = cudaFuncSetAttribute(kern,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)s.bytes)) != cudaSuccess)
+      return (int)e;
+    void* args[] = {&p};
+    if ((e = cudaLaunchCooperativeKernel((const void*)kern, dim3(L * n_cta),
+                                         dim3(kThreads), args, s.bytes,
+                                         (cudaStream_t)stream))
+        != cudaSuccess)
+      return (int)e;
+  }
   return (int)cudaGetLastError();
 }
 

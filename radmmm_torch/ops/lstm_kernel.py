@@ -19,7 +19,9 @@ carried c and h of every step, and the backward runs the reverse-time
 recurrence (``csrc/lstm_recurrence_bwd.cu`` on the card,
 ``lstm_recurrence_backward_reference`` on the CPU); dWh is one batched
 matmul over the saved h. Without autograd (serving) nothing extra is
-written.
+written. ``backward_plan`` picks the backward kernel's route for a shape:
+a thread-block cluster per lane where the lane's Wh fits one, else a
+cooperative grid with a barrier per lane.
 
 Tensors on the CPU run the twins. Tensors on a CUDA device launch
 ``csrc/lstm_recurrence.cu`` and ``csrc/lstm_recurrence_bwd.cu`` (built by
@@ -28,6 +30,7 @@ Tensors on the CPU run the twins. Tensors on a CUDA device launch
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Sequence
 
 import torch
@@ -39,9 +42,9 @@ from radmmm_torch.utils import cuda_build
 launches = 0
 backward_launches = 0
 
-_THREADS = 256            # kThreads in both .cu files
+_THREADS = 256            # kThreads in lstm_recurrence.cu
 # hidden units per block, in order of preference (4*hb must divide _THREADS
-# in the forward)
+# in the forward); the backward's grid route takes the same order
 _SLICE_WIDTHS = (8, 16, 4, 32, 2, 1)
 _plans: dict = {}
 
@@ -243,7 +246,9 @@ def _forward_kernel(x_proj, mask, wh, reverse, save: bool):
     return (out, *saved) if save else out
 
 
-def _backward_kernel(dout, act, cs, mask, wh, reverse):
+def _backward_kernel(dout, act, cs, mask, wh, reverse, plan=None):
+    """The backward kernel's launch, by ``card_backward_plan`` unless a
+    plan is given (``scripts/sweep_lstm_bwd.py`` times the alternatives)."""
     global backward_launches
     L, T, B, H = dout.shape
     dev = dout.device
@@ -252,15 +257,153 @@ def _backward_kernel(dout, act, cs, mask, wh, reverse):
         return dxp
     lib = _bwd_library()
     with torch.cuda.device(dev):
-        hb = _plan(lib.lstm_recurrence_bwd_capacity, "bwd", L, B, H)
+        plan = plan or card_backward_plan(L, B, H)
+        grid = plan.route == "grid"
+        part = arrived = None
+        if grid:
+            # the exchange of partials through L2 and the lanes' barrier
+            # counters, referenced here until the launch is queued
+            part = torch.empty((L, 2, plan.n_cta, H, -(-B // 4) * 4),
+                               dtype=torch.float32, device=dev)
+            arrived = torch.zeros(L, dtype=torch.int32, device=dev)
         err = lib.lstm_recurrence_bwd_launch(
             dout.data_ptr(), act.data_ptr(), cs.data_ptr(), mask.data_ptr(),
-            wh.data_ptr(), dxp.data_ptr(), L, T, B, H,
-            T * B if mask.dim() == 3 else 0, _bits(reverse), hb,
+            wh.data_ptr(), dxp.data_ptr(), part.data_ptr() if grid else None,
+            arrived.data_ptr() if grid else None, L, T, B, H,
+            T * B if mask.dim() == 3 else 0, _bits(reverse),
+            int(not grid), plan.n_cta, plan.hb, plan.ks,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(lib, err, "lstm_recurrence_bwd")
     backward_launches += 1
     return dxp
+
+
+@dataclasses.dataclass(frozen=True)
+class CardLimits:
+    """What the backward's plan needs to know of a card."""
+    sms: int
+    smem_per_block: int        # dynamic shared memory a block may opt into
+    smem_per_sm: int
+    regs_per_thread: int       # the grid route's kernel as compiled; 0: no
+    max_cluster: int           # limit known. 16: Hopper's non-portable
+                               # cluster size (8 is the portable one)
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How the backward kernel runs one (L, B, H) recurrence.
+
+    route: "cluster", one thread-block cluster of n_cta CTAs per lane,
+    partials through distributed shared memory; or "grid", a cooperative
+    grid of L * n_cta CTAs, partials through L2 and a barrier per lane.
+    hb: hidden units per CTA; ks: chunks each CTA's 4 hb columns split into
+    for the partial products; smem: dynamic shared memory bytes per CTA."""
+    route: str
+    n_cta: int
+    hb: int
+    ks: int
+    smem: int
+
+
+_BWD_THREADS = 384          # kThreads in lstm_recurrence_bwd.cu
+_RESERVED_SMEM = 1024       # per block, kept by the CUDA runtime on sm_90
+_THREADS_PER_SM, _REGS_PER_SM = 2048, 65536     # sm_80 and later
+# chunks of a CTA's partial product (ks): the fastest at every training
+# shape in scripts/sweep_lstm_bwd.py on an H100
+_CLUSTER_CHUNKS, _GRID_CHUNKS = 2, 1
+
+
+def _bwd_smem(B: int, H: int, hb: int, ks: int, n_cta: int,
+              cluster: bool) -> int:
+    """Dynamic shared memory of one CTA: make_layout in the .cu file."""
+    def up4(n):
+        return -(-n // 4) * 4
+    Bp, kc = -(-B // 4) * 4, -(-4 * hb // ks)
+    gp = kc * ks
+    dg = up4(gp * H)
+    part = up4(dg + gp * Bp)
+    rx = up4(part + (ks * H * Bp if ks > 1 else 0))
+    return 4 * (rx + (2 * n_cta * hb * Bp if cluster else _BWD_THREADS))
+
+
+def backward_plan(L: int, B: int, H: int, limits: CardLimits
+                  ) -> BackwardPlan:
+    """The route and sizes of the backward kernel for L lanes of (B, H).
+
+    A lane runs as one cluster when its Wh fits the shared memory of at
+    most ``limits.max_cluster`` CTAs (each keeps 4 hb columns of it, with
+    hb = ceil(H / max_cluster): the most CTAs, since the per-step product
+    sets the pace); otherwise as a cooperative grid, with the
+    first slice width in _SLICE_WIDTHS whose L * ceil(H / hb) CTAs are all
+    resident at once. Each CTA runs one cell per thread, so B * hb is at
+    most the kernel's threads. Raises when no route fits."""
+    T = _BWD_THREADS
+    if limits.max_cluster >= 1:
+        hb = -(-H // limits.max_cluster)
+        n_cta = -(-H // hb)
+        if B * hb <= T:
+            ks = _CLUSTER_CHUNKS
+            smem = _bwd_smem(B, H, hb, ks, n_cta, True)
+            if smem <= limits.smem_per_block:
+                return BackwardPlan("cluster", n_cta, hb, ks, smem)
+    for hb in _SLICE_WIDTHS:
+        if B * hb > T:
+            continue
+        n_cta = -(-H // hb)
+        ks = _GRID_CHUNKS
+        smem = _bwd_smem(B, H, hb, ks, n_cta, False)
+        if smem > limits.smem_per_block:
+            continue
+        per_sm = min(_THREADS_PER_SM // T,
+                     limits.smem_per_sm // (smem + _RESERVED_SMEM))
+        if limits.regs_per_thread:
+            per_sm = min(per_sm, _REGS_PER_SM // (
+                T * -(-limits.regs_per_thread // 8) * 8))
+        if L * n_cta <= per_sm * limits.sms:
+            return BackwardPlan("grid", n_cta, hb, ks, smem)
+    raise RuntimeError(
+        f"lstm_recurrence (bwd): no route fits the L={L}, B={B}, H={H} "
+        f"recurrence on a card with {limits.sms} SMs and "
+        f"{limits.smem_per_block} bytes of shared memory per block")
+
+
+def card_limits() -> CardLimits:
+    """The current CUDA device's limits for the backward's plan, read from
+    the driver once per device."""
+    dev = torch.cuda.current_device()
+    if ("limits", dev) not in _plans:
+        lib = _bwd_library()
+        vals = [ctypes.c_int(0) for _ in range(4)]
+        cuda_build.check(lib, lib.lstm_recurrence_bwd_limits(
+            *[ctypes.byref(v) for v in vals]), "lstm_recurrence_bwd")
+        sms, smem_block, smem_sm, regs = (v.value for v in vals)
+        hopper = torch.cuda.get_device_capability(dev)[0] >= 9
+        _plans[("limits", dev)] = CardLimits(
+            sms, smem_block, smem_sm, regs, max_cluster=16 if hopper else 8)
+    return _plans[("limits", dev)]
+
+
+def card_backward_plan(L: int, B: int, H: int) -> BackwardPlan:
+    """backward_plan for the current CUDA device, with a cluster plan only
+    where the driver says such a cluster can be resident (else the next
+    smaller one). Cached per device and shape."""
+    key = ("bwd", torch.cuda.current_device(), L, B, H)
+    if key not in _plans:
+        lib = _bwd_library()
+        limits = card_limits()
+        while True:
+            plan = backward_plan(L, B, H, limits)
+            if plan.route == "grid":
+                break
+            fit = ctypes.c_int(0)
+            cuda_build.check(lib, lib.lstm_recurrence_bwd_clusters(
+                B, H, plan.hb, plan.ks, plan.n_cta, ctypes.byref(fit)),
+                "lstm_recurrence_bwd")
+            if fit.value >= 1:
+                break
+            limits = dataclasses.replace(limits, max_cluster=plan.n_cta - 1)
+        _plans[key] = plan
+    return _plans[key]
 
 
 def _bits(reverse) -> int:
@@ -268,9 +411,9 @@ def _bits(reverse) -> int:
 
 
 def _plan(capacity_fn, which: str, L: int, B: int, H: int) -> int:
-    """Hidden units per block: the first width in _SLICE_WIDTHS whose grid
-    (L * ceil(H / hb) blocks) is co-resident on the card, as the kernels'
-    grid-wide barrier needs. Raises when no width fits."""
+    """The forward's hidden units per block: the first width in
+    _SLICE_WIDTHS whose grid (L * ceil(H / hb) blocks) is co-resident on
+    the card, as its grid-wide barrier needs. Raises when no width fits."""
     key = (which, torch.cuda.current_device(), L, B, H)
     if key not in _plans:
         for hb in _SLICE_WIDTHS:
@@ -302,12 +445,13 @@ def _declare_fwd(lib):
 def _declare_bwd(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lstm_recurrence_bwd_launch.argtypes = [
-        vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_longlong,
-        ctypes.c_ulonglong, ci, vp]
+        vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_longlong,
+        ctypes.c_ulonglong, ci, ci, ci, ci, vp]
     lib.lstm_recurrence_bwd_launch.restype = ci
-    lib.lstm_recurrence_bwd_capacity.argtypes = [
-        ci, ci, ci, ctypes.POINTER(ci)]
-    lib.lstm_recurrence_bwd_capacity.restype = ci
+    lib.lstm_recurrence_bwd_limits.argtypes = [ctypes.POINTER(ci)] * 4
+    lib.lstm_recurrence_bwd_limits.restype = ci
+    lib.lstm_recurrence_bwd_clusters.argtypes = [ci] * 5 + [ctypes.POINTER(ci)]
+    lib.lstm_recurrence_bwd_clusters.restype = ci
 
 
 def _library():

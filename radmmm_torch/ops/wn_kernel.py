@@ -19,8 +19,10 @@ script.
 
 CPU tensors run ``conv_softplus_reference``; CUDA tensors launch
 ``csrc/conv_softplus.cu`` (built by ``utils/cuda_build``) or raise. The
-kernel is CUDA C++ rather than Triton: it is a tensor-core GEMM with a
-data-dependent halo, not a fused elementwise pass.
+kernel is CUDA C++ rather than Triton: it is a tensor-core GEMM (wgmma fed
+by TMA) with a data-dependent halo, not a fused elementwise pass. It reads
+x and w in their own layouts, so the wrapper's only copies are the bf16
+casts of operands that are not bf16 yet.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from radmmm_torch.utils import cuda_build
 # kernel launches since the last reset; chip_smoke.py and the tests read it
 launches = 0
 
-# the kernel copies 16 bytes (8 bf16 channels) at a time
+# the TMA tensor maps need 16-byte row strides: 8 bf16 channels
 CHANNEL_MULTIPLE = 8
 
 
@@ -83,7 +85,8 @@ def _check(x, w, b, dilation):
 
 
 def _aligned_bf16(t: torch.Tensor) -> torch.Tensor:
-    """t as contiguous bf16 whose data starts on a 16-byte boundary."""
+    """t as contiguous bf16 whose data starts on a 16-byte boundary (the
+    kernel's TMA tensor maps need that base)."""
     t = t.to(torch.bfloat16).contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

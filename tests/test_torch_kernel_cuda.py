@@ -79,19 +79,33 @@ def test_masked_lstm_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("L,H,T,B", [(2, 260, 96, 8), (6, 128, 512, 8),
-                                     (2, 528, 256, 8), (2, 20, 9, 3)])
+                                     (2, 528, 256, 8), (2, 20, 9, 3),
+                                     (1, 20, 31, 8), (6, 128, 40, 1),
+                                     (1, 260, 50, 3), (2, 260, 17, 1),
+                                     (1, 528, 33, 3), (2, 528, 20, 1),
+                                     (6, 20, 64, 8)])
 def test_backward_kernel_matches_twin(cuda, L, H, T, B):
     """The saved forward states of the kernel, then the backward kernel
-    and the BPTT twin on them, with a mask that is not a prefix."""
+    and the BPTT twin on them, with a mask that is not a prefix and, for
+    B > 1, one item with every frame masked; a lane per cluster for
+    H <= 260, the cooperative grid for H = 528. The reduce-scatter sums
+    the partial dh in another order than torch.bmm: 1e-5 relative, with
+    a 1e-5 floor."""
     xp, mask, wh, rev = _lstm_inputs(cuda, L, H, T, B, non_prefix=True)
+    if B > 1:
+        mask[:, -1] = 0.0
     out, act, cs, hs = lstm_recurrence_reference(xp, mask, wh, rev,
                                                  save=True)
     dout = torch.randn_like(out)
     before = lstm_kernel.backward_launches
     got = _backward_kernel(dout, act, cs, mask, wh, rev)
     assert lstm_kernel.backward_launches == before + 1
+    assert lstm_kernel.card_backward_plan(L, B, H).route == (
+        "grid" if H > 260 else "cluster")
     want = lstm_recurrence_backward_reference(dout, act, cs, mask, wh, rev)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    if B > 1:
+        assert not got[:, :, -1].any()
 
 
 def test_function_returns_gradients_on_the_card(cuda):
@@ -187,11 +201,18 @@ def test_mas_matches_twin_bit_for_bit(cuda, B, T_mel, T_text):
 # elementwise pass, the case the port keeps Triton for.
 @pytest.mark.parametrize("B,T,C_in,C_out", [(32, 256, 1024, 1024),
                                             (3, 250, 1024, 1024),
-                                            (2, 37, 24, 40)])
+                                            (2, 37, 24, 40),
+                                            (2, 7, 64, 64),
+                                            (1, 100, 128, 256),
+                                            (2, 300, 1024, 520),
+                                            (3, 64, 72, 136)])
 @pytest.mark.parametrize("dilation", [1, 2, 4, 8])
 def test_conv_softplus_matches_twin(cuda, B, T, C_in, C_out, dilation):
-    """The bench shape, a ragged one (T not a multiple of the 128-row
-    tile) and narrow channels (a partial input chunk and output tile)."""
+    """The bench shape; T not a multiple of the 128-row tile (at d = 8
+    the outer taps of T = 250 reach 16 rows past each end); narrow
+    channels; T = 7, where at d = 8 every tap but the centre lies outside
+    [0, T); B T below one 128-row tile; Cout 520, not a multiple of the
+    256-channel tile; Cin 72, not a multiple of the 64-channel stage."""
     g = torch.Generator(device=cuda).manual_seed(dilation)
     x = torch.randn((B, T, C_in), generator=g, device=cuda)
     w = torch.randn((5, C_in, C_out), generator=g, device=cuda) * 0.02
@@ -200,6 +221,22 @@ def test_conv_softplus_matches_twin(cuda, B, T, C_in, C_out, dilation):
     got = wn_kernel.conv_softplus(x, w, b, dilation)
     assert wn_kernel.launches == before + 1
     want = wn_kernel.conv_softplus_reference(x, w, b, dilation)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_conv_softplus_copies_a_misaligned_view(cuda):
+    """x a bf16 view whose data starts 2 bytes past a 16-byte boundary:
+    the TMA tensor map needs an aligned base, so the wrapper copies it."""
+    B, T, C = 2, 40, 64
+    g = torch.Generator(device=cuda).manual_seed(5)
+    flat = torch.randn(B * T * C + 1, generator=g, device=cuda).to(
+        torch.bfloat16)
+    x = flat[1:].view(B, T, C)
+    assert x.data_ptr() % 16 != 0
+    w = torch.randn((5, C, C), generator=g, device=cuda) * 0.05
+    b = torch.randn((C,), generator=g, device=cuda) * 0.1
+    got = wn_kernel.conv_softplus(x, w, b, 2)
+    want = wn_kernel.conv_softplus_reference(x, w, b, 2)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 

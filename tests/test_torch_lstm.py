@@ -8,6 +8,8 @@ twins on a card: tests/test_torch_kernel_cuda.py.
 Tolerance 1e-5 throughout: both sides run the same f32 recurrence
 (matmul precision 'highest' in JAX, full f32 in torch on the CPU), and
 the difference is summation order only."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -218,3 +220,60 @@ def test_serving_call_writes_nothing_for_the_backward(rng):
     assert torch.equal(lstm.sn_fwd.u, u)
     lstm(x, torch.ones(2, 7), update_sn=True)
     assert not torch.equal(lstm.sn_fwd.u, u)
+
+
+# an H100 SXM's limits for the backward's plan; regs_per_thread 0 leaves
+# registers out of the grid route's residency
+H100 = lstm_kernel.CardLimits(sms=132, smem_per_block=232448,
+                              smem_per_sm=233472, regs_per_thread=0,
+                              max_cluster=16)
+
+
+@pytest.mark.parametrize("L,B,H,route,n_cta,hb,ks,max_cluster", [
+    (2, 8, 260, "cluster", 16, 17, 2, 16),     # text encoder
+    (2, 8, 128, "cluster", 16, 8, 2, 16),      # duration DAP
+    (6, 8, 128, "cluster", 16, 8, 2, 16),      # frame DAPs, ganged
+    (2, 8, 528, "grid", 66, 8, 1, 16),         # flow context: Wh 4.46 MB
+    (2, 8, 260, "cluster", 8, 33, 2, 8),       # portable clusters only
+    (1, 3, 20, "cluster", 10, 2, 2, 16),
+    (2, 24, 260, "grid", 33, 8, 1, 16)])       # 24 x 17 cells > threads
+def test_backward_plan_picks_route_and_sizes(L, B, H, route, n_cta, hb, ks,
+                                             max_cluster):
+    """The backward kernel's plan on an H100's limits (227 KB of shared
+    memory a block, 132 SMs, clusters of up to 16 CTAs or the portable 8):
+    the largest cluster per lane where the lane's Wh slices fit, else the
+    cooperative grid; every unit owned, one cell per thread, the shared
+    memory within a block's."""
+    limits = dataclasses.replace(H100, max_cluster=max_cluster)
+    plan = lstm_kernel.backward_plan(L, B, H, limits)
+    assert (plan.route, plan.n_cta, plan.hb, plan.ks) == (route, n_cta, hb,
+                                                          ks)
+    assert plan.n_cta * plan.hb >= H > (plan.n_cta - 1) * plan.hb
+    assert B * plan.hb <= lstm_kernel._BWD_THREADS
+    assert plan.smem == lstm_kernel._bwd_smem(B, H, plan.hb, plan.ks,
+                                              plan.n_cta, route == "cluster")
+    assert plan.smem <= H100.smem_per_block
+    if route == "grid":
+        assert L * plan.n_cta <= H100.sms * (
+            H100.smem_per_sm // (plan.smem + 1024))
+
+
+@pytest.mark.parametrize("L,B,H,limits", [
+    (8, 8, 1024, H100),
+    (2, 8, 528, dataclasses.replace(H100, sms=16)),
+    (1, 385, 4, H100)])
+def test_backward_plan_raises_when_nothing_fits(L, B, H, limits):
+    """No cluster holds the slices and no grid of them is resident at
+    once (or a single unit's cells outnumber the threads): the plan
+    raises rather than launch something that would hang or fail."""
+    with pytest.raises(RuntimeError, match="no route fits"):
+        lstm_kernel.backward_plan(L, B, H, limits)
+
+
+def test_sweep_script_refuses_a_missing_card():
+    """The backward's plan sweep times kernels on the card only."""
+    from radmmm_torch.scripts import sweep_lstm_bwd
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sweep_lstm_bwd.main(["--shapes", "1x8x4x2"])
