@@ -18,8 +18,10 @@ Phases (all by default):
               shapes (TextEncoder BiLSTM H=260, duration DAP H=128, six
               ganged frame-DAP lanes H=128, flow context BiLSTM H=528 with
               input 1060), B=1 and B=8, and at the training step's four
-              shapes (B=8, T_text 96, T_mel 512) with its saved states;
-              library: cuDNN nn.LSTM over packed sequences;
+              shapes (B=8, T_text 96, T_mel 512) with its saved states,
+              each with the route its plan took (a cluster per lane, or
+              the cooperative grid) and its us per step; library: cuDNN
+              nn.LSTM over packed sequences;
             - K4 backward at the training shapes, with the route its plan
               took (a cluster per lane, or the cooperative grid) and its
               us per step; library: the backward of cuDNN nn.LSTM over
@@ -241,8 +243,8 @@ def _lstm_rows(gen, dev, name, L, H, T, cin, B, train: bool):
     against the twin, times of kernel, twin and cuDNN, the bound."""
     from radmmm_torch.ops.lstm_kernel import (
         _backward_kernel, _forward_kernel, card_backward_plan,
-        lstm_recurrence, lstm_recurrence_backward_reference,
-        lstm_recurrence_reference)
+        card_forward_plan, lstm_recurrence,
+        lstm_recurrence_backward_reference, lstm_recurrence_reference)
     lens = _lengths(T, B)
     mask = (torch.arange(T)[:, None] < lens[None, :]).float().to(dev)
     xp = torch.randn((L, T, B, 4 * H), generator=gen, device=dev)
@@ -283,13 +285,19 @@ def _lstm_rows(gen, dev, name, L, H, T, cin, B, train: bool):
     with torch.no_grad():
         lib_ms = cuda_ms(library, 10)
     b_ms, b_by = bound_ms(L, T, B, H, valid, save=train)
+    fplan = card_forward_plan(L, B, H)
     fwd = dict(kernel="lstm_recurrence", path=tag, shape=name, L=L, H=H,
                T=T, B=B, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               us_per_step=k_ms * 1e3 / T, route=fplan.route,
+               ctas_per_lane=fplan.n_cta, hb=fplan.hb)
     log(f"[kernels] K4 {tag} {name} L={L} H={H} T={T} B={B}: max_abs_err "
-        f"{err:.3e} (atol {KERNEL_ATOL:g}), kernel_ms {k_ms:.4f}, plain_ms "
-        f"{p_ms:.3f}, library_ms {lib_ms:.4f}, bound_ms {b_ms:.5f} "
-        f"({b_by})")
+        f"{err:.3e} (atol {KERNEL_ATOL:g}"
+        f"{', saved states included' if train else ''}), kernel_ms "
+        f"{k_ms:.4f} ({k_ms * 1e3 / T:.2f} us/step, route {fplan.route}: "
+        f"{fplan.n_cta} CTAs a lane of {fplan.hb} units, ks {fplan.ks}), "
+        f"plain_ms {p_ms:.3f}, library_ms {lib_ms:.4f}, bound_ms "
+        f"{b_ms:.5f} ({b_by})")
     if not ok:
         fail(f"K4 forward disagrees with its twin at {tag} {name} B={B}")
     if not train:
@@ -1247,6 +1255,8 @@ def kernel_entries(rows: list, serve_launches, train_launches,
                              for r in by("lstm_recurrence")),
              **summed(serve_b1),
              bound_by=max(serve_b1, key=lambda r: r["bound_ms"])["bound_by"],
+             routes={f"{r['path']} {r['shape']} B={r['B']}": r["route"]
+                     for r in by("lstm_recurrence")},
              shapes=by("lstm_recurrence")),
         # no Pallas counterpart: the JAX package differentiates the scan
         dict(name="lstm_recurrence_bwd", route="cuda",

@@ -17,58 +17,90 @@
 // their sigmoid/tanh) and the carried c and h after every step. Serving
 // passes null pointers and writes nothing extra.
 //
-// What bounds it: a chain of T dependent steps, each a (B,H)x(H,4H) product
-// whose input is the whole h of the step before. At serving batch sizes
-// (B = 1..8) the product is a few hundred kFLOP, so neither the card's
-// FLOP rate nor its memory bandwidth is the limit: latency is, the per-step
-// cost of spreading h to every block that needs it and of the barrier that
-// orders the steps. Wh does not fit one SM (1.08 MB at H = 260, 4.46 MB at
-// H = 528, in f32).
+// What bounds it: latency, not bytes or FLOPs. A lane is a chain of T
+// dependent steps, each a (B,H)x(H,4H) product whose input is the whole h
+// of the step before; at B = 1..8 that is a few hundred kFLOP a step, far
+// below what the card's FLOP rate or memory bandwidth would need a step to
+// last. What a step costs is the product spread over as many SMs as the
+// lane can use, the exchange of the new h between them, and the barrier
+// that orders the steps. Wh does not fit one SM (1.08 MB at H = 260, 4.46
+// MB at H = 528, in f32).
 //
-// Design: the grid is L * ceil(H / hb) blocks. Each block owns one lane and
-// a slice of hb hidden units with all four of their gate columns; it keeps
-// that Wh slice in shared memory for the whole run and the slice's cell
-// state in shared memory. At every step a block reads the previous h of
-// its lane (B*H floats) from a global double buffer that stays in L2,
-// computes its 4*hb gate columns for all B rows with f32 FMAs on the CUDA
-// cores (threads split the H reduction into ks chunks, partial sums meet in
-// shared memory), updates its units, writes their h into the other half of
-// the buffer and meets every other block at a grid-wide barrier
-// (cooperative launch, cg::this_grid().sync()). The launch is cooperative,
-// so it fails rather than deadlocks when the grid cannot be co-resident;
-// the wrapper picks hb so that it is. No tensor cores: the product is too
-// thin at these batch sizes to feed them.
+// Design: an all-gather of h per step, with no barrier wider than a lane.
+// Each CTA owns one lane's hb hidden units with all four of their gate
+// columns. It keeps Wh[:, those 4 hb columns] in shared memory for the
+// whole run and its cells' c in registers (one cell (b, unit) a thread).
+// Per step it multiplies the lane's h, held unit-major in its own shared
+// memory, by its columns (f32 FMAs on the CUDA cores, a thread two columns
+// by up to 8 batch rows over one of ks chunks of the H reduction; the
+// chunks meet in shared memory), updates its cells, writes out (and the
+// saved states) and hands its units' new h to every CTA of the lane. The
+// next step's x_proj and mask are loaded during the exchange and the
+// barrier, off the chain. Lanes are independent: a BiLSTM's directions
+// and the six frame-DAP lanes never wait for each other. Two routes,
+// picked by the wrapper's plan (ops/lstm_kernel.forward_plan):
+// - cluster: a lane is one thread-block cluster of up to 16 CTAs (Hopper's
+//   non-portable size; 8 where only portable clusters are resident), for
+//   every lane whose Wh slices fit the cluster's shared memory: H <= 260
+//   in the model. A CTA writes its units' h, 16 bytes at a time, into
+//   every peer's shared memory (distributed shared memory), double-buffered
+//   by step parity, and barrier.cluster arrive.release / wait.acquire
+//   orders the steps. A CTA writes into a buffer for step s+2 only after
+//   every CTA has passed the barrier of step s+1, which each reaches after
+//   its product of step s; the last step sends nothing, so no CTA exits
+//   while a peer may still write to it. A lane that finds no free SMs
+//   waits for a cluster to finish and still gives the same answer.
+// - grid: a cooperative launch for lanes whose Wh is too large for a
+//   cluster (H = 528). h goes through an L2 double buffer (2, L, H, Bp),
+//   written with __stcg and read with __ldcg, and each lane's CTAs meet at
+//   a barrier of their own: a release atomicAdd on the lane's counter and
+//   an acquire spin until it reaches step x CTAs (lstm_sync.cuh). The
+//   launch is cooperative, so every CTA is resident and the spin cannot
+//   deadlock.
+// No tensor cores: at B <= 8 the product is too thin to feed them, and the
+// plain twin is f32.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "lstm_sync.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileB = 8;   // batch rows a thread accumulates at once
 
+__host__ __device__ inline size_t up4(size_t n) { return (n + 3) / 4 * 4; }
+
+// batch rows as the product tiles them: 4 up to B = 4, else a multiple of 8
+__host__ __device__ inline int pad_rows(int B) {
+  return B <= 4 ? 4 : (B + 7) / 8 * 8;
+}
+
+// shared memory of one CTA, in floats, each part on a 16-byte boundary;
+// ops/lstm_kernel.py::_fwd_smem mirrors the byte count
 struct Layout {
-  int nc;      // gate columns per block: 4 * hb
-  int ks;      // threads sharing one column's H reduction
-  int kc;      // reduction chunk per thread, a multiple of 4
-  int hp;      // padded H: ks * kc
-  size_t w_off, h_off, part_off, c_off, bytes;
+  int Bp;      // batch rows padded
+  int nc;      // this CTA's gate columns: 4 hb
+  int kc;      // reduction rows per chunk
+  int hp;      // rows of the Wh slice: ks * kc >= H, zero past H
+  int hr;      // rows (units) of an h buffer: max(hp, n_cta * hb)
+  size_t w_off, h_off, part_off, bytes;
 };
 
-__host__ __device__ inline Layout make_layout(int H, int B, int hb) {
+__host__ __device__ inline Layout make_layout(int B, int H, int hb, int ks,
+                                              int n_cta, bool cluster) {
   Layout s;
+  s.Bp = pad_rows(B);
   s.nc = 4 * hb;
-  s.ks = kThreads / s.nc;
-  int kc = (H + s.ks - 1) / s.ks;
-  s.kc = (kc + 3) / 4 * 4;
-  s.hp = s.kc * s.ks;
-  s.w_off = 0;                                         // hp x nc   Wh slice
-  s.h_off = s.w_off + (size_t)s.hp * s.nc;             // B x hp    h of t-1
-  s.part_off = s.h_off + (size_t)B * s.hp;             // ks x B x nc
-  s.c_off = s.part_off + (size_t)s.ks * B * s.nc;      // B x hb    cell
-  s.bytes = (s.c_off + (size_t)B * hb) * sizeof(float);
-  return s;
+  s.kc = (H + ks - 1) / ks;
+  s.hp = s.kc * ks;
+  s.hr = s.hp > n_cta * hb ? s.hp : n_cta * hb;
+  s.w_off = 0;                                          // hp x nc    Wh
+  s.h_off = up4(s.w_off + (size_t)s.hp * s.nc);         // (2|1) x hr x Bp
+  s.part_off = up4(s.h_off + (size_t)(cluster ? 2 : 1) * s.hr * s.Bp);
+  s.bytes = (s.part_off + (size_t)ks * s.Bp * s.nc) * sizeof(float);
+  return s;                                             // ks x Bp x nc
 }
 
 struct Params {
@@ -76,11 +108,12 @@ struct Params {
   const float* mask;   // (T, B), or (L, T, B) with mask_lane_stride = T*B
   const float* wh;     // (L, H, 4H)
   float* out;          // (L, T, B, H)
-  float* hbuf;         // (2, L, B, H) scratch
   float* act;          // (L, T, B, 4H) gate activations, or null
   float* cs;           // (L, T, B, H) carried c after each step, or null
   float* hs;           // (L, T, B, H) carried h after each step, or null
-  int L, T, B, H, hb, blocks_per_lane;
+  float* hbuf;         // grid: (2, L, H, Bp) zeroed; cluster: null
+  unsigned* arrived;   // grid: (L,) zeroed counters; cluster: null
+  int L, T, B, H, hb, ks, n_cta;
   long long mask_lane_stride;
   unsigned long long reverse_bits;
 };
@@ -89,92 +122,126 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// kRows: batch rows a thread accumulates at once (4 for B <= 4, else 8)
+template <bool kCluster, int kRows>
+__global__ void __launch_bounds__(kThreads, 1)
 lstm_recurrence_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  cg::grid_group grid = cg::this_grid();
-
-  const int H = p.H, B = p.B, T = p.T, G = 4 * H, hb = p.hb;
-  const Layout s = make_layout(H, B, hb);
-  const int nc = s.nc;
-  const int lane = blockIdx.x / p.blocks_per_lane;
-  const int j0 = (blockIdx.x % p.blocks_per_lane) * hb;
+  const int H = p.H, B = p.B, T = p.T, G = 4 * H, hb = p.hb, ks = p.ks;
+  const int n_cta = p.n_cta, tid = threadIdx.x;
+  const Layout s = make_layout(B, H, hb, ks, n_cta, kCluster);
+  const int Bp = s.Bp, nc = s.nc;
+  const int lane = blockIdx.x / n_cta;
+  const int rank = blockIdx.x % n_cta;    // the cluster rank on that route
+  const int j0 = rank * hb;
   const bool rev = (p.reverse_bits >> lane) & 1ULL;
+  const size_t hsize = (size_t)s.hr * Bp;
 
   float* w_s = smem + s.w_off;
-  float* h_s = smem + s.h_off;
+  float* h_s = smem + s.h_off;     // h_s[unit * Bp + b]
   float* part_s = smem + s.part_off;
-  float* c_s = smem + s.c_off;
 
-  // this block's Wh columns: local column c = gate * hb + j holds global
+  // this CTA's Wh columns: local column c = gate * hb + j holds global
   // column gate * H + j0 + j; rows past H and units past H are zero
   const float* wh = p.wh + (size_t)lane * H * G;
-  for (int i = threadIdx.x; i < s.hp * nc; i += kThreads) {
+  for (int i = tid; i < s.hp * nc; i += kThreads) {
     const int k = i / nc, c = i % nc, u = j0 + c % hb;
     w_s[i] = (k < H && u < H) ? wh[(size_t)k * G + (c / hb) * H + u] : 0.f;
   }
-  for (int i = threadIdx.x; i < B * hb; i += kThreads) c_s[i] = 0.f;
+  // h before the first step, and the padding (rows past B, units past H)
+  // that feeds only sums never stored, stays zero
+  for (size_t i = tid; i < (kCluster ? 2 : 1) * hsize; i += kThreads)
+    h_s[i] = 0.f;
 
   const float* xp = p.xp + (size_t)lane * T * B * G;
   const float* mk = p.mask + (size_t)lane * p.mask_lane_stride;
   float* out = p.out + (size_t)lane * T * B * H;
 
-  const int col = threadIdx.x % nc;     // gate column this thread reduces
-  const int ks_me = threadIdx.x / nc;   // and its chunk of the H reduction
-  const int k_lo = ks_me * s.kc;
-  // one cell (b, j) per thread: the wrapper guarantees B * hb <= kThreads
-  const int cb = threadIdx.x / hb, cj = threadIdx.x % hb, cu = j0 + cj;
-  const bool owns_cell = threadIdx.x < B * hb && cu < H;
+  // one cell (b, unit) per thread: the plan keeps B * hb <= kThreads
+  const int cb = tid / hb, cj = tid % hb, cu = j0 + cj;
+  const bool owns_cell = tid < B * hb && cu < H;
+  // the product: two columns c0, c0 + 1 over reduction chunk `chunk`; the
+  // plan keeps 2 hb ks <= kThreads
+  const int pairs = nc / 2;
+  const bool in_product = tid < pairs * ks;
+  const int c0 = 2 * (tid % pairs), chunk = tid / pairs;
 
-  for (int step = 0; step < T; ++step) {
-    const int t = rev ? T - 1 - step : step;
-    const float* hin = p.hbuf + ((size_t)(step & 1) * p.L + lane) * B * H;
-    float* hout = p.hbuf + ((size_t)((step + 1) & 1) * p.L + lane) * B * H;
-
-    // issue this step's x_proj and mask reads early; they are not on the
-    // h dependency chain
-    float xg[4] = {0.f, 0.f, 0.f, 0.f};
-    float m = 0.f;
+  // a cell's x_proj and mask at a step
+  struct In { float x[4], m; };
+  auto load_in = [&](int step) {
+    In v = {{0.f, 0.f, 0.f, 0.f}, 0.f};
     if (owns_cell) {
+      const int t = rev ? T - 1 - step : step;
       const float* xr = xp + ((size_t)t * B + cb) * G + cu;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) xg[g] = xr[g * H];
-      m = mk[(size_t)t * B + cb];
+      for (int g = 0; g < 4; ++g) v.x[g] = xr[g * H];
+      v.m = mk[(size_t)t * B + cb];
     }
+    return v;
+  };
 
-    // h of step t-1 (zero at the first step); __ldcg skips the incoherent
-    // L1, the buffer was written by other SMs
-    for (int i = threadIdx.x; i < B * s.hp; i += kThreads) {
-      const int b = i / s.hp, k = i % s.hp;
-      h_s[i] = (step > 0 && k < H) ? __ldcg(hin + (size_t)b * H + k) : 0.f;
-    }
+  // every CTA of the cluster runs before any writes another's memory
+  if constexpr (kCluster) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
     __syncthreads();
+  }
 
-    for (int b0 = 0; b0 < B; b0 += kTileB) {
-      float acc[kTileB];
+  float c_cell = 0.f;
+  In cur = load_in(0);
+  for (int step = 0; step < T; ++step) {
+    const int t = rev ? T - 1 - step : step;
+    const int par = step & 1;
+    // h after step - 1: this step's buffer (the cluster's double buffer, or
+    // the grid's one copy of the L2 buffer)
+    const float* h_cur = h_s + (kCluster ? par * hsize : 0);
+    float* h_nxt = h_s + (kCluster ? (par ^ 1) * hsize : 0);
+    if (step > 0) {
+      if constexpr (kCluster) {
+        cluster_wait();
+      } else {
+        lane_wait(p.arrived + lane, (unsigned)step * n_cta);
+        const float4* src = reinterpret_cast<const float4*>(
+            p.hbuf + ((size_t)par * p.L + lane) * H * Bp);
+        float4* dst = reinterpret_cast<float4*>(h_s);
+        for (int i = tid; i < H * Bp / 4; i += kThreads) dst[i] = __ldcg(src + i);
+        __syncthreads();
+      }
+    }
+
+    if (in_product) {
+      const int k_lo = chunk * s.kc;
+      for (int b0 = 0; b0 < B; b0 += kRows) {
+        float acc[2][kRows];
 #pragma unroll
-      for (int q = 0; q < kTileB; ++q) acc[q] = 0.f;
-      for (int k = k_lo; k < k_lo + s.kc; k += 4) {
-        const float w0 = w_s[(k + 0) * nc + col];
-        const float w1 = w_s[(k + 1) * nc + col];
-        const float w2 = w_s[(k + 2) * nc + col];
-        const float w3 = w_s[(k + 3) * nc + col];
+        for (int q = 0; q < kRows; ++q) acc[0][q] = acc[1][q] = 0.f;
+        const float* hk = h_cur + (size_t)k_lo * Bp + b0;
+        const float* wk = w_s + (size_t)k_lo * nc + c0;
+#pragma unroll 4
+        for (int k = 0; k < s.kc; ++k) {
+          const float2 w = *reinterpret_cast<const float2*>(wk + (size_t)k * nc);
+          float hv[kRows];
 #pragma unroll
-        for (int q = 0; q < kTileB; ++q) {
-          if (b0 + q < B) {
-            const float4 hv = *reinterpret_cast<const float4*>(
-                h_s + (size_t)(b0 + q) * s.hp + k);
-            acc[q] = fmaf(hv.x, w0, acc[q]);
-            acc[q] = fmaf(hv.y, w1, acc[q]);
-            acc[q] = fmaf(hv.z, w2, acc[q]);
-            acc[q] = fmaf(hv.w, w3, acc[q]);
+          for (int q4 = 0; q4 < kRows / 4; ++q4) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                hk + (size_t)k * Bp + 4 * q4);
+            hv[4 * q4] = v.x; hv[4 * q4 + 1] = v.y;
+            hv[4 * q4 + 2] = v.z; hv[4 * q4 + 3] = v.w;
+          }
+#pragma unroll
+          for (int q = 0; q < kRows; ++q) {
+            acc[0][q] = fmaf(hv[q], w.x, acc[0][q]);
+            acc[1][q] = fmaf(hv[q], w.y, acc[1][q]);
           }
         }
-      }
 #pragma unroll
-      for (int q = 0; q < kTileB; ++q)
-        if (b0 + q < B)
-          part_s[((size_t)ks_me * B + b0 + q) * nc + col] = acc[q];
+        for (int q = 0; q < kRows; ++q)
+          if (b0 + q < B)
+            *reinterpret_cast<float2*>(
+                part_s + ((size_t)chunk * Bp + b0 + q) * nc + c0) =
+                make_float2(acc[0][q], acc[1][q]);
+      }
     }
     __syncthreads();
 
@@ -183,84 +250,111 @@ lstm_recurrence_kernel(const Params p) {
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
         float acc = 0.f;
-        for (int q = 0; q < s.ks; ++q)
-          acc += part_s[((size_t)q * B + cb) * nc + g * hb + cj];
-        gate[g] = xg[g] + acc;
+        for (int q = 0; q < ks; ++q)
+          acc += part_s[((size_t)q * Bp + cb) * nc + g * hb + cj];
+        gate[g] = cur.x[g] + acc;
       }
-      const float c_old = c_s[threadIdx.x];
       const float ai = sigmoidf_(gate[0]), af = sigmoidf_(gate[1]);
       const float ag = tanhf(gate[2]), ao = sigmoidf_(gate[3]);
-      const float c_new = af * c_old + ai * ag;
+      const float c_new = af * c_cell + ai * ag;
       const float h_new = ao * tanhf(c_new);
-      const bool keep = m > 0.f;
-      const float c_keep = keep ? c_new : c_old;
-      const float h_keep = keep ? h_new : h_s[(size_t)cb * s.hp + cu];
-      c_s[threadIdx.x] = c_keep;
-      hout[(size_t)cb * H + cu] = h_keep;
-      const size_t cell = ((size_t)lane * T + t) * B + cb;
-      out[((size_t)t * B + cb) * H + cu] = h_new * m;
+      const bool keep = cur.m > 0.f;
+      const float h_keep = keep ? h_new : h_cur[(size_t)cu * Bp + cb];
+      c_cell = keep ? c_new : c_cell;
+      out[((size_t)t * B + cb) * H + cu] = h_new * cur.m;
       if (p.act) {
+        const size_t cell = ((size_t)lane * T + t) * B + cb;
         float* a = p.act + cell * G + cu;
         a[0] = ai; a[H] = af; a[2 * H] = ag; a[3 * H] = ao;
-        p.cs[cell * H + cu] = c_keep;
+        p.cs[cell * H + cu] = c_cell;
         p.hs[cell * H + cu] = h_keep;
       }
+      if (step + 1 < T) {
+        if constexpr (kCluster)
+          h_nxt[(size_t)cu * Bp + cb] = h_keep;
+        else
+          __stcg(p.hbuf + (((size_t)(par ^ 1) * p.L + lane) * H + cu) * Bp
+                     + cb, h_keep);
+      }
     }
-    grid.sync();   // orders this step's h writes before the next step's reads
+    if (step + 1 == T) break;
+    // the next step's inputs, in flight through the exchange and the
+    // barrier
+    cur = load_in(step + 1);
+    __syncthreads();
+    if constexpr (kCluster) {
+      // my units' rows of h_nxt (hb x Bp floats from unit j0) to the same
+      // place in every peer, 16 bytes a store
+      const int n4 = hb * Bp / 4;
+      float* mine = h_nxt + (size_t)j0 * Bp;
+      const float4* src = reinterpret_cast<const float4*>(mine);
+      for (int i = tid; i < (n_cta - 1) * n4; i += kThreads) {
+        const int peer = (rank + 1 + i / n4) % n_cta;
+        float4* dst = reinterpret_cast<float4*>(
+            cg::this_cluster().map_shared_rank(mine, peer));
+        dst[i % n4] = src[i % n4];
+      }
+      cluster_arrive();
+    } else {
+      lane_arrive(p.arrived + lane);
+    }
   }
+}
+
+using Kernel = void (*)(const Params);
+
+Kernel kernel_for(bool cluster, int B) {
+  if (cluster)
+    return B <= 4 ? lstm_recurrence_kernel<true, 4>
+                  : lstm_recurrence_kernel<true, 8>;
+  return B <= 4 ? lstm_recurrence_kernel<false, 4>
+                : lstm_recurrence_kernel<false, 8>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Co-resident blocks of the kernel on the current device for slice width
-// hb, in *capacity. Returns a CUDA error code (non-zero when the slice's
-// shared memory does not fit a block).
-int lstm_recurrence_capacity(int B, int H, int hb, int* capacity) {
-  const Layout s = make_layout(H, B, hb);
-  cudaError_t e = cudaFuncSetAttribute(
-      lstm_recurrence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)s.bytes);
-  if (e != cudaSuccess) { cudaGetLastError(); return (int)e; }
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
-      != cudaSuccess) return (int)e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, lstm_recurrence_kernel, kThreads, s.bytes)) != cudaSuccess)
-    return (int)e;
-  *capacity = per_sm * sms;
-  return 0;
+// The current device's limits for the plan (lstm_sync.cuh), with the
+// registers of the grid-route kernel. Returns a CUDA error code.
+int lstm_recurrence_limits(int* sms, int* smem_block, int* smem_sm,
+                           int* regs_grid) {
+  return lstm_card_limits(lstm_recurrence_kernel<false, 8>, sms, smem_block,
+                          smem_sm, regs_grid);
 }
 
-// Launches the recurrence on `stream`. Returns cudaGetLastError() after the
-// launch (0 on success).
-// act, cs and hs are null when serving, all three set when training.
+// Clusters of n_cta CTAs of the cluster-route kernel for (B, H, hb, ks) that
+// the current device holds at once, in *n_clusters (0: none fits). Returns 0.
+int lstm_recurrence_clusters(int B, int H, int hb, int ks, int n_cta,
+                             int* n_clusters) {
+  const Layout s = make_layout(B, H, hb, ks, n_cta, true);
+  return lstm_active_clusters(kernel_for(true, B), n_cta, kThreads, s.bytes,
+                              n_clusters);
+}
+
+// Launches the recurrence on `stream` by the route of the wrapper's plan:
+// `cluster` non-zero for one cluster of n_cta CTAs per lane, else the
+// cooperative grid with the zeroed `hbuf` and `arrived`. act, cs and hs are
+// null when serving, all three set when training. Returns
+// cudaGetLastError() after the launch (0 on success).
 int lstm_recurrence_launch(const float* xp, const float* mask, const float* wh,
-                           float* out, float* hbuf, float* act, float* cs,
-                           float* hs, int L, int T, int B, int H,
-                           long long mask_lane_stride,
-                           unsigned long long reverse_bits, int hb,
-                           void* stream) {
-  const Layout s = make_layout(H, B, hb);
+                           float* out, float* act, float* cs, float* hs,
+                           float* hbuf, unsigned* arrived, int L, int T,
+                           int B, int H, long long mask_lane_stride,
+                           unsigned long long reverse_bits, int cluster,
+                           int n_cta, int hb, int ks, void* stream) {
+  if (B * hb > kThreads || 2 * hb * ks > kThreads || n_cta * hb < H ||
+      ks < 1 || L < 1 || L > 64)
+    return (int)cudaErrorInvalidValue;
+  const Layout s = make_layout(B, H, hb, ks, n_cta, cluster != 0);
   Params p;
-  p.xp = xp; p.mask = mask; p.wh = wh; p.out = out; p.hbuf = hbuf;
-  p.act = act; p.cs = cs; p.hs = hs;
-  p.L = L; p.T = T; p.B = B; p.H = H; p.hb = hb;
-  p.blocks_per_lane = (H + hb - 1) / hb;
+  p.xp = xp; p.mask = mask; p.wh = wh; p.out = out;
+  p.act = act; p.cs = cs; p.hs = hs; p.hbuf = hbuf; p.arrived = arrived;
+  p.L = L; p.T = T; p.B = B; p.H = H; p.hb = hb; p.ks = ks; p.n_cta = n_cta;
   p.mask_lane_stride = mask_lane_stride;
   p.reverse_bits = reverse_bits;
-  cudaError_t e = cudaFuncSetAttribute(
-      lstm_recurrence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)s.bytes);
-  if (e != cudaSuccess) return (int)e;
-  void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)lstm_recurrence_kernel,
-                                  dim3(L * p.blocks_per_lane), dim3(kThreads),
-                                  args, s.bytes, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return lstm_launch(kernel_for(cluster != 0, B), p, cluster != 0, n_cta,
+                     L * n_cta, kThreads, s.bytes, (cudaStream_t)stream);
 }
 
 const char* radmmm_error_string(int code) {

@@ -56,6 +56,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "lstm_sync.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -107,23 +109,6 @@ struct Params {
   long long mask_lane_stride;
   unsigned long long reverse_bits;
 };
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
 
 template <bool kCluster>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -224,13 +209,7 @@ lstm_recurrence_bwd_kernel(const Params p) {
             rec += r[(size_t)src * hb * s.Bp];
         }
       } else {
-        if (tid == 0) {
-          const unsigned want = (unsigned)step * n_cta;
-          while (ld_acquire(p.arrived + lane) < want) {
-          }
-          __threadfence();
-        }
-        __syncthreads();
+        lane_wait(p.arrived + lane, (unsigned)step * n_cta);
         // all threads gather: group g sums sources g, g + ngrp, ... of the
         // element e = (unit, row)
         const int E = B * hb, ngrp = kThreads / E;
@@ -351,10 +330,7 @@ lstm_recurrence_bwd_kernel(const Params p) {
       cluster_arrive();
     } else {
       __syncthreads();
-      if (tid == 0) {
-        __threadfence();
-        atomicAdd(p.arrived + lane, 1u);
-      }
+      lane_arrive(p.arrived + lane);
     }
   }
 }
@@ -363,61 +339,21 @@ lstm_recurrence_bwd_kernel(const Params p) {
 
 extern "C" {
 
-// The current device's limits for the plan: SMs, the dynamic shared memory
-// a block may opt into, shared memory per SM, and the registers a thread of
-// the grid-route kernel uses as compiled. Returns a CUDA error code.
+// The current device's limits for the plan (lstm_sync.cuh), with the
+// registers of the grid-route kernel. Returns a CUDA error code.
 int lstm_recurrence_bwd_limits(int* sms, int* smem_block, int* smem_sm,
                                int* regs_grid) {
-  int dev = 0;
-  cudaError_t e;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev))
-      != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(
-           smem_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
-      != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(
-           smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev))
-      != cudaSuccess) return (int)e;
-  cudaFuncAttributes fa;
-  if ((e = cudaFuncGetAttributes(&fa, lstm_recurrence_bwd_kernel<false>))
-      != cudaSuccess) return (int)e;
-  *regs_grid = fa.numRegs;
-  return 0;
+  return lstm_card_limits(lstm_recurrence_bwd_kernel<false>, sms, smem_block,
+                          smem_sm, regs_grid);
 }
 
 // Clusters of n_cta CTAs of the cluster-route kernel for (B, H, hb, ks) that
-// the current device holds at once, in *n_clusters (0: none fits, also when
-// the driver refuses the size). Returns 0.
+// the current device holds at once, in *n_clusters (0: none fits). Returns 0.
 int lstm_recurrence_bwd_clusters(int B, int H, int hb, int ks, int n_cta,
                                  int* n_clusters) {
   const Layout s = make_layout(B, H, hb, ks, n_cta, true);
-  auto kern = lstm_recurrence_bwd_kernel<true>;
-  *n_clusters = 0;
-  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)s.bytes) != cudaSuccess ||
-      cudaFuncSetAttribute(kern,
-                           cudaFuncAttributeNonPortableClusterSizeAllowed,
-                           1) != cudaSuccess) {
-    cudaGetLastError();     // a size the kernel cannot take: none fits
-    return 0;
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_cta;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_cta);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = s.bytes;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (cudaOccupancyMaxActiveClusters(n_clusters, kern, &cfg) != cudaSuccess) {
-    cudaGetLastError();
-    *n_clusters = 0;
-  }
-  return 0;
+  return lstm_active_clusters(lstm_recurrence_bwd_kernel<true>, n_cta,
+                              kThreads, s.bytes, n_clusters);
 }
 
 // Launches the backward on `stream` by the route of the wrapper's plan:
@@ -440,45 +376,10 @@ int lstm_recurrence_bwd_launch(const float* dout, const float* act,
   p.L = L; p.T = T; p.B = B; p.H = H; p.hb = hb; p.ks = ks; p.n_cta = n_cta;
   p.mask_lane_stride = mask_lane_stride;
   p.reverse_bits = reverse_bits;
-  cudaError_t e;
-  if (cluster) {
-    auto kern = lstm_recurrence_bwd_kernel<true>;
-    if ((e = cudaFuncSetAttribute(kern,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)s.bytes)) != cudaSuccess)
-      return (int)e;
-    if (n_cta > 8 &&        // past the portable cluster size
-        (e = cudaFuncSetAttribute(
-             kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1))
-            != cudaSuccess)
-      return (int)e;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = n_cta;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(L * n_cta);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = s.bytes;
-    cfg.stream = (cudaStream_t)stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    if ((e = cudaLaunchKernelEx(&cfg, kern, p)) != cudaSuccess) return (int)e;
-  } else {
-    auto kern = lstm_recurrence_bwd_kernel<false>;
-    if ((e = cudaFuncSetAttribute(kern,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)s.bytes)) != cudaSuccess)
-      return (int)e;
-    void* args[] = {&p};
-    if ((e = cudaLaunchCooperativeKernel((const void*)kern, dim3(L * n_cta),
-                                         dim3(kThreads), args, s.bytes,
-                                         (cudaStream_t)stream))
-        != cudaSuccess)
-      return (int)e;
-  }
-  return (int)cudaGetLastError();
+  return lstm_launch(cluster ? lstm_recurrence_bwd_kernel<true>
+                             : lstm_recurrence_bwd_kernel<false>,
+                     p, cluster != 0, n_cta, L * n_cta, kThreads, s.bytes,
+                     (cudaStream_t)stream);
 }
 
 const char* radmmm_error_string(int code) {

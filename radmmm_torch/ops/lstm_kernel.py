@@ -19,9 +19,10 @@ carried c and h of every step, and the backward runs the reverse-time
 recurrence (``csrc/lstm_recurrence_bwd.cu`` on the card,
 ``lstm_recurrence_backward_reference`` on the CPU); dWh is one batched
 matmul over the saved h. Without autograd (serving) nothing extra is
-written. ``backward_plan`` picks the backward kernel's route for a shape:
-a thread-block cluster per lane where the lane's Wh fits one, else a
-cooperative grid with a barrier per lane.
+written. ``forward_plan`` and ``backward_plan`` pick each kernel's route
+for a shape: a thread-block cluster per lane where the lane's Wh fits
+one, else a cooperative grid with a barrier per lane. No barrier spans
+two lanes on either route.
 
 Tensors on the CPU run the twins. Tensors on a CUDA device launch
 ``csrc/lstm_recurrence.cu`` and ``csrc/lstm_recurrence_bwd.cu`` (built by
@@ -42,10 +43,6 @@ from radmmm_torch.utils import cuda_build
 launches = 0
 backward_launches = 0
 
-_THREADS = 256            # kThreads in lstm_recurrence.cu
-# hidden units per block, in order of preference (4*hb must divide _THREADS
-# in the forward); the backward's grid route takes the same order
-_SLICE_WIDTHS = (8, 16, 4, 32, 2, 1)
 _plans: dict = {}
 
 
@@ -218,7 +215,9 @@ def lstm_recurrence(x_proj: torch.Tensor, mask: torch.Tensor,
     return _forward_kernel(x_proj, mask, wh, reverse, save=False)
 
 
-def _forward_kernel(x_proj, mask, wh, reverse, save: bool):
+def _forward_kernel(x_proj, mask, wh, reverse, save: bool, plan=None):
+    """The forward kernel's launch, by ``card_forward_plan`` unless a plan
+    is given (``scripts/sweep_lstm.py`` times the alternatives)."""
     global launches
     L, T, B, G = x_proj.shape
     H = G // 4
@@ -232,14 +231,23 @@ def _forward_kernel(x_proj, mask, wh, reverse, save: bool):
         return (out, *saved) if save else out
     lib = _library()
     with torch.cuda.device(dev):
-        hb = _plan(lib.lstm_recurrence_capacity, "fwd", L, B, H)
-        # double-buffered h of the previous step, shared by a lane's blocks
-        hbuf = torch.empty((2, L, B, H), dtype=torch.float32, device=dev)
+        plan = plan or card_forward_plan(L, B, H)
+        grid = plan.route == "grid"
+        hbuf = arrived = None
+        if grid:
+            # the h exchange through L2 (its padding rows stay zero) and the
+            # lanes' barrier counters, referenced here until the launch is
+            # queued
+            hbuf = torch.zeros((2, L, H, _rows(B)), dtype=torch.float32,
+                               device=dev)
+            arrived = torch.zeros(L, dtype=torch.int32, device=dev)
         ptrs = [t.data_ptr() for t in saved] if save else [None] * 3
         err = lib.lstm_recurrence_launch(
             x_proj.data_ptr(), mask.data_ptr(), wh.data_ptr(),
-            out.data_ptr(), hbuf.data_ptr(), *ptrs, L, T, B, H,
-            T * B if mask.dim() == 3 else 0, _bits(reverse), hb,
+            out.data_ptr(), *ptrs, hbuf.data_ptr() if grid else None,
+            arrived.data_ptr() if grid else None, L, T, B, H,
+            T * B if mask.dim() == 3 else 0, _bits(reverse),
+            int(not grid), plan.n_cta, plan.hb, plan.ks,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(lib, err, "lstm_recurrence")
     launches += 1
@@ -248,7 +256,7 @@ def _forward_kernel(x_proj, mask, wh, reverse, save: bool):
 
 def _backward_kernel(dout, act, cs, mask, wh, reverse, plan=None):
     """The backward kernel's launch, by ``card_backward_plan`` unless a
-    plan is given (``scripts/sweep_lstm_bwd.py`` times the alternatives)."""
+    plan is given (``scripts/sweep_lstm.py`` times the alternatives)."""
     global backward_launches
     L, T, B, H = dout.shape
     dev = dout.device
@@ -280,7 +288,7 @@ def _backward_kernel(dout, act, cs, mask, wh, reverse, plan=None):
 
 @dataclasses.dataclass(frozen=True)
 class CardLimits:
-    """What the backward's plan needs to know of a card."""
+    """What a plan needs to know of a card."""
     sms: int
     smem_per_block: int        # dynamic shared memory a block may opt into
     smem_per_sm: int
@@ -290,14 +298,15 @@ class CardLimits:
 
 
 @dataclasses.dataclass(frozen=True)
-class BackwardPlan:
-    """How the backward kernel runs one (L, B, H) recurrence.
+class Plan:
+    """How the forward or the backward kernel runs one (L, B, H)
+    recurrence.
 
-    route: "cluster", one thread-block cluster of n_cta CTAs per lane,
-    partials through distributed shared memory; or "grid", a cooperative
-    grid of L * n_cta CTAs, partials through L2 and a barrier per lane.
-    hb: hidden units per CTA; ks: chunks each CTA's 4 hb columns split into
-    for the partial products; smem: dynamic shared memory bytes per CTA."""
+    route: "cluster", one thread-block cluster of n_cta CTAs per lane, the
+    exchange through distributed shared memory; or "grid", a cooperative
+    grid of L * n_cta CTAs, the exchange through L2 and a barrier per lane.
+    hb: hidden units per CTA; ks: chunks each CTA's product is split into;
+    smem: dynamic shared memory bytes per CTA."""
     route: str
     n_cta: int
     hb: int
@@ -305,100 +314,156 @@ class BackwardPlan:
     smem: int
 
 
+_FWD_THREADS = 256          # kThreads in lstm_recurrence.cu
 _BWD_THREADS = 384          # kThreads in lstm_recurrence_bwd.cu
 _RESERVED_SMEM = 1024       # per block, kept by the CUDA runtime on sm_90
 _THREADS_PER_SM, _REGS_PER_SM = 2048, 65536     # sm_80 and later
-# chunks of a CTA's partial product (ks): the fastest at every training
-# shape in scripts/sweep_lstm_bwd.py on an H100
+# hidden units per CTA on the grid route, in order of preference
+_GRID_WIDTHS = (8, 16, 4, 32, 2, 1)
+# chunks of the backward's partial product (ks): the fastest at every
+# training shape in scripts/sweep_lstm.py on an H100
 _CLUSTER_CHUNKS, _GRID_CHUNKS = 2, 1
+# the forward splits a CTA's H reduction into this many chunks, as far as
+# its threads allow (two columns a thread): 8 was the fastest or within 1%
+# of it at every serving and training shape in scripts/sweep_lstm.py on an
+# H100
+_FWD_CHUNKS = 8
+
+
+def _up4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _rows(B: int) -> int:
+    """Batch rows as the forward's product tiles them: pad_rows in the .cu
+    file."""
+    return 4 if B <= 4 else -(-B // 8) * 8
+
+
+def _fwd_smem(B: int, H: int, hb: int, ks: int, n_cta: int,
+              cluster: bool) -> int:
+    """Dynamic shared memory of one forward CTA: make_layout in
+    lstm_recurrence.cu."""
+    Bp, nc, kc = _rows(B), 4 * hb, -(-H // ks)
+    hp = kc * ks
+    hr = max(hp, n_cta * hb)
+    h = _up4(hp * nc)
+    part = _up4(h + (2 if cluster else 1) * hr * Bp)
+    return 4 * (part + ks * Bp * nc)
+
+
+def _fwd_chunks(hb: int) -> int:
+    """The forward's ks on either route: _FWD_CHUNKS, or fewer where the
+    threads run out (one a (column pair, chunk)); 0 where hb leaves no
+    thread for it."""
+    return min(_FWD_THREADS // (2 * hb), _FWD_CHUNKS)
 
 
 def _bwd_smem(B: int, H: int, hb: int, ks: int, n_cta: int,
               cluster: bool) -> int:
-    """Dynamic shared memory of one CTA: make_layout in the .cu file."""
-    def up4(n):
-        return -(-n // 4) * 4
+    """Dynamic shared memory of one backward CTA: make_layout in
+    lstm_recurrence_bwd.cu."""
     Bp, kc = -(-B // 4) * 4, -(-4 * hb // ks)
     gp = kc * ks
-    dg = up4(gp * H)
-    part = up4(dg + gp * Bp)
-    rx = up4(part + (ks * H * Bp if ks > 1 else 0))
+    dg = _up4(gp * H)
+    part = _up4(dg + gp * Bp)
+    rx = _up4(part + (ks * H * Bp if ks > 1 else 0))
     return 4 * (rx + (2 * n_cta * hb * Bp if cluster else _BWD_THREADS))
 
 
-def backward_plan(L: int, B: int, H: int, limits: CardLimits
-                  ) -> BackwardPlan:
-    """The route and sizes of the backward kernel for L lanes of (B, H).
+def _route_plan(L: int, B: int, H: int, limits: CardLimits, name: str,
+                threads: int, smem_fn, cluster_ks, grid_ks) -> Plan:
+    """The route and sizes of one kernel for L lanes of (B, H): the kernel
+    (``name`` in errors) runs ``threads`` a CTA, takes ``smem_fn(B, H, hb,
+    ks, n_cta, cluster)`` bytes of dynamic shared memory, and splits its
+    product into ``cluster_ks(hb)`` or ``grid_ks(hb)`` chunks.
 
     A lane runs as one cluster when its Wh fits the shared memory of at
     most ``limits.max_cluster`` CTAs (each keeps 4 hb columns of it, with
     hb = ceil(H / max_cluster): the most CTAs, since the per-step product
-    sets the pace); otherwise as a cooperative grid, with the
-    first slice width in _SLICE_WIDTHS whose L * ceil(H / hb) CTAs are all
-    resident at once. Each CTA runs one cell per thread, so B * hb is at
-    most the kernel's threads. Raises when no route fits."""
-    T = _BWD_THREADS
+    sets the pace); otherwise as a cooperative grid, with the first slice
+    width in _GRID_WIDTHS whose L * ceil(H / hb) CTAs are all resident at
+    once. Each CTA runs one cell per thread, so B * hb is at most the
+    kernel's threads. Raises when no route fits."""
     if limits.max_cluster >= 1:
         hb = -(-H // limits.max_cluster)
         n_cta = -(-H // hb)
-        if B * hb <= T:
-            ks = _CLUSTER_CHUNKS
-            smem = _bwd_smem(B, H, hb, ks, n_cta, True)
+        ks = cluster_ks(hb)
+        if B * hb <= threads and ks >= 1:
+            smem = smem_fn(B, H, hb, ks, n_cta, True)
             if smem <= limits.smem_per_block:
-                return BackwardPlan("cluster", n_cta, hb, ks, smem)
-    for hb in _SLICE_WIDTHS:
-        if B * hb > T:
+                return Plan("cluster", n_cta, hb, ks, smem)
+    for hb in _GRID_WIDTHS:
+        ks = grid_ks(hb)
+        if B * hb > threads or ks < 1:
             continue
         n_cta = -(-H // hb)
-        ks = _GRID_CHUNKS
-        smem = _bwd_smem(B, H, hb, ks, n_cta, False)
+        smem = smem_fn(B, H, hb, ks, n_cta, False)
         if smem > limits.smem_per_block:
             continue
-        per_sm = min(_THREADS_PER_SM // T,
+        per_sm = min(_THREADS_PER_SM // threads,
                      limits.smem_per_sm // (smem + _RESERVED_SMEM))
         if limits.regs_per_thread:
             per_sm = min(per_sm, _REGS_PER_SM // (
-                T * -(-limits.regs_per_thread // 8) * 8))
+                threads * -(-limits.regs_per_thread // 8) * 8))
         if L * n_cta <= per_sm * limits.sms:
-            return BackwardPlan("grid", n_cta, hb, ks, smem)
+            return Plan("grid", n_cta, hb, ks, smem)
     raise RuntimeError(
-        f"lstm_recurrence (bwd): no route fits the L={L}, B={B}, H={H} "
-        f"recurrence on a card with {limits.sms} SMs and "
+        f"lstm_recurrence ({name}): no route fits the L={L}, B={B}, "
+        f"H={H} recurrence on a card with {limits.sms} SMs and "
         f"{limits.smem_per_block} bytes of shared memory per block")
 
 
-def card_limits() -> CardLimits:
-    """The current CUDA device's limits for the backward's plan, read from
-    the driver once per device."""
+def forward_plan(L: int, B: int, H: int, limits: CardLimits) -> Plan:
+    """The forward kernel's route and sizes for L lanes of (B, H): see
+    ``_route_plan``. Its CTA splits the H reduction into _FWD_CHUNKS chunks
+    where its threads allow."""
+    return _route_plan(L, B, H, limits, "fwd", _FWD_THREADS, _fwd_smem,
+                       _fwd_chunks, _fwd_chunks)
+
+
+def backward_plan(L: int, B: int, H: int, limits: CardLimits) -> Plan:
+    """The backward kernel's route and sizes for L lanes of (B, H): see
+    ``_route_plan``. Its partial product takes _CLUSTER_CHUNKS chunks on a
+    cluster, _GRID_CHUNKS on the grid."""
+    return _route_plan(L, B, H, limits, "bwd", _BWD_THREADS, _bwd_smem,
+                       lambda hb: _CLUSTER_CHUNKS, lambda hb: _GRID_CHUNKS)
+
+
+def card_limits(library, name: str) -> CardLimits:
+    """The current CUDA device's limits for the plan of the kernel ``name``
+    in ``library()`` (the registers are that kernel's), read from the CUDA
+    driver once per device."""
     dev = torch.cuda.current_device()
-    if ("limits", dev) not in _plans:
-        lib = _bwd_library()
+    key = ("limits", name, dev)
+    if key not in _plans:
+        lib = library()
         vals = [ctypes.c_int(0) for _ in range(4)]
-        cuda_build.check(lib, lib.lstm_recurrence_bwd_limits(
-            *[ctypes.byref(v) for v in vals]), "lstm_recurrence_bwd")
+        cuda_build.check(lib, getattr(lib, f"{name}_limits")(
+            *[ctypes.byref(v) for v in vals]), name)
         sms, smem_block, smem_sm, regs = (v.value for v in vals)
         hopper = torch.cuda.get_device_capability(dev)[0] >= 9
-        _plans[("limits", dev)] = CardLimits(
-            sms, smem_block, smem_sm, regs, max_cluster=16 if hopper else 8)
-    return _plans[("limits", dev)]
+        _plans[key] = CardLimits(sms, smem_block, smem_sm, regs,
+                                 max_cluster=16 if hopper else 8)
+    return _plans[key]
 
 
-def card_backward_plan(L: int, B: int, H: int) -> BackwardPlan:
-    """backward_plan for the current CUDA device, with a cluster plan only
-    where the driver says such a cluster can be resident (else the next
-    smaller one). Cached per device and shape."""
-    key = ("bwd", torch.cuda.current_device(), L, B, H)
+def _card_plan(plan_fn, library, name: str, L: int, B: int, H: int) -> Plan:
+    """``plan_fn``'s plan of the kernel ``name`` in ``library()`` for the
+    current CUDA device, with a cluster plan only where the CUDA driver
+    says such a cluster fits (else the next smaller one). Cached per device
+    and shape."""
+    key = (name, torch.cuda.current_device(), L, B, H)
     if key not in _plans:
-        lib = _bwd_library()
-        limits = card_limits()
+        lib = library()
+        limits = card_limits(library, name)
         while True:
-            plan = backward_plan(L, B, H, limits)
+            plan = plan_fn(L, B, H, limits)
             if plan.route == "grid":
                 break
             fit = ctypes.c_int(0)
-            cuda_build.check(lib, lib.lstm_recurrence_bwd_clusters(
-                B, H, plan.hb, plan.ks, plan.n_cta, ctypes.byref(fit)),
-                "lstm_recurrence_bwd")
+            cuda_build.check(lib, getattr(lib, f"{name}_clusters")(
+                B, H, plan.hb, plan.ks, plan.n_cta, ctypes.byref(fit)), name)
             if fit.value >= 1:
                 break
             limits = dataclasses.replace(limits, max_cluster=plan.n_cta - 1)
@@ -406,57 +471,41 @@ def card_backward_plan(L: int, B: int, H: int) -> BackwardPlan:
     return _plans[key]
 
 
+def card_forward_plan(L: int, B: int, H: int) -> Plan:
+    """forward_plan for the current CUDA device (see ``_card_plan``)."""
+    return _card_plan(forward_plan, _library, "lstm_recurrence", L, B, H)
+
+
+def card_backward_plan(L: int, B: int, H: int) -> Plan:
+    """backward_plan for the current CUDA device (see ``_card_plan``)."""
+    return _card_plan(backward_plan, _bwd_library, "lstm_recurrence_bwd",
+                      L, B, H)
+
+
 def _bits(reverse) -> int:
     return sum(1 << l for l, r in enumerate(reverse) if r)
 
 
-def _plan(capacity_fn, which: str, L: int, B: int, H: int) -> int:
-    """The forward's hidden units per block: the first width in
-    _SLICE_WIDTHS whose grid (L * ceil(H / hb) blocks) is co-resident on
-    the card, as its grid-wide barrier needs. Raises when no width fits."""
-    key = (which, torch.cuda.current_device(), L, B, H)
-    if key not in _plans:
-        for hb in _SLICE_WIDTHS:
-            if B * hb > _THREADS:
-                continue
-            cap = ctypes.c_int(0)
-            if capacity_fn(B, H, hb, ctypes.byref(cap)) != 0:
-                continue    # this slice's shared memory exceeds a block's
-            if L * -(-H // hb) <= cap.value:
-                _plans[key] = hb
-                break
-        else:
-            raise RuntimeError(
-                f"lstm_recurrence ({which}): no slice width puts the L={L}, "
-                f"B={B}, H={H} recurrence's blocks on the card at once")
-    return _plans[key]
-
-
-def _declare_fwd(lib):
+def _declare(lib, name: str, n_ptrs: int):
+    """argtypes of a direction's launch, limits and cluster check."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_recurrence_launch.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_longlong,
-        ctypes.c_ulonglong, ci, vp]
-    lib.lstm_recurrence_launch.restype = ci
-    lib.lstm_recurrence_capacity.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
-    lib.lstm_recurrence_capacity.restype = ci
-
-
-def _declare_bwd(lib):
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_recurrence_bwd_launch.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_longlong,
-        ctypes.c_ulonglong, ci, ci, ci, ci, vp]
-    lib.lstm_recurrence_bwd_launch.restype = ci
-    lib.lstm_recurrence_bwd_limits.argtypes = [ctypes.POINTER(ci)] * 4
-    lib.lstm_recurrence_bwd_limits.restype = ci
-    lib.lstm_recurrence_bwd_clusters.argtypes = [ci] * 5 + [ctypes.POINTER(ci)]
-    lib.lstm_recurrence_bwd_clusters.restype = ci
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = [vp] * n_ptrs + [ci, ci, ci, ci, ctypes.c_longlong,
+                                       ctypes.c_ulonglong, ci, ci, ci, ci, vp]
+    launch.restype = ci
+    limits = getattr(lib, f"{name}_limits")
+    limits.argtypes = [ctypes.POINTER(ci)] * 4
+    limits.restype = ci
+    clusters = getattr(lib, f"{name}_clusters")
+    clusters.argtypes = [ci] * 5 + [ctypes.POINTER(ci)]
+    clusters.restype = ci
 
 
 def _library():
-    return cuda_build.load("lstm_recurrence", _declare_fwd)
+    return cuda_build.load("lstm_recurrence",
+                           lambda lib: _declare(lib, "lstm_recurrence", 9))
 
 
 def _bwd_library():
-    return cuda_build.load("lstm_recurrence_bwd", _declare_bwd)
+    return cuda_build.load("lstm_recurrence_bwd",
+                           lambda lib: _declare(lib, "lstm_recurrence_bwd", 8))

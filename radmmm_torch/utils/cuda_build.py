@@ -5,7 +5,8 @@ compiled with ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/radmmm_torch/`` at the repository root, at first use (never at
 import), and loaded with ctypes. ``build_all`` starts one ``nvcc`` per
 source at once and waits for all of them. A library newer than its source
-is reused.
+is reused; a header under ``csrc/`` (``*.cuh``) newer than a library
+rebuilds it too.
 """
 from __future__ import annotations
 
@@ -40,8 +41,13 @@ def lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    lib, src = lib_path(name), CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    """The library is missing, or older than its source or than any header
+    under csrc/ (which a source may include)."""
+    lib = lib_path(name)
+    if not lib.exists():
+        return True
+    inputs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build(names: Iterable[str] = SOURCES, force: bool = False
@@ -60,7 +66,8 @@ def build(names: Iterable[str] = SOURCES, force: bool = False
             tmp = lib_path(n).with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{n}.cu")]
+                   "-Xptxas", "-v", "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{n}.cu")]
             procs[n] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True))

@@ -21,6 +21,7 @@ from radmmm_torch.losses.ctc import _ctc_setup
 from radmmm_torch.ops import alignment, lstm_kernel, wn_kernel
 from radmmm_torch.ops.lstm import MaskedLSTM
 from radmmm_torch.ops.lstm_kernel import (_backward_kernel,
+                                          _forward_kernel,
                                           lstm_recurrence,
                                           lstm_recurrence_backward_reference,
                                           lstm_recurrence_reference)
@@ -54,15 +55,36 @@ def _lstm_inputs(dev, L, H, T, B, seed=0, non_prefix=False):
     return xp, mask.to(dev), wh, rev
 
 
-@pytest.mark.parametrize("L,H,T,B", [(2, 260, 96, 8), (6, 128, 200, 1),
-                                     (2, 528, 64, 3), (1, 20, 7, 2)])
-def test_kernel_matches_twin(cuda, L, H, T, B):
-    xp, mask, wh, rev = _lstm_inputs(cuda, L, H, T, B)
+@pytest.mark.parametrize("L,H,T,B,save", [
+    (2, 260, 96, 8, False), (6, 128, 200, 1, False), (2, 528, 64, 3, False),
+    (1, 20, 7, 2, False),
+    (6, 128, 800, 1, False),      # the serving frame bucket
+    (12, 128, 64, 8, False),      # more lanes than clusters fit at once
+    (2, 260, 96, 8, True), (2, 128, 96, 8, True), (6, 128, 512, 8, True),
+    (2, 528, 256, 8, True),       # the training step's four
+    (1, 20, 31, 8, True), (2, 528, 20, 1, True)])
+def test_kernel_matches_twin(cuda, L, H, T, B, save):
+    """The forward kernel against its twin, with a mask that is not a
+    prefix, for B > 1 one item with every frame masked, and every odd lane
+    reversed; with ``save`` the gate activations and the carried c and h
+    too. A lane per cluster for H <= 260, the cooperative grid with a
+    barrier per lane for H = 528."""
+    xp, mask, wh, rev = _lstm_inputs(cuda, L, H, T, B, non_prefix=True)
+    if B > 1:
+        mask[:, -1] = 0.0
     before = lstm_kernel.launches
-    got = lstm_recurrence(xp, mask, wh, rev)
+    if save:
+        got = _forward_kernel(xp, mask, wh, rev, save=True)
+    else:
+        got = (lstm_recurrence(xp, mask, wh, rev),)
     assert lstm_kernel.launches == before + 1
-    want = lstm_recurrence_reference(xp, mask, wh, rev)
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert lstm_kernel.card_forward_plan(L, B, H).route == (
+        "grid" if H > 260 else "cluster")
+    want = lstm_recurrence_reference(xp, mask, wh, rev, save=save)
+    for g, w in zip(got, want if save else (want,)):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+    if B > 1:
+        assert not got[0][:, :, -1].any()
 
 
 def test_masked_lstm_on_the_card_matches_the_cpu(cuda):
@@ -157,8 +179,13 @@ def _close_band(got, want):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("B,T_mel,T_text", [(8, 512, 96), (3, 37, 11)])
+@pytest.mark.parametrize("B,T_mel,T_text", [(8, 512, 96), (3, 37, 11),
+                                            (4, 2048, 96), (3, 200, 300),
+                                            (2, 64, 600), (3, 1, 11)])
 def test_ctc_dps_match_twins(cuda, B, T_mel, T_text):
+    """The flagship shape, a short one, T_mel 2048 (the emission ring
+    wraps 128 times), S past one state a thread (601 states fit 608
+    threads; 1,201 take two a thread over 1,024) and a single frame."""
     emit, tl, ml = _ctc_inputs(cuda, B, T_mel, T_text)
     a0, b0 = ctc_kernel.alpha_launches, ctc_kernel.beta_launches
     alphas = ctc_kernel.ctc_alpha(emit, tl, ml)

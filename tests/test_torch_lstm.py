@@ -222,11 +222,25 @@ def test_serving_call_writes_nothing_for_the_backward(rng):
     assert not torch.equal(lstm.sn_fwd.u, u)
 
 
-# an H100 SXM's limits for the backward's plan; regs_per_thread 0 leaves
+# an H100 SXM's limits for the kernels' plans; regs_per_thread 0 leaves
 # registers out of the grid route's residency
 H100 = lstm_kernel.CardLimits(sms=132, smem_per_block=232448,
                               smem_per_sm=233472, regs_per_thread=0,
                               max_cluster=16)
+
+
+def _check_plan(threads, smem_fn, plan, L, B, H, route):
+    """What every plan of a kernel with ``threads`` a CTA and shared memory
+    ``smem_fn`` keeps: each unit owned, one cell per thread, the shared
+    memory within a block's, a grid resident at once."""
+    assert plan.n_cta * plan.hb >= H > (plan.n_cta - 1) * plan.hb
+    assert B * plan.hb <= threads
+    assert plan.smem == smem_fn(B, H, plan.hb, plan.ks, plan.n_cta,
+                                route == "cluster")
+    assert plan.smem <= H100.smem_per_block
+    if route == "grid":
+        assert L * plan.n_cta <= H100.sms * (
+            H100.smem_per_sm // (plan.smem + 1024))
 
 
 @pytest.mark.parametrize("L,B,H,route,n_cta,hb,ks,max_cluster", [
@@ -248,32 +262,72 @@ def test_backward_plan_picks_route_and_sizes(L, B, H, route, n_cta, hb, ks,
     plan = lstm_kernel.backward_plan(L, B, H, limits)
     assert (plan.route, plan.n_cta, plan.hb, plan.ks) == (route, n_cta, hb,
                                                           ks)
-    assert plan.n_cta * plan.hb >= H > (plan.n_cta - 1) * plan.hb
-    assert B * plan.hb <= lstm_kernel._BWD_THREADS
-    assert plan.smem == lstm_kernel._bwd_smem(B, H, plan.hb, plan.ks,
-                                              plan.n_cta, route == "cluster")
-    assert plan.smem <= H100.smem_per_block
-    if route == "grid":
-        assert L * plan.n_cta <= H100.sms * (
-            H100.smem_per_sm // (plan.smem + 1024))
+    _check_plan(lstm_kernel._BWD_THREADS, lstm_kernel._bwd_smem, plan, L, B,
+                H, route)
 
 
-@pytest.mark.parametrize("L,B,H,limits", [
-    (8, 8, 1024, H100),
-    (2, 8, 528, dataclasses.replace(H100, sms=16)),
-    (1, 385, 4, H100)])
+@pytest.mark.parametrize("L,B,H,route,n_cta,hb,ks,max_cluster", [
+    (2, 8, 260, "cluster", 16, 17, 7, 16),     # text encoder: 7 x 34 threads
+    (2, 8, 128, "cluster", 16, 8, 8, 16),      # duration DAP
+    (6, 8, 128, "cluster", 16, 8, 8, 16),      # frame DAPs, ganged
+    (12, 8, 128, "cluster", 16, 8, 8, 16),     # more lanes than fit at once
+    (2, 8, 528, "grid", 66, 8, 8, 16),         # flow context: Wh 4.46 MB
+    (2, 1, 528, "grid", 66, 8, 8, 16),         # its Wh slice past a block
+    (6, 1, 128, "cluster", 16, 8, 8, 16),      # the serving frame bucket
+    (2, 1, 260, "cluster", 8, 33, 3, 8),       # portable clusters only
+    (2, 8, 260, "grid", 33, 8, 8, 8),          # 8 x 33 cells > threads
+    (1, 3, 20, "cluster", 10, 2, 8, 16),
+    (2, 24, 260, "grid", 33, 8, 8, 16)])       # 24 x 17 cells > threads
+def test_forward_plan_picks_route_and_sizes(L, B, H, route, n_cta, hb, ks,
+                                            max_cluster):
+    """The forward kernel's plan on an H100's limits: a cluster per lane
+    where the lane's Wh slices fit (H <= 260 in the model), else the
+    cooperative grid with a barrier per lane (H = 528); the H reduction in
+    8 chunks, as far as two columns a thread allow."""
+    limits = dataclasses.replace(H100, max_cluster=max_cluster)
+    plan = lstm_kernel.forward_plan(L, B, H, limits)
+    assert (plan.route, plan.n_cta, plan.hb, plan.ks) == (route, n_cta, hb,
+                                                          ks)
+    _check_plan(lstm_kernel._FWD_THREADS, lstm_kernel._fwd_smem, plan, L, B,
+                H, route)
+    assert 2 * plan.hb * plan.ks <= lstm_kernel._FWD_THREADS
+    assert plan.ks * -(-H // plan.ks) >= H
+
+
+NOTHING_FITS = [(8, 8, 1024, H100),
+                (2, 8, 528, dataclasses.replace(H100, sms=16)),
+                (1, 385, 4, H100)]
+
+
+@pytest.mark.parametrize("L,B,H,limits", NOTHING_FITS)
 def test_backward_plan_raises_when_nothing_fits(L, B, H, limits):
     """No cluster holds the slices and no grid of them is resident at
     once (or a single unit's cells outnumber the threads): the plan
     raises rather than launch something that would hang or fail."""
-    with pytest.raises(RuntimeError, match="no route fits"):
+    with pytest.raises(RuntimeError, match=r"\(bwd\): no route fits"):
         lstm_kernel.backward_plan(L, B, H, limits)
 
 
-def test_sweep_script_refuses_a_missing_card():
-    """The backward's plan sweep times kernels on the card only."""
-    from radmmm_torch.scripts import sweep_lstm_bwd
+@pytest.mark.parametrize("L,B,H,limits", NOTHING_FITS)
+def test_forward_plan_raises_when_nothing_fits(L, B, H, limits):
+    """The forward's plan raises where the backward's does."""
+    with pytest.raises(RuntimeError, match=r"\(fwd\): no route fits"):
+        lstm_kernel.forward_plan(L, B, H, limits)
+
+
+def test_forward_plan_raises_past_its_threads():
+    """257 cells of one unit outnumber the forward's 256 threads (the
+    backward's 384 still hold them)."""
+    with pytest.raises(RuntimeError, match="no route fits"):
+        lstm_kernel.forward_plan(1, 257, 4, H100)
+    assert lstm_kernel.backward_plan(1, 257, 4, H100).route == "cluster"
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_sweep_script_refuses_a_missing_card(direction):
+    """The plan sweep times kernels on the card only."""
+    from radmmm_torch.scripts import sweep_lstm
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        sweep_lstm_bwd.main(["--shapes", "1x8x4x2"])
+        sweep_lstm.main(["--direction", direction, "--shapes", "1x8x4x2"])
