@@ -28,9 +28,13 @@ Phases (all by default):
               packed sequences;
             - K1 and K2, the CTC alpha and beta DPs, at B=8, T_mel=512,
               2*96+1 states; library: F.ctc_loss forward and its backward
-              on the equivalent targets 1..96 with the blank column;
+              on the equivalent targets 1..96 with the blank column; K2
+              also with its wavefront plan (warps x states a lane), us a
+              row, and a ragged batch whose longest item has half the
+              frames;
             - K3, width-1 MAS, at (8, 512, 96), bit for bit; no PyTorch
-              call computes MAS, so no library time;
+              call computes MAS, so no library time; its plan and us a
+              row;
             - K5, the fused dilated conv + softplus of the WN stack, at the
               bench script's shape (B 32, T 256, C 1024, K 5) for each
               dilation 1, 2, 4, 8, and at a ragged one (B 3, T 250);
@@ -405,6 +409,9 @@ def _ctc_rows(gen, dev) -> list:
         # adds/compares) per state of each row after the first
         b_ms, b_by = _bound(4 * (2 * B * T * S + 2 * B),
                             12.0 * B * (T - 1) * S)
+        extra = ""
+        if which == "beta":
+            ok_r, extra = _beta_wavefront(gen, dev, T, S, k_ms, ok_r)
         log(f"[kernels] K{1 if which == 'alpha' else 2} ctc_{which} B={B} "
             f"T_mel={T} S={S}: max_abs_err {err:.3e} (rtol "
             f"{KERNEL_RTOL:g} of |band| up to "
@@ -412,13 +419,32 @@ def _ctc_rows(gen, dev) -> list:
             f"{err_r:.3e}), kernel_ms {k_ms:.4f}, plain_ms {p_ms:.3f}, "
             f"library_ms {lib_ms:.4f} (F.ctc_loss "
             f"{'forward' if which == 'alpha' else 'backward'}), bound_ms "
-            f"{b_ms:.5f} ({b_by})")
+            f"{b_ms:.5f} ({b_by}){extra}")
         if not (ok and ok_r):
             fail(f"ctc_{which} disagrees with its twin")
         rows.append(dict(kernel=f"ctc_{which}", src=src, max_abs_err=err,
                          ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by))
     return rows
+
+
+def _beta_wavefront(gen, dev, T, S, k_ms, ok) -> tuple:
+    """K2's wavefront readings: its plan, us a row, and one ragged batch
+    whose longest item has half the frames, held to the twin. Returns
+    (all within tolerance, text)."""
+    from radmmm_torch.losses import ctc_kernel
+    warps, per_lane = ctc_kernel.card_beta_plan(S)
+    _, emit_r, tl_r, ml_r = _ctc_inputs(gen, dev, ragged=True)
+    ml_r = (ml_r + 1) // 2
+    _, ok_r = _band_err(ctc_kernel.ctc_beta(emit_r, tl_r, ml_r),
+                        ctc_kernel.ctc_beta_reference(emit_r, tl_r, ml_r))
+    r_ms = cuda_ms(lambda: ctc_kernel.ctc_beta(emit_r, tl_r, ml_r), 20)
+    top = int(ml_r.max().item())
+    return ok and ok_r, (
+        f"; wavefront {warps} warps x {per_lane} states a lane, "
+        f"{k_ms * 1e3 / (T - 1):.3f} us a row; ragged lengths up to "
+        f"{top} of {T} frames {r_ms:.4f} ms ({r_ms / k_ms:.3f} of the "
+        f"full-length time; {'within' if ok_r else 'NOT within'} rtol)")
 
 
 def _mas_rows(gen, dev) -> list:
@@ -445,11 +471,14 @@ def _mas_rows(gen, dev) -> list:
     # read the log attention once, write the alignment once; an add and a
     # compare per cell
     b_ms, b_by = _bound(4 * (2 * B * Tm * Tt + 2 * B), 2.0 * B * Tm * Tt)
+    warps, cols, fills = alignment.card_plan(Tt)
     log(f"[kernels] K3 mas_width1 B={B} T_mel={Tm} T_text={Tt}: bit for bit "
         f"{'yes' if ok else 'NO'} (with corner cases; max_abs_err "
         f"{err:.3e}), kernel_ms {k_ms:.4f}, "
         f"plain_ms {p_ms:.3f}, library_ms "
-        f"none (no PyTorch call computes MAS), bound_ms {b_ms:.5f} ({b_by})")
+        f"none (no PyTorch call computes MAS), bound_ms {b_ms:.5f} ({b_by})"
+        f"; wavefront {warps} warps x {cols} columns a lane and {fills} "
+        f"zero-fill warps, {k_ms * 1e3 / (Tm - 1):.3f} us a row")
     if not ok:
         fail("mas_width1 disagrees with its twin")
     return [dict(kernel="mas_width1", src="radmmm_tpu/ops/alignment.py:47",

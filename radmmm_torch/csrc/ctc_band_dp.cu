@@ -24,17 +24,18 @@
 // 3.2 MB and writes 3.2 MB (about 2 us at 3.35 TB/s) and does about 4
 // transcendental functions per state and row; each row depends on the whole
 // row before it, so a row's cost is its latency: the lse3 chain, the
-// barrier, and whatever wait for its emissions is left on the chain.
+// hand-off between the threads of a row, and whatever wait for its
+// emissions is left on the chain.
 //
-// Design: one block per batch item, a thread per state (or per few states:
-// up to 4 for long texts), the band double-buffered in shared memory. A
-// loop over mel rows with one __syncthreads() a row replaces the Pallas
-// kernels' sequential grid. Each block writes its own rows of the
-// (T_mel, B, S) output.
-// - alpha: the emissions arrive through a shared-memory ring of R rows
-//   (16; 8 where 18 rows of S floats would not fit a block), kept R - 1
-//   rows ahead of the DP by 4-byte cp.async copies, one commit group a
-//   row, so a row never waits for device memory. A row is S floats (772
+// Design: one block per batch item; a loop over mel rows inside the block
+// replaces the Pallas kernels' sequential grid. Each block writes its own
+// rows of the (T_mel, B, S) output.
+// - alpha: a thread per state (or per few states: up to 4 for long
+//   texts), the band double-buffered in shared memory, one
+//   __syncthreads() a row. The emissions arrive through a shared-memory
+//   ring of R rows (16; 8 where 18 rows of S floats would not fit a
+//   block), kept R - 1 rows ahead of the DP by 4-byte cp.async copies, one
+//   commit group a row, so a row never waits for device memory. A row is S floats (772
 //   bytes at S = 193, not a multiple of 16), which no TMA tensor map can
 //   describe, and the bulk copy's 16-byte alignment would hold only for
 //   every fourth row; a thread copies exactly the states it computes, so
@@ -42,9 +43,29 @@
 //   A thread takes one state (up to 1,024 states), so a row's barrier
 //   spans ceil(S / 32) warps; two states a thread over half as many warps
 //   was slower on an H100 at the flagship shape (PERF.md).
-// - beta: each thread loads the next row's emissions into a register
-//   before the barrier, one row ahead.
+// - beta: a warp wavefront with no block barrier in the row loop. Warp w
+//   owns the states [32 C w, 32 C (w + 1)); lane l holds C of them,
+//   s = 32 (C w + k) + l for k < C (32 apart, so a warp's ring reads and
+//   its copies are unit-stride), and the row q = beta + emit in registers.
+//   The neighbours s + 1 and s + 2 come from two lane rotations
+//   (__shfl_sync); lanes 30 and 31 take the top ones from the warp above,
+//   which publishes q at its first two states each row into a small edge
+//   ring: one 64-bit shared store of (value, row), spun on by the reader
+//   until the row matches, so no fence either way. The reader publishes
+//   the rows it consumed, so the ring is never overrun. The top warp runs
+//   ahead and each warp below trails it by about a row. Emissions arrive
+//   through a cp.async ring like alpha's, walked backwards, 24 rows deep
+//   in copy groups of 8: one commit and one wait a group, since a warp
+//   issues in order and a row's bookkeeping lands on its chain. The wait
+//   for an edge is the whole warp's, so the warp never diverges. Rows
+//   t >= mel_len - 1 are the terminal band, stored without a DP row; the
+//   DP starts at mel_len - 2 from terminal + emit(mel_len - 1).
+//   C (states a lane) is 1 where S allows (2 and 4 were slower at S = 193
+//   on an H100, PERF.md), else the least of 2 and 4 that keeps the block
+//   within 1,024 threads.
 #include <cuda_runtime.h>
+
+#include "wavefront.cuh"
 
 namespace {
 
@@ -173,48 +194,163 @@ AlphaKernel alpha_kernel(int P) {
   }
 }
 
-__global__ void ctc_beta_kernel(const float* __restrict__ emit,
-                                const int* __restrict__ text_lens,
-                                const int* __restrict__ mel_lens,
-                                float* __restrict__ betas, int B, int T,
-                                int S) {
-  extern __shared__ float band[];            // 2 x S: q of the row after
+// G rows a copy group, NG groups in the emission ring (R = G NG rows); C
+// states a lane (see the file's head). Warp w's states are
+// s = 32 (C w + k) + l; states past S hold q = NEG. Step j = 1 .. n_dp
+// computes row t = n_dp - j from q_{j-1} (row t + 1's beta + emit) and
+// leaves q_j; q_0 = terminal + emit(mel_len - 1).
+template <int G, int NG, int C>
+__global__ void __launch_bounds__(1024)
+    ctc_beta_kernel(const float* __restrict__ emit,
+                    const int* __restrict__ text_lens,
+                    const int* __restrict__ mel_lens,
+                    float* __restrict__ betas, int B, int T, int S) {
+  using namespace wavefront;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int W = blockDim.x >> 5;
+  // edge ring: per warp kEdgeRows slots of q at its first two states
+  unsigned long long* edge = reinterpret_cast<unsigned long long*>(smem_raw);
+  int* consumed = reinterpret_cast<int*>(edge + W * kEdgeRows * 2);
+  float* ring = reinterpret_cast<float*>(consumed + W);   // G NG x S
   const int b = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tl2 = 2 * text_lens[b];
-  const int ml = mel_lens[b];
-  const float* e = emit + (size_t)b * T * S;
-  float* cur = band;
-  float* nxt = band + S;
+  const int ml = min(mel_lens[b], T);
+  const int n_dp = max(ml - 1, 0);         // rows n_dp .. T-1 are terminal
+  const int s0 = 32 * C * warp + lane;     // state of k = 0
 
-  float term[kMaxPerThread], em[kMaxPerThread];
-  for (int k = 0; k < kMaxPerThread; ++k) {
-    const int s = threadIdx.x + k * blockDim.x;
-    if (s >= S) break;
+  bool ok[C];
+  float term[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int s = s0 + 32 * k;
+    ok[k] = s < S;
     term[k] = (s == tl2 || s == tl2 - 1) ? 0.f : kNeg;
-    betas[((size_t)(T - 1) * B + b) * S + s] = term[k];
-    cur[s] = term[k] + e[(size_t)(T - 1) * S + s];
-    if (T > 1) em[k] = e[(size_t)(T - 2) * S + s];
   }
-  __syncthreads();
 
-  for (int t = T - 2; t >= 0; --t) {
-    const bool terminal = t >= ml - 1;        // uniform across the block
-    for (int k = 0; k < kMaxPerThread; ++k) {
-      const int s = threadIdx.x + k * blockDim.x;
-      if (s >= S) break;
-      float beta = term[k];
-      if (!terminal) {
-        const float n1 = s + 1 < S ? cur[s + 1] : kNeg;
-        const float n2 = (s + 2 < S ? cur[s + 2] : kNeg) + skip(s);
-        beta = lse3(cur[s], n1, n2);
+  if (n_dp > 0) {
+    edge_clear(edge, W * kEdgeRows * 2, threadIdx.x, blockDim.x);
+    if (lane == 0) consumed[warp] = 0;
+    __syncthreads();                       // once, before the row loop
+
+    // group n: ring rows r = nG .. nG + G - 1 (emission rows n_dp - r) in
+    // slot n % NG
+    const float* src = emit + (size_t)b * T * S + s0;
+    float* lring = ring + s0;
+    const unsigned lring_s = smem_u32(lring);
+    auto fetch = [&](int n) {
+      const unsigned dst = lring_s + 4u * (unsigned)((n % NG) * G * S);
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int r = n * G + u;
+        if (r <= n_dp) {
+#pragma unroll
+          for (int k = 0; k < C; ++k)
+            if (ok[k])
+              copy4(dst + 4u * (unsigned)(u * S + 32 * k),
+                    src + (size_t)(n_dp - r) * S + 32 * k);
+        }
       }
-      betas[((size_t)t * B + b) * S + s] = beta;
-      nxt[s] = beta + em[k];
-      if (t > 0) em[k] = e[(size_t)(t - 1) * S + s];
+      commit_copies();
+    };
+    // Warp w's edge ring: slot j % kEdgeRows holds q_j at its first two
+    // states, 8 bytes each. The slot read (rd, row j - 1 of the warp
+    // above) and the slot written (wr, row j here) are kept running, not
+    // recomputed: a warp issues in order, so a row's address arithmetic
+    // lands on its chain.
+    const unsigned mine = smem_u32(edge + (size_t)warp * kEdgeRows * 2);
+    const unsigned mine_end = mine + 16u * kEdgeRows;
+    const unsigned above = mine_end, above_end = above + 16u * kEdgeRows;
+    const unsigned below_read = smem_u32(consumed + warp - (warp > 0));
+    const unsigned my_read = smem_u32(consumed + warp);
+    unsigned rd = above, wr = mine + 8u * (lane & 1);
+    int seen = 0;
+    float q[C];
+    auto publish = [&](int j) {            // q_j, for the warp below
+      if (warp > 0) {
+        edge_reserve(below_read, j, seen);
+        if (lane < 2) edge_store(wr, j, q[0]);
+      }
+      wr = wr + 16u >= mine_end ? wr + 16u - 16u * kEdgeRows : wr + 16u;
+    };
+
+    for (int n = 0; n < NG - 1; ++n) fetch(n);
+    wait_copies<NG - 2>();                 // group 0 has landed
+#pragma unroll
+    for (int k = 0; k < C; ++k) q[k] = ok[k] ? term[k] + lring[32 * k] : kNeg;
+    publish(0);
+    float* out = betas + ((size_t)(n_dp - 1) * B + b) * S + s0;  // row n_dp-1
+    const long long row_step = -(long long)B * S;
+
+    for (int n = 0; n * G <= n_dp; ++n) {
+      wait_copies<NG - 2>();               // group n has landed
+      fetch(n + NG - 1);                   // into the slot n - 1 left
+      const float* rows = lring + (size_t)(n % NG) * G * S;
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int j = n * G + u;
+        if (u == 0 && n == 0) continue;    // q_0, above
+        if (j > n_dp) break;
+        float em[C], r1[C], r2[C];
+#pragma unroll
+        for (int k = 0; k < C; ++k) {
+          em[k] = ok[k] ? rows[u * S + 32 * k] : 0.f;
+          r1[k] = __shfl_sync(0xffffffffu, q[k], (lane + 1) & 31);
+          r2[k] = __shfl_sync(0xffffffffu, q[k], (lane + 2) & 31);
+        }
+        // the top lanes' neighbours past the warp: q_{j-1} of the warp
+        // above; the whole warp waits, so it never diverges
+        float e0 = kNeg, e1 = kNeg;
+        if (warp + 1 < W) {
+          edge_wait2(rd, j - 1, e0, e1);
+          // the rows read, every 8th: the producer needs them only once
+          // its ring is nearly round
+          if (lane == 31 && (j & 7) == 0) progress_store(my_read, j);
+        }
+#pragma unroll
+        for (int k = 0; k < C; ++k) {
+          const float n1 = lane < 31 ? r1[k] : (k + 1 < C ? r1[k + 1] : e0);
+          const float n2 =
+              lane < 30 ? r2[k]
+                        : (k + 1 < C ? r2[k + 1] : (lane == 30 ? e0 : e1));
+          const float beta = lse3(q[k], n1, n2 + skip(s0 + 32 * k));
+          if (ok[k]) out[32 * k] = beta;
+          q[k] = ok[k] ? beta + em[k] : kNeg;
+        }
+        out += row_step;
+        rd = rd + 16u == above_end ? above : rd + 16u;
+        publish(j);
+      }
     }
-    __syncthreads();
-    float* tmp = cur; cur = nxt; nxt = tmp;
+    wait_copies<0>();
   }
+  for (int t = n_dp; t < T; ++t) {         // the terminal band
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      if (ok[k]) betas[((size_t)t * B + b) * S + s0 + 32 * k] = term[k];
+  }
+}
+
+using BetaKernel = void (*)(const float*, const int*, const int*, float*,
+                            int, int, int);
+
+// the kernel for a ring of G NG rows and C states a lane
+template <int G, int NG>
+BetaKernel beta_kernel(int C) {
+  switch (C) {
+    case 1: return ctc_beta_kernel<G, NG, 1>;
+    case 2: return ctc_beta_kernel<G, NG, 2>;
+    default: return ctc_beta_kernel<G, NG, 4>;
+  }
+}
+
+// beta's states a lane: 1 (the fastest at S = 193 in PERF.md's H100
+// sweep), else the least of 2 and 4 that keeps ceil(S / (32 C)) warps
+// within 32
+int beta_per_lane(int S) {
+  int c = 1;
+  while (c < 4 && S > 1024 * c) c *= 2;
+  return c;
 }
 
 // threads of a block: one a state, a multiple of 32, at most 1024
@@ -256,17 +392,36 @@ int ctc_alpha_launch(const float* emit, const int* text_lens,
   return (int)cudaGetLastError();
 }
 
+// The launch's plan for S states: warps of the block and states a lane.
+void ctc_beta_plan(int S, int* warps, int* per_lane) {
+  *per_lane = beta_per_lane(S);
+  *warps = (S + 32 * *per_lane - 1) / (32 * *per_lane);
+}
+
 int ctc_beta_launch(const float* emit, const int* text_lens,
                     const int* mel_lens, float* betas, int B, int T, int S,
                     void* stream) {
-  const int threads = block_threads(S);
-  if (S > threads * kMaxPerThread) return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)S * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      ctc_beta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  ctc_beta_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+  if (S < 1 || S > 32 * 32 * kMaxPerThread) return (int)cudaErrorInvalidValue;
+  int warps, C;
+  ctc_beta_plan(S, &warps, &C);
+  int dev = 0, optin = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
+      != cudaSuccess) return (int)e;
+  // the edge rings and progress words, then the emission ring: 24 rows in
+  // 3 copy groups of 8 where they fit a block, else 8 rows in 2 groups
+  const size_t edges = (size_t)warps * (wavefront::kEdgeRows * 2 * 8 + 4);
+  const bool deep = edges + (size_t)24 * S * sizeof(float) <= (size_t)optin;
+  const BetaKernel kernel =
+      deep ? beta_kernel<8, 3>(C) : beta_kernel<4, 2>(C);
+  const size_t smem = edges + (size_t)(deep ? 24 : 8) * S * sizeof(float);
+  if ((e = cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem)) != cudaSuccess)
+    return (int)e;
+  kernel<<<B, warps * 32, smem, (cudaStream_t)stream>>>(
       emit, text_lens, mel_lens, betas, B, T, S);
   return (int)cudaGetLastError();
 }

@@ -124,6 +124,14 @@ def _launch(which: str, emit_all, text_lens, mel_lens) -> torch.Tensor:
     return out
 
 
+def card_beta_plan(S: int) -> tuple:
+    """(warps, states a lane) of the beta kernel's launch for S states."""
+    lib = cuda_build.load("ctc_band_dp", _declare)
+    warps, per_lane = ctypes.c_int(), ctypes.c_int()
+    lib.ctc_beta_plan(S, ctypes.byref(warps), ctypes.byref(per_lane))
+    return warps.value, per_lane.value
+
+
 def ctc_alpha(emit_all: torch.Tensor, text_lens: torch.Tensor,
               mel_lens: torch.Tensor) -> torch.Tensor:
     """Every row of the forward DP, (T_mel, B, S). text_lens and mel_lens
@@ -154,3 +162,5 @@ def _declare(lib):
     for fn in (lib.ctc_alpha_launch, lib.ctc_beta_launch):
         fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
         fn.restype = ci
+    lib.ctc_beta_plan.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+    lib.ctc_beta_plan.restype = None

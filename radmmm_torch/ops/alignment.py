@@ -132,6 +132,16 @@ def _launch(log_attn: torch.Tensor, text_lens: torch.Tensor,
     return out
 
 
+def card_plan(T_text: int) -> tuple:
+    """(DP warps, columns a lane, zero-fill warps) of the kernel's launch
+    for T_text columns."""
+    lib = cuda_build.load("mas_width1", _declare)
+    w, c, f = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.mas_width1_plan(T_text, ctypes.byref(w), ctypes.byref(c),
+                        ctypes.byref(f))
+    return w.value, c.value, f.value
+
+
 def mas_width1_ref(attn_map: np.ndarray) -> np.ndarray:
     """Single-item numpy oracle, the port's own copy of the JAX package's
     ``mas_width1_ref`` (the numba kernel of the reference)."""
@@ -170,5 +180,7 @@ def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.mas_width1_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
     lib.mas_width1_launch.restype = ci
+    lib.mas_width1_plan.argtypes = [ci] + [ctypes.POINTER(ci)] * 3
+    lib.mas_width1_plan.restype = None
     lib.mas_width1_smem.argtypes = [ci, ci]
     lib.mas_width1_smem.restype = ctypes.c_size_t

@@ -22,6 +22,8 @@ CASES = {
     "oracle": ((3, 37, 11), [11, 7, 5], [37, 25, 12]),
     "degenerate": ((3, 10, 5), [1, 5, 3], [10, 1, 3]),
     "pallas_suite": ((3, 40, 17), [17, 9, 1], [40, 23, 5]),
+    # more than 32 text columns (the kernel's 2 columns a lane), ragged
+    "wide_ragged": ((3, 70, 45), [45, 33, 2], [70, 52, 9]),
 }
 
 

@@ -27,6 +27,8 @@ CASES = {
     "mel_shorter_than_text": ((3, 12, 8), [8, 5, 1], [12, 4, 2]),
     "alignment_suite": ((3, 24, 7), [7, 5, 3], [24, 20, 10]),
     "degenerate": ((2, 8, 4), [1, 4], [8, 2]),
+    # 89 states: more than two warps of one state a lane in the kernel
+    "long_text": ((3, 64, 44), [44, 30, 1], [64, 50, 2]),
 }
 
 
@@ -45,7 +47,9 @@ def _close_band(got, want):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("case", ["ragged", "mel_shorter_than_text"])
+@pytest.mark.parametrize("case", ["ragged", "mel_shorter_than_text",
+                                  "alignment_suite", "degenerate",
+                                  "long_text"])
 def test_dp_twins_match_pallas_kernels(rng, case):
     logits, tl, ml = _inputs(rng, case)
     _, emit_j, *_ = jax_ctc._ctc_setup(jnp.asarray(logits), jnp.asarray(tl),

@@ -25,6 +25,7 @@ from radmmm_torch.ops.lstm_kernel import (_backward_kernel,
                                           lstm_recurrence,
                                           lstm_recurrence_backward_reference,
                                           lstm_recurrence_reference)
+from radmmm_torch.utils import cuda_build
 
 pytestmark = pytest.mark.cuda
 
@@ -196,6 +197,29 @@ def test_ctc_dps_match_twins(cuda, B, T_mel, T_text):
     _close_band(betas, ctc_kernel.ctc_beta_reference(emit, tl, ml))
 
 
+@pytest.mark.parametrize("B,T_mel,T_text,mel_lens", [
+    (4, 300, 40, [300, 37, 2, 1]),      # terminal band: mel_len << T_mel, 2, 1
+    (3, 60, 11, [0, 1, 2]),             # no DP row at all in two items
+    (3, 2048, 96, [2048, 1500, 3]),     # the reversed ring wraps 128 times
+    (2, 120, 600, [120, 70]),           # 1,201 states: 19 warps, edges wrap
+    (2, 80, 2000, [80, 33]),            # 4,001 states: 32 warps of 4
+    (2, 70, 200, [100, 70])])           # mel_len past T_mel
+def test_ctc_beta_wavefront_matches_twin(cuda, B, T_mel, T_text, mel_lens):
+    """The beta kernel's terminal band (rows >= mel_len - 1 stored, no DP
+    row), the wavefront over several warps with its edge ring wrapping, and
+    its reversed emission ring wrapping; the plan keeps the block within
+    1,024 threads."""
+    emit, tl, _ = _ctc_inputs(cuda, B, T_mel, T_text)
+    ml = torch.tensor(mel_lens, dtype=torch.int32, device=cuda)
+    S = 2 * T_text + 1
+    warps, per_lane = ctc_kernel.card_beta_plan(S)
+    assert warps * 32 * per_lane >= S and warps <= 32 and per_lane in (1, 2, 4)
+    before = ctc_kernel.beta_launches
+    got = ctc_kernel.ctc_beta(emit, tl, ml)
+    assert ctc_kernel.beta_launches == before + 1
+    _close_band(got, ctc_kernel.ctc_beta_reference(emit, tl, ml))
+
+
 def _mas_inputs(dev, B, T_mel, T_text, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     a = torch.rand((B, T_mel, T_text), generator=g, device=dev) + 0.01
@@ -207,8 +231,17 @@ def _mas_inputs(dev, B, T_mel, T_text, seed=0):
     return a, tl, ml
 
 
-@pytest.mark.parametrize("B,T_mel,T_text", [(8, 512, 96), (3, 40, 17)])
+@pytest.mark.parametrize("B,T_mel,T_text", [(8, 512, 96), (3, 40, 17),
+                                            (6, 300, 600), (6, 2048, 96),
+                                            (6, 200, 130), (5, 90, 4096),
+                                            (3, 200, 1200), (3, 390, 4096)])
 def test_mas_matches_twin_bit_for_bit(cuda, B, T_mel, T_text):
+    """The flagship shape, a short one, T_text 600 (5 warps of 4 columns
+    in the wavefront), T_mel 2048, 130 columns (2 warps, the second with
+    2 columns used), 4,096 (32 warps, no room for fill warps), 1,200 (the
+    16-row la ring), and 390 x 4,096, the largest T_mel of
+    mas_width1_smem's rule there, with no la ring; ragged lengths with the
+    corner cases."""
     a, tl, ml = _mas_inputs(cuda, B, T_mel, T_text)
     # corner cases: one token, one frame, no frames, uniform (all ties)
     tl[1], ml[2] = 1, 1
@@ -221,6 +254,36 @@ def test_mas_matches_twin_bit_for_bit(cuda, B, T_mel, T_text):
     want = alignment.mas_width1_reference(log_attn, tl, ml)
     assert torch.equal(got, want)
     assert got[-1].sum() == 0
+    warps, cols, fills = alignment.card_plan(T_text)
+    assert warps * 32 * cols >= T_text and warps + fills <= 32
+    assert cols == min(4, -(-T_text // 32))
+
+
+def test_mas_refuses_shapes_past_shared_memory(cuda):
+    """T_mel x T_text whose choice bits do not fit a block raise."""
+    a, tl, ml = _mas_inputs(cuda, 1, 2000, 4000)
+    with pytest.raises(ValueError, match="shared memory"):
+        alignment.mas_width1(a, tl, ml)
+
+
+@pytest.mark.parametrize("T_text", [96, 129, 600, 4096])
+def test_mas_accepts_the_shapes_of_its_shared_memory_rule(cuda, T_text):
+    """The rule is 4 (2 T_text + T_mel ceil(T_text / 32)) bytes within 227
+    KB, whatever the wavefront's edge rings: its largest T_mel runs (bit
+    for bit with the twin), one more frame raises."""
+    lib = cuda_build.load("mas_width1", alignment._declare)
+    words = -(-T_text // 32)
+    top = (227 * 1024 // 4 - 2 * T_text) // words
+    assert lib.mas_width1_smem(top, T_text) == 4 * (2 * T_text + top * words)
+    assert lib.mas_width1_smem(top + 1, T_text) > 227 * 1024
+    a, tl, ml = _mas_inputs(cuda, 1, top + 1, T_text)
+    with pytest.raises(ValueError, match="shared memory"):
+        alignment.mas_width1(a, tl, ml)
+    a, tl, ml = a[:, :top], tl, torch.clamp(ml, max=top)
+    got = alignment.mas_width1(a, tl, ml)
+    want = alignment.mas_width1_reference(alignment._log_attention(a, tl),
+                                          tl, ml)
+    assert torch.equal(got, want)
 
 
 # K5 is CUDA C++, not Triton: a tensor-core implicit GEMM whose tap rows
