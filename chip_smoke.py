@@ -2,7 +2,7 @@
 """Smoke run of the radmmm_torch serving and training paths on one CUDA card.
 
     python3 chip_smoke.py [--phases build,kernels,serve,parity,train,
-                           train_parity,wn,featurize] [--seed 0]
+                           train_parity,wn,featurize,fit] [--seed 0]
 
 Phases (all by default):
 
@@ -71,7 +71,27 @@ Phases (all by default):
             featurized on the card and on the CPU and compared key by key;
             then TRAIN_STEPS flagship training steps from that batch with
             the launch counts of the train phase, featurize and step times,
-            and one reconstruct at sigma 0 on the card.
+            and one reconstruct at sigma 0 on the card;
+9. fit      the shipped 7-language recipe (configs/radmmm_model.yaml,
+            radmmm_attributes.yaml, radmmm_opensource_data_phonemizerless
+            .yaml, radmmm_train.yaml) at full width through
+            radmmm_torch.training.cli.main in this process, on a synthetic
+            corpus in a temporary directory: 12 training and 4 validation
+            lines of at most 6 s from each of two shipped phonemized
+            filelists (LJSpeech en_US, M-AILABS tux es_ES), their text,
+            speaker and emotion kept, with 16 kHz int16 voiced audio of
+            their durations; an overlay that swaps the corpora, sets 6
+            steps, validation and checkpoints every 3, the binarization
+            switch at 3 and KL at 4. fit to 6 steps (Griffin-Lim
+            validation audio, checkpoints 3 and 6, two steps profiled),
+            fit again to 8 (it resumes from 6 and keys its noise from 6),
+            predict on the recipe's prompts of the corpus's speakers,
+            export and one request through serving.load_tts. Checks:
+            every logged loss finite, each training step's launches (K1
+            1, K2 1, K4 forward 4, K4 backward 4, K3 1 once binarization
+            is on), the resume, the wavs' lengths; prints ms a step, the
+            loader's share, the device's busy share, featurize ms,
+            validation, checkpoint, predict and export times.
 
 Any failure exits non-zero. The line before the last is a JSON object
 with the kernels' numbers; the last line is
@@ -98,7 +118,7 @@ import numpy as np
 import torch
 
 PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity",
-          "wn", "featurize")
+          "wn", "featurize", "fit")
 # (name, lanes, hidden, time steps, LSTM input width) on the serving path
 # at text bucket 96 and frame bucket 800 (the flow context runs at 800/2)
 PATH_SHAPES = (("text_encoder", 2, 260, 96, 520),
@@ -1248,16 +1268,368 @@ def phase_featurize(seed: int) -> dict:
     return launches
 
 
+# the fit phase: the shipped 7-language recipe through the training CLI
+RECIPE = ("configs/radmmm_model.yaml", "configs/radmmm_attributes.yaml",
+          "configs/radmmm_opensource_data_phonemizerless.yaml",
+          "configs/radmmm_train.yaml")
+RECIPE_CORPORA = ("LJS", "BerndUngerer", "TUX", "Karen", "NadineEckert",
+                  "IIIT-HYD", "ED")
+# (corpus, language, train filelist, validation filelist) of the synthetic
+# corpus: the shipped phonemized filelists of two of the recipe's corpora
+FIT_SOURCES = (
+    ("SYN_LJS", "en_US",
+     "datasets/opensource/LJSpeech/"
+     "ljs_audiopath_text_sid_emotion_duration_train_filelist_phonemized.txt",
+     "datasets/opensource/LJSpeech/"
+     "ljs_audiopath_text_sid_emotion_duration_val_filelist_phonemized.txt"),
+    ("SYN_TUX", "es_ES",
+     "datasets/opensource/MAILABS/es_ES/male/tux/"
+     "tux_audiopath_text_sid_emotion_duration_train_filelist_filtered_"
+     "phonemized.txt",
+     "datasets/opensource/MAILABS/es_ES/male/tux/"
+     "tux_audiopath_text_sid_emotion_duration_val_filelist_phonemized.txt"))
+FIT_TRAIN, FIT_VAL, FIT_MAX_S = 12, 4, 6.0      # lines per corpus, seconds
+FIT_SR = 16000
+FIT_STEPS, FIT_RESUME_STEPS = 6, 8
+# the launches of one training step by phase: MAS (K3) runs once
+# binarization is on (from binarization_start_iter, 3 in the overlay)
+FIT_BINARIZE_FROM = 3
+
+
+def _voiced_wav(n: int, f0: float, rng) -> np.ndarray:
+    """n samples of 16 kHz int16 voiced audio: a three-harmonic tone with
+    5 Hz vibrato, an unvoiced noise burst after every 0.9 s of tone."""
+    t = np.arange(n) / FIT_SR
+    phase = 2 * np.pi * f0 * t + f0 * 0.03 / 5.0 * np.sin(2 * np.pi * 5 * t)
+    x = (0.4 * np.sin(phase) + 0.25 * np.sin(2 * phase)
+         + 0.12 * np.sin(3 * phase))
+    burst = (t % 1.0) >= 0.9
+    x[burst] = 0.05 * rng.standard_normal(int(burst.sum()))
+    return np.clip(np.rint(x * 32767 * 0.8), -32768, 32767).astype(np.int16)
+
+
+def fit_corpus(root: str, seed: int) -> dict:
+    """The synthetic corpus under ``root``: for each of FIT_SOURCES the
+    first FIT_TRAIN / FIT_VAL lines of at most FIT_MAX_S seconds, their
+    text, speaker and emotion kept, with voiced int16 audio of the line's
+    duration. Returns {split: {corpus: dataset dict}}."""
+    import os
+    from scipy.io import wavfile
+    rng = np.random.default_rng(seed)
+    out = {"train": {}, "val": {}}
+    for c, (name, lang, train_list, val_list) in enumerate(FIT_SOURCES):
+        for split, path, n in (("train", train_list, FIT_TRAIN),
+                               ("val", val_list, FIT_VAL)):
+            lines = []
+            with open(path, encoding="utf-8") as f:
+                for line in f:
+                    parts = line.rstrip("\n").split("|")
+                    if len(parts) >= 5 and float(parts[4]) <= FIT_MAX_S:
+                        lines.append(parts)
+                    if len(lines) == n:
+                        break
+            base = os.path.join(root, name)
+            for i, parts in enumerate(lines):
+                wav = os.path.join(base, "16khz", parts[0])
+                os.makedirs(os.path.dirname(wav), exist_ok=True)
+                f0 = 100.0 + 25.0 * c + 7.0 * i
+                wavfile.write(wav, FIT_SR, _voiced_wav(
+                    int(float(parts[4]) * FIT_SR), f0, rng))
+            filelist = os.path.join(root, f"{name}_{split}.txt")
+            with open(filelist, "w", encoding="utf-8") as f:
+                f.write("\n".join("|".join(p) for p in lines) + "\n")
+            out[split][name] = {
+                "basedir": base, "sampling_rate": "16khz",
+                "filelist_basedir": "", "filelist": filelist,
+                "language": lang, "phonemized": True}
+    return out
+
+
+def fit_overlay(root: str, corpus: dict) -> str:
+    """The overlay over the recipe, as a JSON file (JSON is YAML): the
+    recipe's corpora replaced by the synthetic ones, the output directory,
+    6 steps with validation and checkpoints every 3, the phase switches at
+    3 (binarization) and 4 (KL), a log line every step, two checkpoints
+    kept and, where the recipe's phonemizer dictionaries are not in the
+    checkout, empty ones (every line and prompt is phonemized already).
+    No width or depth changes."""
+    import os
+    import yaml
+    with open(RECIPE[2]) as f:
+        g2p = yaml.safe_load(f)["data"]["phonemizer_cfg"]
+    missing = {lang: p for lang, p in g2p.items() if not os.path.exists(p)}
+    for lang in missing:
+        missing[lang] = os.path.join(root, f"{lang}_empty.txt")
+        open(missing[lang], "w").close()
+    overlay = {
+        "model": {"output_directory": os.path.join(root, "run"),
+                  "iters_per_checkpoint": 3, "binarization_start_iter": 3,
+                  "decoder_loss": {"init_args": {"kl_loss_start_iter": 4}}},
+        "trainer": {"max_steps": FIT_STEPS, "val_check_interval": 3,
+                    "log_interval": 1, "max_to_keep": 2},
+        "data": {"training_files": {**dict.fromkeys(RECIPE_CORPORA),
+                                    **corpus["train"]},
+                 "validation_files": {**dict.fromkeys(RECIPE_CORPORA),
+                                      **corpus["val"]},
+                 **({"phonemizer_cfg": {**g2p, **missing}}
+                    if missing else {})}}
+    path = os.path.join(root, "overlay.yaml")
+    with open(path, "w") as f:
+        json.dump(overlay, f)
+    return path
+
+
+class _Tee(io.TextIOBase):
+    """Standard output that is also kept, to read what a run printed."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _run_cli(argv, tag: str):
+    """``radmmm_torch.training.cli.main(argv)`` in this process -> (its
+    data module, its trainer, what it printed, seconds)."""
+    from radmmm_torch.training import cli
+    log(f"[fit] python -m radmmm_torch.training.cli {' '.join(argv)}")
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        dm, trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    log(f"[fit] {tag} in {s:.2f} s")
+    return dm, trainer, "".join(tee.text), s
+
+
+@contextlib.contextmanager
+def _counted(target, name, tally: list):
+    """Record the kernels' launches of every call of ``target.name`` (a
+    method) into ``tally``, one dict per call."""
+    orig = getattr(target, name)
+
+    def wrapper(*a, **kw):
+        before = _counters()
+        out = orig(*a, **kw)
+        after = _counters()
+        tally.append({k: after[k] - before[k] for k in after})
+        return out
+
+    setattr(target, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(target, name, orig)
+
+
+def _metrics_rows(run_dir: str) -> list:
+    import os
+    with open(os.path.join(run_dir, "tb", "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+@tf32_off()
+def phase_fit(seed: int) -> dict:
+    """The shipped 7-language recipe at full width through the training
+    CLI: fit to 6 steps, a resume to 8, predict and export. Returns the
+    kernels' launches on the training steps, validation and predict."""
+    import os
+    import shutil
+    from radmmm_torch.data.loader import DataLoader
+    from radmmm_torch.serving import load_tts
+    from radmmm_torch.training.loop import Trainer
+    from radmmm_torch.utils.device import card_line
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="radmmm_fit_")
+    try:
+        corpus = fit_corpus(root, seed)
+        overlay = fit_overlay(root, corpus)
+        run_dir = os.path.join(root, "run")
+        base = [a for c in RECIPE + (overlay,) for a in ("-c", c)]
+        steps, vals, preds = [], [], []
+        # the main path: counts from zero, fit, counts read after
+        _zero_counters()
+        with _counted(Trainer, "_run_step", steps), \
+                _counted(Trainer, "validate", vals):
+            dm, tr, out, fit_s = _run_cli(["fit"] + base, "fit to 6 steps")
+        # steps 2 to FIT_STEPS - 1 (the first warms up; the last ends in
+        # the final save): start to next start, less the validation and
+        # saves after the step
+        starts, pauses = tr.stats["step_starts"], tr.stats["pause_s"]
+        walls = [starts[i + 1] - starts[i] - pauses.get(i + 1, 0.0)
+                 for i in range(1, FIT_STEPS - 1)]
+        fit_stats = dict(tr.stats)
+        n_params = sum(p.numel() for p in tr.model.parameters())
+        rows = _metrics_rows(run_dir)
+        log(f"[fit] the recipe's model: {n_params / 1e6:.1f} M parameters, "
+            f"{len(dm.trainset)} training and {len(dm.valset)} validation "
+            f"utterances, batch {dm.batch_size}, megastep_k "
+            f"{tr.cfg.megastep_k}")
+        with _counted(Trainer, "_run_step", steps):
+            dm2, tr2, out2, resume_s = _run_cli(
+                ["fit"] + base + [
+                    f"--trainer.max_steps={FIT_RESUME_STEPS}",
+                    f"--trainer.profile_dir={root}/profile",
+                    f"--trainer.profile_start_step={FIT_STEPS}",
+                    f"--trainer.profile_n_steps="
+                    f"{FIT_RESUME_STEPS - FIT_STEPS}"],
+                f"resume to step {FIT_RESUME_STEPS}, profiled")
+        launches = _counters()
+        counted = {k: sum(d[k] for d in steps + vals) for k in launches}
+        if counted != launches:
+            fail(f"kernels launched outside the training steps and "
+                 f"validations of fit: {launches} against {counted}")
+        if f"resumed from step {FIT_STEPS}" not in out2:
+            fail(f"the second fit did not resume from step {FIT_STEPS}")
+        feat2, keys = dm2.featurizer, tr2.stats["noise_keys"]
+        want_keys = [feat2.noise_key_for_step(s)
+                     for s in range(FIT_STEPS, FIT_RESUME_STEPS)]
+        log(f"[fit] the resumed run's noise base {feat2._noise_base}, its "
+            f"steps' noise keys: {keys}")
+        if keys != want_keys or feat2._noise_base != FIT_STEPS:
+            fail("the resumed steps did not use the noise base "
+                 f"{FIT_STEPS} and their steps' keys")
+        rows += _metrics_rows(run_dir)[len(rows):]
+        train_rows = [r for r in rows if "train/loss" in r]
+        bad = [r for r in rows for k, v in r.items() if k != "step"
+               and "loss" in k and not math.isfinite(v)]
+        log(f"[fit] {len(rows)} metrics.jsonl rows; train loss by step: "
+            + ", ".join(f"{r['step']}: {r['train/loss']:.4f}"
+                        for r in train_rows))
+        log("[fit] validation rows: " + "; ".join(
+            f"step {r['step']}: " + ", ".join(
+                f"{k[4:]} {v:.4f}" for k, v in r.items() if k != "step")
+            for r in rows if any(k.startswith("val/") for k in r)))
+        if bad or [r["step"] for r in train_rows] != list(
+                range(1, FIT_RESUME_STEPS + 1)):
+            fail(f"non-finite losses or missing steps in metrics.jsonl: "
+                 f"{bad or [r['step'] for r in train_rows]}")
+        for i, got in enumerate(steps):
+            want = dict(PER_STEP)
+            if i < FIT_BINARIZE_FROM:
+                want["mas_width1"] = 0
+            if got != want:
+                fail(f"training step {i + 1} launched {got}, expected "
+                     f"{want}")
+        log(f"[fit] kernel launches on each of the {len(steps)} training "
+            f"steps as expected: {PER_STEP} (mas_width1 0 before step "
+            f"{FIT_BINARIZE_FROM + 1}, binarization off); on each of "
+            f"{len(vals)} validations: {vals[0]}")
+        ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+        log(f"[fit] checkpoints kept: {ckpts}")
+        if ckpts != ["6", "8"]:
+            fail(f"expected checkpoints 6 and 8 (max_to_keep 2), {ckpts}")
+
+        # predict: the recipe's prompts whose speaker and language the
+        # synthetic corpus has
+        with open("model_inputs/resynthesis_prompts.json") as f:
+            prompts = [p for p in json.load(f)
+                       if p["spk_id"] in dm.trainset.speaker_ids
+                       and p["language"] in dm.trainset.accent_ids]
+        ppath = os.path.join(root, "prompts.json")
+        with open(ppath, "w") as f:
+            json.dump(prompts, f)
+        _zero_counters()
+        with _counted(Trainer, "predict", preds):
+            _, tr3, _, predict_s = _run_cli(
+                ["predict"] + base + [f"--data.inference_transcript={ppath}"],
+                f"predict of {len(prompts)} prompts")
+        from scipy.io import wavfile
+        pred_dir = os.path.join(run_dir, "predictions")
+        wavs = sorted(os.listdir(pred_dir))
+        hop, t_max = tr3.cfg.hop_length, tr3.cfg.max_infer_frames
+        sizes = []
+        for name, frames in zip(wavs, tr3.predicted_frames):
+            sr, wav = wavfile.read(os.path.join(pred_dir, name))
+            sizes.append(wav.size)
+            if not (sr == FIT_SR and wav.size == min(frames, t_max - 1) * hop
+                    and np.isfinite(wav).all()):
+                fail(f"prediction {name}: {wav.size} samples at {sr} Hz, "
+                     f"expected {frames} frames of {hop} at {FIT_SR} Hz")
+        if len(wavs) != len(prompts):
+            fail(f"{len(wavs)} prediction wavs for {len(prompts)} prompts")
+        log(f"[fit] predict wrote {len(wavs)} wavs of {sizes} samples "
+            f"({tr3.predicted_frames} frames); launches {preds[0]}")
+
+        epath = os.path.join(root, "tts_export.bin")
+        _, _, _, export_s = _run_cli(
+            ["export"] + base + [f"--export.path={epath}",
+                                 "--export.use_vocoder=False"], "export")
+        tts = load_tts(epath, device="cuda")
+        text = np.full((1, 24), 5, np.int32)
+        mel, lens = tts(text, np.asarray([24], np.int32),
+                        np.asarray([0], np.int32), np.asarray([0], np.int32),
+                        np.asarray([5.0], np.float32),
+                        np.asarray([0.3], np.float32), 0)
+        mel = torch.as_tensor(mel)
+        log(f"[fit] the export ({os.path.getsize(epath) / 1e6:.1f} MB) "
+            f"loaded with serving.load_tts: one request, mel "
+            f"{tuple(mel.shape)}, {int(lens[0])} frames")
+        if not torch.isfinite(mel).all() or int(lens[0]) <= 0:
+            fail("the exported model gave non-finite or empty output")
+
+        # featurize alone, on a batch the loader makes
+        feat = dm.featurizer
+        host = next(iter(DataLoader(dm.trainset, dm.batch_size,
+                                    featurizer=None, num_threads=1)))
+        raw = {k: torch.from_numpy(v).cuda()
+               for k, v in feat.raw_arrays(host).items()}
+        feat_ms = cuda_ms(lambda: feat.featurize_raw(raw, 0), 3)
+        s = fit_stats
+        step_ms = 1e3 * sum(walls) / len(walls)
+        log(f"[fit] ({card}) fit: steps 2-{FIT_STEPS - 1} "
+            f"{', '.join(f'{1e3 * w:.1f}' for w in walls)} ms, mean "
+            f"{step_ms:.2f} ms a step (B={dm.batch_size}, featurize, "
+            f"loader and logging included, validation and saves not); all "
+            f"{s['steps']} steps {1e3 * s['train_s'] / s['steps']:.2f} ms a "
+            f"step, of it waiting on the loader "
+            f"{100 * s['loader_wait_s'] / s['train_s']:.1f}%; the first "
+            f"batch, with the batches loaded beside it, {s['first_batch_s']:.2f}"
+            f" s; featurize "
+            f"{feat_ms:.2f} ms a batch ({tuple(host['audio'].shape)} "
+            f"samples); validation {s['val_s']:.2f} s for {len(vals)}; "
+            f"checkpoint save {s['ckpt_save_s'] / s['ckpt_saves']:.2f} s a "
+            f"save, {s['ckpt_bytes'] / 1e9:.3f}"
+            f" GB each; restore {tr2.stats['restore_s']:.2f} s; predict "
+            f"{predict_s:.2f} s; export {export_s:.2f} s; fit wall "
+            f"{fit_s:.2f} s, resume {resume_s:.2f} s")
+        busy, wall = (tr2.stats.get("profile_busy_s"),
+                      tr2.stats.get("profile_wall_s"))
+        if busy:
+            n = FIT_RESUME_STEPS - FIT_STEPS
+            log(f"[fit] ({card}) profiled steps {FIT_STEPS + 1}-"
+                f"{FIT_RESUME_STEPS}: wall {wall * 1e3:.1f} "
+                f"ms, device busy {busy * 1e3:.1f} ms "
+                f"({100 * busy / wall:.1f}% of the profiled wall; "
+                f"{1e3 * busy / n:.1f} ms a step is "
+                f"{100 * busy / n / (step_ms / 1e3):.1f}% of the unprofiled "
+                f"{step_ms:.2f} ms a step)")
+        else:
+            log("[fit] the profiler saw no device time: busy share not "
+                "measured")
+        return {"fit": launches, "steps": len(steps), "val": vals,
+                "predict": preds[0]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def kernel_entries(rows: list, serve_launches, train_launches,
-                   wn_launches) -> list:
+                   wn_launches, fit_launches=None) -> list:
     """The kernels' JSON entries. K4 forward keeps its serving numbers (one
     B=1 request at text bucket 96 / frame bucket 800 makes one launch at
     each serving shape: the sums of those rows) and lists every shape; K4
     backward sums the four training shapes (one step's launches); K1-K3 are
     one launch each at the training batch; K5 sums its four dilations (one
-    WN stack's launches) and lists each. ``launches`` come from the main
-    paths' runs: serving and training for K4 forward, the wn phase for K5,
-    training for the rest."""
+    WN stack's launches) and lists each. ``launches`` sums the main
+    paths' runs, listed under ``launches_by_path``: serving, training and
+    fit (its training steps and validations) for K4 forward, the wn phase
+    and fit for K5, training and fit for the rest."""
     def by(kernel, **kw):
         return [r for r in rows if r["kernel"] == kernel
                 and all(r.get(k) == v for k, v in kw.items())]
@@ -1312,6 +1684,15 @@ def kernel_entries(rows: list, serve_launches, train_launches,
         max_abs_err=max(r["max_abs_err"] for r in k5), **summed(k5),
         bound_by=max(k5, key=lambda r: r["bound_ms"])["bound_by"],
         shapes=k5))
+    for e in entries:
+        paths = dict(e.get("launches_by_path") or (
+            {"wn": wn_launches} if e["name"] == "conv_softplus"
+            else {"train": trained(e["name"])}))
+        paths["fit"] = (None if fit_launches is None
+                        else fit_launches[e["name"]])
+        counts = [n for n in paths.values() if n is not None]
+        e["launches"] = sum(counts) if counts else None
+        e["launches_by_path"] = paths
     return entries
 
 
@@ -1329,6 +1710,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     rows, serve_launches, train_launches, wn_launches = [], None, None, None
+    fit_launches = None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -1354,9 +1736,12 @@ def main() -> int:
         wn_launches = phase_wn()
     if "featurize" in phases:
         phase_featurize(args.seed)
+    if "fit" in phases:
+        fit_launches = phase_fit(args.seed)["fit"]
     if rows:
         log(json.dumps({"kernels": kernel_entries(
-            rows, serve_launches, train_launches, wn_launches)}))
+            rows, serve_launches, train_launches, wn_launches,
+            fit_launches)}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"ok": True, "device": {

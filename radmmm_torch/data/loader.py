@@ -1,0 +1,228 @@
+"""Threaded prefetching data loader.
+
+Counterpart of ``radmmm_tpu/data/loader.py`` on one process (several
+cards are ROADMAP item M13). A thread pool loads and augments items (host
+work), batches are collated on the host and, when a featurizer is given,
+featurized on its device, and a small queue keeps the next batches ready.
+Broken items (None) are dropped, as the reference's collate drops them.
+
+With ``shape_runs=k`` each epoch's batches are reordered so that batches of
+one scheduled (B, frames, text) shape come out in consecutive runs of up to
+k, each padded to the scheduled shape: the trainer's group of k steps
+(``training/loop.py``) then gets k batches of one shape. The run order is
+shuffled by its own generator, seeded ``seed ^ 0x5EED`` as in the JAX
+package, so both run the same batches in the same order.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from radmmm_torch.data.collate import BucketBatcher, collate_host, round_up
+
+
+def stack_raw_batches(raws):
+    """Stack K same-shape ``Featurizer.raw_arrays`` dicts along a new
+    leading axis."""
+    return {k: np.stack([r[k] for r in raws]) for k in raws[0]}
+
+
+def _threaded(produce: Callable[[Callable], None], depth: int) -> Iterable:
+    """Run ``produce(put)`` in a daemon thread and yield what it puts. An
+    exception in the producer is raised in the consumer; a consumer that
+    stops early (a break, an abandoned ``next(iter(...))``) releases the
+    producer, which then ends instead of blocking on a full queue."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    sentinel = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def run():
+        try:
+            produce(put)
+        except BaseException as e:  # raised again in the consumer
+            put(e)
+        finally:
+            put(sentinel)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+        t.join()
+    finally:
+        stop.set()
+        while True:
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+
+
+class DataLoader:
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 featurizer: Optional[Callable] = None,
+                 num_threads: int = 4, prefetch: int = 2, seed: int = 0,
+                 hop_length: int = 256, uniform_shape: bool = False,
+                 shape_runs: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.featurizer = featurizer
+        self.num_threads = num_threads
+        self.prefetch = prefetch
+        self.hop_length = hop_length
+        self.batcher = BucketBatcher([u.duration for u in dataset.data],
+                                     batch_size, shuffle, seed)
+        self.shape_runs = int(shape_runs)
+        self._runs_rng = np.random.default_rng(seed ^ 0x5EED)
+        self._uniform_shape = False
+        if self.shape_runs > 0:
+            # shapes scheduled from filelist metadata: mel frames from the
+            # durations (scaled by the largest duration stretch an
+            # augmentation can apply, so pad_to always covers it), text
+            # tokens from one encode pass
+            sr = getattr(dataset, "sampling_rate", 22050)
+            aug = getattr(dataset, "augmentations", None)
+            dur_factor = (aug.max_duration_factor()
+                          if aug is not None else 1.0)
+            self._sched_frames = np.array(
+                [1 + int(np.ceil(u.duration * dur_factor * sr))
+                 // self.hop_length for u in dataset.data], np.int64)
+            self._sched_text = np.array(
+                [dataset.encoded_text_length(i)
+                 for i in range(len(dataset.data))], np.int64)
+            self._uniform_shape = uniform_shape
+
+    def __len__(self):
+        return len(self.batcher)
+
+    def _shape_key(self, indices):
+        sel = slice(None) if self._uniform_shape else indices
+        frames = round_up(int(self._sched_frames[sel].max()), 64)
+        text = round_up(int(self._sched_text[sel].max()), 16)
+        return (len(indices), frames, text)
+
+    def _batches(self):
+        """Yield (indices, pad_to): every batch at its natural bucket
+        shape, or, with ``shape_runs``, grouped by scheduled shape into
+        runs of up to ``shape_runs`` in a shuffled run order, each batch
+        padded to its run's shape."""
+        if self.shape_runs <= 0:
+            for indices in self.batcher:
+                yield indices, None
+            return
+        by_key: dict = {}
+        for indices in self.batcher:
+            indices = np.asarray(indices)
+            by_key.setdefault(self._shape_key(indices), []).append(
+                list(map(int, indices)))
+        runs = [(key, batches[i:i + self.shape_runs])
+                for key, batches in by_key.items()
+                for i in range(0, len(batches), self.shape_runs)]
+        if self.batcher.shuffle:
+            self._runs_rng.shuffle(runs)
+        for key, batches in runs:
+            for indices in batches:
+                yield indices, key[1:]
+
+    def _load_batch(self, pool, indices, pad_to=None):
+        items = list(pool.map(self.dataset.__getitem__, indices))
+        if pad_to is not None:
+            # a scheduled shape keeps B: a broken item is replaced by a
+            # repeat of a good one instead of dropped
+            good = [x for x in items if x is not None]
+            if not good:
+                raise RuntimeError(
+                    f"all items broken in batch {list(indices)}")
+            items = [x if x is not None else good[0] for x in items]
+        host = collate_host(items, hop_length=self.hop_length,
+                            pad_to=pad_to)
+        if host is None:
+            return None
+        return self.featurizer(host) if self.featurizer else host
+
+    def first_batch(self):
+        """The epoch's first batch, loaded as the JAX package's trainer
+        loads it with ``next(iter(loader))``: the loader's thread there is
+        left running and goes on until its queue is full, so the batches
+        that fill the queue, and one more, are loaded too, each drawing
+        its augmentations from the dataset's generator and featurized.
+        The same batches are loaded here, in this thread, and dropped, so
+        the next loader's draws start where the JAX package's do."""
+        first, last = None, None
+        with ThreadPoolExecutor(self.num_threads) as pool:
+            for i, (indices, pad_to) in enumerate(self._batches()):
+                batch = self._load_batch(pool, indices, pad_to)
+                if first is None and batch is not None:
+                    first, last = batch, i + self.prefetch + 1
+                if last is not None and i >= last:
+                    break
+        if first is None:
+            raise RuntimeError("the training set gave no batch")
+        return first
+
+    def __iter__(self) -> Iterable:
+        def produce(put):
+            with ThreadPoolExecutor(self.num_threads) as pool:
+                for indices, pad_to in self._batches():
+                    batch = self._load_batch(pool, indices, pad_to)
+                    if batch is not None and not put(batch):
+                        return
+
+        yield from _threaded(produce, self.prefetch)
+
+
+def prefetch_raw_groups(loader, featurizer, k: int, device, depth: int = 2):
+    """Yield groups of up to ``k`` consecutive same-shape raw batches
+    (``featurizer.raw_arrays`` of the loader's host batches, int16 audio),
+    each a list of dicts of tensors on ``device``. A thread stacks and
+    uploads each group ``depth`` groups ahead, from pinned memory on the
+    card, so the upload rides under the previous group's steps. A group
+    ends where the shape changes or at k batches, as in the JAX
+    package."""
+
+    def upload(pending):
+        stacked = stack_raw_batches(pending)
+        on = {}
+        for key, a in stacked.items():
+            t = torch.from_numpy(a)
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            on[key] = t
+        return [{key: t[i] for key, t in on.items()}
+                for i in range(len(pending))]
+
+    def produce(put):
+        pending, pshape = [], None
+        for host in loader:
+            raw = featurizer.raw_arrays(host)
+            shape = (raw["audio_i16"].shape, raw["text"].shape)
+            if pending and (shape != pshape or len(pending) == k):
+                if not put(upload(pending)):
+                    return
+                pending = []
+            pending.append(raw)
+            pshape = shape
+        if pending:
+            put(upload(pending))
+
+    yield from _threaded(produce, depth)

@@ -6,7 +6,9 @@ a periodic Hann window centre-padded to n_fft, the magnitude of an n_fft
 real FFT at hop_length stride, the Slaney mel basis with Slaney area
 normalisation, log(clamp(mel, 1e-5)). The window and the basis are built
 in numpy float64 exactly as there; the framing, FFT and projection run in
-torch on the device of the waveform.
+torch on the device of the waveform. ``istft_frames`` and ``griffin_lim``
+turn a magnitude spectrogram back into audio (the reference's
+STFT.inverse and griffin_lim, audio_processing.py:79-95, 257-286).
 """
 from __future__ import annotations
 
@@ -144,3 +146,50 @@ class MelSpectrogram:
 
     def n_frames(self, n_samples: int) -> int:
         return 1 + n_samples // self.hop_length
+
+    def istft(self, magnitude: torch.Tensor, phase: torch.Tensor
+              ) -> torch.Tensor:
+        """(B, n_frames, n_fft // 2 + 1) magnitude and phase -> (B, T), the
+        centre padding removed."""
+        self._on(magnitude.device)
+        return istft_frames(magnitude, phase, self.filter_length,
+                            self.hop_length, self.window)
+
+
+def istft_frames(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int,
+                 hop: int, window: torch.Tensor) -> torch.Tensor:
+    """Overlap-add inverse STFT divided by the window's sum of squares:
+    magnitude and phase (B, n_frames, n_fft // 2 + 1) -> (B, T) with the
+    centre padding removed."""
+    spec = torch.complex(magnitude * torch.cos(phase),
+                         magnitude * torch.sin(phase))
+    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * window
+    B, n_frames, _ = frames.shape
+    T = n_fft + hop * (n_frames - 1)
+
+    def overlap_add(cols):                     # (B, n_fft, F) -> (B, T)
+        return F.fold(cols, (1, T), (1, n_fft), stride=(1, hop))[:, 0, 0]
+
+    sig = overlap_add(frames.transpose(1, 2))
+    wss = overlap_add((window ** 2).to(frames.dtype)[None, :, None]
+                      .expand(1, n_fft, n_frames))[0]
+    sig = torch.where(wss > 1e-11, sig / torch.clamp_min(wss, 1e-11), sig)
+    pad = n_fft // 2
+    return sig[:, pad:T - pad]
+
+
+def griffin_lim(magnitude: torch.Tensor, stft: MelSpectrogram,
+                phase: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                n_iters: int = 30) -> torch.Tensor:
+    """Phase recovery by iterated STFT projection: magnitude (B, n_frames,
+    n_fft // 2 + 1) -> (B, T). The initial phase is ``phase``, or uniform
+    on [-pi, pi) from ``generator``."""
+    if phase is None:
+        phase = (torch.rand(magnitude.shape, generator=generator,
+                            device=magnitude.device) * 2 - 1) * np.pi
+    signal = stft.istft(magnitude, phase)
+    for _ in range(n_iters):
+        spec = stft.stft(signal)
+        signal = stft.istft(magnitude, torch.atan2(spec.imag, spec.real))
+    return signal

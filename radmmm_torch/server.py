@@ -3,17 +3,21 @@
 Counterpart of ``radmmm_tpu/server.py``:
 
     python -m radmmm_torch --artifact tts.pt --port 8001 [--device cuda]
+        [--text-config data.yaml]
 
 API:
     GET  /healthz  -> {"status": "ok", "buckets": [[B, T], ...],
                        "output": "audio" | "mel", "sampling_rate": sr}
     POST /tts      -> audio/wav (or JSON mel) for
-        {"text_ids": [[...], ...]}
+        {"text_ids": [[...], ...]}  or  {"text": "..." | ["...", ...],
+                                         "language": "en_US",
+                                         "is_phonemized": false}
         optional: "speaker_id", "accent_id", "f0_mean", "f0_std", "seed",
                   "format": "wav" | "json"
 
-Raw ``"text"`` requests answer 400 until the port has its own copy of the
-text frontend; send pre-encoded ``text_ids``.
+Raw ``"text"`` is encoded by the port's text frontend, built from the
+data-config yaml given with ``--text-config``; without one, send
+pre-encoded ``text_ids``.
 
 Concurrency: handler threads do the host work (parsing, padding, the
 device-to-host fetch, WAV encoding) while one dispatcher thread owns the
@@ -94,9 +98,10 @@ class TTSService:
 
     def __init__(self, artifact_path: str, sampling_rate: int = 22050,
                  hop_length: int = 256, defaults: Optional[dict] = None,
-                 device: str = "cuda"):
+                 device: str = "cuda", text_processor=None):
         from radmmm_torch.serving import load_tts
 
+        self.tp = text_processor
         self.tts = load_tts(artifact_path, device=device)
         self._dispatch = DeviceDispatcher(self.tts)
         self.sr = sampling_rate
@@ -120,11 +125,18 @@ class TTSService:
             if seqs and isinstance(seqs[0], int):
                 seqs = [seqs]
             return [list(map(int, s)) for s in seqs]
-        if "text" in req:
-            raise ValueError("raw 'text' requests need the text frontend, "
-                             "which radmmm_torch does not have yet; send "
-                             "'text_ids' instead")
-        raise ValueError("request needs 'text_ids'")
+        if "text" not in req:
+            raise ValueError("request needs 'text' or 'text_ids'")
+        if self.tp is None:
+            raise ValueError("raw 'text' needs the daemon started with "
+                             "--text-config; send 'text_ids' instead")
+        texts = req["text"]
+        if isinstance(texts, str):
+            texts = [texts]
+        return [self.tp.encode_text(
+            t, language=req.get("language"),
+            is_phonemized=bool(req.get("is_phonemized", False)))
+            for t in texts]
 
     def synthesize(self, req: dict):
         seqs = self.encode(req)
@@ -225,10 +237,36 @@ def make_handler(service: TTSService):
     return Handler
 
 
+def build_text_processor(config_path: str):
+    """TextProcessing from a data-config yaml (the reference's schema):
+    the training CLI's translation, its text settings only."""
+    from radmmm_torch.text.processing import TextProcessing
+    from radmmm_torch.utils.config import (load_configs,
+                                           translate_reference_data_config)
+
+    kw = translate_reference_data_config(load_configs([config_path]))
+    return TextProcessing(
+        kw.get("symbol_set", "radmmm_phonemizer_marker_segregated"),
+        list(kw.get("cleaner_names", ("basic_cleaners",))),
+        kw.get("heteronyms_path"), kw.get("phoneme_dict_path"),
+        p_phoneme=kw.get("p_phoneme", 1.0),
+        handle_phoneme=kw.get("handle_phoneme", "word"),
+        handle_phoneme_ambiguous=kw.get("handle_phoneme_ambiguous",
+                                        "ignore"),
+        prepend_space_to_text=kw.get("prepend_space_to_text", True),
+        append_space_to_text=kw.get("append_space_to_text", True),
+        add_bos_eos_to_text=kw.get("add_bos_eos_to_text", False),
+        g2p_type=kw.get("g2p_type", "phonemizer"),
+        phonemizer_cfg=kw.get("phonemizer_cfg"))
+
+
 def serve(artifact: str, host: str = "127.0.0.1", port: int = 8001,
           sampling_rate: int = 22050, hop_length: int = 256,
-          device: str = "cuda") -> ThreadingHTTPServer:
-    service = TTSService(artifact, sampling_rate, hop_length, device=device)
+          device: str = "cuda",
+          text_config: Optional[str] = None) -> ThreadingHTTPServer:
+    tp = build_text_processor(text_config) if text_config else None
+    service = TTSService(artifact, sampling_rate, hop_length, device=device,
+                         text_processor=tp)
 
     class _Server(ThreadingHTTPServer):
         # a clean shutdown also stops the dispatch thread
@@ -249,9 +287,11 @@ def main():
     ap.add_argument("--sampling-rate", type=int, default=22050)
     ap.add_argument("--hop-length", type=int, default=256)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--text-config", default=None,
+                    help="data-config yaml for raw-text requests")
     args = ap.parse_args()
     httpd = serve(args.artifact, args.host, args.port, args.sampling_rate,
-                  args.hop_length, args.device)
+                  args.hop_length, args.device, args.text_config)
     info = httpd.service.info()
     print(f"serving {args.artifact} on http://{args.host}:"
           f"{httpd.server_address[1]} (output={info['output']}, "

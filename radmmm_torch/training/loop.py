@@ -1,0 +1,684 @@
+"""Trainer: fit / validate / predict / export on one device.
+
+Counterpart of ``radmmm_tpu/training/loop.py`` (the reference's
+PyTorch-Lightning Trainer, the TTSModel LightningModule and its
+sample-logging callbacks). One step function per phase (binarization,
+KL), picked on the host; the whitening init runs on the first batch of a
+fresh run; validation logs the losses, attention and mel images, the
+quality scalars and Griffin-Lim audio when no vocoder checkpoint is
+configured.
+
+The JAX package scans K featurize + train steps in one program
+(``megastep_k``). Here each of the K steps runs in turn, with the same
+batches in the same order (the loader's shape runs), the same noise key
+per step (``Featurizer.noise_key_for_step``) and the same bookkeeping: a
+whole group of K is logged, validated and saved once, after its last
+step. Several cards (``n_data``, ``n_model``, sync-BN) are ROADMAP item
+M13.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from scipy.io import wavfile
+
+from radmmm_torch.data.loader import DataLoader, prefetch_raw_groups
+from radmmm_torch.models.tts import TTSConfig, TTSModel
+from radmmm_torch.training.step import (LossConfig, TrainState,
+                                        create_train_state, make_train_step,
+                                        make_val_step, make_whitening_init,
+                                        phase_flags)
+from radmmm_torch.utils.checkpoint import (CheckpointManager,
+                                           ENCODER_SUBMODULES, freeze_wrap,
+                                           load_pretrained_submodules)
+from radmmm_torch.utils.device import resolve_device
+from radmmm_torch.utils.logging import (TrainLogger, plot_alignment_to_numpy,
+                                        plot_curves_to_numpy,
+                                        plot_mel_to_numpy)
+from radmmm_torch.utils.quality import reconstruction_quality
+from radmmm_torch.vocoder.utils import (GriffinLimVocoder,
+                                        get_audio_for_mels, get_vocoder)
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    output_directory: str = "./output"
+    max_steps: int = 1_000_000
+    max_epochs: int = 10_000
+    val_interval: int = 500
+    iters_per_checkpoint: int = 3000
+    log_interval: int = 10
+    seed: int = 42
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-6
+    optim_algo: str = "RAdam"
+    grad_clip_val: Optional[float] = 1.0
+    use_syncbnorm: bool = False
+    n_data: Optional[int] = None
+    n_model: int = 1
+    griffin_lim_iters: int = 30
+    decoder_path: Optional[str] = None
+    encoders_path: Optional[str] = None
+    vocoder_type: str = "hifigan"
+    vocoder_config_path: Optional[str] = None
+    vocoder_checkpoint_path: Optional[str] = None
+    sampling_rate: int = 22050
+    prediction_output_dir: Optional[str] = None
+    predict_mode: str = "tts"
+    sigma_infer: float = 0.8
+    max_infer_frames: int = 1024
+    hop_length: int = 256
+    conv_precision: str = "f32"
+    log_decoder_samples: bool = True
+    val_prompts_path: Optional[str] = None
+    max_to_keep: Optional[int] = None
+    # a torch.profiler trace of profile_n_steps steps from
+    # profile_start_step, written as a Chrome trace into profile_dir
+    profile_dir: Optional[str] = None
+    profile_start_step: int = 10
+    profile_n_steps: int = 5
+    detect_anomaly: bool = False
+    save_code_snapshot: bool = True
+    save_val_artifacts: bool = False
+    # --ckpt_path: an integer step of this run, another run's directory
+    # (its latest step), a ckpt directory, or a step directory like
+    # <run>/ckpt/9000. None: the latest under output_directory/ckpt
+    ckpt_path: Optional[str] = None
+    megastep_k: int = 8
+    device: str = "cuda"
+
+
+def _np(x):
+    """Tensors (nested in dicts) -> numpy arrays on the host."""
+    if isinstance(x, dict):
+        return {k: _np(v) for k, v in x.items()}
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return x
+
+
+class Trainer:
+    def __init__(self, tts_config: TTSConfig, loss_config: LossConfig,
+                 trainer_config: TrainerConfig):
+        self.tts_config = tts_config
+        self.loss_cfg = loss_config
+        self.cfg = trainer_config
+        c = self.cfg
+        if (c.n_data or 1) > 1 or c.n_model > 1 or c.use_syncbnorm:
+            raise NotImplementedError(
+                "data or model parallelism and sync-BN across cards come "
+                "with ROADMAP item M13; the port trains on one device")
+        if c.conv_precision != "f32":
+            raise ValueError(f"conv_precision {c.conv_precision!r}: the "
+                             "port trains in f32")
+        self.device = resolve_device(c.device)
+        self.model: Optional[TTSModel] = None
+        os.makedirs(c.output_directory, exist_ok=True)
+        self.logger = TrainLogger(
+            os.path.join(c.output_directory, "tb"),
+            artifact_dir=(os.path.join(c.output_directory, "val_artifacts")
+                          if c.save_val_artifacts else None))
+        self.ckpt = CheckpointManager(
+            os.path.join(c.output_directory, "ckpt"),
+            max_to_keep=c.max_to_keep)
+        self._step_cache: Dict[Any, Any] = {}
+        self.frozen_prefixes = []
+        if c.decoder_path:
+            self.frozen_prefixes.append("decoder")
+        if c.encoders_path:
+            self.frozen_prefixes += self._encoder_modules()
+        # the last fit's wall seconds, counts and step start times
+        self.stats: Dict[str, Any] = {}
+
+    def _encoder_modules(self):
+        return [m for m in ENCODER_SUBMODULES
+                if m != "accent_embeddings" or self.tts_config.use_accent]
+
+    # ------------------------------------------------------------------
+    def _resolve_ckpt(self):
+        """cfg.ckpt_path -> (CheckpointManager, step or None)."""
+        p = self.cfg.ckpt_path
+        if p is None:
+            return self.ckpt, None
+        if isinstance(p, int) or (isinstance(p, str) and p.isdigit()):
+            return self.ckpt, int(p)
+        path = os.path.abspath(os.path.expanduser(str(p)))
+        if os.path.isdir(os.path.join(path, "ckpt")):       # a run directory
+            return CheckpointManager(os.path.join(path, "ckpt")), None
+        base = os.path.basename(path.rstrip("/"))
+        if base.isdigit():                                  # a step directory
+            return CheckpointManager(os.path.dirname(path)), int(base)
+        if not os.path.isdir(path):
+            raise FileNotFoundError(f"ckpt_path {p!r} does not exist")
+        return CheckpointManager(path), None                # a ckpt directory
+
+    def _restore_state(self, state, require: bool = False):
+        mgr, step = self._resolve_ckpt()
+        state, restored = mgr.restore(state, step=step)
+        if require and restored is None:
+            raise FileNotFoundError(
+                "no checkpoint found"
+                + (f" at ckpt_path={self.cfg.ckpt_path!r}"
+                   if self.cfg.ckpt_path is not None
+                   else f" under {self.ckpt.directory} (pass --ckpt_path)"))
+        return state, restored
+
+    def _init_state(self, sample_batch) -> TrainState:
+        """A fresh state on the trainer's device: the model drawn from the
+        seed, the optimizer, pretrained submodules loaded and frozen. The
+        port builds the model from its config alone; ``sample_batch`` is
+        the JAX package's argument, kept so a test can start both trainers
+        from one state."""
+        c = self.cfg
+        torch.manual_seed(c.seed)
+        model = TTSModel(self.tts_config)
+        state = create_train_state(
+            model, device=self.device, optim_algo=c.optim_algo,
+            learning_rate=c.learning_rate, weight_decay=c.weight_decay,
+            grad_clip_val=c.grad_clip_val)
+        if c.decoder_path:
+            load_pretrained_submodules(model, c.decoder_path, ["decoder"])
+        if c.encoders_path:
+            load_pretrained_submodules(model, c.encoders_path,
+                                       self._encoder_modules())
+        freeze_wrap(state.optimizer, model, self.frozen_prefixes)
+        self.model = model
+        self._step_cache.clear()
+        return state
+
+    def _train_step_fn(self, binarize: bool, kl_on: bool):
+        key = (binarize, kl_on)
+        if key not in self._step_cache:
+            self._step_cache[key] = make_train_step(
+                self.model, self.loss_cfg, binarize=binarize, kl_on=kl_on)
+        return self._step_cache[key]
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    # ------------------------------------------------------------------
+    def save_current_code(self):
+        """Tar the framework's sources into the run directory
+        (utils.py:44-51)."""
+        import tarfile
+        root = os.path.dirname(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))))
+        out = os.path.join(self.cfg.output_directory, "code_snapshot.tar.gz")
+        with tarfile.open(out, "w:gz") as tar:
+            for dirpath, dirnames, filenames in os.walk(root):
+                dirnames[:] = [d for d in dirnames
+                               if d not in (".git", "output", "build",
+                                            "__pycache__")]
+                for fn in filenames:
+                    if fn.endswith((".py", ".cu", ".cuh", ".yaml")):
+                        full = os.path.join(dirpath, fn)
+                        tar.add(full, arcname=os.path.relpath(full, root))
+        print(f"saved code snapshot to {out}")
+
+    def fit(self, dm, resume: bool = True):
+        dm.setup("fit")
+        if self.cfg.save_code_snapshot:
+            self.save_current_code()
+        return self._fit_loop(dm, resume)
+
+    def _fit_loop(self, dm, resume: bool):
+        c = self.cfg
+        train_loader = dm.train_dataloader()
+        t0 = time.perf_counter()
+        first_batch = train_loader.first_batch()
+        first_batch_s = time.perf_counter() - t0
+        state = self._init_state(first_batch)
+
+        start_step = 0
+        restored = None
+        t0 = time.perf_counter()
+        if resume:
+            state, restored = self._restore_state(state)
+            if restored is not None:
+                start_step = int(restored)
+                print(f"resumed from step {start_step}")
+                dm.featurizer.set_noise_base(start_step)
+        if restored is None:
+            make_whitening_init(self.model)(state, first_batch)
+            print("initialized whitening conv from first batch")
+
+        val_step = make_val_step(self.model, self.loss_cfg)
+        gen = self._generator(c.seed + 1)
+        # step_starts and noise_keys: one entry a step (the key is None
+        # where the loader featurizes); pause_s: validation and checkpoint
+        # seconds after a step, by step
+        self.stats = dict(steps=0, loader_wait_s=0.0, val_s=0.0,
+                          ckpt_save_s=0.0, ckpt_bytes=0, ckpt_saves=0,
+                          step_starts=[], noise_keys=[], pause_s={},
+                          first_batch_s=first_batch_s,
+                          restore_s=(time.perf_counter() - t0
+                                     if restored is not None else 0.0))
+        t_fit = time.perf_counter()
+        t_last = time.perf_counter()
+        last_logged = start_step
+        self._profiler = None
+
+        def paused(step, t0) -> float:
+            dt = time.perf_counter() - t0
+            pauses = self.stats["pause_s"]
+            pauses[step] = pauses.get(step, 0.0) + dt
+            return dt
+
+        def save(step):
+            t0 = time.perf_counter()
+            self.stats["ckpt_bytes"] = self.ckpt.save(
+                step, state, exclude_prefixes=self.frozen_prefixes)
+            self.stats["ckpt_save_s"] += paused(step, t0)
+            self.stats["ckpt_saves"] += 1
+
+        def post_step(metrics, prev_step, step) -> bool:
+            """Logging, validation, checkpoints and the stop, shared by
+            both loops: an interval counts when the step crosses one of its
+            multiples, so a group of K steps hits each interval once."""
+            nonlocal t_last, last_logged
+
+            def crossed(interval):
+                return prev_step // interval != step // interval
+
+            if c.detect_anomaly:
+                bad = [m for m in metrics
+                       if not np.isfinite(m["loss"].item())]
+                if bad:
+                    raise FloatingPointError(
+                        f"non-finite loss at step {step}: "
+                        f"{ {k: v.item() for k, v in bad[0].items()} }")
+            if crossed(c.log_interval):
+                m = {k: v.item() for k, v in metrics[-1].items()}
+                dt = time.perf_counter() - t_last
+                m["steps_per_sec"] = (step - last_logged) / dt
+                t_last = time.perf_counter()
+                last_logged = step
+                self.logger.scalars("train", m, step)
+                print(f"step {step}: loss={m['loss']:.4f} "
+                      f"mel={m.get('loss_mel', 0):.4f} "
+                      f"({m['steps_per_sec']:.2f} it/s)")
+            if crossed(c.val_interval) and dm.valset:
+                t0 = time.perf_counter()
+                self.validate(state, dm, val_step, step)
+                self.stats["val_s"] += paused(step, t0)
+            done = step >= c.max_steps
+            if crossed(c.iters_per_checkpoint) or done:
+                save(step)
+            return done
+
+        try:
+            if self._megastep_k(dm) > 1:
+                self._fit_loop_mega(dm, state, gen, start_step, post_step)
+            else:
+                self._fit_loop_plain(train_loader, state, gen, start_step,
+                                     post_step)
+        finally:
+            if self._profiler is not None:
+                self._profiler.stop()
+                self._profiler = None
+        s = self.stats
+        s["fit_s"] = time.perf_counter() - t_fit
+        s["train_s"] = s["fit_s"] - s["val_s"] - s["ckpt_save_s"]
+        if s["steps"]:
+            print(f"fit: {s['steps']} steps, "
+                  f"{1e3 * s['train_s'] / s['steps']:.2f} ms a step, "
+                  f"{100 * s['loader_wait_s'] / max(s['train_s'], 1e-9):.1f}"
+                  f"% of it waiting on the loader; validation "
+                  f"{s['val_s']:.2f} s, checkpoints {s['ckpt_save_s']:.2f} s")
+        return state
+
+    def _megastep_k(self, dm) -> int:
+        """K same-shape batches a group whenever the data module has a
+        featurizer; 1 (a batch at a time) otherwise."""
+        k = int(self.cfg.megastep_k)
+        if k <= 1 or getattr(dm, "featurizer", None) is None:
+            return 1
+        return k
+
+    def _run_step(self, state, batch, step: int, gen, noise_key=None):
+        """One training step of the phase of ``step``, inside the profiled
+        window when one is configured; ``noise_key`` is the mel-noise key
+        its batch was featurized with, recorded in the stats."""
+        c = self.cfg
+        self.stats["step_starts"].append(time.perf_counter())
+        self.stats["noise_keys"].append(noise_key)
+        if c.profile_dir and step == c.profile_start_step:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=acts)
+            self._profiler.start()
+            self._profile_t0 = time.perf_counter()
+        state, metrics = self._train_step_fn(
+            *phase_flags(step, self.loss_cfg))(state, batch, gen)
+        if (self._profiler is not None
+                and step + 1 == c.profile_start_step + c.profile_n_steps):
+            self._finish_profile()
+        self.stats["steps"] += 1
+        return state, metrics
+
+    def _finish_profile(self):
+        """Stop the profiler, write its Chrome trace and record the
+        device's busy time over the window's wall time."""
+        from torch.autograd import DeviceType
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - self._profile_t0
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        busy = sum(e.device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e6
+        self.stats.update(profile_wall_s=wall, profile_busy_s=busy,
+                          profile_steps=self.cfg.profile_n_steps)
+        print(f"profiler trace in {path}: {self.cfg.profile_n_steps} steps, "
+              f"wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms")
+
+    def _timed(self, it):
+        """Iterate ``it``, adding the time spent waiting on it to the
+        loader's share."""
+        it = iter(it)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            self.stats["loader_wait_s"] += time.perf_counter() - t0
+            yield item
+
+    def _fit_loop_plain(self, loader, state, gen, step, post_step):
+        for _ in range(self.cfg.max_epochs):
+            for batch in self._timed(loader):
+                state, metrics = self._run_step(state, batch, step, gen)
+                step += 1
+                if post_step([metrics], step - 1, step):
+                    return
+
+    def _fit_loop_mega(self, dm, state, gen, step, post_step):
+        """Groups of up to K same-shape raw batches (the loader's shape
+        runs), uploaded ahead by a thread and featurized step by step with
+        the step's noise key. A whole group (K batches, one phase, inside
+        max_steps) runs its K steps and then the bookkeeping once; a
+        partial or phase-straddling group does the bookkeeping after each
+        step, as the JAX package's per-batch fallback does."""
+        c, k, feat = self.cfg, self._megastep_k(dm), dm.featurizer
+        loader = DataLoader(dm.trainset, dm.batch_size, shuffle=True,
+                            featurizer=None, num_threads=dm.num_threads,
+                            prefetch=max(2, k), seed=dm.seed,
+                            hop_length=feat.hop_length, shape_runs=k)
+        for _ in range(c.max_epochs):
+            for raws in self._timed(prefetch_raw_groups(
+                    loader, feat, k, self.device)):
+                n = len(raws)
+                whole = (n == k
+                         and phase_flags(step, self.loss_cfg)
+                         == phase_flags(step + k - 1, self.loss_cfg)
+                         and step + k <= c.max_steps)
+                group, prev = [], step
+                for raw in raws:
+                    key = feat.noise_key_for_step(step)
+                    batch = feat.featurize_raw(raw, key)
+                    state, metrics = self._run_step(state, batch, step, gen,
+                                                    key)
+                    step += 1
+                    group.append(metrics)
+                    if not whole and post_step(group[-1:], step - 1, step):
+                        return
+                if whole and post_step(group, prev, step):
+                    return
+
+    # ------------------------------------------------------------------
+    def validate(self, state: TrainState, dm, val_step, step: int):
+        agg: Dict[str, list] = {}
+        first = None
+        for batch in dm.val_dataloader():
+            for k, v in val_step(state, batch).items():
+                agg.setdefault(k, []).append(v.item())
+            if first is None:
+                first = batch
+        if agg:
+            self.logger.scalars(
+                "val", {k: float(np.mean(v)) for k, v in agg.items()}, step)
+        if first is not None and self.cfg.log_decoder_samples:
+            self._log_val_samples(state, first, step)
+        if self.cfg.val_prompts_path:
+            self._log_tts_samples(state, dm, step)
+        self.logger.flush()
+
+    @torch.no_grad()
+    def _log_tts_samples(self, state: TrainState, dm, step: int,
+                         max_prompts: int = 4):
+        """Synthesize the fixed prompts end to end and log their audio."""
+        from radmmm_torch.data.dataset import TextOnlyData
+        if not hasattr(self, "_tts_prompts"):
+            tod = TextOnlyData(self.cfg.val_prompts_path, dm.tp,
+                               dm.trainset.speaker_ids,
+                               dm.trainset.accent_ids)
+            self._tts_prompts = [tod[i]
+                                 for i in range(min(len(tod), max_prompts))]
+        items = self._tts_prompts
+        if not items or self.model.duration_predictor is None:
+            return
+        b = self._predict_batch(items)
+        out = self.model.infer(
+            b["text"], b["text_lens"], b["spk_id"],
+            accent_ids=b["accent_id"], f0_mean=b["speaker_f0_mean"],
+            f0_std=b["speaker_f0_std"], sigma=self.cfg.sigma_infer,
+            max_frames=self.cfg.max_infer_frames,
+            generator=self._generator(self.cfg.seed))
+        audio = _np(self._vocode(out["mel"]))
+        lens = _np(out["lens"].lengths)
+        mel = _np(out["mel"])
+        for i in range(len(items)):
+            self.logger.audio(f"val/tts_sample_{i}",
+                              audio[i][: lens[i] * self.cfg.hop_length],
+                              step, self.cfg.sampling_rate)
+            self.logger.image(f"val/tts_mel_{i}",
+                              plot_mel_to_numpy(mel[i, :lens[i]]), step)
+
+    @torch.no_grad()
+    def _log_val_samples(self, state: TrainState, batch, step: int):
+        """Attention images, reconstruction audio and the quality scalars
+        (LogDecoderSamplesCallback, training_callbacks.py:36-210)."""
+        outputs = self.model(batch, binarize=True, train=False)
+        attn = _np(outputs["attn"][0])
+        attn_soft = _np(outputs["attn_soft"][0])
+        in_len = int(batch["input_lengths"][0])
+        out_len = int(batch["output_lengths"][0])
+        self.logger.image("val/attention_hard", plot_alignment_to_numpy(
+            attn[:out_len, :in_len]), step)
+        self.logger.image("val/attention_soft", plot_alignment_to_numpy(
+            attn_soft[:out_len, :in_len]), step)
+        self.logger.image("val/mel_gt", plot_mel_to_numpy(
+            _np(batch["mel"][0, :out_len])), step)
+        curves = {}
+        for key, name in (("f0_outputs", "f0"),
+                          ("energy_outputs", "energy"),
+                          ("voiced_outputs", "voiced")):
+            if key in outputs:
+                gt = _np(outputs[key]["x"][0, :out_len, 0])
+                pred = _np(outputs[key]["x_hat"][0, :out_len, 0])
+                if name == "voiced":          # logits -> probability
+                    pred = 1.0 / (1.0 + np.exp(-pred))
+                curves[f"{name}_gt"] = gt
+                curves[f"{name}_pred"] = pred
+        if curves:
+            self.logger.image("val/attributes",
+                              plot_curves_to_numpy(curves), step)
+        rec = self.model.reconstruct(batch, generator=self._generator(0))
+        self.logger.image("val/mel_reconstructed", plot_mel_to_numpy(
+            _np(rec["mel"][0, :out_len])), step)
+        # MCD of the flow reconstruction, F0 RMSE and voicing F1 over the
+        # batch: a broken flow inverse or predictor moves these by orders
+        # of magnitude where the loss curves barely move
+        host = {k: _np(v) for k, v in batch.items()
+                if isinstance(v, torch.Tensor)}
+        self.logger.scalars("val", reconstruction_quality(
+            host, _np(rec["mel"]), _np({k: v for k, v in outputs.items()
+                                        if isinstance(v, dict)})), step)
+        audio = self._vocode(rec["mel"][:1])
+        if audio is not None:
+            self.logger.audio("val/reconstruction", _np(audio)[0], step,
+                              self.cfg.sampling_rate)
+
+    # ------------------------------------------------------------------
+    def _vocode(self, mels):
+        if not hasattr(self, "_vocoder"):
+            voc_fn, denoiser = get_vocoder(
+                self.cfg.vocoder_type, self.cfg.vocoder_config_path,
+                self.cfg.vocoder_checkpoint_path)
+            if voc_fn is None:
+                print("no vocoder checkpoint configured — validation audio "
+                      f"uses griffin-lim ({self.cfg.griffin_lim_iters} "
+                      "iters; set trainer.griffin_lim_iters / "
+                      "vocoder_checkpoint_path)")
+                voc_fn = GriffinLimVocoder(
+                    sampling_rate=self.cfg.sampling_rate,
+                    hop_length=self.cfg.hop_length,
+                    n_mel_channels=self.tts_config.n_mel_channels,
+                    n_iters=self.cfg.griffin_lim_iters)
+            self._vocoder = (voc_fn, denoiser)
+        voc_fn, denoiser = self._vocoder
+        if isinstance(voc_fn, GriffinLimVocoder):
+            return voc_fn(mels, generator=self._generator(0))
+        return get_audio_for_mels(mels, self.cfg.vocoder_type, voc_fn,
+                                  denoiser)
+
+    def _write_wav(self, path: str, wav: np.ndarray) -> None:
+        wavfile.write(path, self.cfg.sampling_rate,
+                      (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+
+    def _restored_for_inference(self, state: Optional[TrainState]):
+        if state is None:
+            state = self._init_state(None)
+            state, _ = self._restore_state(state, require=True)
+        self.model.eval().cache_inverses()
+        return state
+
+    def predict(self, dm, state: Optional[TrainState] = None):
+        """TTS (or reconstruction) prediction -> wav files
+        (tts_lightning_modules.py:585-606)."""
+        if self.cfg.predict_mode == "reconstruction":
+            return self.predict_reconstruction(dm, state)
+        dm.setup("predict")
+        out_dir = (self.cfg.prediction_output_dir
+                   or os.path.join(self.cfg.output_directory, "predictions"))
+        os.makedirs(out_dir, exist_ok=True)
+        state = self._restored_for_inference(state)
+        items = list(dm.predict_items())
+        b = self._predict_batch(items)
+        with torch.no_grad():
+            out = self.model.infer(
+                b["text"], b["text_lens"], b["spk_id"],
+                decoder_speaker_ids=b["decoder_spk_id"],
+                f0_speaker_ids=b["f0_spk_id"],
+                energy_speaker_ids=b["energy_spk_id"],
+                duration_speaker_ids=b["duration_spk_id"],
+                accent_ids=b["accent_id"], f0_mean=b["speaker_f0_mean"],
+                f0_std=b["speaker_f0_std"], sigma=self.cfg.sigma_infer,
+                max_frames=self.cfg.max_infer_frames,
+                generator=self._generator(self.cfg.seed))
+            audio = _np(self._vocode(out["mel"]))
+        lens = _np(out["lens"].lengths)
+        self.predicted_frames = lens.tolist()
+        paths = []
+        for i, item in enumerate(items):
+            path = os.path.join(out_dir, f"output_sample_{item['idx']}_"
+                                f"{self.cfg.predict_mode}.wav")
+            self._write_wav(path, audio[i][: lens[i] * self.cfg.hop_length])
+            paths.append(path)
+        print(f"predictions saved to {out_dir}")
+        return paths
+
+    def predict_reconstruction(self, dm, state: Optional[TrainState] = None):
+        """Analysis-synthesis and voice cloning: each utterance's mel
+        rebuilt from its own attributes and MAS durations, then vocoded
+        (reconstruct_from_batch_attributes, tts_lightning_modules.py:
+        389-437). Voice cloning: change the speaker column of the
+        filelist."""
+        dm.setup("fit")
+        out_dir = (self.cfg.prediction_output_dir
+                   or os.path.join(self.cfg.output_directory, "predictions"))
+        os.makedirs(out_dir, exist_ok=True)
+        loader = dm.train_dataloader()
+        if state is None:
+            # the JAX package draws a first batch to build its state: the
+            # same draws here, so each utterance meets its augmentation
+            loader.first_batch()
+        state = self._restored_for_inference(state)
+        hop = self.cfg.hop_length
+        paths = []
+        for batch in loader:
+            with torch.no_grad():
+                rec = self.model.reconstruct(
+                    batch, generator=self._generator(self.cfg.seed))
+                audio = _np(self._vocode(rec["mel"]))
+            lens = _np(rec["lens"].lengths)
+            idx = _np(batch["idx"])
+            for i in range(len(lens)):
+                path = os.path.join(out_dir, f"output_sample_{int(idx[i])}_"
+                                    "reconstruction.wav")
+                self._write_wav(path, audio[i][: lens[i] * hop])
+                paths.append(path)
+        print(f"predictions saved to {out_dir}")
+        return paths
+
+    def _predict_batch(self, items):
+        B = len(items)
+        T = max(len(x["text_encoded"]) for x in items)
+        text = np.zeros((B, T), np.int32)
+        for i, x in enumerate(items):
+            text[i, :len(x["text_encoded"])] = x["text_encoded"]
+
+        def arr(key, dtype=np.int32):
+            return np.array([x[key] for x in items], dtype)
+
+        host = {
+            "text": text,
+            "text_lens": np.array([len(x["text_encoded"]) for x in items],
+                                  np.int32),
+            "spk_id": arr("spk_id"),
+            "decoder_spk_id": arr("decoder_spk_id"),
+            "duration_spk_id": arr("duration_spk_id"),
+            "f0_spk_id": arr("f0_spk_id"),
+            "energy_spk_id": arr("energy_spk_id"),
+            "accent_id": arr("accent_id"),
+            "speaker_f0_mean": arr("speaker_f0_mean", np.float32),
+            "speaker_f0_std": arr("speaker_f0_std", np.float32),
+        }
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in host.items()}
+
+    def export(self, path: str, batch_size: int = 8, max_text: int = 96,
+               use_vocoder: bool = True, buckets=None, frame_buckets=None,
+               state: Optional[TrainState] = None) -> int:
+        """Write the trained TTS function as a serving artifact
+        (``serving.export_tts``, loaded by ``serving.load_tts``). Needs a
+        checkpoint unless a live state is given. Baking a HiFi-GAN
+        checkpoint into the artifact comes with ROADMAP item M9."""
+        from radmmm_torch.serving import export_tts
+        if (use_vocoder and self.cfg.vocoder_type == "hifigan"
+                and self.cfg.vocoder_checkpoint_path
+                and os.path.exists(str(self.cfg.vocoder_checkpoint_path))):
+            raise NotImplementedError(
+                "baking a HiFi-GAN checkpoint into the export comes with "
+                "ROADMAP item M9; pass --export.use_vocoder=False")
+        self._restored_for_inference(state)
+        n = export_tts(self.model, path, batch_size=batch_size,
+                       max_text=max_text, sigma=self.cfg.sigma_infer,
+                       max_frames=self.cfg.max_infer_frames,
+                       buckets=buckets, frame_buckets=frame_buckets)
+        what = f"{len(buckets)}-bucket mel" if buckets else "mel"
+        if frame_buckets:
+            what += f", two-stage x{len(frame_buckets)} frame buckets"
+        print(f"exported {what} TTS artifact ({n / 1e6:.1f} MB) to {path}")
+        return n

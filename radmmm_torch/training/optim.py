@@ -27,7 +27,10 @@ import torch
 class Optimizer:
     """``step()`` reads every parameter's ``.grad`` (None counts as zero),
     clips, updates the parameters in place and returns the global norm of
-    the gradients before the clip (a 0-d tensor on their device)."""
+    the gradients before the clip (a 0-d tensor on their device). A frozen
+    parameter (``freeze``) gets no update and its moments stay zero; the
+    clip then reads the trainable gradients only, as the JAX package's
+    masked optimizer does, while the returned norm covers all of them."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], algo: str,
                  learning_rate: float, weight_decay: float = 0.0,
@@ -42,6 +45,11 @@ class Optimizer:
         self.count = 0
         self.exp_avg = [torch.zeros_like(p) for p in self.params]
         self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
+        self.frozen = [False] * len(self.params)
+
+    def freeze(self, frozen) -> None:
+        """Freeze the parameters whose entry of ``frozen`` is true."""
+        self.frozen = [bool(f) for f in frozen]
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -51,10 +59,21 @@ class Optimizer:
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for p in self.params]
 
+    @staticmethod
+    def _global_norm(grads) -> torch.Tensor:
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         grads = self._grads()
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        total = self._global_norm(grads)
+        live = [i for i, f in enumerate(self.frozen) if not f]
+        params = [self.params[i] for i in live]
+        exp_avg = [self.exp_avg[i] for i in live]
+        exp_avg_sq = [self.exp_avg_sq[i] for i in live]
+        grads = [grads[i] for i in live]
+        norm = (total if len(live) == len(self.frozen)
+                else self._global_norm(grads))
         if self.clip:
             # below the limit the gradients pass unchanged
             scale = torch.where(norm < self.clip, torch.ones_like(norm),
@@ -63,10 +82,10 @@ class Optimizer:
         self.count += 1
         t = np.float32(self.count)
         b1, b2 = np.float32(self.b1), np.float32(self.b2)
-        torch._foreach_mul_(self.exp_avg, self.b1)
-        torch._foreach_add_(self.exp_avg, grads, alpha=1 - self.b1)
-        torch._foreach_mul_(self.exp_avg_sq, self.b2)
-        torch._foreach_addcmul_(self.exp_avg_sq, grads, grads,
+        torch._foreach_mul_(exp_avg, self.b1)
+        torch._foreach_add_(exp_avg, grads, alpha=1 - self.b1)
+        torch._foreach_mul_(exp_avg_sq, self.b2)
+        torch._foreach_addcmul_(exp_avg_sq, grads, grads,
                                 value=1 - self.b2)
         bias1 = np.float32(1) - b1 ** t
         beta2_t = b2 ** t
@@ -82,26 +101,26 @@ class Optimizer:
                                / f32(n_sma_max - 4) * (n_sma - f32(2))
                                / n_sma * f32(n_sma_max)
                                / f32(n_sma_max - 2))
-                denom = torch._foreach_sqrt(self.exp_avg_sq)
+                denom = torch._foreach_sqrt(exp_avg_sq)
                 torch._foreach_add_(denom, self.eps)
-                delta = torch._foreach_mul(self.exp_avg,
+                delta = torch._foreach_mul(exp_avg,
                                            float(self.lr * rect / bias1))
                 torch._foreach_div_(delta, denom)
             else:
-                delta = torch._foreach_mul(self.exp_avg,
+                delta = torch._foreach_mul(exp_avg,
                                            float(self.lr / bias1))
         else:                                   # AdamW
             bias2 = np.float32(1) - beta2_t
-            denom = torch._foreach_div(self.exp_avg_sq, float(bias2))
+            denom = torch._foreach_div(exp_avg_sq, float(bias2))
             denom = torch._foreach_sqrt(denom)
             torch._foreach_add_(denom, self.eps)
             delta = torch._foreach_div(
-                torch._foreach_div(self.exp_avg, float(bias1)), denom)
+                torch._foreach_div(exp_avg, float(bias1)), denom)
             torch._foreach_mul_(delta, self.lr)
         if self.wd:
-            torch._foreach_add_(delta, self.params, alpha=self.wd * self.lr)
-        torch._foreach_sub_(self.params, delta)
-        return norm
+            torch._foreach_add_(delta, params, alpha=self.wd * self.lr)
+        torch._foreach_sub_(params, delta)
+        return total
 
 
 def radam_exact(params: Iterable[torch.nn.Parameter], learning_rate: float,

@@ -236,3 +236,59 @@ def test_http_errors(server):
     assert status == 400
     status, _, _ = _request(addr, "GET", "/nope")
     assert status == 404
+
+
+RAW_TEXT_REQUESTS = (
+    {"text": "Hello world, I have 12 dogs and $3.", "language": "en_US"},
+    {"text": ["Hola mundo.", "hello"], "language": "es_ES"},
+    {"text": "{h ə l ˈoʊ} {w ˈɜ r l d.}", "language": "en_US",
+     "is_phonemized": True},
+)
+
+
+@pytest.mark.parametrize("recipe", (False, True))
+def test_raw_text_encodes_as_the_jax_daemon(ported, tmp_path, monkeypatch,
+                                            recipe):
+    """A daemon started with --text-config encodes raw "text" to the ids
+    the JAX package's daemon sends, from a data config with phonemizer
+    dictionaries and from the shipped 7-language recipe's (whose
+    dictionaries are not in the repo: phonemized text only)."""
+    import os
+    from radmmm_tpu.server import build_text_processor as jax_text_processor
+    from radmmm_torch.server import serve
+    *_, port, _ = ported
+    path = str(tmp_path / "tts.pt")
+    export_tts(port, path, buckets=[(1, 8)])
+    if recipe:
+        monkeypatch.chdir(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        cfg = "configs/radmmm_opensource_data_phonemizerless.yaml"
+        requests = RAW_TEXT_REQUESTS[2:]
+    else:
+        g2p = {}
+        for lang, words in (("en_US", "hello\thəlˈoʊ\nworld\twˈɜːld\n"),
+                            ("es_ES", "hola\tˈola\nmundo\tmˈundo\n")):
+            (tmp_path / f"{lang}.tsv").write_text(words, encoding="utf-8")
+            g2p[lang] = str(tmp_path / f"{lang}.tsv")
+        cfg = str(tmp_path / "data.yaml")
+        with open(cfg, "w") as f:
+            json.dump({"data": {
+                "symbol_set": "radmmm_phonemizer_marker_segregated",
+                "cleaner_names": ["radtts_cleaners"],
+                "g2p_type": "phonemizer", "phonemizer_cfg": g2p,
+                "handle_phoneme_ambiguous": "first"}}, f)
+        requests = RAW_TEXT_REQUESTS
+    httpd = serve(path, port=0, device="cpu", text_config=cfg)
+    try:
+        tp = jax_text_processor(cfg)
+        for req in requests:
+            texts = req["text"] if isinstance(req["text"], list) \
+                else [req["text"]]
+            want = [tp.encode_text(
+                t, language=req["language"],
+                is_phonemized=req.get("is_phonemized", False))
+                for t in texts]
+            assert httpd.service.encode(req) == want
+            assert all(len(w) > 2 for w in want)
+    finally:
+        httpd.server_close()
