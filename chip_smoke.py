@@ -2,7 +2,7 @@
 """Smoke run of the radmmm_torch serving and training paths on one CUDA card.
 
     python3 chip_smoke.py [--phases build,kernels,serve,parity,train,
-                           train_parity,wn,featurize,fit] [--seed 0]
+                           train_parity,wn,featurize,vocoder,fit] [--seed 0]
 
 Phases (all by default):
 
@@ -72,7 +72,24 @@ Phases (all by default):
             then TRAIN_STEPS flagship training steps from that batch with
             the launch counts of the train phase, featurize and step times,
             and one reconstruct at sigma 0 on the card;
-9. fit      the shipped 7-language recipe (configs/radmmm_model.yaml,
+9. vocoder  TF32 off: ``vocoder-fit`` through radmmm_torch.training.cli.main
+            in this process, on a synthetic 16 kHz corpus of 32 lines of
+            each of the fit phase's two filelists (batches of 16, the
+            recipe's data section and featurizer): HiFi-GAN v1 at full
+            width (512 channels, rates 8, 8, 2, 2; MPD periods 2-11; 3-scale
+            MSD; segments of 8,192; AdamW 2e-4) fit to 6 steps, then
+            resumed to 8 with steps 7-8 profiled (ms a step, the card's busy
+            share and top kernels, peak memory, checkpoint save and restore
+            seconds and bytes, the resume's step count and rows); WaveGlow()
+            (12 flows of WN 256 x 8) for 4 steps. Then vocoding of 4 mels
+            of 390 frames with the Denoiser, timed, and held against the
+            CPU: the trained HiFi-GAN from its run directory, an iSTFTNet
+            C8C8I generator and an upstream-format WaveGlow file at sigma
+            0, both from random weights of --seed; and cuFFT's inverse real
+            FFT against the CPU's on spectra with imaginary DC and Nyquist
+            parts. No kernel of K1-K5 runs on this path: its launches are
+            counted from zero and must stay 0;
+10. fit     the shipped 7-language recipe (configs/radmmm_model.yaml,
             radmmm_attributes.yaml, radmmm_opensource_data_phonemizerless
             .yaml, radmmm_train.yaml) at full width through
             radmmm_torch.training.cli.main in this process, on a synthetic
@@ -82,11 +99,15 @@ Phases (all by default):
             speaker and emotion kept, with 16 kHz int16 voiced audio of
             their durations; an overlay that swaps the corpora, sets 6
             steps, validation and checkpoints every 3, the binarization
-            switch at 3 and KL at 4. fit to 6 steps (Griffin-Lim
-            validation audio, checkpoints 3 and 6, two steps profiled),
+            switch at 3 and KL at 4, and the vocoder phase's HiFi-GAN run
+            as the vocoder. fit to 6 steps (HiFi-GAN validation audio with
+            the Denoiser, Griffin-Lim without the vocoder phase;
+            checkpoints 3 and 6, two steps profiled),
             fit again to 8 (it resumes from 6 and keys its noise from 6),
             predict on the recipe's prompts of the corpus's speakers,
-            export and one request through serving.load_tts. Checks:
+            export with an upstream-format HiFi-GAN v1 g_* file of random
+            weights baked in and one request through serving.load_tts
+            (int16 audio on the card). Checks:
             every logged loss finite, each training step's launches (K1
             1, K2 1, K4 forward 4, K4 backward 4, K3 1 once binarization
             is on), the resume, the wavs' lengths; prints ms a step, the
@@ -107,6 +128,7 @@ import http.client
 import io
 import json
 import math
+import shutil
 import struct
 import sys
 import tempfile
@@ -118,7 +140,7 @@ import numpy as np
 import torch
 
 PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity",
-          "wn", "featurize", "fit")
+          "wn", "featurize", "vocoder", "fit")
 # (name, lanes, hidden, time steps, LSTM input width) on the serving path
 # at text bucket 96 and frame bucket 800 (the flow context runs at 800/2)
 PATH_SHAPES = (("text_encoder", 2, 260, 96, 520),
@@ -1308,9 +1330,9 @@ def _voiced_wav(n: int, f0: float, rng) -> np.ndarray:
     return np.clip(np.rint(x * 32767 * 0.8), -32768, 32767).astype(np.int16)
 
 
-def fit_corpus(root: str, seed: int) -> dict:
+def fit_corpus(root: str, seed: int, n_train: int = FIT_TRAIN) -> dict:
     """The synthetic corpus under ``root``: for each of FIT_SOURCES the
-    first FIT_TRAIN / FIT_VAL lines of at most FIT_MAX_S seconds, their
+    first ``n_train`` / FIT_VAL lines of at most FIT_MAX_S seconds, their
     text, speaker and emotion kept, with voiced int16 audio of the line's
     duration. Returns {split: {corpus: dataset dict}}."""
     import os
@@ -1318,7 +1340,7 @@ def fit_corpus(root: str, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     out = {"train": {}, "val": {}}
     for c, (name, lang, train_list, val_list) in enumerate(FIT_SOURCES):
-        for split, path, n in (("train", train_list, FIT_TRAIN),
+        for split, path, n in (("train", train_list, n_train),
                                ("val", val_list, FIT_VAL)):
             lines = []
             with open(path, encoding="utf-8") as f:
@@ -1345,14 +1367,11 @@ def fit_corpus(root: str, seed: int) -> dict:
     return out
 
 
-def fit_overlay(root: str, corpus: dict) -> str:
-    """The overlay over the recipe, as a JSON file (JSON is YAML): the
-    recipe's corpora replaced by the synthetic ones, the output directory,
-    6 steps with validation and checkpoints every 3, the phase switches at
-    3 (binarization) and 4 (KL), a log line every step, two checkpoints
-    kept and, where the recipe's phonemizer dictionaries are not in the
-    checkout, empty ones (every line and prompt is phonemized already).
-    No width or depth changes."""
+def _data_overlay(root: str, corpus: dict) -> dict:
+    """The data section of an overlay over the recipe: its corpora
+    replaced by the synthetic ones and, where the recipe's phonemizer
+    dictionaries are not in the checkout, empty ones (every line and
+    prompt is phonemized already)."""
     import os
     import yaml
     with open(RECIPE[2]) as f:
@@ -1361,22 +1380,40 @@ def fit_overlay(root: str, corpus: dict) -> str:
     for lang in missing:
         missing[lang] = os.path.join(root, f"{lang}_empty.txt")
         open(missing[lang], "w").close()
-    overlay = {
-        "model": {"output_directory": os.path.join(root, "run"),
-                  "iters_per_checkpoint": 3, "binarization_start_iter": 3,
-                  "decoder_loss": {"init_args": {"kl_loss_start_iter": 4}}},
-        "trainer": {"max_steps": FIT_STEPS, "val_check_interval": 3,
-                    "log_interval": 1, "max_to_keep": 2},
-        "data": {"training_files": {**dict.fromkeys(RECIPE_CORPORA),
-                                    **corpus["train"]},
-                 "validation_files": {**dict.fromkeys(RECIPE_CORPORA),
-                                      **corpus["val"]},
-                 **({"phonemizer_cfg": {**g2p, **missing}}
-                    if missing else {})}}
-    path = os.path.join(root, "overlay.yaml")
+    return {"training_files": {**dict.fromkeys(RECIPE_CORPORA),
+                               **corpus["train"]},
+            "validation_files": {**dict.fromkeys(RECIPE_CORPORA),
+                                 **corpus["val"]},
+            **({"phonemizer_cfg": {**g2p, **missing}} if missing else {})}
+
+
+def _write_overlay(root: str, name: str, overlay: dict) -> str:
+    """``overlay`` as a JSON file (JSON is YAML) under ``root``."""
+    import os
+    path = os.path.join(root, name)
     with open(path, "w") as f:
         json.dump(overlay, f)
     return path
+
+
+def fit_overlay(root: str, corpus: dict, vocoder_run: str = None) -> str:
+    """The overlay over the recipe: the synthetic corpora, the output
+    directory, 6 steps with validation and checkpoints every 3, the phase
+    switches at 3 (binarization) and 4 (KL), a log line every step, two
+    checkpoints kept and, given ``vocoder_run``, that ``vocoder-fit`` run
+    directory as the vocoder of validation and predict. No width or depth
+    changes."""
+    import os
+    model = {"output_directory": os.path.join(root, "run"),
+             "iters_per_checkpoint": 3, "binarization_start_iter": 3,
+             "decoder_loss": {"init_args": {"kl_loss_start_iter": 4}}}
+    if vocoder_run:
+        model["vocoder_checkpoint_path"] = vocoder_run
+    return _write_overlay(root, "overlay.yaml", {
+        "model": model,
+        "trainer": {"max_steps": FIT_STEPS, "val_check_interval": 3,
+                    "log_interval": 1, "max_to_keep": 2},
+        "data": _data_overlay(root, corpus)})
 
 
 class _Tee(io.TextIOBase):
@@ -1393,18 +1430,18 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def _run_cli(argv, tag: str):
+def _run_cli(argv, tag: str, phase: str = "fit"):
     """``radmmm_torch.training.cli.main(argv)`` in this process -> (its
     data module, its trainer, what it printed, seconds)."""
     from radmmm_torch.training import cli
-    log(f"[fit] python -m radmmm_torch.training.cli {' '.join(argv)}")
+    log(f"[{phase}] python -m radmmm_torch.training.cli {' '.join(argv)}")
     tee = _Tee(sys.stdout)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         dm, trainer = cli.main(argv)
     torch.cuda.synchronize()
     s = time.perf_counter() - t0
-    log(f"[fit] {tag} in {s:.2f} s")
+    log(f"[{phase}] {tag} in {s:.2f} s")
     return dm, trainer, "".join(tee.text), s
 
 
@@ -1434,13 +1471,30 @@ def _metrics_rows(run_dir: str) -> list:
         return [json.loads(line) for line in f]
 
 
+def _check_vocoder(trainer, what: str, vocoder_run) -> None:
+    """With a vocoder run configured, ``trainer`` vocoded with its HiFi-GAN
+    and Denoiser, not Griffin-Lim."""
+    from radmmm_torch.vocoder.utils import GriffinLimVocoder
+    if vocoder_run is None:
+        return
+    voc_fn, denoiser = getattr(trainer, "_vocoder", (None, None))
+    if voc_fn is None or isinstance(voc_fn, GriffinLimVocoder) \
+            or denoiser is None:
+        fail(f"{what} did not vocode with the HiFi-GAN of {vocoder_run} "
+             "and its Denoiser")
+    log(f"[fit] {what} vocoded with the vocoder-fit HiFi-GAN and its "
+        "Denoiser")
+
+
 @tf32_off()
-def phase_fit(seed: int) -> dict:
+def phase_fit(seed: int, vocoder_run: str = None) -> dict:
     """The shipped 7-language recipe at full width through the training
-    CLI: fit to 6 steps, a resume to 8, predict and export. Returns the
-    kernels' launches on the training steps, validation and predict."""
+    CLI: fit to 6 steps, a resume to 8, predict and export, with
+    ``vocoder_run`` (a ``vocoder-fit`` run directory) as the vocoder of
+    validation and predict, and an upstream-format HiFi-GAN v1 file baked
+    into the export. Returns the kernels' launches on the training steps,
+    validation and predict."""
     import os
-    import shutil
     from radmmm_torch.data.loader import DataLoader
     from radmmm_torch.serving import load_tts
     from radmmm_torch.training.loop import Trainer
@@ -1449,7 +1503,7 @@ def phase_fit(seed: int) -> dict:
     root = tempfile.mkdtemp(prefix="radmmm_fit_")
     try:
         corpus = fit_corpus(root, seed)
-        overlay = fit_overlay(root, corpus)
+        overlay = fit_overlay(root, corpus, vocoder_run)
         run_dir = os.path.join(root, "run")
         base = [a for c in RECIPE + (overlay,) for a in ("-c", c)]
         steps, vals, preds = [], [], []
@@ -1458,6 +1512,7 @@ def phase_fit(seed: int) -> dict:
         with _counted(Trainer, "_run_step", steps), \
                 _counted(Trainer, "validate", vals):
             dm, tr, out, fit_s = _run_cli(["fit"] + base, "fit to 6 steps")
+        _check_vocoder(tr, "validation", vocoder_run)
         # steps 2 to FIT_STEPS - 1 (the first warms up; the last ends in
         # the final save): start to next start, less the validation and
         # saves after the step
@@ -1540,6 +1595,7 @@ def phase_fit(seed: int) -> dict:
             _, tr3, _, predict_s = _run_cli(
                 ["predict"] + base + [f"--data.inference_transcript={ppath}"],
                 f"predict of {len(prompts)} prompts")
+        _check_vocoder(tr3, "predict", vocoder_run)
         from scipy.io import wavfile
         pred_dir = os.path.join(run_dir, "predictions")
         wavs = sorted(os.listdir(pred_dir))
@@ -1554,25 +1610,37 @@ def phase_fit(seed: int) -> dict:
                      f"expected {frames} frames of {hop} at {FIT_SR} Hz")
         if len(wavs) != len(prompts):
             fail(f"{len(wavs)} prediction wavs for {len(prompts)} prompts")
+        peaks = [int(np.abs(wavfile.read(os.path.join(pred_dir, n))[1])
+                     .max()) for n in wavs]
         log(f"[fit] predict wrote {len(wavs)} wavs of {sizes} samples "
-            f"({tr3.predicted_frames} frames); launches {preds[0]}")
+            f"({tr3.predicted_frames} frames, int16 peaks {peaks}); "
+            f"launches {preds[0]}")
 
+        # the export with an upstream-format HiFi-GAN v1 g_* file baked
+        # in (as in the JAX package, a vocoder-fit run dir cannot be)
+        g_path, g_cfg = write_g_file(root, seed)
         epath = os.path.join(root, "tts_export.bin")
         _, _, _, export_s = _run_cli(
             ["export"] + base + [f"--export.path={epath}",
-                                 "--export.use_vocoder=False"], "export")
+                                 f"--model.vocoder_checkpoint_path={g_path}",
+                                 f"--model.vocoder_config_path={g_cfg}"],
+            "export with the HiFi-GAN baked in")
         tts = load_tts(epath, device="cuda")
         text = np.full((1, 24), 5, np.int32)
-        mel, lens = tts(text, np.asarray([24], np.int32),
-                        np.asarray([0], np.int32), np.asarray([0], np.int32),
-                        np.asarray([5.0], np.float32),
-                        np.asarray([0.3], np.float32), 0)
-        mel = torch.as_tensor(mel)
+        audio, lens = tts(text, np.asarray([24], np.int32),
+                          np.asarray([0], np.int32), np.asarray([0], np.int32),
+                          np.asarray([5.0], np.float32),
+                          np.asarray([0.3], np.float32), 0)
         log(f"[fit] the export ({os.path.getsize(epath) / 1e6:.1f} MB) "
-            f"loaded with serving.load_tts: one request, mel "
-            f"{tuple(mel.shape)}, {int(lens[0])} frames")
-        if not torch.isfinite(mel).all() or int(lens[0]) <= 0:
-            fail("the exported model gave non-finite or empty output")
+            f"loaded with serving.load_tts: one request, "
+            f"{tts.output_kind} {tuple(audio.shape)} {audio.dtype} on "
+            f"{audio.device}, {int(lens[0])} frames, peak "
+            f"{int(audio.abs().max())}")
+        if (tts.output_kind != "audio" or audio.dtype != torch.int16
+                or audio.device.type != "cuda" or int(lens[0]) <= 0
+                or audio.shape[1] < int(lens[0]) * HOP):
+            fail("the export with the vocoder baked in did not answer with "
+                 "int16 audio on the card")
 
         # featurize alone, on a batch the loader makes
         feat = dm.featurizer
@@ -1619,8 +1687,304 @@ def phase_fit(seed: int) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# the vocoder phase: HiFi-GAN v1 trained at its published batch on
+# segments of 8,192 samples (VocoderTrainConfig's defaults), from a corpus
+# of VOC_TRAIN lines of each source, so every batch holds VOC_B items
+VOC_TRAIN, VOC_B = 32, 16
+VOC_STEPS, VOC_RESUME_STEPS, VOC_PROFILED = 6, 8, 2
+VOC_WG_STEPS = 4
+VOC_MELS = (4, 390)
+# iSTFTNet's C8C8I: two upsamplings of 8, then an inverse STFT of 16
+# points at hop 4 (a 256-sample hop in all), at v1's 512 channels
+ISTFTNET = dict(upsample_rates=(8, 8), upsample_kernel_sizes=(16, 16),
+                gen_istft_n_fft=16, gen_istft_hop=4)
+# card against CPU, f32 with TF32 off: each vocoder's audio within 1e-4
+# of its peak (a deep conv stack in f32 in another summation order); the
+# CPU vocodes the batch's first mel (WaveGlow its first 96 frames: 8
+# TFLOP a batch is minutes on the host)
+VOCODE_RTOL = 1e-4
+WG_CPU_FRAMES = 96
+
+
+def write_g_file(root: str, seed: int):
+    """An upstream-format HiFi-GAN v1 ``g_*`` file (16 kHz, the recipe's
+    80 mel channels) from random weights of ``seed``, and its config
+    json -> (file, config)."""
+    import os
+    from radmmm_torch.vocoder.hifigan import (Generator, HiFiGANConfig,
+                                              upstream_generator_state_dict)
+    torch.manual_seed(seed)
+    cfg = HiFiGANConfig(sampling_rate=FIT_SR)
+    path = os.path.join(root, "g_00000000")
+    torch.save({"generator": upstream_generator_state_dict(
+        Generator(cfg))}, path)
+    cfg_path = os.path.join(root, "config_16khz.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"resblock": cfg.resblock,
+                   "upsample_rates": cfg.upsample_rates,
+                   "upsample_kernel_sizes": cfg.upsample_kernel_sizes,
+                   "upsample_initial_channel": cfg.upsample_initial_channel,
+                   "resblock_kernel_sizes": cfg.resblock_kernel_sizes,
+                   "resblock_dilation_sizes": cfg.resblock_dilation_sizes,
+                   "num_mels": cfg.n_mel_channels,
+                   "sampling_rate": cfg.sampling_rate}, f)
+    return path, cfg_path
+
+
+def write_waveglow_file(root: str, seed: int):
+    """An upstream-format WaveGlow file at ``WaveGlow()``'s defaults from
+    random weights of ``seed`` (the couplings' zero-initialised ``end``
+    convs given small weights, so no coupling is the identity), and its
+    train config -> (file, config)."""
+    import os
+    from radmmm_torch.vocoder.waveglow import (WaveGlow,
+                                               upstream_waveglow_state_dict)
+    torch.manual_seed(seed)
+    wg = WaveGlow()
+    with torch.no_grad():
+        for i in range(wg.n_flows):
+            getattr(wg, f"wn_{i}").end.weight.normal_(0.0, 1e-3)
+    path = os.path.join(root, "waveglow_256channels.pt")
+    torch.save({"model": upstream_waveglow_state_dict(wg)}, path)
+    cfg_path = os.path.join(root, "waveglow_config.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"waveglow_config": {
+            "n_mel_channels": 80, "n_flows": 12, "n_group": 8,
+            "n_early_every": 4, "n_early_size": 2,
+            "WN_config": {"n_layers": 8, "n_channels": 256,
+                          "kernel_size": 3}},
+            "data_config": {"hop_length": HOP}}, f)
+    return path, cfg_path
+
+
+def _vocoder_fit(base, run_dir, tag, **vocoder):
+    """``python -m radmmm_torch.training.cli vocoder-fit`` in this process
+    with a vocoder section over ``base`` -> (its trainer, what it
+    printed, seconds)."""
+    import os
+    section = dict(output_directory=run_dir, log_interval=1, **vocoder)
+    overlay = _write_overlay(os.path.dirname(run_dir),
+                             f"vocoder_{os.path.basename(run_dir)}.yaml",
+                             {"vocoder": section})
+    _, trainer, out, s = _run_cli(["vocoder-fit"] + base + ["-c", overlay],
+                                  tag, "vocoder")
+    return trainer, out, s
+
+
+def _walls(stats) -> list:
+    """Each step's wall, start to next start (the last: to the end of its
+    run, its save excluded)."""
+    starts = stats["step_starts"]
+    ends = starts[1:] + [stats["end"]]
+    return [e - s for s, e in zip(starts, ends)]
+
+
+def _vocode_check(name, voc_fn, denoiser, cpu_fn, cpu_den, mels,
+                  n_cpu) -> None:
+    """Time ``voc_fn`` + Denoiser on the card over ``mels``; hold it
+    against the CPU on the first mel's first ``n_cpu`` frames."""
+    from radmmm_torch.vocoder.utils import get_audio_for_mels
+
+    def run():
+        return get_audio_for_mels(mels, name, voc_fn, denoiser)
+
+    ms = cuda_ms(run, 3)
+    audio = run()
+    part = mels[:1, :n_cpu]
+    got = get_audio_for_mels(part, name, voc_fn, denoiser).cpu()
+    want = get_audio_for_mels(part.cpu(), name, cpu_fn, cpu_den)
+    peak = float(want.abs().max())
+    err = float((got - want).abs().max())
+    log(f"[vocoder] {name}: {tuple(mels.shape)} mels -> audio "
+        f"{tuple(audio.shape)} in {ms:.2f} ms with the Denoiser; card "
+        f"against CPU on {tuple(part.shape)}: max abs err {err:.3e}, peak "
+        f"{peak:.3e} ({err / max(peak, 1e-30):.2e} of it)")
+    if not torch.isfinite(audio).all() or audio.shape != (
+            mels.shape[0], mels.shape[1] * HOP):
+        fail(f"{name}: non-finite audio or shape {tuple(audio.shape)}")
+    if err > VOCODE_RTOL * peak:
+        fail(f"{name}: card against CPU {err:.3e} over {VOCODE_RTOL} of "
+             f"the peak {peak:.3e}")
+
+
+def _cufft_c2r_check() -> None:
+    """Whether cuFFT's inverse real FFT ignores the imaginary parts of the
+    DC and Nyquist bins as the CPU's does (istft_frames zeroes them, so
+    the port's answer does not depend on it)."""
+    g = torch.Generator().manual_seed(0)
+    spec = torch.complex(torch.randn(64, 9, generator=g),
+                         torch.randn(64, 9, generator=g))
+    want = torch.fft.irfft(spec, n=16)
+    got = torch.fft.irfft(spec.cuda(), n=16).cpu()
+    log(f"[vocoder] cuFFT C2R with nonzero imaginary DC and Nyquist bins "
+        f"against the CPU's: max abs diff {float((got - want).abs().max()):.3e}"
+        " (the port zeroes those parts before its inverse FFT)")
+
+
+def _steps_alone(trainer, seed: int, profile_dir: str, card: str) -> None:
+    """``trainer.train_step`` on one batch already on the card, without
+    the loader: ms a step by CUDA events, then two steps profiled."""
+    from radmmm_torch.utils.profiling import StepProfiler
+    seg = trainer.cfg.segment_size
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    audio = torch.rand((VOC_B, seg), generator=g, device="cuda") * 0.6 - 0.3
+    batch = {"audio": audio,
+             "mel": trainer.mel_loss_fn(audio)[:, :seg // HOP]}
+    ms = cuda_ms(lambda: trainer.train_step(batch), 4)
+    prof = StepProfiler(profile_dir, 0, VOC_PROFILED, trainer.device)
+    for i in range(VOC_PROFILED):
+        prof.before(i)
+        trainer.train_step(batch)
+        prof.after(i)
+    st = prof.stats
+    log(f"[vocoder] ({card}) the GAN step alone on one batch on the card: "
+        f"{ms:.2f} ms a step (CUDA events, 4 steps), "
+        f"{VOC_B * seg / FIT_SR / (ms / 1e3):.1f} s of audio a second; "
+        f"{VOC_PROFILED} profiled: wall {1e3 * st['profile_wall_s']:.1f} ms, "
+        f"device busy {1e3 * st['profile_busy_s']:.1f} ms "
+        f"({100 * st['profile_busy_s'] / st['profile_wall_s']:.1f}%; kernel "
+        f"time summed {1e3 * st['profile_kernel_s']:.1f} ms)")
+
+
+@tf32_off()
+def phase_vocoder(seed: int, work: str) -> dict:
+    """vocoder-fit of HiFi-GAN v1 and of WaveGlow at full width on the
+    synthetic 16 kHz corpus (batch 16, segments of 8,192), then vocoding
+    with the trained HiFi-GAN, an iSTFTNet C8C8I generator and an
+    upstream-format WaveGlow file, card against CPU. Returns the trained
+    HiFi-GAN's run directory and the kernels' launches on the phase."""
+    import os
+    from radmmm_torch.utils.checkpoint import CheckpointManager
+    from radmmm_torch.utils.device import card_line
+    from radmmm_torch.vocoder.hifigan import Generator, HiFiGANConfig
+    from radmmm_torch.vocoder.utils import get_vocoder, hifigan_fns
+    card = card_line()
+    corpus = fit_corpus(os.path.join(work, "corpus"), seed, VOC_TRAIN)
+    base = [a for c in RECIPE + (_write_overlay(work, "voc_data.yaml", {
+        "data": {**_data_overlay(work, corpus), "batch_size": VOC_B}}),)
+            for a in ("-c", c)]
+    run_dir = os.path.join(work, "hifigan")
+
+    # the main path: counts from zero, train and vocode, counts read after
+    _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    tr, _, fit_s = _vocoder_fit(base, run_dir, f"vocoder-fit to {VOC_STEPS}",
+                                max_steps=VOC_STEPS,
+                                iters_per_checkpoint=VOC_STEPS)
+    s1 = tr.stats
+    saved = {k: v.cpu() for k, v in list(tr.gen.state_dict().items())[:4]}
+    n_params = {k: sum(p.numel() for p in getattr(tr, k).parameters())
+                for k in ("gen", "mpd", "msd")}
+    del tr
+    tr2, out2, resume_s = _vocoder_fit(
+        base, run_dir, f"resume to {VOC_RESUME_STEPS}, profiled",
+        max_steps=VOC_RESUME_STEPS, iters_per_checkpoint=VOC_STEPS,
+        profile_dir=os.path.join(work, "profile"),
+        profile_start_step=VOC_STEPS, profile_n_steps=VOC_PROFILED)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    s2 = tr2.stats
+    rows = _metrics_rows(run_dir)
+    if f"resumed vocoder training from step {VOC_STEPS}" not in out2 \
+            or tr2.step != VOC_RESUME_STEPS:
+        fail(f"the second vocoder-fit did not resume from step {VOC_STEPS} "
+             f"to {VOC_RESUME_STEPS} (at {tr2.step})")
+    if [r["step"] for r in rows] != list(range(1, VOC_RESUME_STEPS + 1)) \
+            or not all(math.isfinite(v) for r in rows for v in r.values()):
+        fail(f"vocoder metrics.jsonl: steps {[r['step'] for r in rows]}, "
+             "or a non-finite value")
+    restored = CheckpointManager(os.path.join(run_dir, "ckpt")).load_payload(
+        VOC_STEPS)[0]["gen"]
+    if any(not torch.equal(restored[k], v) for k, v in saved.items()):
+        fail("the step-6 checkpoint does not hold the first run's generator")
+    log(f"[vocoder] HiFi-GAN v1: generator {n_params['gen'] / 1e6:.2f} M, "
+        f"MPD {n_params['mpd'] / 1e6:.2f} M, MSD {n_params['msd'] / 1e6:.2f}"
+        f" M parameters; batch {VOC_B} x {tr2.cfg.segment_size} samples")
+    log("[vocoder] losses by step: " + "; ".join(
+        f"{r['step']}: D {r['vocoder/disc_loss']:.4f} G "
+        f"{r['vocoder/gen_loss']:.4f} mel {r['vocoder/gen_mel']:.4f}"
+        for r in rows) + f" (steps {VOC_STEPS + 1}-{VOC_RESUME_STEPS} "
+        f"after the resume)")
+    # steps 2 to VOC_STEPS: the first warms up, the resumed run's first
+    # loads cold and its two are profiled
+    walls = _walls(s1) + _walls(s2)
+    steady = walls[1:VOC_STEPS]
+    audio_s = VOC_B * tr2.cfg.segment_size / FIT_SR
+    mean = sum(steady) / len(steady)
+    log(f"[vocoder] ({card}) steps 2-{VOC_RESUME_STEPS}: "
+        f"{', '.join(f'{1e3 * w:.1f}' for w in walls[1:])} ms (loader, "
+        f"segments and logging in; {VOC_STEPS + 1}-{VOC_RESUME_STEPS} "
+        f"profiled), steps 2-{VOC_STEPS} mean {1e3 * mean:.2f} ms a step, "
+        f"{audio_s / mean:.1f} s of {FIT_SR} Hz audio trained a second; "
+        f"peak memory {peak_gib:.2f} GiB; checkpoint save "
+        f"{s1['ckpt_save_s']:.2f} s of {s1['ckpt_bytes'] / 1e6:.1f} MB, "
+        f"restore {s2['restore_s']:.2f} s of the same file; fit wall "
+        f"{fit_s:.2f} s, resume "
+        f"{resume_s:.2f} s")
+    busy, wall = s2.get("profile_busy_s"), s2.get("profile_wall_s")
+    if not busy:
+        fail("the vocoder profile saw no device time")
+    log(f"[vocoder] ({card}) profiled steps {VOC_STEPS + 1}-"
+        f"{VOC_RESUME_STEPS}: wall {1e3 * wall:.1f} ms, device busy "
+        f"{1e3 * busy:.1f} ms ({100 * busy / wall:.1f}%; kernel time summed "
+        f"{1e3 * s2['profile_kernel_s']:.1f} ms); top kernels (ms summed "
+        "over the window): " + "; ".join(
+            f"{name[:60]} {ms:.2f}" for name, ms in s2["profile_top_ms"]))
+
+    _steps_alone(tr2, seed, os.path.join(work, "profile_alone"), card)
+    del tr2
+
+    wg_dir = os.path.join(work, "waveglow")
+    torch.cuda.reset_peak_memory_stats()
+    wg, _, wg_s = _vocoder_fit(base, wg_dir, f"WaveGlow vocoder-fit to "
+                               f"{VOC_WG_STEPS}", vocoder_type="waveglow",
+                               max_steps=VOC_WG_STEPS,
+                               iters_per_checkpoint=VOC_WG_STEPS)
+    wg_walls = _walls(wg.stats)
+    wg_rows = _metrics_rows(wg_dir)
+    if [r["step"] for r in wg_rows] != list(range(1, VOC_WG_STEPS + 1)) \
+            or not all(math.isfinite(r["vocoder/nll"]) for r in wg_rows):
+        fail(f"WaveGlow metrics.jsonl: {wg_rows}")
+    nll = ", ".join(f"{r['vocoder/nll']:.4f}" for r in wg_rows)
+    wg_params = sum(p.numel() for p in wg.model.parameters())
+    log(f"[vocoder] ({card}) WaveGlow() ({wg_params / 1e6:.2f} M "
+        f"parameters), batch {VOC_B} x {wg.cfg.segment_size}: steps "
+        f"{', '.join(f'{1e3 * w:.1f}' for w in wg_walls)} ms, NLL {nll}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB; wall {wg_s:.2f} s")
+    del wg
+
+    # vocoding: the trained HiFi-GAN from its run dir, with its Denoiser
+    _cufft_c2r_check()
+    g = torch.Generator().manual_seed(seed)
+    mels = (torch.randn(VOC_MELS + (80,), generator=g) * 1.5 - 5.0).cuda()
+    fn, den = get_vocoder("hifigan", vocoder_checkpoint_path=run_dir)
+    cfn, cden = get_vocoder("hifigan", vocoder_checkpoint_path=run_dir,
+                            device="cpu")
+    _vocode_check("HiFi-GAN v1 (vocoder-fit run dir)", fn, den, cfn, cden,
+                  mels, VOC_MELS[1])
+    torch.manual_seed(seed)
+    ist = Generator(HiFiGANConfig(**ISTFTNET))
+    fn, den = hifigan_fns(copy.deepcopy(ist), True, torch.device("cuda"))
+    cfn, cden = hifigan_fns(ist, True, torch.device("cpu"))
+    _vocode_check("iSTFTNet C8C8I (random weights)", fn, den, cfn, cden,
+                  mels, VOC_MELS[1])
+    wg_path, wg_cfg = write_waveglow_file(work, seed)
+    wfn, wden = get_vocoder("waveglow", wg_cfg, wg_path)
+    cwfn, cwden = get_vocoder("waveglow", wg_cfg, wg_path, device="cpu")
+    _vocode_check(
+        "WaveGlow file at sigma 0 (random weights)",
+        lambda m: wfn(m, sigma=0.0), wden, lambda m: cwfn(m, sigma=0.0),
+        cwden, mels, WG_CPU_FRAMES)
+    launches = _counters()
+    if any(launches.values()):
+        fail(f"kernels launched on the vocoder path, which runs none: "
+             f"{launches}")
+    return {"run_dir": run_dir, "launches": launches}
+
+
 def kernel_entries(rows: list, serve_launches, train_launches,
-                   wn_launches, fit_launches=None) -> list:
+                   wn_launches, fit_launches=None,
+                   vocoder_launches=None) -> list:
     """The kernels' JSON entries. K4 forward keeps its serving numbers (one
     B=1 request at text bucket 96 / frame bucket 800 makes one launch at
     each serving shape: the sums of those rows) and lists every shape; K4
@@ -1629,7 +1993,8 @@ def kernel_entries(rows: list, serve_launches, train_launches,
     WN stack's launches) and lists each. ``launches`` sums the main
     paths' runs, listed under ``launches_by_path``: serving, training and
     fit (its training steps and validations) for K4 forward, the wn phase
-    and fit for K5, training and fit for the rest."""
+    and fit for K5, training and fit for the rest, and the vocoder path,
+    which runs none of them (its 0s)."""
     def by(kernel, **kw):
         return [r for r in rows if r["kernel"] == kernel
                 and all(r.get(k) == v for k, v in kw.items())]
@@ -1690,6 +2055,8 @@ def kernel_entries(rows: list, serve_launches, train_launches,
             else {"train": trained(e["name"])}))
         paths["fit"] = (None if fit_launches is None
                         else fit_launches[e["name"]])
+        paths["vocoder"] = (None if vocoder_launches is None
+                            else vocoder_launches[e["name"]])
         counts = [n for n in paths.values() if n is not None]
         e["launches"] = sum(counts) if counts else None
         e["launches_by_path"] = paths
@@ -1710,7 +2077,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     rows, serve_launches, train_launches, wn_launches = [], None, None, None
-    fit_launches = None
+    fit_launches = vocoder_launches = vocoder_run = None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -1736,12 +2103,19 @@ def main() -> int:
         wn_launches = phase_wn()
     if "featurize" in phases:
         phase_featurize(args.seed)
-    if "fit" in phases:
-        fit_launches = phase_fit(args.seed)["fit"]
+    work = tempfile.mkdtemp(prefix="radmmm_vocoder_")
+    try:
+        if "vocoder" in phases:
+            voc = phase_vocoder(args.seed, work)
+            vocoder_launches, vocoder_run = voc["launches"], voc["run_dir"]
+        if "fit" in phases:
+            fit_launches = phase_fit(args.seed, vocoder_run)["fit"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     if rows:
         log(json.dumps({"kernels": kernel_entries(
             rows, serve_launches, train_launches, wn_launches,
-            fit_launches)}))
+            fit_launches, vocoder_launches)}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"ok": True, "device": {

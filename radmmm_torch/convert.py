@@ -16,9 +16,16 @@ key is its flax path joined with dots, with these layout rules:
   ``initialized`` unchanged;
 * HiFi-GAN: ``*_v`` (K, C_in, C_out) -> (C_out, C_in, K), except the
   upsampling ConvTranspose ``up_i_v`` -> (C_in, C_out, K) with ``up_i_g``
-  per input channel;
+  per input channel (the iSTFTNet generator takes the same rules);
+* the discriminators: the period discriminator's HWIO ``*_v``
+  (K, 1, C_in, C_out) -> (C_out, C_in, K, 1), the scale discriminator's
+  WIO ``*_kernel`` (K, C_in / groups, C_out) -> (C_out, C_in / groups, K);
+* WaveGlow: ``upsample_kernel_w`` (K, C_in, C_out) -> the ConvTranspose's
+  (C_in, C_out, K), the 1x1s' ``weight`` unchanged, its WN convs by the
+  conv rules above;
 * a training state: the optimizer's moments are parameter-shaped trees and
-  take the parameters' rules (``load_jax_train_state``).
+  take the parameters' rules (``load_jax_train_state``,
+  ``load_jax_vocoder_state``).
 
 Inputs are nested dicts of numpy arrays (``jax.tree.map(np.asarray, ...)``
 of the flax variables); nothing here imports JAX.
@@ -137,3 +144,77 @@ def hifigan_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
                  else a.transpose(2, 1, 0))
         _put(sd, path, a)
     return sd
+
+
+def discriminator_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """State dict of a ``MultiPeriodDiscriminator`` or
+    ``MultiScaleDiscriminator`` from the flax variables of its JAX
+    twin."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, a in _flatten(variables["params"]):
+        if a.ndim == 4:                     # HWIO -> (C_out, C_in, K, 1)
+            a = a.transpose(3, 2, 0, 1)
+        elif a.ndim == 3:                   # WIO -> (C_out, C_in, K)
+            a = a.transpose(2, 1, 0)
+        _put(sd, path, a)
+    return sd
+
+
+def waveglow_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """State dict of ``radmmm_torch.vocoder.waveglow.WaveGlow`` from the
+    flax variables of a JAX ``WaveGlow``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, a in _flatten(variables["params"]):
+        if path[-1] == "upsample_kernel_w":
+            _put(sd, path, a.transpose(1, 2, 0))
+        else:
+            _put(sd, *_tts_leaf("params", path, a))
+    return sd
+
+
+def _load_adam(opt: torch.optim.Optimizer, module_sds, count: int) -> None:
+    """Set each parameter's Adam state in ``opt`` from the moments'
+    state dicts: ``module_sds`` pairs (prefix, module, first, second)."""
+    for prefix, module, first, second in module_sds:
+        for name, p in module.named_parameters():
+            opt.state[p] = {"step": torch.tensor(float(count)),
+                            "exp_avg": first[prefix + name].to(p),
+                            "exp_avg_sq": second[prefix + name].to(p)}
+
+
+def load_jax_vocoder_state(trainer, jax_state) -> None:
+    """Load a JAX ``VocoderTrainState`` or ``WaveGlowTrainState`` (its
+    leaves as numpy arrays) into the port's ``HiFiGANTrainer`` or
+    ``WaveGlowTrainer`` in place: parameters, the Adam moments and count
+    of each optimizer, and the step."""
+    trainer.step = int(jax_state.step)
+    if not hasattr(jax_state, "gen_params"):
+        def wg(tree):
+            return waveglow_state_dict_from_jax({"params": tree})
+        trainer.model.load_state_dict(wg(jax_state.params))
+        count, first, second = _moments(jax_state.opt_state)
+        _load_adam(trainer.opt, [("", trainer.model, wg(first),
+                                  wg(second))], count)
+        return
+
+    def gen(tree):
+        return hifigan_state_dict_from_jax({"params": tree})
+
+    def disc(tree):
+        return {f"{k}.{n}": t for k in ("mpd", "msd") for n, t in
+                discriminator_state_dict_from_jax(
+                    {"params": tree[k]}).items()}
+
+    trainer.gen.load_state_dict(gen(jax_state.gen_params))
+    trainer.mpd.load_state_dict(discriminator_state_dict_from_jax(
+        {"params": jax_state.mpd_params}))
+    trainer.msd.load_state_dict(discriminator_state_dict_from_jax(
+        {"params": jax_state.msd_params}))
+    count, first, second = _moments(jax_state.gen_opt)
+    _load_adam(trainer.gen_opt, [("", trainer.gen, gen(first),
+                                  gen(second))], count)
+    count, first, second = _moments(jax_state.disc_opt)
+    first, second = disc(first), disc(second)
+    _load_adam(trainer.disc_opt,
+               [("mpd.", trainer.mpd, first, second),
+                ("msd.", trainer.msd, first, second)], count)

@@ -1,7 +1,9 @@
 """Invertible 1x1 channel mixes of the flow.
 
 Counterpart of ``radmmm_tpu/ops/invertible.py`` (``InvertibleLU``,
-``WhiteningConv``, ``whitening_stats`` and ``whitening_params_from_stats``).
+``WhiteningConv``, ``whitening_stats``, ``whitening_params_from_stats`` and
+``InvertibleConv``, WaveGlow's plain dense W with log|det W| from
+``slogdet``).
 Channels-last: y[t] = W @ x[t] is ``x @ W.T``. The forward (training)
 direction returns y and log|det W| = sum log|upper_diag|; the inverse
 direction (sampling) applies W^-1.
@@ -150,3 +152,25 @@ def whitening_params_from_stats(mean: torch.Tensor, covar: torch.Tensor,
     w = torch.linalg.cholesky(torch.linalg.inv(cov)).t().to(covar.dtype)
     return {"upper": torch.triu(w, 1), "upper_diag": torch.diagonal(w).clone(),
             "input_mean": mean}
+
+
+class InvertibleConv(nn.Module):
+    """Plain dense invertible 1x1 (the reference's Invertible1x1Conv,
+    common.py:621-662): W starts as the orthonormal W of the host LU
+    factors at ``init_seed + 104729``; log|det W| is ``slogdet``'s; the
+    inverse is taken in float32, as in the JAX package."""
+
+    def __init__(self, channels: int, init_seed: int = 0):
+        super().__init__()
+        p, lower, upper, diag = _lu_factors_host(init_seed + 104729,
+                                                 channels)
+        w = p @ (lower + np.eye(channels)) @ (upper + np.diag(diag))
+        self.weight = nn.Parameter(torch.from_numpy(w.astype(np.float32)))
+
+    def forward(self, z: torch.Tensor):
+        """(z @ W.T, log|det W|)."""
+        return (torch.matmul(z, self.weight.t()),
+                torch.linalg.slogdet(self.weight)[1])
+
+    def inverse(self, z: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(z, torch.linalg.inv(self.weight.float()).t())

@@ -160,9 +160,16 @@ def istft_frames(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int,
                  hop: int, window: torch.Tensor) -> torch.Tensor:
     """Overlap-add inverse STFT divided by the window's sum of squares:
     magnitude and phase (B, n_frames, n_fft // 2 + 1) -> (B, T) with the
-    centre padding removed."""
-    spec = torch.complex(magnitude * torch.cos(phase),
-                         magnitude * torch.sin(phase))
+    centre padding removed. The imaginary parts of the DC bin and (for
+    an even n_fft) the Nyquist bin are zeroed: the CPU's inverse real FFT
+    ignores them, and a predicted phase (the iSTFTNet head's) makes them
+    nonzero, so the card computes what the CPU does."""
+    imag = magnitude * torch.sin(phase)
+    edges = torch.ones(imag.shape[-1], dtype=imag.dtype, device=imag.device)
+    edges[0] = 0.0
+    if n_fft % 2 == 0:
+        edges[-1] = 0.0
+    spec = torch.complex(magnitude * torch.cos(phase), imag * edges)
     frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * window
     B, n_frames, _ = frames.shape
     T = n_fft + hop * (n_frames - 1)

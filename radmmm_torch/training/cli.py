@@ -1,4 +1,4 @@
-"""CLI: ``python -m radmmm_torch.training.cli fit|predict|export
+"""CLI: ``python -m radmmm_torch.training.cli fit|predict|export|vocoder-fit
 -c cfg.yaml [-c more.yaml ...] [--dotted.key=value ...] [--ckpt_path P]
 [--device cuda|cpu]``.
 
@@ -8,9 +8,10 @@ the reference's ``model:`` / ``data:`` / ``trainer:`` sections
 (class_path / init_args) and dotted overrides. The data -> model links
 (tts_main.py:48-61) follow the translation: sampling rate, symbol set and
 text-frontend flags flow from the data section, and n_text_tokens comes
-from the symbol table. ``--device`` defaults to the card and fails
-without one unless ``cpu`` is asked for. ``vocoder-fit`` (ROADMAP item
-M11) and ``--distributed`` (M13) are not ported yet and say so.
+from the symbol table. ``vocoder-fit`` trains a vocoder on the data
+section's corpus (``training/vocoder_loop.py``). ``--device`` defaults to
+the card and fails without one unless ``cpu`` is asked for.
+``--distributed`` (ROADMAP item M13) is not ported yet and says so.
 """
 from __future__ import annotations
 
@@ -86,8 +87,8 @@ def build_all(cfg: dict, device: str = "cuda"):
 
 
 def main(argv: List[str] = None):
-    """Run one subcommand; returns the data module and the Trainer it
-    used."""
+    """Run one subcommand; returns the data module and the trainer it
+    used (a vocoder trainer for ``vocoder-fit``)."""
     argv = argv if argv is not None else sys.argv[1:]
     parser = argparse.ArgumentParser(prog="radmmm_torch.training.cli")
     parser.add_argument("subcommand",
@@ -107,13 +108,16 @@ def main(argv: List[str] = None):
     if args.distributed:
         parser.error("--distributed: training across processes comes with "
                      "ROADMAP item M13; the port trains on one device")
-    if args.subcommand == "vocoder-fit":
-        parser.error("vocoder-fit: vocoder training comes with ROADMAP "
-                     "item M11")
     device = str(resolve_device(args.device))
 
     cfg = load_configs(args.config)
     cfg = apply_overrides(cfg, [u for u in unknown if "=" in u])
+
+    if args.subcommand == "vocoder-fit":
+        from radmmm_torch.training.vocoder_loop import vocoder_fit
+        dm = AudioDataModule(**translate_reference_data_config(cfg),
+                             device=device)
+        return dm, vocoder_fit(cfg, dm, device=device)
 
     dm, trainer = build_all(cfg, device=device)
     if args.ckpt_path is not None:

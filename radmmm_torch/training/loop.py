@@ -40,9 +40,11 @@ from radmmm_torch.utils.device import resolve_device
 from radmmm_torch.utils.logging import (TrainLogger, plot_alignment_to_numpy,
                                         plot_curves_to_numpy,
                                         plot_mel_to_numpy)
+from radmmm_torch.utils.profiling import StepProfiler
 from radmmm_torch.utils.quality import reconstruction_quality
 from radmmm_torch.vocoder.utils import (GriffinLimVocoder,
-                                        get_audio_for_mels, get_vocoder)
+                                        get_audio_for_mels, get_vocoder,
+                                        load_hifigan_module)
 
 
 @dataclasses.dataclass
@@ -261,7 +263,8 @@ class Trainer:
         t_fit = time.perf_counter()
         t_last = time.perf_counter()
         last_logged = start_step
-        self._profiler = None
+        self._profiler = StepProfiler(c.profile_dir, c.profile_start_step,
+                                      c.profile_n_steps, self.device)
 
         def paused(step, t0) -> float:
             dt = time.perf_counter() - t0
@@ -318,9 +321,7 @@ class Trainer:
                 self._fit_loop_plain(train_loader, state, gen, start_step,
                                      post_step)
         finally:
-            if self._profiler is not None:
-                self._profiler.stop()
-                self._profiler = None
+            self._profiler.stop()
         s = self.stats
         s["fit_s"] = time.perf_counter() - t_fit
         s["train_s"] = s["fit_s"] - s["val_s"] - s["ckpt_save_s"]
@@ -344,43 +345,15 @@ class Trainer:
         """One training step of the phase of ``step``, inside the profiled
         window when one is configured; ``noise_key`` is the mel-noise key
         its batch was featurized with, recorded in the stats."""
-        c = self.cfg
         self.stats["step_starts"].append(time.perf_counter())
         self.stats["noise_keys"].append(noise_key)
-        if c.profile_dir and step == c.profile_start_step:
-            from torch.profiler import ProfilerActivity, profile
-            acts = [ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                acts.append(ProfilerActivity.CUDA)
-            self._profiler = profile(activities=acts)
-            self._profiler.start()
-            self._profile_t0 = time.perf_counter()
+        self._profiler.before(step)
         state, metrics = self._train_step_fn(
             *phase_flags(step, self.loss_cfg))(state, batch, gen)
-        if (self._profiler is not None
-                and step + 1 == c.profile_start_step + c.profile_n_steps):
-            self._finish_profile()
+        self._profiler.after(step)
+        self.stats.update(self._profiler.stats)
         self.stats["steps"] += 1
         return state, metrics
-
-    def _finish_profile(self):
-        """Stop the profiler, write its Chrome trace and record the
-        device's busy time over the window's wall time."""
-        from torch.autograd import DeviceType
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        wall = time.perf_counter() - self._profile_t0
-        prof, self._profiler = self._profiler, None
-        prof.stop()
-        os.makedirs(self.cfg.profile_dir, exist_ok=True)
-        path = os.path.join(self.cfg.profile_dir, "trace.json")
-        prof.export_chrome_trace(path)
-        busy = sum(e.device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA) / 1e6
-        self.stats.update(profile_wall_s=wall, profile_busy_s=busy,
-                          profile_steps=self.cfg.profile_n_steps)
-        print(f"profiler trace in {path}: {self.cfg.profile_n_steps} steps, "
-              f"wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms")
 
     def _timed(self, it):
         """Iterate ``it``, adding the time spent waiting on it to the
@@ -535,7 +508,7 @@ class Trainer:
         if not hasattr(self, "_vocoder"):
             voc_fn, denoiser = get_vocoder(
                 self.cfg.vocoder_type, self.cfg.vocoder_config_path,
-                self.cfg.vocoder_checkpoint_path)
+                self.cfg.vocoder_checkpoint_path, device=self.device)
             if voc_fn is None:
                 print("no vocoder checkpoint configured — validation audio "
                       f"uses griffin-lim ({self.cfg.griffin_lim_iters} "
@@ -663,21 +636,24 @@ class Trainer:
                state: Optional[TrainState] = None) -> int:
         """Write the trained TTS function as a serving artifact
         (``serving.export_tts``, loaded by ``serving.load_tts``). Needs a
-        checkpoint unless a live state is given. Baking a HiFi-GAN
-        checkpoint into the artifact comes with ROADMAP item M9."""
+        checkpoint unless a live state is given. A configured HiFi-GAN
+        checkpoint file (an upstream ``g_*``) is baked in; as in the JAX
+        package, a ``vocoder-fit`` run directory cannot be."""
         from radmmm_torch.serving import export_tts
+        vocoder = None
         if (use_vocoder and self.cfg.vocoder_type == "hifigan"
                 and self.cfg.vocoder_checkpoint_path
                 and os.path.exists(str(self.cfg.vocoder_checkpoint_path))):
-            raise NotImplementedError(
-                "baking a HiFi-GAN checkpoint into the export comes with "
-                "ROADMAP item M9; pass --export.use_vocoder=False")
+            vocoder = load_hifigan_module(self.cfg.vocoder_config_path,
+                                          self.cfg.vocoder_checkpoint_path)
         self._restored_for_inference(state)
         n = export_tts(self.model, path, batch_size=batch_size,
                        max_text=max_text, sigma=self.cfg.sigma_infer,
                        max_frames=self.cfg.max_infer_frames,
-                       buckets=buckets, frame_buckets=frame_buckets)
-        what = f"{len(buckets)}-bucket mel" if buckets else "mel"
+                       vocoder=vocoder, buckets=buckets,
+                       frame_buckets=frame_buckets)
+        kind = "audio" if vocoder is not None else "mel"
+        what = f"{len(buckets)}-bucket {kind}" if buckets else kind
         if frame_buckets:
             what += f", two-stage x{len(frame_buckets)} frame buckets"
         print(f"exported {what} TTS artifact ({n / 1e6:.1f} MB) to {path}")

@@ -69,9 +69,15 @@ class CheckpointManager:
                           ("exp_avg_sq", opt.exp_avg_sq)):
             moments[key] = _host({names[id(p)]: b for p, b in
                                   zip(opt.params, bufs)}, exclude_prefixes)
-        payload = {"step": int(state.step),
-                   "model": _host(state.model.state_dict(), exclude_prefixes),
-                   "optimizer": {"count": int(opt.count), **moments}}
+        return self.save_payload(step, {
+            "step": int(state.step),
+            "model": _host(state.model.state_dict(), exclude_prefixes),
+            "optimizer": {"count": int(opt.count), **moments}})
+
+    def save_payload(self, step: int, payload: dict) -> int:
+        """Write ``payload`` (tensors on the host) as step ``step``'s
+        checkpoint, the oldest dropped beyond ``max_to_keep``. Returns the
+        bytes written."""
         final = os.path.join(self.directory, str(int(step)))
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -84,17 +90,24 @@ class CheckpointManager:
                 shutil.rmtree(os.path.join(self.directory, str(old)))
         return os.path.getsize(os.path.join(final, STATE_FILE))
 
+    def load_payload(self, step: Optional[int] = None):
+        """(payload, step) of step ``step``'s checkpoint, by default the
+        latest; (None, None) when there is none."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None, None
+        path = os.path.join(self.directory, str(int(step)))
+        if not os.path.exists(os.path.join(path, STATE_FILE)):
+            raise FileNotFoundError(f"no checkpoint at {path}")
+        return _load_file(path), int(step)
+
     def restore(self, state, step: Optional[int] = None):
         """Restore into ``state`` in place -> (state, step), or (state,
         None) when there is no checkpoint. Submodules missing from the
         checkpoint keep their live values."""
-        step = step if step is not None else self.latest_step()
+        payload, step = self.load_payload(step)
         if step is None:
             return state, None
-        path = os.path.join(self.directory, str(int(step)))
-        if not os.path.exists(os.path.join(path, STATE_FILE)):
-            raise FileNotFoundError(f"no checkpoint at {path}")
-        payload = _load_file(path)
         model = state.model
         saved = payload["model"]
         for top in sorted({_top(k) for k in model.state_dict()}
@@ -112,7 +125,7 @@ class CheckpointManager:
                         b.copy_(src[names[id(p)]])
         opt.count = payload["optimizer"]["count"]
         state.step = payload["step"]
-        return state, int(step)
+        return state, step
 
 
 def load_pretrained_submodules(model: torch.nn.Module, checkpoint_path: str,

@@ -1,16 +1,27 @@
-"""Vocoder dispatch and mel -> audio helpers.
+"""Vocoder loading and dispatch, and mel -> audio helpers.
 
-Counterpart of the parts of ``radmmm_tpu/vocoder/utils.py`` that training
-reaches (the reference's vocoders/vocoder_utils.py:35-143): a Griffin-Lim
-vocoder over the pseudo-inverse of the mel basis, used when no vocoder
-checkpoint is configured, ``get_vocoder``'s unconfigured branch and
-``get_audio_for_mels``. Loading a HiFi-GAN or WaveGlow checkpoint comes
-with ROADMAP item M9.
+Counterpart of ``radmmm_tpu/vocoder/utils.py`` (the reference's
+vocoders/vocoder_utils.py:35-143). ``get_vocoder`` loads
+
+* an upstream HiFi-GAN ``g_*`` file (a torch state dict, under
+  ``"generator"`` or bare) with its config json;
+* an upstream WaveGlow file (the vendored tree's state dict under
+  ``"model"``, weight-normed or not, or a pickled module) with its
+  config json;
+* the run directory of the port's ``vocoder-fit`` (``ckpt/<step>/
+  state.pt`` beside ``generator_config.json``), HiFi-GAN only, as in the
+  JAX package. The JAX package's run directories are orbax checkpoints,
+  which the port does not read.
+
+With no checkpoint configured it returns (None, None) and the caller uses
+``GriffinLimVocoder``, which synthesises through the pseudo-inverse of the
+mel basis. Vocoding is batched, on the device the vocoder was loaded to.
 """
 from __future__ import annotations
 
+import json
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -18,22 +29,157 @@ import torch
 from radmmm_torch.ops.stft import (MelSpectrogram,
                                    dynamic_range_decompression, griffin_lim,
                                    mel_filterbank)
+from radmmm_torch.utils.checkpoint import CheckpointManager
+from radmmm_torch.utils.device import resolve_device
+from radmmm_torch.vocoder.hifigan import (Denoiser, Generator, HiFiGANConfig,
+                                          load_torch_generator_params)
+
+
+def load_hifigan_config(config_path: str) -> HiFiGANConfig:
+    """The upstream generator config json (e.g. config_16khz.json)."""
+    with open(config_path) as f:
+        h = json.load(f)
+    return HiFiGANConfig(
+        resblock=str(h.get("resblock", "1")),
+        upsample_rates=tuple(h["upsample_rates"]),
+        upsample_kernel_sizes=tuple(h["upsample_kernel_sizes"]),
+        upsample_initial_channel=h["upsample_initial_channel"],
+        resblock_kernel_sizes=tuple(h["resblock_kernel_sizes"]),
+        resblock_dilation_sizes=tuple(
+            tuple(d) for d in h["resblock_dilation_sizes"]),
+        n_mel_channels=h.get("num_mels", 80),
+        sampling_rate=h.get("sampling_rate", 22050),
+    )
+
+
+def hifigan_fns(gen: Generator, with_denoiser: bool, device):
+    """(generator_fn, denoiser) of a HiFi-GAN generator (either head) on
+    ``device``: what ``get_vocoder`` returns for a loaded one."""
+    gen = gen.to(device).eval()
+
+    def generator_fn(mel) -> torch.Tensor:
+        with torch.no_grad():
+            return gen(torch.as_tensor(mel, device=device))
+
+    denoiser = (Denoiser(generator_fn, n_mel_channels=gen.config.n_mel_channels,
+                         device=device)
+                if with_denoiser else None)
+    return generator_fn, denoiser
+
+
+def _load_native_vocoder(vocoder_type: str, run_dir: str,
+                         vocoder_config_path, with_denoiser: bool, device):
+    """A ``vocoder-fit`` output directory (or its ``ckpt`` subdirectory):
+    the generator of its latest checkpoint, rebuilt from the
+    generator_config.json the loop writes beside it."""
+    run_dir = os.path.abspath(str(run_dir))
+    ckpt_dir = (run_dir if os.path.basename(run_dir) == "ckpt"
+                or not os.path.isdir(os.path.join(run_dir, "ckpt"))
+                else os.path.join(run_dir, "ckpt"))
+    cfg_path = (vocoder_config_path
+                if vocoder_config_path
+                and str(vocoder_config_path).endswith(".json")
+                and os.path.exists(str(vocoder_config_path))
+                else os.path.join(os.path.dirname(ckpt_dir),
+                                  "generator_config.json"))
+    gen_kwargs = {}
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            gen_kwargs = json.load(f)
+    if vocoder_type != "hifigan":
+        raise ValueError("native checkpoint loading is implemented for "
+                         "hifigan runs (vocoder-fit default)")
+    payload, step = CheckpointManager(ckpt_dir).load_payload()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    gen = Generator(HiFiGANConfig.from_dict(gen_kwargs))
+    gen.load_state_dict(payload["gen"])
+    return hifigan_fns(gen, with_denoiser, device)
+
+
+def load_hifigan_module(vocoder_config_path, ckpt_or_path) -> Generator:
+    """The ``Generator`` of an upstream torch checkpoint (a path or its
+    loaded dict), on the CPU: the form ``export`` bakes into a serving
+    artifact."""
+    if isinstance(ckpt_or_path, (str, os.PathLike)):
+        ckpt_or_path = torch.load(ckpt_or_path, map_location="cpu",
+                                  weights_only=False)
+    cfg = (load_hifigan_config(vocoder_config_path)
+           if vocoder_config_path and os.path.exists(str(vocoder_config_path))
+           else HiFiGANConfig())
+    state_dict = ckpt_or_path.get("generator", ckpt_or_path)
+    gen = Generator(cfg)
+    gen.load_state_dict(load_torch_generator_params(state_dict, cfg))
+    return gen
 
 
 def get_vocoder(vocoder_type: str = "hifigan",
                 vocoder_config_path: Optional[str] = None,
-                vocoder_checkpoint_path: Optional[str] = None):
-    """-> (generator_fn, denoiser). (None, None) when no checkpoint is
-    configured, and the caller falls back to Griffin-Lim."""
+                vocoder_checkpoint_path: Optional[str] = None,
+                vocoder_map=None, with_denoiser: bool = True,
+                device: str | torch.device = "cuda"):
+    """-> (generator_fn(mel (B, T, n_mel)) -> (B, T * hop), denoiser or
+    None), both on ``device``; (None, None) when no checkpoint is
+    configured, and the caller falls back to Griffin-Lim. A configured
+    checkpoint that does not load raises. ``vocoder_map`` is accepted as
+    in the JAX package's signature; per-speaker vocoders come from
+    ``get_vocoder_map``."""
     if vocoder_type not in ("hifigan", "waveglow"):
         raise ValueError(f"unsupported vocoder type {vocoder_type}")
     if not vocoder_checkpoint_path or not os.path.exists(
             str(vocoder_checkpoint_path)):
         return None, None
-    raise NotImplementedError(
-        f"loading a {vocoder_type} checkpoint ({vocoder_checkpoint_path}) "
-        "comes with ROADMAP item M9; leave vocoder_checkpoint_path null "
-        "for Griffin-Lim audio")
+    device = resolve_device(device)
+    if os.path.isdir(str(vocoder_checkpoint_path)):
+        return _load_native_vocoder(vocoder_type, vocoder_checkpoint_path,
+                                    vocoder_config_path, with_denoiser,
+                                    device)
+    # a checkpoint file the user configured, as the JAX package reads it
+    # (a WaveGlow file may hold a pickled module)
+    ckpt = torch.load(vocoder_checkpoint_path, map_location="cpu",
+                      weights_only=False)
+    if vocoder_type == "hifigan":
+        return hifigan_fns(load_hifigan_module(vocoder_config_path, ckpt),
+                            with_denoiser, device)
+
+    from radmmm_torch.vocoder.waveglow import (WaveGlow,
+                                               load_torch_waveglow_params,
+                                               load_waveglow_config)
+    state_dict = ckpt.get("model", ckpt)
+    if hasattr(state_dict, "state_dict"):       # a pickled nn.Module
+        state_dict = state_dict.state_dict()
+    wg = WaveGlow(**load_waveglow_config(
+        vocoder_config_path if vocoder_config_path
+        and os.path.exists(str(vocoder_config_path)) else None))
+    wg.load_state_dict(load_torch_waveglow_params(state_dict, wg))
+    wg = wg.to(device).eval()
+
+    def generator_fn(mel, sigma: float = 0.667,
+                     generator: Optional[torch.Generator] = None):
+        # sigma 0.667: the reference's default (vocoder_utils.py:38); the
+        # noise from a generator seeded 0 unless one is given
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        with torch.no_grad():
+            return wg.infer(torch.as_tensor(mel, device=device), sigma=sigma,
+                            generator=generator)
+
+    denoiser = (Denoiser(lambda mel: generator_fn(mel, sigma=0.0),
+                         n_mel_channels=wg.n_mel_channels, device=device)
+                if with_denoiser else None)
+    return generator_fn, denoiser
+
+
+def get_vocoder_map(vocoder_map: Dict[str, Dict[str, str]],
+                    device: str | torch.device = "cuda"):
+    """Per-speaker vocoders (vocoder_utils.py vocoder_map): {speaker:
+    {vocoder_type, vocoder_config_path, vocoder_checkpoint_path}} ->
+    {speaker: (generator_fn, denoiser)}."""
+    return {speaker: get_vocoder(cfg.get("vocoder_type", "hifigan"),
+                                 cfg.get("vocoder_config_path"),
+                                 cfg.get("vocoder_checkpoint_path"),
+                                 device=device)
+            for speaker, cfg in (vocoder_map or {}).items()}
 
 
 class GriffinLimVocoder:

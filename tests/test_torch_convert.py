@@ -178,6 +178,20 @@ def test_port_imports_no_jax():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
+def test_import_check_walks_the_vocoder_slice():
+    """The modules of the vocoder slice are among those the import check
+    above walks."""
+    import pkgutil
+    import radmmm_torch
+    walked = {m.name for m in pkgutil.walk_packages(radmmm_torch.__path__,
+                                                    "radmmm_torch.")}
+    assert {"radmmm_torch.vocoder.hifigan", "radmmm_torch.vocoder.waveglow",
+            "radmmm_torch.vocoder.utils",
+            "radmmm_torch.training.vocoder_train",
+            "radmmm_torch.training.vocoder_loop",
+            "radmmm_torch.utils.profiling"} <= walked
+
+
 def test_port_sources_import_nothing_from_the_jax_package():
     """No Python source under radmmm_torch/ imports radmmm_tpu (docstrings
     name its files only as the counterparts)."""

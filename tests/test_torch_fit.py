@@ -337,6 +337,101 @@ def test_export_loads_with_serving(runs):
     assert np.isfinite(np.asarray(mel)).all() and int(lens[0]) > 0
 
 
+def _with_vocoder(tr, checkpoint, config=None):
+    """``tr`` configured with a vocoder checkpoint, its cached vocoder
+    dropped; restore with the returned function."""
+    old = (tr.cfg.vocoder_checkpoint_path, tr.cfg.vocoder_config_path)
+    tr.cfg.vocoder_checkpoint_path, tr.cfg.vocoder_config_path = \
+        checkpoint, config
+    tr.__dict__.pop("_vocoder", None)
+
+    def restore():
+        tr.cfg.vocoder_checkpoint_path, tr.cfg.vocoder_config_path = old
+        tr.__dict__.pop("_vocoder", None)
+    return restore
+
+
+def test_predict_vocodes_with_a_vocoder_fit_run(runs, tmp_path):
+    """A port ``vocoder-fit`` run dir as the vocoder: ``predict`` writes
+    HiFi-GAN audio through its Denoiser, of the lengths JAX writes."""
+    from radmmm_torch.utils.checkpoint import CheckpointManager
+    from radmmm_torch.vocoder.hifigan import Generator, HiFiGANConfig
+    from radmmm_torch.vocoder.utils import GriffinLimVocoder
+    dm, tr = runs["torch"]
+    run = tmp_path / "voc"
+    cfg = HiFiGANConfig(upsample_rates=(8, 8, 4),
+                        upsample_kernel_sizes=(16, 16, 8),
+                        upsample_initial_channel=16,
+                        resblock_kernel_sizes=(3,),
+                        resblock_dilation_sizes=((1,),), n_mel_channels=8)
+    gen = Generator(cfg)
+    with torch.no_grad():        # audible through the int16 wav
+        gen.conv_post_bias.fill_(0.3)
+    CheckpointManager(str(run / "ckpt")).save_payload(
+        5, {"step": 5, "gen": gen.state_dict()})
+    (run / "generator_config.json").write_text(
+        json.dumps(dataclasses.asdict(cfg)))
+    restore = _with_vocoder(tr, str(run))
+    try:
+        dm.inference_transcript = runs["prompts"]
+        tr.cfg.prediction_output_dir = str(runs["out"] / "pred_voc")
+        paths = tr.predict(dm)
+        voc_fn, denoiser = tr._vocoder
+        assert not isinstance(voc_fn, GriffinLimVocoder)
+        assert denoiser is not None
+        frames = tr.predicted_frames
+        for p, n in zip(paths, frames):
+            sr, wav = wavfile.read(p)
+            assert wav.size == n * 256 and np.abs(wav).max() > 0
+    finally:
+        restore()
+
+
+def test_export_bakes_a_g_file_in(runs, tmp_path):
+    """An upstream ``g_*`` file is baked into the artifact: its requests
+    answer with int16 audio, the quantised vocoding of what the mel-only
+    artifact answers."""
+    from radmmm_torch.serving import load_tts
+    from radmmm_torch.vocoder.hifigan import (Generator, HiFiGANConfig,
+                                              upstream_generator_state_dict)
+    _, tr = runs["torch"]
+    cfg = HiFiGANConfig(upsample_rates=(8, 8, 4),
+                        upsample_kernel_sizes=(16, 16, 8),
+                        upsample_initial_channel=16,
+                        resblock_kernel_sizes=(3,),
+                        resblock_dilation_sizes=((1,),), n_mel_channels=8)
+    torch.manual_seed(3)
+    gen = Generator(cfg).eval()
+    g_path = tmp_path / "g_00000003"
+    torch.save({"generator": upstream_generator_state_dict(gen)}, g_path)
+    cfg_path = tmp_path / "config.json"
+    cfg_path.write_text(json.dumps({
+        "upsample_rates": [8, 8, 4], "upsample_kernel_sizes": [16, 16, 8],
+        "upsample_initial_channel": 16, "resblock_kernel_sizes": [3],
+        "resblock_dilation_sizes": [[1]], "num_mels": 8}))
+    request = (np.ones((1, 12), np.int32), np.asarray([12], np.int32),
+               np.asarray([0], np.int32), np.asarray([1], np.int32),
+               np.asarray([5.0], np.float32),
+               np.asarray([0.3], np.float32), 0)
+    mel_path, audio_path = (str(tmp_path / f"{k}.bin")
+                            for k in ("mel", "audio"))
+    tr.export(mel_path, batch_size=2, max_text=32, use_vocoder=False)
+    restore = _with_vocoder(tr, str(g_path), str(cfg_path))
+    try:
+        tr.export(audio_path, batch_size=2, max_text=32)
+    finally:
+        restore()
+    mel, lens = load_tts(mel_path, device="cpu")(*request)
+    tts = load_tts(audio_path, device="cpu")
+    audio, alens = tts(*request)
+    assert tts.output_kind == "audio" and audio.dtype == torch.int16
+    assert int(alens[0]) == int(lens[0]) > 0
+    with torch.no_grad():
+        want = torch.round(gen(mel).clamp(-1, 1) * 32767).to(torch.int16)
+    assert audio.shape == want.shape
+    assert int((audio.int() - want.int()).abs().max()) <= 1
+
+
 def test_quality_scalars_match_jax_on_fed_latents(runs):
     """The validation quality row after the resumed fits, each trainer on
     its own first validation batch, the reconstruction at sigma 0."""
@@ -390,14 +485,13 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(cfg_files, capsys):
     path, _, out = cfg_files
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        torch_cli.main(["fit", "-c", path,
-                        f"--model.output_directory={out / 'nocard'}"])
-    for argv, item in ((["vocoder-fit", "-c", path], "M11"),
-                       (["fit", "-c", path, "--distributed"], "M13")):
-        with pytest.raises(SystemExit):
-            torch_cli.main(argv)
-        assert item in capsys.readouterr().err
+    for sub in ("fit", "vocoder-fit"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            torch_cli.main([sub, "-c", path,
+                            f"--model.output_directory={out / 'nocard'}"])
+    with pytest.raises(SystemExit):
+        torch_cli.main(["fit", "-c", path, "--distributed"])
+    assert "M13" in capsys.readouterr().err
 
 
 def test_logger_writes_metrics_images_and_audio(tmp_path):
