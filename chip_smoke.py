@@ -2,7 +2,8 @@
 """Smoke run of the radmmm_torch serving and training paths on one CUDA card.
 
     python3 chip_smoke.py [--phases build,kernels,serve,parity,train,
-                           train_parity,wn,featurize,vocoder,fit] [--seed 0]
+                           train_parity,wn,featurize,vocoder,fit,
+                           radtts_fit,m12] [--seed 0]
 
 Phases (all by default):
 
@@ -111,8 +112,38 @@ Phases (all by default):
             every logged loss finite, each training step's launches (K1
             1, K2 1, K4 forward 4, K4 backward 4, K3 1 once binarization
             is on), the resume, the wavs' lengths; prints ms a step, the
-            loader's share, the device's busy share, featurize ms,
-            validation, checkpoint, predict and export times.
+            loader's share, the device's busy share and top kernels of
+            the profiled steps, peak device memory, featurize ms,
+            validation, checkpoint, predict and export times;
+11. radtts_fit  tracked stack (2), the LJSpeech RADTTS decoder with its four
+            attribute predictors (configs/radtts_model.yaml, the four
+            radtts_*model.yaml, ljs_22khz_data.yaml, radmmm_train.yaml), at
+            full width through the same CLI and the same overlay and checks
+            as fit, on a synthetic 22,050 Hz corpus in place of LJS: 24
+            training and 4 validation lines of at most 6 s of the shipped
+            phonemized LJSpeech filelists (the stack's G2P dictionary is not
+            in the repository: the build says G2P is disabled, and an empty
+            one lets the recipe's braced prompts through), Griffin-Lim in
+            validation, a 22,050 Hz HiFi-GAN v1 g_* file baked into the
+            export. Its LSTMConvDAP duration predictor's BiLSTM (H 128) is
+            one of the four K4 launches of each step, forward and backward;
+            every step also logs a finite duration loss;
+12. m12     TF32 off, the card against the CPU from the same weights and
+            inputs: (a) configs/radtts_model.yaml's decoder with n_splines 2
+            at full width (80 mels, n_group_size 2, 8 flows, WN 1024, FiLM
+            512) on B=8, T_mel 512: the flow loss, every gradient (the
+            spline couplings' by Frobenius norm) and the
+            batch norms' running statistics after one training forward and
+            backward, then infer at sigma 0 on them; (b) AffineCoupling with
+            simple_conv and with film_stack at the flow's widths: forward and
+            inverse, and the card's round trip; (c) DeterministicDecoder,
+            DiffusionDecoder and E2ETTSDecoder (HiFi-GAN v1) at their default
+            widths on B=4, T_text 64, T_mel 256, their attention terms from
+            ConvAttention on the batch (K3, K1 and K2), one loss step each
+            on the card (backward and Adam) with the loss terms held against
+            the CPU, and the diffusion decoder's 100-step ancestral sampling
+            with its draws fed. Each part prints its ms and its error
+            beside its bound, and its kernels' launches are checked.
 
 Any failure exits non-zero. The line before the last is a JSON object
 with the kernels' numbers; the last line is
@@ -140,7 +171,7 @@ import numpy as np
 import torch
 
 PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity",
-          "wn", "featurize", "vocoder", "fit")
+          "wn", "featurize", "vocoder", "fit", "radtts_fit", "m12")
 # (name, lanes, hidden, time steps, LSTM input width) on the serving path
 # at text bucket 96 and frame bucket 800 (the flow context runs at 800/2)
 PATH_SHAPES = (("text_encoder", 2, 260, 96, 520),
@@ -1066,16 +1097,18 @@ def phase_train_parity(seed: int):
         fail(f"card and CPU gradients disagree on {errs[0][1]}")
 
 
-def leaf_grad_errors(got_model, want_model) -> list:
+def leaf_grad_errors(got_model, want_model, frobenius: bool = False
+                     ) -> list:
     """(error, name, max |want grad|) for every parameter of two copies of
     one model after a step, worst first: the largest difference of the
-    gradients over the largest magnitude of ``want_model``'s, that
-    magnitude taken as at least GRAD_FLOOR of the largest in the whole
-    tree. The floor is for leaves whose gradient is zero in exact
-    arithmetic (a conv bias or weight-norm gain before an instance norm):
-    both sides hold rounding noise there, 1e-13 against 1e-13. A
-    parameter with a gradient on one side only counts as infinitely
-    wrong."""
+    gradients over the largest magnitude of ``want_model``'s (with
+    ``frobenius``, the difference's Frobenius norm over the gradient's),
+    that magnitude taken as at least GRAD_FLOOR of the largest in the
+    whole tree. The floor is for leaves whose gradient is zero in exact
+    arithmetic (a conv bias or weight-norm gain before an instance or
+    batch norm): both sides hold rounding noise there, 1e-13 against
+    1e-13. A parameter with a gradient on one side only counts as
+    infinitely wrong."""
     want = dict(want_model.named_parameters())
     tree = max(w.grad.abs().max().item() for w in want.values()
                if w.grad is not None)
@@ -1085,9 +1118,11 @@ def leaf_grad_errors(got_model, want_model) -> list:
         if g is None or w is None:
             out.append((0.0 if g is w else math.inf, name, 0.0))
             continue
-        diff = (g.detach().cpu() - w.detach()).abs().max().item()
-        mag = w.detach().abs().max().item()
-        out.append((diff / max(mag, GRAD_FLOOR * tree), name, mag))
+        d, w = g.detach().cpu() - w.detach(), w.detach()
+        diff, mag = ((d.norm().item(), w.norm().item()) if frobenius
+                     else (d.abs().max().item(), w.abs().max().item()))
+        out.append((diff / max(mag, GRAD_FLOOR * tree), name,
+                    w.abs().max().item()))
     return sorted(out, key=lambda e: -e[0])
 
 
@@ -1316,12 +1351,26 @@ FIT_STEPS, FIT_RESUME_STEPS = 6, 8
 # the launches of one training step by phase: MAS (K3) runs once
 # binarization is on (from binarization_start_iter, 3 in the overlay)
 FIT_BINARIZE_FROM = 3
+# the radtts_fit phase: tracked stack (2), the LJSpeech RADTTS decoder with
+# its four attribute predictors (the duration one an LSTMConvDAP), through
+# the training CLI on a synthetic 22,050 Hz corpus in place of its one
+# corpus, LJS, from the shipped phonemized LJSpeech filelists (its G2P
+# dictionary, assets/en_US_word_ipa_map.txt, is not in the repository);
+# 24 training lines, so an epoch is 3 batches of 8 as in the fit phase
+RADTTS_STACK = ("configs/radtts_model.yaml", "configs/radtts_f0model.yaml",
+                "configs/radtts_durationmodel.yaml",
+                "configs/radtts_energymodel.yaml",
+                "configs/radtts_vpredmodel.yaml",
+                "configs/ljs_22khz_data.yaml", "configs/radmmm_train.yaml")
+RADTTS_SOURCES = (("LJS",) + FIT_SOURCES[0][1:],)
+RADTTS_TRAIN, RADTTS_SR = 24, 22050
 
 
-def _voiced_wav(n: int, f0: float, rng) -> np.ndarray:
-    """n samples of 16 kHz int16 voiced audio: a three-harmonic tone with
-    5 Hz vibrato, an unvoiced noise burst after every 0.9 s of tone."""
-    t = np.arange(n) / FIT_SR
+def _voiced_wav(n: int, f0: float, rng, sr: int = FIT_SR) -> np.ndarray:
+    """n samples of int16 voiced audio at ``sr``: a three-harmonic tone
+    with 5 Hz vibrato, an unvoiced noise burst after every 0.9 s of
+    tone."""
+    t = np.arange(n) / sr
     phase = 2 * np.pi * f0 * t + f0 * 0.03 / 5.0 * np.sin(2 * np.pi * 5 * t)
     x = (0.4 * np.sin(phase) + 0.25 * np.sin(2 * phase)
          + 0.12 * np.sin(3 * phase))
@@ -1330,16 +1379,18 @@ def _voiced_wav(n: int, f0: float, rng) -> np.ndarray:
     return np.clip(np.rint(x * 32767 * 0.8), -32768, 32767).astype(np.int16)
 
 
-def fit_corpus(root: str, seed: int, n_train: int = FIT_TRAIN) -> dict:
-    """The synthetic corpus under ``root``: for each of FIT_SOURCES the
+def fit_corpus(root: str, seed: int, n_train: int = FIT_TRAIN,
+               sources=FIT_SOURCES, sr: int = FIT_SR) -> dict:
+    """The synthetic corpus under ``root``: for each of ``sources`` the
     first ``n_train`` / FIT_VAL lines of at most FIT_MAX_S seconds, their
     text, speaker and emotion kept, with voiced int16 audio of the line's
-    duration. Returns {split: {corpus: dataset dict}}."""
+    duration at ``sr``. Returns {split: {corpus: dataset dict}}."""
     import os
     from scipy.io import wavfile
     rng = np.random.default_rng(seed)
     out = {"train": {}, "val": {}}
-    for c, (name, lang, train_list, val_list) in enumerate(FIT_SOURCES):
+    rate = f"{sr // 1000}khz"
+    for c, (name, lang, train_list, val_list) in enumerate(sources):
         for split, path, n in (("train", train_list, n_train),
                                ("val", val_list, FIT_VAL)):
             lines = []
@@ -1352,38 +1403,38 @@ def fit_corpus(root: str, seed: int, n_train: int = FIT_TRAIN) -> dict:
                         break
             base = os.path.join(root, name)
             for i, parts in enumerate(lines):
-                wav = os.path.join(base, "16khz", parts[0])
+                wav = os.path.join(base, rate, parts[0])
                 os.makedirs(os.path.dirname(wav), exist_ok=True)
                 f0 = 100.0 + 25.0 * c + 7.0 * i
-                wavfile.write(wav, FIT_SR, _voiced_wav(
-                    int(float(parts[4]) * FIT_SR), f0, rng))
+                wavfile.write(wav, sr, _voiced_wav(
+                    int(float(parts[4]) * sr), f0, rng, sr))
             filelist = os.path.join(root, f"{name}_{split}.txt")
             with open(filelist, "w", encoding="utf-8") as f:
                 f.write("\n".join("|".join(p) for p in lines) + "\n")
             out[split][name] = {
-                "basedir": base, "sampling_rate": "16khz",
+                "basedir": base, "sampling_rate": rate,
                 "filelist_basedir": "", "filelist": filelist,
                 "language": lang, "phonemized": True}
     return out
 
 
-def _data_overlay(root: str, corpus: dict) -> dict:
-    """The data section of an overlay over the recipe: its corpora
-    replaced by the synthetic ones and, where the recipe's phonemizer
-    dictionaries are not in the checkout, empty ones (every line and
-    prompt is phonemized already)."""
+def _data_overlay(root: str, corpus: dict, data_config: str = RECIPE[2],
+                  corpora=RECIPE_CORPORA) -> dict:
+    """The data section of an overlay over the recipe (or over the data
+    config ``data_config`` with its ``corpora``): its corpora replaced by
+    the synthetic ones and, where its phonemizer dictionaries are not in
+    the checkout, empty ones (every line and prompt is phonemized
+    already)."""
     import os
     import yaml
-    with open(RECIPE[2]) as f:
+    with open(data_config) as f:
         g2p = yaml.safe_load(f)["data"]["phonemizer_cfg"]
     missing = {lang: p for lang, p in g2p.items() if not os.path.exists(p)}
     for lang in missing:
         missing[lang] = os.path.join(root, f"{lang}_empty.txt")
         open(missing[lang], "w").close()
-    return {"training_files": {**dict.fromkeys(RECIPE_CORPORA),
-                               **corpus["train"]},
-            "validation_files": {**dict.fromkeys(RECIPE_CORPORA),
-                                 **corpus["val"]},
+    return {"training_files": {**dict.fromkeys(corpora), **corpus["train"]},
+            "validation_files": {**dict.fromkeys(corpora), **corpus["val"]},
             **({"phonemizer_cfg": {**g2p, **missing}} if missing else {})}
 
 
@@ -1396,13 +1447,14 @@ def _write_overlay(root: str, name: str, overlay: dict) -> str:
     return path
 
 
-def fit_overlay(root: str, corpus: dict, vocoder_run: str = None) -> str:
-    """The overlay over the recipe: the synthetic corpora, the output
-    directory, 6 steps with validation and checkpoints every 3, the phase
-    switches at 3 (binarization) and 4 (KL), a log line every step, two
-    checkpoints kept and, given ``vocoder_run``, that ``vocoder-fit`` run
-    directory as the vocoder of validation and predict. No width or depth
-    changes."""
+def fit_overlay(root: str, corpus: dict, vocoder_run: str = None,
+                data: dict = None) -> str:
+    """The overlay over the recipe (or over stack (2), given its ``data``
+    section): the synthetic corpora, the output directory, 6 steps with
+    validation and checkpoints every 3, the phase switches at 3
+    (binarization) and 4 (KL), a log line every step, two checkpoints kept
+    and, given ``vocoder_run``, that ``vocoder-fit`` run directory as the
+    vocoder of validation and predict. No width or depth changes."""
     import os
     model = {"output_directory": os.path.join(root, "run"),
              "iters_per_checkpoint": 3, "binarization_start_iter": 3,
@@ -1413,7 +1465,7 @@ def fit_overlay(root: str, corpus: dict, vocoder_run: str = None) -> str:
         "model": model,
         "trainer": {"max_steps": FIT_STEPS, "val_check_interval": 3,
                     "log_interval": 1, "max_to_keep": 2},
-        "data": _data_overlay(root, corpus)})
+        "data": data or _data_overlay(root, corpus)})
 
 
 class _Tee(io.TextIOBase):
@@ -1471,7 +1523,8 @@ def _metrics_rows(run_dir: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def _check_vocoder(trainer, what: str, vocoder_run) -> None:
+def _check_vocoder(trainer, what: str, vocoder_run, tag: str = "fit"
+                   ) -> None:
     """With a vocoder run configured, ``trainer`` vocoded with its HiFi-GAN
     and Denoiser, not Griffin-Lim."""
     from radmmm_torch.vocoder.utils import GriffinLimVocoder
@@ -1482,18 +1535,50 @@ def _check_vocoder(trainer, what: str, vocoder_run) -> None:
             or denoiser is None:
         fail(f"{what} did not vocode with the HiFi-GAN of {vocoder_run} "
              "and its Denoiser")
-    log(f"[fit] {what} vocoded with the vocoder-fit HiFi-GAN and its "
+    log(f"[{tag}] {what} vocoded with the vocoder-fit HiFi-GAN and its "
         "Denoiser")
 
 
+def recipe_overlay(root: str, seed: int, vocoder_run: str = None) -> str:
+    """The fit phase's overlay over the recipe, its corpus written under
+    ``root``."""
+    return fit_overlay(root, fit_corpus(root, seed), vocoder_run)
+
+
+def radtts_overlay(root: str, seed: int) -> str:
+    """The radtts_fit phase's overlay over stack (2), its corpus written
+    under ``root``."""
+    corpus = fit_corpus(root, seed, RADTTS_TRAIN, RADTTS_SOURCES, RADTTS_SR)
+    return fit_overlay(root, corpus, data=_data_overlay(
+        root, corpus, RADTTS_STACK[5], ("LJS",)))
+
+
+def recipe_prompts(prompts: list, trainset) -> list:
+    """The recipe's prompts whose speaker the synthetic corpus has."""
+    return [p for p in prompts if p["spk_id"] in trainset.speaker_ids]
+
+
+def radtts_prompts(prompts: list, trainset) -> list:
+    """The prompts with every speaker set to the corpus's one (stack (2)
+    names its speaker without the emotion)."""
+    spk = sorted(trainset.speaker_ids)[0]
+    return [dict(p, **{k: spk for k in p if k.endswith("spk_id")})
+            for p in prompts]
+
+
 @tf32_off()
-def phase_fit(seed: int, vocoder_run: str = None) -> dict:
-    """The shipped 7-language recipe at full width through the training
-    CLI: fit to 6 steps, a resume to 8, predict and export, with
-    ``vocoder_run`` (a ``vocoder-fit`` run directory) as the vocoder of
-    validation and predict, and an upstream-format HiFi-GAN v1 file baked
-    into the export. Returns the kernels' launches on the training steps,
-    validation and predict."""
+def phase_fit(seed: int, tag: str, configs: tuple, sr: int, overlay,
+              pick_prompts, vocoder_run: str = None) -> dict:
+    """A config stack (``configs``, audio at ``sr``) at full width through
+    the training CLI: fit to 6 steps, a resume to 8, predict and export,
+    with ``vocoder_run`` (a ``vocoder-fit`` run directory) as the vocoder
+    of validation and predict, and an upstream-format HiFi-GAN v1 file
+    baked into the export. ``overlay(root)`` writes the corpus and the
+    overlay under ``root`` and returns the overlay's path;
+    ``pick_prompts(prompts, trainset)`` fits the recipe's prompts of the
+    corpus's languages to its speakers. ``tag`` prefixes the log lines.
+    Returns the kernels' launches on the training steps, validation and
+    predict."""
     import os
     from radmmm_torch.data.loader import DataLoader
     from radmmm_torch.serving import load_tts
@@ -1502,17 +1587,17 @@ def phase_fit(seed: int, vocoder_run: str = None) -> dict:
     card = card_line()
     root = tempfile.mkdtemp(prefix="radmmm_fit_")
     try:
-        corpus = fit_corpus(root, seed)
-        overlay = fit_overlay(root, corpus, vocoder_run)
         run_dir = os.path.join(root, "run")
-        base = [a for c in RECIPE + (overlay,) for a in ("-c", c)]
+        base = [a for c in configs + (overlay(root),) for a in ("-c", c)]
         steps, vals, preds = [], [], []
+        torch.cuda.reset_peak_memory_stats()
         # the main path: counts from zero, fit, counts read after
         _zero_counters()
         with _counted(Trainer, "_run_step", steps), \
                 _counted(Trainer, "validate", vals):
-            dm, tr, out, fit_s = _run_cli(["fit"] + base, "fit to 6 steps")
-        _check_vocoder(tr, "validation", vocoder_run)
+            dm, tr, out, fit_s = _run_cli(["fit"] + base, "fit to 6 steps",
+                                          tag)
+        _check_vocoder(tr, "validation", vocoder_run, tag)
         # steps 2 to FIT_STEPS - 1 (the first warms up; the last ends in
         # the final save): start to next start, less the validation and
         # saves after the step
@@ -1522,7 +1607,7 @@ def phase_fit(seed: int, vocoder_run: str = None) -> dict:
         fit_stats = dict(tr.stats)
         n_params = sum(p.numel() for p in tr.model.parameters())
         rows = _metrics_rows(run_dir)
-        log(f"[fit] the recipe's model: {n_params / 1e6:.1f} M parameters, "
+        log(f"[{tag}] the model: {n_params / 1e6:.1f} M parameters, "
             f"{len(dm.trainset)} training and {len(dm.valset)} validation "
             f"utterances, batch {dm.batch_size}, megastep_k "
             f"{tr.cfg.megastep_k}")
@@ -1534,8 +1619,9 @@ def phase_fit(seed: int, vocoder_run: str = None) -> dict:
                     f"--trainer.profile_start_step={FIT_STEPS}",
                     f"--trainer.profile_n_steps="
                     f"{FIT_RESUME_STEPS - FIT_STEPS}"],
-                f"resume to step {FIT_RESUME_STEPS}, profiled")
+                f"resume to step {FIT_RESUME_STEPS}, profiled", tag)
         launches = _counters()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
         counted = {k: sum(d[k] for d in steps + vals) for k in launches}
         if counted != launches:
             fail(f"kernels launched outside the training steps and "
@@ -1545,7 +1631,7 @@ def phase_fit(seed: int, vocoder_run: str = None) -> dict:
         feat2, keys = dm2.featurizer, tr2.stats["noise_keys"]
         want_keys = [feat2.noise_key_for_step(s)
                      for s in range(FIT_STEPS, FIT_RESUME_STEPS)]
-        log(f"[fit] the resumed run's noise base {feat2._noise_base}, its "
+        log(f"[{tag}] the resumed run's noise base {feat2._noise_base}, its "
             f"steps' noise keys: {keys}")
         if keys != want_keys or feat2._noise_base != FIT_STEPS:
             fail("the resumed steps did not use the noise base "
@@ -1554,10 +1640,10 @@ def phase_fit(seed: int, vocoder_run: str = None) -> dict:
         train_rows = [r for r in rows if "train/loss" in r]
         bad = [r for r in rows for k, v in r.items() if k != "step"
                and "loss" in k and not math.isfinite(v)]
-        log(f"[fit] {len(rows)} metrics.jsonl rows; train loss by step: "
+        log(f"[{tag}] {len(rows)} metrics.jsonl rows; train loss by step: "
             + ", ".join(f"{r['step']}: {r['train/loss']:.4f}"
                         for r in train_rows))
-        log("[fit] validation rows: " + "; ".join(
+        log(f"[{tag}] validation rows: " + "; ".join(
             f"step {r['step']}: " + ", ".join(
                 f"{k[4:]} {v:.4f}" for k, v in r.items() if k != "step")
             for r in rows if any(k.startswith("val/") for k in r)))
@@ -1565,6 +1651,8 @@ def phase_fit(seed: int, vocoder_run: str = None) -> dict:
                 range(1, FIT_RESUME_STEPS + 1)):
             fail(f"non-finite losses or missing steps in metrics.jsonl: "
                  f"{bad or [r['step'] for r in train_rows]}")
+        if not all("train/duration_loss" in r for r in train_rows):
+            fail("a training step logged no duration loss")
         for i, got in enumerate(steps):
             want = dict(PER_STEP)
             if i < FIT_BINARIZE_FROM:
@@ -1572,21 +1660,21 @@ def phase_fit(seed: int, vocoder_run: str = None) -> dict:
             if got != want:
                 fail(f"training step {i + 1} launched {got}, expected "
                      f"{want}")
-        log(f"[fit] kernel launches on each of the {len(steps)} training "
+        log(f"[{tag}] kernel launches on each of the {len(steps)} training "
             f"steps as expected: {PER_STEP} (mas_width1 0 before step "
             f"{FIT_BINARIZE_FROM + 1}, binarization off); on each of "
             f"{len(vals)} validations: {vals[0]}")
         ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
-        log(f"[fit] checkpoints kept: {ckpts}")
+        log(f"[{tag}] checkpoints kept: {ckpts}")
         if ckpts != ["6", "8"]:
             fail(f"expected checkpoints 6 and 8 (max_to_keep 2), {ckpts}")
 
-        # predict: the recipe's prompts whose speaker and language the
-        # synthetic corpus has
+        # predict: the recipe's prompts of the synthetic corpus's
+        # languages, fitted to its speakers
         with open("model_inputs/resynthesis_prompts.json") as f:
-            prompts = [p for p in json.load(f)
-                       if p["spk_id"] in dm.trainset.speaker_ids
-                       and p["language"] in dm.trainset.accent_ids]
+            prompts = pick_prompts([p for p in json.load(f)
+                                    if p["language"] in
+                                    dm.trainset.accent_ids], dm.trainset)
         ppath = os.path.join(root, "prompts.json")
         with open(ppath, "w") as f:
             json.dump(prompts, f)
@@ -1594,44 +1682,44 @@ def phase_fit(seed: int, vocoder_run: str = None) -> dict:
         with _counted(Trainer, "predict", preds):
             _, tr3, _, predict_s = _run_cli(
                 ["predict"] + base + [f"--data.inference_transcript={ppath}"],
-                f"predict of {len(prompts)} prompts")
-        _check_vocoder(tr3, "predict", vocoder_run)
+                f"predict of {len(prompts)} prompts", tag)
+        _check_vocoder(tr3, "predict", vocoder_run, tag)
         from scipy.io import wavfile
         pred_dir = os.path.join(run_dir, "predictions")
         wavs = sorted(os.listdir(pred_dir))
         hop, t_max = tr3.cfg.hop_length, tr3.cfg.max_infer_frames
         sizes = []
         for name, frames in zip(wavs, tr3.predicted_frames):
-            sr, wav = wavfile.read(os.path.join(pred_dir, name))
+            rate, wav = wavfile.read(os.path.join(pred_dir, name))
             sizes.append(wav.size)
-            if not (sr == FIT_SR and wav.size == min(frames, t_max - 1) * hop
+            if not (rate == sr and wav.size == min(frames, t_max - 1) * hop
                     and np.isfinite(wav).all()):
-                fail(f"prediction {name}: {wav.size} samples at {sr} Hz, "
-                     f"expected {frames} frames of {hop} at {FIT_SR} Hz")
+                fail(f"prediction {name}: {wav.size} samples at {rate} Hz, "
+                     f"expected {frames} frames of {hop} at {sr} Hz")
         if len(wavs) != len(prompts):
             fail(f"{len(wavs)} prediction wavs for {len(prompts)} prompts")
         peaks = [int(np.abs(wavfile.read(os.path.join(pred_dir, n))[1])
                      .max()) for n in wavs]
-        log(f"[fit] predict wrote {len(wavs)} wavs of {sizes} samples "
+        log(f"[{tag}] predict wrote {len(wavs)} wavs of {sizes} samples "
             f"({tr3.predicted_frames} frames, int16 peaks {peaks}); "
             f"launches {preds[0]}")
 
         # the export with an upstream-format HiFi-GAN v1 g_* file baked
         # in (as in the JAX package, a vocoder-fit run dir cannot be)
-        g_path, g_cfg = write_g_file(root, seed)
+        g_path, g_cfg = write_g_file(root, seed, sr)
         epath = os.path.join(root, "tts_export.bin")
         _, _, _, export_s = _run_cli(
             ["export"] + base + [f"--export.path={epath}",
                                  f"--model.vocoder_checkpoint_path={g_path}",
                                  f"--model.vocoder_config_path={g_cfg}"],
-            "export with the HiFi-GAN baked in")
+            "export with the HiFi-GAN baked in", tag)
         tts = load_tts(epath, device="cuda")
         text = np.full((1, 24), 5, np.int32)
         audio, lens = tts(text, np.asarray([24], np.int32),
                           np.asarray([0], np.int32), np.asarray([0], np.int32),
                           np.asarray([5.0], np.float32),
                           np.asarray([0.3], np.float32), 0)
-        log(f"[fit] the export ({os.path.getsize(epath) / 1e6:.1f} MB) "
+        log(f"[{tag}] the export ({os.path.getsize(epath) / 1e6:.1f} MB) "
             f"loaded with serving.load_tts: one request, "
             f"{tts.output_kind} {tuple(audio.shape)} {audio.dtype} on "
             f"{audio.device}, {int(lens[0])} frames, peak "
@@ -1651,7 +1739,7 @@ def phase_fit(seed: int, vocoder_run: str = None) -> dict:
         feat_ms = cuda_ms(lambda: feat.featurize_raw(raw, 0), 3)
         s = fit_stats
         step_ms = 1e3 * sum(walls) / len(walls)
-        log(f"[fit] ({card}) fit: steps 2-{FIT_STEPS - 1} "
+        log(f"[{tag}] ({card}) fit: steps 2-{FIT_STEPS - 1} "
             f"{', '.join(f'{1e3 * w:.1f}' for w in walls)} ms, mean "
             f"{step_ms:.2f} ms a step (B={dm.batch_size}, featurize, "
             f"loader and logging included, validation and saves not); all "
@@ -1664,27 +1752,460 @@ def phase_fit(seed: int, vocoder_run: str = None) -> dict:
             f"samples); validation {s['val_s']:.2f} s for {len(vals)}; "
             f"checkpoint save {s['ckpt_save_s'] / s['ckpt_saves']:.2f} s a "
             f"save, {s['ckpt_bytes'] / 1e9:.3f}"
-            f" GB each; restore {tr2.stats['restore_s']:.2f} s; predict "
+            f" GB each; restore {tr2.stats['restore_s']:.2f} s; peak device "
+            f"memory of fit and resume {peak_gib:.2f} GiB; predict "
             f"{predict_s:.2f} s; export {export_s:.2f} s; fit wall "
             f"{fit_s:.2f} s, resume {resume_s:.2f} s")
         busy, wall = (tr2.stats.get("profile_busy_s"),
                       tr2.stats.get("profile_wall_s"))
         if busy:
             n = FIT_RESUME_STEPS - FIT_STEPS
-            log(f"[fit] ({card}) profiled steps {FIT_STEPS + 1}-"
+            log(f"[{tag}] ({card}) profiled steps {FIT_STEPS + 1}-"
                 f"{FIT_RESUME_STEPS}: wall {wall * 1e3:.1f} "
                 f"ms, device busy {busy * 1e3:.1f} ms "
                 f"({100 * busy / wall:.1f}% of the profiled wall; "
                 f"{1e3 * busy / n:.1f} ms a step is "
                 f"{100 * busy / n / (step_ms / 1e3):.1f}% of the unprofiled "
                 f"{step_ms:.2f} ms a step)")
+            log(f"[{tag}] the profiled steps' top kernels, ms summed: "
+                + "; ".join(f"{name[:60]} {ms:.2f}" for name, ms in
+                            tr2.stats.get("profile_top_ms", [])))
         else:
-            log("[fit] the profiler saw no device time: busy share not "
+            log(f"[{tag}] the profiler saw no device time: busy share not "
                 "measured")
         return {"fit": launches, "steps": len(steps), "val": vals,
                 "predict": preds[0]}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# the m12 phase: the spline flow of configs/radtts_model.yaml (n_splines
+# 2) at the training batch, both new affine couplings at the flow's widths
+# (160 channels of z, the 1,048-channel context), and the alternative
+# decoders at their default widths on a shorter batch, whose HiFi-GAN v1
+# makes 65,536 samples an item
+M12_ALT_B, M12_ALT_T_TEXT, M12_ALT_T_MEL = 4, 64, 256
+M12_TIMED = 3
+# card against CPU, f32 on both with TF32 off, sums in another order: loss
+# terms and running statistics relative to their size, the flow's
+# gradients as the train_parity phase holds them (each leaf's worst
+# difference over its largest), the mel of the flow's sampling direction
+# absolute, as the parity phase; a coupling's outputs and the sampled
+# diffusion mel relative to their peak
+M12_RTOL = 1e-4
+M12_OUT_RTOL = 1e-4
+# the spline couplings' parameters (their FiLM stacks) are held by the
+# Frobenius norm of each leaf's difference over the leaf's, at the bound of
+# the others: a FiLM leaky ReLU's pre-activation within rounding of 0 lands
+# on the other side in one run (slope 1 against 0.01), which moves that one
+# element's gradient by 99%, a few percent of a leaf's largest entry but
+# about 1e-3 of its norm, where an error in a FiLM conv's backward moves the
+# whole leaf (radmmm_torch/scripts/spline_grad_precision.py counts the
+# flips and plants such an error; numbers in PERF.md)
+
+
+def _nudge_m12(module) -> None:
+    """Small random weights in the zero-initialised last convs of the
+    M12 parameter predictors (FiLM stacks, simple conv nets) and of the
+    WN couplings, so that no coupling is the identity."""
+    from radmmm_torch.ops.coupling import FiLMStack, SimpleConvNet
+    _nudge_couplings(module)
+    with torch.no_grad():
+        for m in module.modules():
+            last = (m.end if isinstance(m, FiLMStack)
+                    else m.last if isinstance(m, SimpleConvNet) else None)
+            if last is not None:
+                last.weight.normal_(0.0, 1e-3)
+                last.bias.normal_(0.0, 1e-3)
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want| (at least 1e-12)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-12))
+
+
+def _check(tag: str, what: str, err: float, bound: float) -> None:
+    log(f"[{tag}] {what}: {err:.3e} (bound {bound:g})")
+    if not (math.isfinite(err) and err <= bound):
+        fail(f"{tag}: {what} {err:.3e} exceeds {bound:g}")
+
+
+class _Launches:
+    """The kernels' launches of the phase's card calls, each part's
+    checked against what the code launches."""
+
+    def __init__(self, tag):
+        self.tag, self.want = tag, {k: 0 for k in _counters()}
+
+    @contextlib.contextmanager
+    def part(self, what: str, per_call: dict, calls: int = 1):
+        before = _counters()
+        yield
+        after = _counters()
+        got = {k: after[k] - before[k] for k in after}
+        want = {k: per_call.get(k, 0) * calls for k in after}
+        if got != want:
+            fail(f"{self.tag}: {what} launched {got}, expected {want}")
+        for k, n in want.items():
+            self.want[k] += n
+
+
+def _m12_flow(seed: int, launches: _Launches, card: str) -> None:
+    """(a) The spline flow at full width: one training forward and
+    backward on the card and the CPU from the same weights and batch (the
+    flow loss, every gradient, the running statistics after it), then
+    ``infer`` at sigma 0 on the updated running statistics; ms of each on
+    the card."""
+    from radmmm_torch.losses.flow import compute_flow_loss
+    from radmmm_torch.models.flow_decoder import RADMMMFlow
+    from radmmm_torch.ops.coupling import SplineCoupling
+    from radmmm_torch.utils.config import (load_configs,
+                                           translate_reference_model_config)
+    from radmmm_torch.utils.masking import SeqLens
+    tag = "m12"
+    dec = dict(translate_reference_model_config(load_configs(
+        ["configs/radtts_model.yaml"]))["tts"]["decoder"], n_splines=2)
+    torch.manual_seed(seed)
+    cpu = RADMMMFlow(**dec)
+    _nudge_m12(cpu)
+    n_spline = sum(isinstance(f.coupling, SplineCoupling) for f in cpu.flows)
+    n_params = sum(p.numel() for p in cpu.parameters())
+    log(f"[{tag}] (a) configs/radtts_model.yaml's decoder with n_splines 2: "
+        f"{len(cpu.flows)} flows ({n_spline} spline couplings with FiLM "
+        f"stacks of 512, the rest WN of {dec['n_conv_layers_per_step']} x "
+        f"1024), {n_params / 1e6:.1f} M parameters; B={TRAIN_B}, "
+        f"T_mel={TRAIN_T_MEL}")
+    rng = np.random.default_rng(seed + 11)
+    B, T = TRAIN_B, TRAIN_T_MEL
+    arrays = dict(
+        mel=rng.standard_normal((B, T, 80)).astype(np.float32),
+        spk=rng.standard_normal((B, 16)).astype(np.float32),
+        ctx=rng.standard_normal((B, T, 512)).astype(np.float32),
+        acc=rng.standard_normal((B, 8)).astype(np.float32),
+        f0=rng.uniform(4, 6, (B, T)).astype(np.float32),
+        en=rng.uniform(0, 1, (B, T)).astype(np.float32),
+        txt=rng.standard_normal((B, T // 4, 512)).astype(np.float32),
+        lens=np.asarray([T - 16 * i for i in range(B)], np.int32))
+    models = {"cuda": copy.deepcopy(cpu).cuda(), "cpu": cpu}
+    res = {}
+
+    def train_step(m, a):
+        lens = SeqLens.create(a["lens"], T)
+        out = m(a["mel"], a["spk"], a["ctx"], lens, f0=a["f0"],
+                energy_avg=a["en"], accent_vecs=a["acc"], train=True)
+        glens = lens.downsample(2)
+        loss, prior = compute_flow_loss(
+            out["z_mel"], out["log_det_W_list"], out["log_s_list"],
+            glens.lengths.sum().float(), out["z_mel"].shape[-1],
+            glens.fmask())
+        loss.backward()
+        return loss.detach(), prior.detach()
+
+    def infer(m, a):
+        dur = torch.full(a["txt"].shape[:2], 4, dtype=torch.int32,
+                         device=a["txt"].device)
+        with torch.no_grad():
+            return m.infer(a["spk"], a["txt"], 0.0, dur=dur, f0=a["f0"],
+                           energy_avg=a["en"],
+                           lens=SeqLens.create(a["lens"], T),
+                           accent_vecs=a["acc"])["mel"]
+
+    for where, m in models.items():
+        a = {k: torch.from_numpy(v).to(where) for k, v in arrays.items()}
+        t0 = time.perf_counter()
+        with (launches.part("the flow's training step",
+                            {"lstm_recurrence": 1, "lstm_recurrence_bwd": 1})
+              if where == "cuda" else contextlib.nullcontext()):
+            loss, prior = train_step(m, a)
+        if where == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with (launches.part("the flow's infer", {"lstm_recurrence": 1})
+              if where == "cuda" else contextlib.nullcontext()):
+            mel = infer(m, a)
+        if where == "cuda":
+            torch.cuda.synchronize()
+        res[where] = dict(loss=loss, prior=prior, mel=mel)
+        log(f"[{tag}] (a) {where}: training step {(t1 - t0) * 1e3:.1f} ms "
+            f"(first call), infer at sigma 0 "
+            f"{(time.perf_counter() - t1) * 1e3:.1f} ms, flow loss "
+            f"{loss.item():.6f}")
+    g, c = res["cuda"], res["cpu"]
+    for k in ("loss", "prior"):
+        _check(tag, f"(a) flow {k} card vs CPU, relative",
+               abs(g[k].item() - c[k].item()) / abs(c[k].item()), M12_RTOL)
+    errs = leaf_grad_errors(models["cuda"], models["cpu"])
+    log(f"[{tag}] (a) gradients of {len(errs)} parameters, worst: " + ", "
+        .join(f"{n} {e:.2e} (max |grad| {g:.2e})" for e, n, g in errs[:4]))
+    other = [e for e in errs if ".film." not in e[1]]
+    spline = [e for e in leaf_grad_errors(models["cuda"], models["cpu"],
+                                          frobenius=True)
+              if ".film." in e[1]]
+    _check(tag, f"(a) worst of {len(other)} gradient leaves outside the "
+           f"spline couplings ({other[0][1]}), card vs CPU over the leaf's "
+           "largest", other[0][0], GRAD_PARITY_RTOL)
+    _check(tag, f"(a) worst of the spline couplings' {len(spline)} gradient "
+           f"leaves ({spline[0][1]}), card vs CPU, Frobenius norms",
+           spline[0][0], GRAD_PARITY_RTOL)
+    stats = {k: t for k, t in models["cpu"].state_dict().items()
+             if k.endswith((".bn.mean", ".bn.var"))}
+    card_sd = models["cuda"].state_dict()
+    moved = max(float((t - (0.0 if k.endswith("mean") else 1.0)).abs().max())
+                for k, t in stats.items())
+    _check(tag, f"(a) {len(stats)} running statistics after the step, card "
+           f"vs CPU, worst relative (moved by up to {moved:.3f} from init)",
+           max(_rel_err(card_sd[k], t) for k, t in stats.items()), M12_RTOL)
+    _check(tag, "(a) infer at sigma 0 on the running statistics, mel card "
+           f"vs CPU, max abs (mel peak {float(c['mel'].abs().max()):.2f})",
+           float((g["mel"].cpu() - c["mel"]).abs().max()), PARITY_ATOL)
+    # timing on a copy of the card's model, so the compared one is intact
+    m = copy.deepcopy(models["cuda"])
+    a = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+    with launches.part("the timed flow steps and infers",
+                       {"lstm_recurrence": 2, "lstm_recurrence_bwd": 1},
+                       1 + M12_TIMED):
+        step_ms = cuda_ms(lambda: train_step(m, a), M12_TIMED)
+        infer_ms = cuda_ms(lambda: infer(m, a), M12_TIMED)
+    log(f"[{tag}] (a) ({card}) the flow's training forward "
+        f"and backward {step_ms:.2f} ms, infer at sigma 0 {infer_ms:.2f} ms "
+        f"(B={B}, T_mel={T}, mean of {M12_TIMED} after a warm-up)")
+
+
+def _m12_couplings(seed: int, launches: _Launches) -> None:
+    """(b) AffineCoupling with simple_conv and with film_stack at the
+    flow's widths: forward and inverse on the card against the CPU, and
+    the card's round trip."""
+    from radmmm_torch.ops.coupling import AffineCoupling
+    from radmmm_torch.utils.masking import SeqLens
+    tag = "m12"
+    B, T, C, CTX = TRAIN_B, TRAIN_T_MEL // 2, 160, 1048
+    rng = np.random.default_rng(seed + 12)
+    z = torch.from_numpy(rng.standard_normal((B, T, C)).astype(np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((B, T, CTX)).astype(
+        np.float32))
+    lens = torch.tensor([T - 8 * i for i in range(B)], dtype=torch.int32)
+    for model in ("simple_conv", "film_stack"):
+        torch.manual_seed(seed)
+        cpu = AffineCoupling(C, CTX, 4, affine_model=model,
+                             scaling_fn="tanh", use_partial_padding=True)
+        _nudge_m12(cpu)
+        gpu = copy.deepcopy(cpu).cuda()
+        out = {}
+        for where, m in (("cuda", gpu), ("cpu", cpu)):
+            mask = SeqLens.create(lens, T).mask.to(where)
+            zz, cc = z.to(where), ctx.to(where)
+            with torch.no_grad(), (
+                    launches.part(f"the {model} coupling", {})
+                    if where == "cuda" else contextlib.nullcontext()):
+                fwd, log_s = m(zz, cc, mask)
+                inv = m.inverse(fwd, cc, mask)
+            out[where] = (fwd, log_s, inv, mask)
+        (gf, gl, gi, mask), (cf, cl, ci, _) = out["cuda"], out["cpu"]
+        n = sum(p.numel() for p in cpu.parameters())
+        for what, a, b in (("forward z", gf, cf), ("log s", gl, cl),
+                           ("inverse", gi, ci)):
+            _check(tag, f"(b) {model} ({n / 1e6:.1f} M parameters) {what} "
+                   "card vs CPU over its peak", _rel_err(a, b), M12_OUT_RTOL)
+        m3 = mask.float()[..., None]
+        trip = float(((gi - z.cuda()) * m3).abs().max())
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: gpu(z.cuda(), ctx.cuda(), mask), 3)
+            inv_ms = cuda_ms(lambda: gpu.inverse(gf, ctx.cuda(), mask), 3)
+        log(f"[{tag}] (b) {model}: the card's round trip max |z - "
+            f"inverse(forward(z))| {trip:.3e} on valid frames (|z| up to "
+            f"{float(z.abs().max()):.2f}); forward {fwd_ms:.2f} ms, inverse "
+            f"{inv_ms:.2f} ms (B={B}, T={T}, {C} channels, context {CTX})")
+        if not trip <= 1e-4:
+            fail(f"{tag}: the {model} coupling's round trip is off by "
+                 f"{trip:.3e}")
+
+
+def _m12_alt_decoders(seed: int, launches: _Launches) -> None:
+    """(c) The three alternative decoders at their default widths with
+    their losses: the attention terms from the port's ConvAttention on
+    the batch (MAS K3, the CTC loss K1 and its backward K2 on the card),
+    the loss terms card against CPU; the diffusion decoder's 100-step
+    ancestral sampling with its draws fed, and one E2E GAN-loss step
+    (Adam) of HiFi-GAN v1 on the card."""
+    from radmmm_torch.losses.flow import (RADTTSDeterministicLoss,
+                                          RADTTSDiffusionLoss,
+                                          RADTTSE2EGANLoss)
+    from radmmm_torch.models.alt_decoders import (DeterministicDecoder,
+                                                  DiffusionDecoder,
+                                                  E2ETTSDecoder)
+    from radmmm_torch.ops.alignment import binarize_attention
+    from radmmm_torch.ops.attention import ConvAttention
+    from radmmm_torch.training.step import total_loss
+    from radmmm_torch.utils.masking import SeqLens
+    tag = "m12"
+    B, Tt, Tm = M12_ALT_B, M12_ALT_T_TEXT, M12_ALT_T_MEL
+    rng = np.random.default_rng(seed + 13)
+    prior = rng.uniform(0.1, 1.0, (B, Tm, Tt)).astype(np.float32)
+    prior /= prior.sum(-1, keepdims=True)
+    arrays = dict(
+        keys=rng.standard_normal((B, Tt, 512)).astype(np.float32),
+        txt=rng.standard_normal((B, Tt, 512)).astype(np.float32),
+        mel=rng.standard_normal((B, Tm, 80)).astype(np.float32),
+        spk=rng.standard_normal((B, 16)).astype(np.float32),
+        f0=rng.uniform(4, 6, (B, Tm)).astype(np.float32),
+        en=rng.uniform(0, 1, (B, Tm)).astype(np.float32),
+        prior=prior,
+        audio=(0.1 * rng.standard_normal((B, Tm * HOP))).astype(np.float32),
+        in_lens=np.asarray([Tt - 5 * i for i in range(B)], np.int32),
+        out_lens=np.asarray([Tm - 24 * i for i in range(B)], np.int32))
+    gen = torch.Generator().manual_seed(seed)
+    n_steps = DiffusionDecoder().schedule.n_steps
+    fed = dict(t=torch.randint(0, n_steps, (B,), generator=gen),
+               noise=torch.randn((B, Tm, 80), generator=gen),
+               x0=torch.randn((B, Tm, 80), generator=gen),
+               zs=torch.randn((n_steps, B, Tm, 80), generator=gen))
+
+    def attention(att, a):
+        in_lens = SeqLens.create(a["in_lens"], Tt)
+        out_lens = SeqLens.create(a["out_lens"], Tm)
+        soft, logprob = att(a["mel"], a["keys"], key_mask=in_lens.mask,
+                            attn_prior=a["prior"])
+        hard = binarize_attention(soft, in_lens.lengths, out_lens.lengths)
+        return (dict(attn=hard, attn_soft=soft, attn_logprob=logprob),
+                torch.bmm(hard, a["txt"]), in_lens, out_lens)
+
+    # each -> (loss terms, the decoder's predictions)
+    def det(mods, a, f):
+        att, dec = mods
+        out, ctx, il, ol = attention(att, a)
+        pred = dec(ctx, a["spk"], ol, a["f0"], a["en"])
+        out.update(mel=a["mel"], **pred)
+        return RADTTSDeterministicLoss()(out, il, ol, True), pred
+
+    def diff(mods, a, f):
+        att, dec = mods
+        out, ctx, il, ol = attention(att, a)
+        pred = dec(a["mel"], ctx, ol, t=f["t"], noise=f["noise"])
+        out.update(pred)
+        return RADTTSDiffusionLoss()(out, il, ol, True), {
+            "noise_hat": pred["noise_hat"]}
+
+    def e2e(mods, a, f):
+        att, dec = mods
+        out, ctx, il, ol = attention(att, a)
+        pred = dec(ctx, a["spk"], ol, a["f0"], a["en"])
+        out.update(pred)
+        return RADTTSE2EGANLoss()(out, a["audio"], ol.lengths.float() * HOP,
+                                  il, ol, True), pred
+
+    decoders = (
+        ("DeterministicDecoder", lambda: DeterministicDecoder(), det),
+        ("DiffusionDecoder", lambda: DiffusionDecoder(), diff),
+        ("E2ETTSDecoder (HiFi-GAN v1)", lambda: E2ETTSDecoder(), e2e))
+    for name, build, fn in decoders:
+        torch.manual_seed(seed)
+        cpu = (ConvAttention(80, 512), build())
+        gpu = tuple(copy.deepcopy(m).cuda() for m in cpu)
+        n = sum(p.numel() for p in cpu[1].parameters())
+        res, preds = {}, {}
+        for where, mods in (("cuda", gpu), ("cpu", cpu)):
+            a = {k: torch.from_numpy(v).to(where) for k, v in arrays.items()}
+            f = {k: v.to(where) for k, v in fed.items()}
+            t0 = time.perf_counter()
+            if where == "cpu":
+                with torch.no_grad():
+                    ld, pred = fn(mods, a, f)
+                res[where] = {k: v.item() for k, (v, _) in ld.items()}
+                preds[where] = pred
+                continue
+            params = [p for m in mods for p in m.parameters()]
+            opt = torch.optim.Adam(params, lr=1e-4)
+
+            def loss_step():
+                opt.zero_grad()
+                ld, pred = fn(mods, a, f)
+                total_loss(ld).backward()
+                opt.step()
+                return ld, pred
+
+            per_step = {"ctc_alpha": 1, "ctc_beta": 1, "mas_width1": 1}
+            with launches.part(f"the {name} loss step", per_step):
+                ld, pred = loss_step()
+            preds[where] = {k: v.detach() for k, v in pred.items()}
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            res[where] = {k: v.item() for k, (v, _) in ld.items()}
+            with launches.part(f"the {name} timed steps", per_step,
+                               1 + M12_TIMED):
+                ms = cuda_ms(loss_step, M12_TIMED)
+            log(f"[{tag}] (c) {name} ({n / 1e6:.2f} M parameters): one loss "
+                f"step on the card (forward, backward, Adam) {ms:.2f} ms "
+                f"(mean of {M12_TIMED} after the first, {first_ms:.1f} ms; "
+                f"B={B}, T_text={Tt}, T_mel={Tm}); "
+                + ", ".join(f"{k} {v:.5f}" for k, v in res[where].items()))
+        log(f"[{tag}] (c) {name} loss terms, card | CPU, all digits: "
+            + "; ".join(f"{k} {res['cuda'][k]!r} | {v!r}"
+                        for k, v in res["cpu"].items()))
+        worst = max(abs(res["cuda"][k] - v) / max(abs(v), 1e-6)
+                    for k, v in res["cpu"].items())
+        _check(tag, f"(c) {name} loss terms card vs CPU, worst relative",
+               worst, TRAIN_PARITY_RTOL)
+        # the predictions: the loss terms at init are near their targets'
+        # own statistics and can hide a difference in the decoder
+        for k, want in preds["cpu"].items():
+            _check(tag, f"(c) {name} {k} card vs CPU over its peak "
+                   f"({float(want.abs().max()):.3g})",
+                   _rel_err(preds["cuda"][k], want), M12_OUT_RTOL)
+        if name == "DiffusionDecoder":
+            # 100 ancestral steps with x0 and each step's z fed; the CPU
+            # samples the batch's first item only (the items are
+            # independent)
+            with torch.no_grad(), launches.part("the sampling's attention",
+                                                {"mas_width1": 1}):
+                _, ctx, _, ol = attention(gpu[0], {
+                    k: torch.from_numpy(v).cuda() for k, v in arrays.items()})
+            with torch.no_grad(), launches.part(
+                    "the 100-step sampling", {}, 2):
+                t0 = time.perf_counter()
+                mel = gpu[1].infer(ctx, ol, x=fed["x0"].cuda(),
+                                   zs=fed["zs"].cuda())
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                ms2 = cuda_ms(lambda: gpu[1].infer(
+                    ctx, ol, x=fed["x0"].cuda(), zs=fed["zs"].cuda()), 1)
+            ol1 = SeqLens.create(ol.lengths[:1].cpu(), Tm)
+            with torch.no_grad():
+                want = copy.deepcopy(gpu[1]).cpu().infer(
+                    ctx[:1].cpu(), ol1, x=fed["x0"][:1], zs=fed["zs"][:, :1])
+            log(f"[{tag}] (c) DiffusionDecoder: {n_steps}-step ancestral "
+                f"sampling on the card {ms:.1f} ms (first call), {ms2:.1f} "
+                f"ms (second; B={B}, T_mel={Tm}); mel peak "
+                f"{float(mel.abs().max()):.3f}")
+            if not torch.isfinite(mel).all():
+                fail(f"{tag}: the diffusion decoder sampled non-finite mels")
+            _check(tag, "(c) the sampled mel's first item card vs CPU over "
+                   "its peak", _rel_err(mel[:1], want), M12_OUT_RTOL)
+
+
+@tf32_off()
+def phase_m12(seed: int) -> dict:
+    """The M12 modules on the card against the CPU from the same weights
+    and inputs, TF32 off: (a) the spline flow, (b) the simple_conv and
+    film_stack couplings, (c) the three alternative decoders with their
+    losses. Returns the kernels' launches of the phase's card calls, each
+    part's checked against what it launches."""
+    from radmmm_torch.utils.device import card_line
+    tag, card = "m12", card_line()
+    launches = _Launches(tag)
+    # the main path: counts from zero, the phase, counts read after
+    _zero_counters()
+    t0 = time.perf_counter()
+    _m12_flow(seed, launches, card)
+    _m12_couplings(seed, launches)
+    _m12_alt_decoders(seed, launches)
+    got = _counters()
+    if got != launches.want:
+        fail(f"{tag}: launched {got}, expected {launches.want}")
+    log(f"[{tag}] kernel launches of the phase as expected: {got}; "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    return got
 
 
 # the vocoder phase: HiFi-GAN v1 trained at its published batch on
@@ -1706,19 +2227,19 @@ VOCODE_RTOL = 1e-4
 WG_CPU_FRAMES = 96
 
 
-def write_g_file(root: str, seed: int):
-    """An upstream-format HiFi-GAN v1 ``g_*`` file (16 kHz, the recipe's
-    80 mel channels) from random weights of ``seed``, and its config
-    json -> (file, config)."""
+def write_g_file(root: str, seed: int, sr: int = FIT_SR):
+    """An upstream-format HiFi-GAN v1 ``g_*`` file (at ``sr``, 16 kHz by
+    default, the recipe's 80 mel channels) from random weights of
+    ``seed``, and its config json -> (file, config)."""
     import os
     from radmmm_torch.vocoder.hifigan import (Generator, HiFiGANConfig,
                                               upstream_generator_state_dict)
     torch.manual_seed(seed)
-    cfg = HiFiGANConfig(sampling_rate=FIT_SR)
+    cfg = HiFiGANConfig(sampling_rate=sr)
     path = os.path.join(root, "g_00000000")
     torch.save({"generator": upstream_generator_state_dict(
         Generator(cfg))}, path)
-    cfg_path = os.path.join(root, "config_16khz.json")
+    cfg_path = os.path.join(root, f"config_{sr // 1000}khz.json")
     with open(cfg_path, "w") as f:
         json.dump({"resblock": cfg.resblock,
                    "upsample_rates": cfg.upsample_rates,
@@ -1983,8 +2504,7 @@ def phase_vocoder(seed: int, work: str) -> dict:
 
 
 def kernel_entries(rows: list, serve_launches, train_launches,
-                   wn_launches, fit_launches=None,
-                   vocoder_launches=None) -> list:
+                   wn_launches, path_launches: dict) -> list:
     """The kernels' JSON entries. K4 forward keeps its serving numbers (one
     B=1 request at text bucket 96 / frame bucket 800 makes one launch at
     each serving shape: the sums of those rows) and lists every shape; K4
@@ -1993,8 +2513,9 @@ def kernel_entries(rows: list, serve_launches, train_launches,
     WN stack's launches) and lists each. ``launches`` sums the main
     paths' runs, listed under ``launches_by_path``: serving, training and
     fit (its training steps and validations) for K4 forward, the wn phase
-    and fit for K5, training and fit for the rest, and the vocoder path,
-    which runs none of them (its 0s)."""
+    and fit for K5, training and fit for the rest, and ``path_launches``'
+    paths (fit, the vocoder path, which runs none of them, radtts_fit and
+    m12; None for a phase not run)."""
     def by(kernel, **kw):
         return [r for r in rows if r["kernel"] == kernel
                 and all(r.get(k) == v for k, v in kw.items())]
@@ -2053,10 +2574,8 @@ def kernel_entries(rows: list, serve_launches, train_launches,
         paths = dict(e.get("launches_by_path") or (
             {"wn": wn_launches} if e["name"] == "conv_softplus"
             else {"train": trained(e["name"])}))
-        paths["fit"] = (None if fit_launches is None
-                        else fit_launches[e["name"]])
-        paths["vocoder"] = (None if vocoder_launches is None
-                            else vocoder_launches[e["name"]])
+        for path, counts in path_launches.items():
+            paths[path] = None if counts is None else counts[e["name"]]
         counts = [n for n in paths.values() if n is not None]
         e["launches"] = sum(counts) if counts else None
         e["launches_by_path"] = paths
@@ -2078,6 +2597,7 @@ def main() -> int:
     t_start = time.perf_counter()
     rows, serve_launches, train_launches, wn_launches = [], None, None, None
     fit_launches = vocoder_launches = vocoder_run = None
+    radtts_launches = m12_launches = None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -2109,13 +2629,24 @@ def main() -> int:
             voc = phase_vocoder(args.seed, work)
             vocoder_launches, vocoder_run = voc["launches"], voc["run_dir"]
         if "fit" in phases:
-            fit_launches = phase_fit(args.seed, vocoder_run)["fit"]
+            fit_launches = phase_fit(
+                args.seed, "fit", RECIPE, FIT_SR,
+                lambda root: recipe_overlay(root, args.seed, vocoder_run),
+                recipe_prompts, vocoder_run)["fit"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    if "radtts_fit" in phases:
+        radtts_launches = phase_fit(
+            args.seed, "radtts_fit", RADTTS_STACK, RADTTS_SR,
+            lambda root: radtts_overlay(root, args.seed),
+            radtts_prompts)["fit"]
+    if "m12" in phases:
+        m12_launches = phase_m12(args.seed)
     if rows:
         log(json.dumps({"kernels": kernel_entries(
             rows, serve_launches, train_launches, wn_launches,
-            fit_launches, vocoder_launches)}))
+            {"fit": fit_launches, "vocoder": vocoder_launches,
+             "radtts_fit": radtts_launches, "m12": m12_launches})}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -14,6 +14,14 @@ key is its flax path joined with dots, with these layout rules:
 * the flow steps ``decoder/flow_i`` -> ``decoder.flows.i``; the 1x1s'
   ``p``, ``lower``, ``upper``, ``upper_diag``, ``input_mean`` and
   ``initialized`` unchanged;
+* the batch norms' ``batch_stats`` collection (``.../bn/mean``, ``var``)
+  -> their ``mean`` and ``var`` buffers, their ``scale`` and ``bias``
+  unchanged; the FiLM blocks' and simple conv nets' convs, the
+  LSTMConvDAP's ``backbone/lstm`` and ``conv_i`` by the conv and LSTM
+  rules above;
+* the alternative decoders (``alt_decoder_state_dict_from_jax``): flax
+  ``Dense`` ``kernel`` (C_in, C_out) -> ``nn.Linear`` ``weight``, the
+  convs by the rules above, an E2E decoder's ``generator`` by HiFi-GAN's;
 * HiFi-GAN: ``*_v`` (K, C_in, C_out) -> (C_out, C_in, K), except the
   upsampling ConvTranspose ``up_i_v`` -> (C_in, C_out, K) with ``up_i_g``
   per input channel (the iSTFTNet generator takes the same rules);
@@ -38,7 +46,7 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-_TTS_COLLECTIONS = ("params", "buffers", "spectral")
+_TTS_COLLECTIONS = ("params", "buffers", "batch_stats", "spectral")
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()
@@ -80,7 +88,8 @@ def _tts_leaf(collection: str, path: Tuple[str, ...], a: np.ndarray):
 
 def tts_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     """State dict of ``radmmm_torch.models.tts.TTSModel`` from the flax
-    collections of a JAX ``TTSModel`` (params, buffers, spectral)."""
+    collections of a JAX ``TTSModel`` (params, buffers, batch_stats,
+    spectral)."""
     extra = set(variables) - set(_TTS_COLLECTIONS)
     if extra:
         raise ValueError(f"collections {sorted(extra)} have no port "
@@ -110,10 +119,12 @@ def _moments(opt_state):
 
 def load_jax_train_state(state, jax_state) -> None:
     """Load a JAX ``TrainState`` (its leaves as numpy arrays) into a port
-    ``training.step.TrainState`` in place: the model's parameters, buffers
-    and spectral-norm vectors, the step count, and the optimizer's moments
-    and count, so that both continue from the same point."""
+    ``training.step.TrainState`` in place: the model's parameters, buffers,
+    batch-norm running statistics and spectral-norm vectors, the step
+    count, and the optimizer's moments and count, so that both continue
+    from the same point."""
     variables = {"params": jax_state.params, "buffers": jax_state.buffers,
+                 "batch_stats": jax_state.batch_stats,
                  "spectral": jax_state.spectral}
     state.model.load_state_dict(tts_state_dict_from_jax(variables))
     state.step = int(jax_state.step)
@@ -131,6 +142,13 @@ def load_jax_train_state(state, jax_state) -> None:
     opt.count = count
 
 
+def _hifigan_leaf(path, a: np.ndarray):
+    if path[-1].endswith("_v"):
+        a = (a.transpose(1, 2, 0) if re.fullmatch(r"up_\d+_v", path[-1])
+             else a.transpose(2, 1, 0))
+    return path, a
+
+
 def hifigan_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     """State dict of ``radmmm_torch.vocoder.hifigan.Generator`` from the
     flax variables of a JAX ``Generator``."""
@@ -139,10 +157,24 @@ def hifigan_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
         raise ValueError(f"unexpected collections {sorted(extra)}")
     sd: Dict[str, torch.Tensor] = {}
     for path, a in _flatten(variables["params"]):
-        if path[-1].endswith("_v"):
-            a = (a.transpose(1, 2, 0) if re.fullmatch(r"up_\d+_v", path[-1])
-                 else a.transpose(2, 1, 0))
-        _put(sd, path, a)
+        _put(sd, *_hifigan_leaf(path, a))
+    return sd
+
+
+def alt_decoder_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """State dict of a ``radmmm_torch.models.alt_decoders``
+    ``DeterministicDecoder``, ``E2ETTSDecoder`` or ``DiffusionDecoder``
+    from the flax variables of its JAX twin."""
+    extra = set(variables) - {"params"}
+    if extra:
+        raise ValueError(f"unexpected collections {sorted(extra)}")
+    sd: Dict[str, torch.Tensor] = {}
+    for path, a in _flatten(variables["params"]):
+        if path[0] == "generator":
+            sub, a = _hifigan_leaf(path[1:], a)
+            _put(sd, ("generator",) + tuple(sub), a)
+        else:
+            _put(sd, *_tts_leaf("params", path, a))
     return sd
 
 

@@ -2,9 +2,12 @@
 
 Counterpart of ``radmmm_tpu/losses/flow.py`` (``compute_flow_loss``,
 ``attention_binarization_loss``, ``attention_loss``, ``RADMMMLoss``,
+the alternative decoders' ``RADTTSDeterministicLoss``,
+``RADTTSDiffusionLoss`` and ``RADTTSE2EGANLoss``,
 ``masked_regression_loss``, ``masked_bce_loss``, ``AttributeRegressionLoss``
 and ``AttributeBCELoss``). A loss dict maps a name to (value, weight), as
-in the JAX package.
+in the JAX package; every decoder's loss adds the attention terms (the CTC
+loss through K1 and K2 on the card).
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import Optional
 import torch
 
 from radmmm_torch.losses.ctc import attention_ctc_loss
+from radmmm_torch.losses.stft_loss import MultiResolutionSTFTLoss
 from radmmm_torch.utils.masking import SeqLens
 
 
@@ -82,6 +86,92 @@ class RADMMMLoss:
             model_output["attn_logprob"], binarization_on, in_lens, out_lens,
             self.ctc_blank_logprob, self.binarization_loss_weight,
             self.ctc_loss_weight))
+        return loss_dict
+
+
+class _AttentionTerms:
+    """The attention-loss settings shared by the alternative decoders'
+    losses (``kl_loss_start_iter`` is taken and unused: the caller's
+    ``binarization_on`` decides)."""
+
+    def __init__(self, ctc_blank_logprob=-1.0, kl_loss_start_iter=5000,
+                 binarization_loss_weight=1.0, ctc_loss_weight=0.1):
+        self.ctc_blank_logprob = ctc_blank_logprob
+        self.binarization_loss_weight = binarization_loss_weight
+        self.ctc_loss_weight = ctc_loss_weight
+
+    def _attention(self, model_output, in_lens, out_lens, binarization_on):
+        return attention_loss(
+            model_output["attn"], model_output["attn_soft"],
+            model_output["attn_logprob"], binarization_on, in_lens, out_lens,
+            self.ctc_blank_logprob, self.binarization_loss_weight,
+            self.ctc_loss_weight)
+
+
+class RADTTSDeterministicLoss(_AttentionTerms):
+    """Masked L1 mel loss + the attention losses."""
+
+    def __call__(self, model_output, in_lens: SeqLens, out_lens: SeqLens,
+                 binarization_on: bool):
+        loss_dict = {}
+        if model_output.get("mel_hat") is not None:
+            m = out_lens.fmask()[..., None]
+            mel, mel_hat = model_output["mel"], model_output["mel_hat"]
+            loss = (torch.abs(mel - mel_hat) * m).sum() / (
+                mel.shape[-1] * m.sum().clamp_min(1.0))
+            loss_dict["mel_mae_loss"] = (loss, 1.0)
+        loss_dict.update(self._attention(model_output, in_lens, out_lens,
+                                         binarization_on))
+        return loss_dict
+
+
+class RADTTSDiffusionLoss(_AttentionTerms):
+    """Masked noise-prediction MSE + the attention losses."""
+
+    def __call__(self, model_output, in_lens: SeqLens, out_lens: SeqLens,
+                 binarization_on: bool):
+        loss_dict = {}
+        if model_output.get("noise_hat") is not None:
+            m = out_lens.fmask()[..., None]
+            noise, noise_hat = model_output["noise"], model_output["noise_hat"]
+            loss = (((noise - noise_hat) ** 2) * m).sum() / (
+                noise.shape[-1] * m.sum().clamp_min(1.0))
+            loss_dict["noise_mse_loss"] = (loss, 1.0)
+        loss_dict.update(self._attention(model_output, in_lens, out_lens,
+                                         binarization_on))
+        return loss_dict
+
+
+class RADTTSE2EGANLoss(_AttentionTerms):
+    """Multi-resolution STFT reconstruction of the waveform (five
+    resolutions, A-weighted log magnitudes by default) + the attention
+    losses."""
+
+    def __init__(self, ctc_blank_logprob=-1.0, kl_loss_start_iter=5000,
+                 binarization_loss_weight=1.0, ctc_loss_weight=0.1,
+                 stft_loss_sc_weight=1.0, stft_loss_mag_weight=1.0,
+                 fft_lengths=(1024, 2048, 512, 64, 8192),
+                 hop_lengths=(120, 240, 50, 10, 2000),
+                 win_lengths=(600, 1200, 240, 50, 8000),
+                 sampling_rate=22050, a_weighting=True):
+        super().__init__(ctc_blank_logprob, kl_loss_start_iter,
+                         binarization_loss_weight, ctc_loss_weight)
+        self.stft_loss_sc_weight = stft_loss_sc_weight
+        self.stft_loss_mag_weight = stft_loss_mag_weight
+        self.mrstft = MultiResolutionSTFTLoss(
+            fft_lengths, hop_lengths, win_lengths, sampling_rate, a_weighting)
+
+    def __call__(self, model_output, audio, audio_lens, in_lens: SeqLens,
+                 out_lens: SeqLens, binarization_on: bool):
+        audio_hat = model_output["audio_hat"]
+        T = min(audio.shape[-1], audio_hat.shape[-1])
+        audio, audio_hat = audio[..., :T], audio_hat[..., :T]
+        len_ratios = audio_lens / audio_lens.max().clamp_min(1)
+        sc, mag = self.mrstft(audio, audio_hat, len_ratios)
+        loss_dict = {"stft_loss_sc": (sc, self.stft_loss_sc_weight),
+                     "stft_loss_mag": (mag, self.stft_loss_mag_weight)}
+        loss_dict.update(self._attention(model_output, in_lens, out_lens,
+                                         binarization_on))
         return loss_dict
 
 

@@ -1,13 +1,17 @@
 """Deterministic attribute predictors (F0 / energy / voiced / duration).
 
 Counterpart of ``radmmm_tpu/models/attributes.py`` (``BottleneckLayer``,
-``ConvLSTMLinear``, ``ConvLSTMLinearDAP`` and the target transforms). A
+``ConvLSTMLinear``, ``LSTMConv``, ``ResidualLSTMConv``,
+``ConvLSTMLinearDAP``, ``LSTMConvDAP`` and the target transforms). A
 bottleneck conv compresses the text encodings, speaker (and accent) vectors
 are broadcast over time and concatenated, then a conv -> BiLSTM -> linear
-backbone predicts the attribute. In training (``train=True``) each backbone
-conv ends in dropout drawn from the caller's generator, the BiLSTM's
-spectral norms update their ``u``, and ``targets`` maps the ground truth
-into the space the predictor regresses in (``tx_target``).
+backbone (``ConvLSTMLinearDAP``) or a BiLSTM -> conv backbone
+(``LSTMConvDAP``, speaker-conditioned only) predicts the attribute. In
+training (``train=True``) each backbone conv but an LSTMConv's last ends in
+dropout drawn from the caller's generator, the BiLSTM's spectral norms
+update their ``u``, batch norms (``use_bn``) use and track the batch
+statistics, and ``targets`` maps the ground truth into the space the
+predictor regresses in (``tx_target``).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from torch import nn
 
 from radmmm_torch.ops.conv import Linear, MaskedConv1d, dropout
 from radmmm_torch.ops.lstm import MaskedLSTM
+from radmmm_torch.ops.norms import MaskedBatchNorm
 from radmmm_torch.utils.masking import SeqLens
 
 
@@ -133,6 +138,65 @@ class ConvLSTMLinear(nn.Module):
         return x
 
 
+class LSTMConv(nn.Module):
+    """BiLSTM first, then a conv stack whose last conv has no activation;
+    an optional masked batch norm after each conv."""
+
+    def __init__(self, in_dim: int, out_dim: int, n_layers: int = 3,
+                 n_channels: int = 512, kernel_size: int = 3,
+                 p_dropout: float = 0.1, use_bn: bool = False,
+                 lstm_norm_fn: Optional[str] = "spectral"):
+        super().__init__()
+        if n_channels % 2:
+            raise ValueError("LSTMConv needs an even n_channels")
+        self.n_layers = n_layers
+        self.p_dropout = p_dropout
+        self.lstm = MaskedLSTM(in_dim, n_channels // 2, bidirectional=True,
+                               spectral_norm=(lstm_norm_fn is not None
+                                              and "spectral" in lstm_norm_fn))
+        for i in range(n_layers):
+            out_ch = out_dim if i == n_layers - 1 else n_channels
+            setattr(self, f"conv_{i}", MaskedConv1d(
+                n_channels, out_ch, kernel_size, w_init_gain="relu",
+                use_weight_norm=True))
+            if use_bn:
+                setattr(self, f"bn_{i}", MaskedBatchNorm(out_ch))
+        self.use_bn = use_bn
+
+    def forward(self, x, lens: SeqLens, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x = self.lstm(x, lens.mask, update_sn=train)
+        for i in range(self.n_layers):
+            x = getattr(self, f"conv_{i}")(x, lens.mask)
+            if self.use_bn:
+                x = getattr(self, f"bn_{i}")(x, lens.mask, train=train)
+            if i < self.n_layers - 1:
+                x = dropout(torch.relu(x), self.p_dropout,
+                            generator if train else None)
+        return x
+
+
+class ResidualLSTMConv(nn.Module):
+    """LSTMConv with a 0.5-scaled residual (input and output widths
+    equal)."""
+
+    def __init__(self, out_dim: int, n_layers: int = 3,
+                 n_hidden_channels: int = 512, kernel_size: int = 3,
+                 use_residual: bool = True, use_bn: bool = False,
+                 lstm_norm_fn: Optional[str] = "spectral"):
+        super().__init__()
+        self.use_residual = use_residual
+        # dropout at the LSTMConv default, as the JAX module leaves it
+        self.lstm_conv = LSTMConv(out_dim, out_dim, n_layers,
+                                  n_hidden_channels, kernel_size,
+                                  use_bn=use_bn, lstm_norm_fn=lstm_norm_fn)
+
+    def forward(self, x, lens: SeqLens, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x_enc = self.lstm_conv(x, lens, train=train, generator=generator)
+        return (x_enc + x) * 0.5 if self.use_residual else x_enc
+
+
 class ConvLSTMLinearDAP(nn.Module):
     """Deterministic attribute predictor; ``infer`` applies the inverse
     target transform."""
@@ -200,3 +264,47 @@ class ConvLSTMLinearDAP(nn.Module):
     def inv_tx(self, x_hat, x_mean=None, x_std=None):
         return inv_tx_target(x_hat, x_mean=x_mean, x_std=x_std,
                              **self._tx_kwargs)
+
+
+class LSTMConvDAP(nn.Module):
+    """Attribute predictor with an LSTM-first backbone, conditioned on the
+    speaker only: ``x_mean``, ``x_std`` and ``accent_emb`` are taken and
+    ignored, as in the JAX module, and its target transform is the plain
+    scale, offset and log."""
+
+    def __init__(self, n_speaker_dim: int = 16, in_dim: int = 512,
+                 out_dim: int = 1, reduction_factor: int = 16,
+                 n_backbone_layers: int = 2, n_hidden: int = 256,
+                 kernel_size: int = 3, p_dropout: float = 0.25,
+                 target_scale: float = 1.0, target_offset: float = 0.0,
+                 log_target: bool = False,
+                 lstm_norm_fn: Optional[str] = "spectral"):
+        super().__init__()
+        self._tx_kwargs = dict(target_scale=target_scale,
+                               target_offset=target_offset,
+                               log_target=log_target)
+        self.bottleneck = BottleneckLayer(in_dim, reduction_factor)
+        self.backbone = LSTMConv(self.bottleneck.out_dim + n_speaker_dim,
+                                 out_dim, n_backbone_layers, n_hidden,
+                                 kernel_size, p_dropout,
+                                 lstm_norm_fn=lstm_norm_fn)
+
+    def forward(self, text_enc, spk_emb, lens: SeqLens, x_mean=None,
+                x_std=None, accent_emb=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """x_hat (B, T, out_dim) in the transformed target space."""
+        h = self.bottleneck(text_enc, lens.mask)
+        B, T = h.shape[0], text_enc.shape[1]
+        h = torch.cat([h, spk_emb[:, None, :].expand(B, T, -1)], dim=-1)
+        return self.backbone(h, lens, train=train, generator=generator)
+
+    def targets(self, x, x_mean=None, x_std=None):
+        """Ground truth (B, T, 1) in the predictor's target space."""
+        return tx_target(x, **self._tx_kwargs)
+
+    def infer(self, text_enc, spk_emb, lens: SeqLens, x_mean=None,
+              x_std=None, accent_emb=None):
+        return self.inv_tx(self(text_enc, spk_emb, lens))
+
+    def inv_tx(self, x_hat, x_mean=None, x_std=None):
+        return inv_tx_target(x_hat, **self._tx_kwargs)

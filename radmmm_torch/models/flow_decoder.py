@@ -5,12 +5,16 @@ Counterpart of ``radmmm_tpu/models/flow_decoder.py`` (``squeeze_time``,
 and ``RADMMMFlow.infer``). Context: the aligned text states squeezed in time
 by n_group_size, the speaker vector and the F0/energy channels, through a
 context BiLSTM. Training (``forward``): mel -> z through the flow steps,
-each a 1x1 mix then an affine coupling, with n_early_size channels leaving
+each a 1x1 mix then a coupling (a quadratic spline coupling for the first
+``n_splines`` steps, affine after), with n_early_size channels leaving
 every n_early_every steps; it returns z and every step's log s and
 log|det W|. Sampling: z ~ N(0, sigma²) (drawn from an explicit
-``torch.Generator``) runs through the flow steps in reverse, each an
-affine-coupling inverse followed by the 1x1 inverse, with the early-exit
-channels re-inserted where the forward direction split them off.
+``torch.Generator``) runs through the flow steps in reverse, each a
+coupling inverse followed by the 1x1 inverse, with the early-exit
+channels re-inserted where the forward direction split them off. The
+spline couplings' batch norms use the batch statistics when ``forward``
+trains (updating their running statistics) and the running ones in
+``forward(train=False)`` and in ``infer``.
 
 The squeeze keeps the channel-major nn.Unfold order (index = c*g + k).
 """
@@ -21,7 +25,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from radmmm_torch.ops.coupling import AffineCoupling
+from radmmm_torch.ops.coupling import AffineCoupling, SplineCoupling
 from radmmm_torch.ops.invertible import InvertibleLU, WhiteningConv
 from radmmm_torch.ops.length_regulator import regulate_length
 from radmmm_torch.ops.lstm import MaskedLSTM
@@ -47,31 +51,40 @@ def unsqueeze_time(x: torch.Tensor, g: int) -> torch.Tensor:
 
 
 class FlowStep(nn.Module):
-    """Invertible 1x1 + affine coupling."""
+    """Invertible 1x1 + an affine or (``use_spline``) a quadratic spline
+    coupling of 32 bins over [-3, 3]."""
 
     def __init__(self, n_channels: int, n_context_dim: int, n_layers: int,
                  step_index: int, mode: str = "LUS",
                  affine_model: str = "wavenet", scaling_fn: str = "tanh",
                  affine_activation: str = "softplus",
-                 use_partial_padding: bool = True):
+                 use_partial_padding: bool = True, use_spline: bool = False,
+                 use_bn: bool = True):
         super().__init__()
         self.invtbl_conv = (WhiteningConv(n_channels, init_seed=step_index)
                             if mode == "whiten"
                             else InvertibleLU(n_channels,
                                               init_seed=step_index))
-        self.coupling = AffineCoupling(
-            n_channels, n_context_dim, n_layers, affine_model=affine_model,
-            scaling_fn=scaling_fn, affine_activation=affine_activation,
-            use_partial_padding=use_partial_padding)
+        if use_spline:
+            self.coupling = SplineCoupling(
+                n_channels, n_context_dim, n_layers, n_bins=32, left=-3,
+                right=3, bottom=-3, top=3, use_quadratic=True,
+                use_bn=use_bn)
+        else:
+            self.coupling = AffineCoupling(
+                n_channels, n_context_dim, n_layers,
+                affine_model=affine_model, scaling_fn=scaling_fn,
+                affine_activation=affine_activation,
+                use_partial_padding=use_partial_padding)
 
-    def forward(self, z, context, mask=None):
+    def forward(self, z, context, mask=None, train: bool = True):
         """(z', log|det W|, log s)."""
         z, log_det_W = self.invtbl_conv(z)
-        z, log_s = self.coupling(z, context, mask)
+        z, log_s = self.coupling(z, context, mask, train=train)
         return z, log_det_W, log_s
 
-    def inverse(self, z, context, mask=None):
-        z = self.coupling.inverse(z, context, mask)
+    def inverse(self, z, context, mask=None, train: bool = False):
+        z = self.coupling.inverse(z, context, mask, train=train)
         return self.invtbl_conv.inverse(z)
 
 
@@ -94,11 +107,9 @@ class RADMMMFlow(nn.Module):
                  use_accent_emb_for_decoder: bool = False,
                  bn_axis_name: Optional[str] = None, remat=False):
         super().__init__()
-        del use_accent, use_bn, bn_axis_name, remat   # training/JAX-only
+        del use_accent, bn_axis_name, remat   # JAX-only
         if n_speaker_dim % 2 or n_early_size % 2:
             raise ValueError("n_speaker_dim and n_early_size must be even")
-        if n_splines:
-            raise ValueError("spline couplings are not ported yet")
         g = n_group_size
         self.n_group_size = g
         self.n_mel_channels = n_mel_channels
@@ -128,7 +139,8 @@ class RADMMMFlow(nn.Module):
                      mode=("whiten" if i == 0 else "LUS"),
                      affine_model=affine_model, scaling_fn=scaling_fn,
                      affine_activation=affine_activation,
-                     use_partial_padding=use_partial_padding)
+                     use_partial_padding=use_partial_padding,
+                     use_spline=i < n_splines, use_bn=use_bn)
             for i, c in enumerate(self._flow_channel_sizes())])
 
     @property
@@ -184,7 +196,7 @@ class RADMMMFlow(nn.Module):
             if i in exits:
                 z_out.append(z[..., :self.n_early_size])
                 z = z[..., self.n_early_size:]
-            z, log_det_W, log_s = step(z, ctx, mask)
+            z, log_det_W, log_s = step(z, ctx, mask, train=train)
             log_s_list.append(log_s)
             log_det_W_list.append(log_det_W)
         z_out.append(z)

@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from radmmm_torch.models.attributes import ConvLSTMLinearDAP
+from radmmm_torch.models.attributes import ConvLSTMLinearDAP, LSTMConvDAP
 from radmmm_torch.models.encoder import TextEncoder
 from radmmm_torch.models.flow_decoder import RADMMMFlow
 from radmmm_torch.ops.alignment import binarize_attention
@@ -113,6 +113,9 @@ def mel_descale(mel):
 
 _PREDICTORS = ("f0_predictor", "energy_predictor", "voiced_predictor",
                "duration_predictor")
+# a predictor config's ``_class`` (the reference's class_path)
+_DAP_CLASSES = {"ConvLSTMLinearDAP": ConvLSTMLinearDAP,
+                "LSTMConvDAP": LSTMConvDAP}
 
 
 class TTSModel(nn.Module):
@@ -142,9 +145,10 @@ class TTSModel(nn.Module):
                 continue
             pcfg = dict(pcfg)
             cls_name = pcfg.pop("_class", "ConvLSTMLinearDAP")
-            if cls_name != "ConvLSTMLinearDAP":
-                raise ValueError(f"{attr}: {cls_name} is not ported yet")
-            setattr(self, attr, ConvLSTMLinearDAP(**pcfg))
+            if cls_name not in _DAP_CLASSES:
+                raise ValueError(f"{attr}: unknown predictor class "
+                                 f"{cls_name}")
+            setattr(self, attr, _DAP_CLASSES[cls_name](**pcfg))
 
     def cache_inverses(self) -> "TTSModel":
         """Compute every flow 1x1 inverse once (after the weights are

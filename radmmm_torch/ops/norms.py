@@ -1,7 +1,7 @@
-"""Masked instance norm: per-sample, per-channel stats over valid frames.
+"""Masked normalization: instance norm and batch norm with length masks.
 
-Counterpart of ``radmmm_tpu/ops/norms.py::MaskedInstanceNorm1d``. Layout
-(B, T, C); the mask is (B, T).
+Counterpart of ``radmmm_tpu/ops/norms.py`` (``MaskedInstanceNorm1d``,
+``MaskedBatchNorm``). Layout (B, T, C); the mask is (B, T).
 """
 from __future__ import annotations
 
@@ -33,3 +33,48 @@ class MaskedInstanceNorm1d(nn.Module):
         if mask is not None:
             out = out * m[..., None]
         return out
+
+
+class MaskedBatchNorm(nn.Module):
+    """Length-masked batch norm with running statistics.
+
+    Train: normalise with the masked batch statistics (biased variance)
+    and move the running mean toward the batch mean and the running
+    variance toward the unbiased one, var * n / max(n - 1, 1), with
+    momentum 0.1 as torch's BatchNorm1d. Eval: normalise with the running
+    statistics. ``scale`` and ``bias`` are parameters; ``mean`` and
+    ``var`` are buffers (the JAX module's ``batch_stats`` collection).
+    The padded frames are normalised too, as in the JAX module."""
+
+    def __init__(self, features: int, momentum: float = 0.1,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                train: bool = True, sync: bool = False) -> torch.Tensor:
+        if sync:
+            raise NotImplementedError(
+                "sync-BN across cards comes with ROADMAP item M13; the port "
+                "normalises over one device's batch")
+        if train:
+            m = (x.new_ones(x.shape[:2]) if mask is None
+                 else mask.to(x.dtype))
+            n = m.sum()
+            mean = torch.einsum("btc,bt->c", x, m) / n
+            var = torch.einsum("btc,bt->c", x * x, m) / n - mean ** 2
+            with torch.no_grad():
+                unbiased = var * n / (n - 1.0).clamp_min(1.0)
+                self.mean.copy_(self.momentum * mean
+                                + (1 - self.momentum) * self.mean)
+                self.var.copy_(self.momentum * unbiased
+                               + (1 - self.momentum) * self.var)
+        else:
+            mean, var = self.mean, self.var
+        out = (x - mean) * torch.rsqrt(var + self.eps)
+        return out * self.scale + self.bias

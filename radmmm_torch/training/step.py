@@ -9,8 +9,12 @@ one takes a ``torch.Generator`` on the model's device. The step functions
 act on the model they were made for; the state is what a checkpoint
 saves and resumes (``convert.load_jax_train_state``). Each step puts the
 model in train mode, which drops its cached flow inverses, so sampling
-after a step uses the new weights. The phase flags (binarize, kl_on) are plain Python booleans,
-one step function per phase, as in the JAX package.
+after a step uses the new weights. A training step's forward also moves
+the batch norms' running statistics (the spline couplings', buffers of
+the model), as the JAX step's mutable ``batch_stats`` does; the
+validation step normalises with them. The phase flags (binarize, kl_on)
+are plain Python booleans, one step function per phase, as in the JAX
+package.
 
     model = TTSModel(default_radmmm_config())
     state = create_train_state(model)            # to CUDA, RAdam, clip 1.0

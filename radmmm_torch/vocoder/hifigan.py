@@ -38,6 +38,7 @@ from torch import nn
 
 from radmmm_torch.ops.conv import weight_norm_kernel
 from radmmm_torch.ops.stft import MelSpectrogram, istft_frames
+from radmmm_torch.utils.device import resolve_device
 
 LRELU_SLOPE = 0.1
 
@@ -400,7 +401,8 @@ class Denoiser:
     def __init__(self, generator_fn: Callable[[torch.Tensor], torch.Tensor],
                  n_mel_channels: int = 80, filter_length: int = 1024,
                  n_overlap: int = 4, win_length: int = 1024,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
+        device = resolve_device(device)
         self.stft = MelSpectrogram(filter_length=filter_length,
                                    hop_length=filter_length // n_overlap,
                                    win_length=win_length)

@@ -229,3 +229,41 @@ def test_load_pretrained_submodules(setup, tmp_path):
     for k, t in state.model.state_dict().items():
         from_donor = k.split(".")[0] in ("decoder", "text_encoder")
         assert torch.equal(t, theirs[k] if from_donor else mine[k]), k
+
+
+def test_batch_norm_running_statistics_round_trip(tmp_path):
+    """A model with a spline flow step: its batch norms' running
+    statistics, moved by two training steps, go into the checkpoint and
+    come back on restore into a fresh state; the resumed step then moves
+    them from there exactly as the uninterrupted run does."""
+    from tests.test_torch_training import _spline_setup
+    jm, v, batch = _spline_setup()
+
+    def bn_buffers(model):
+        return {k: t.clone() for k, t in model.state_dict().items()
+                if k.endswith(".bn.mean") or k.endswith(".bn.var")}
+
+    state = _state(jm, v)
+    fn = step.make_train_step(state.model, step.LossConfig(n_group_size=2),
+                              binarize=False, kl_on=False)
+    start = bn_buffers(state.model)
+    assert start
+    for _ in range(2):
+        state, _ = fn(state, _batch(batch), torch.Generator())
+    moved = bn_buffers(state.model)
+    assert all(not torch.equal(moved[k], start[k]) for k in start)
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(2, state)
+
+    fresh = _state(jm, v)
+    fresh, step_ = mgr.restore(fresh)
+    assert step_ == 2
+    for k, t in bn_buffers(fresh.model).items():
+        assert torch.equal(t, moved[k]), k
+    state, _ = fn(state, _batch(batch), torch.Generator())
+    fn2 = step.make_train_step(fresh.model, step.LossConfig(n_group_size=2),
+                               binarize=False, kl_on=False)
+    fresh, _ = fn2(fresh, _batch(batch), torch.Generator())
+    want = bn_buffers(state.model)
+    for k, t in bn_buffers(fresh.model).items():
+        assert torch.equal(t, want[k]), k

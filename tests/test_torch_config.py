@@ -93,3 +93,51 @@ def test_build_all_builds_the_7language_recipe(tmp_path, monkeypatch):
     loss = trainer.loss_cfg
     assert (loss.kl_loss_start_iter, loss.binarization_start_iter,
             loss.cross_covariance_weight) == (25000, 20000, 1.0)
+
+
+@pytest.mark.parametrize("name", list(TRACKED))
+def test_every_tracked_stack_builds_a_port_model(name, tmp_path,
+                                                 monkeypatch):
+    """Each tracked stack's TTSConfig builds a port TTSModel (on the meta
+    device: shapes only) whose every tensor has the name and shape the
+    JAX model's leaf maps to (``jax.eval_shape`` of its init): stack (2)
+    with its LSTMConvDAP duration predictor."""
+    import functools
+
+    import jax
+    import numpy as np
+    import torch
+
+    from radmmm_tpu.models.tts import TTSConfig as JaxTTSConfig
+    from radmmm_tpu.models.tts import TTSModel as JaxTTSModel
+    from radmmm_torch.convert import _flatten, _tts_leaf
+    from radmmm_torch.models.attributes import LSTMConvDAP
+    from radmmm_torch.models.tts import TTSModel
+    from tests.test_tts_model import tiny_batch
+
+    monkeypatch.chdir(ROOT)
+    cfg = config.load_configs(TRACKED[name])
+    cfg["model"]["output_directory"] = str(tmp_path)
+    _, trainer = build_all(cfg, device="cpu")
+    with torch.device("meta"):
+        port = TTSModel(trainer.tts_config)
+    if name == "ljs22_attribute_stack":
+        assert isinstance(port.duration_predictor, LSTMConvDAP)
+    jm = JaxTTSModel(config=JaxTTSConfig(
+        **dataclasses.asdict(trainer.tts_config)))
+    batch = {k: np.asarray(a) for k, a in tiny_batch(
+        np.random.default_rng(0)).items()}
+    batch["mel"] = np.zeros((2, 16, trainer.tts_config.n_mel_channels),
+                            np.float32)
+    shapes = jax.eval_shape(
+        functools.partial(jm.init, binarize=False, train=True),
+        {"params": jax.random.key(0), "dropout": jax.random.key(1)}, batch)
+    want = {}
+    for col, tree in shapes.items():
+        views = jax.tree_util.tree_map(
+            lambda s: np.broadcast_to(np.float32(0), s.shape), tree)
+        for path, a in _flatten(views):
+            key, a = _tts_leaf(col, path, a)
+            want[".".join(key)] = tuple(a.shape)
+    got = {k: tuple(t.shape) for k, t in port.state_dict().items()}
+    assert got == want

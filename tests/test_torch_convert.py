@@ -154,8 +154,129 @@ def test_hifigan_every_leaf_maps_to_one_port_tensor(resblock):
 
 def test_unknown_collection_is_refused():
     _, variables = jax_tiny_tts()
+    with pytest.raises(ValueError, match="intermediates"):
+        tts_state_dict_from_jax({**variables, "intermediates": {}})
+
+
+def _m12_config(variant):
+    """The tiny config with M12's modules: a spline first step with batch
+    norms and film_stack affine steps after it, or simple_conv affine
+    steps; an LSTMConvDAP duration predictor in both."""
+    cfg = tiny_config()
+    dur = dict(_class="LSTMConvDAP", n_speaker_dim=4, in_dim=18, out_dim=1,
+               reduction_factor=2, n_backbone_layers=2, n_hidden=8,
+               kernel_size=3, log_target=True)
+    decoder = (dict(cfg.decoder, n_splines=1, use_bn=True,
+                    affine_model="film_stack") if variant == "spline_film"
+               else dict(cfg.decoder, affine_model="simple_conv"))
+    return dataclasses.replace(cfg, decoder=decoder, duration_predictor=dur)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_m12_tts(variant):
+    model = JaxTTSModel(config=_m12_config(variant))
+    variables = jax.jit(
+        functools.partial(model.init, binarize=False, train=True))(
+            {"params": jax.random.key(0), "dropout": jax.random.key(1)},
+            tiny_batch(np.random.default_rng(0)))
+    return model, to_numpy(variables)
+
+
+@pytest.mark.parametrize("variant", ["spline_film", "simple_conv"])
+def test_m12_leaves_each_map_to_one_port_tensor(variant):
+    """Every leaf of every collection (batch_stats included) maps to one
+    port tensor of its shape, and the new leaves follow the layout
+    rules."""
+    jm, variables = jax_m12_tts(variant)
+    assert ("batch_stats" in variables) == (variant == "spline_film")
+    sd = tts_state_dict_from_jax(variables)
+    assert len(sd) == _n_leaves(variables, variables)
+    want = TTSModel(TTSConfig(**dataclasses.asdict(jm.config))).state_dict()
+    assert set(sd) == set(want), (set(sd) ^ set(want))
+    for k, v in sd.items():
+        assert v.shape == want[k].shape and v.dtype == want[k].dtype, k
+    p = variables["params"]
+    dur = p["duration_predictor"]["backbone"]
+    np.testing.assert_array_equal(
+        sd["duration_predictor.backbone.lstm.wi_fwd"].numpy(),
+        dur["lstm"]["wi_fwd"])
+    np.testing.assert_array_equal(
+        sd["duration_predictor.backbone.conv_1.v"].numpy(),
+        dur["conv_1"]["v"].transpose(2, 1, 0))
+    if variant == "spline_film":
+        film = p["decoder"]["flow_0"]["coupling"]["film"]
+        np.testing.assert_array_equal(
+            sd["decoder.flows.0.coupling.film.block_0.cond_conv.v"].numpy(),
+            film["block_0"]["cond_conv"]["v"].transpose(2, 1, 0))
+        np.testing.assert_array_equal(
+            sd["decoder.flows.0.coupling.film.end.weight"].numpy(),
+            film["end"]["kernel"].transpose(2, 1, 0))
+        stats = variables["batch_stats"]["decoder"]["flow_0"]["coupling"][
+            "film"]["block_0"]["bn"]
+        for k in ("mean", "var"):
+            np.testing.assert_array_equal(
+                sd[f"decoder.flows.0.coupling.film.block_0.bn.{k}"].numpy(),
+                stats[k])
+        assert "decoder.flows.1.coupling.film.block_0.hidden_conv.v" in sd
+    else:
+        scn = p["decoder"]["flow_1"]["coupling"]["scn"]
+        np.testing.assert_array_equal(
+            sd["decoder.flows.1.coupling.scn.layer_0.weight"].numpy(),
+            scn["layer_0"]["kernel"].transpose(2, 1, 0))
+        assert "decoder.flows.1.coupling.scn.last.weight" in sd
+
+
+def _alt_decoders():
+    """(name, flax module, its init arguments, port module) of each
+    alternative decoder at a small width."""
+    from radmmm_tpu.models import alt_decoders as J
+    from radmmm_tpu.utils.masking import SeqLens as JaxSeqLens
+    from radmmm_torch.models import alt_decoders as P
+    rng = np.random.default_rng(0)
+    ctx = jnp.asarray(rng.standard_normal((2, 16, 12)), jnp.float32)
+    spk = jnp.ones((2, 4))
+    f0 = jnp.ones((2, 16))
+    lens = JaxSeqLens.create(jnp.asarray([16, 9]), 16)
+    mel = jnp.zeros((2, 16, 8))
+    voc = JaxHiFiGANConfig(**SMALL_VOCODER)
+    return [
+        ("deterministic",
+         J.DeterministicDecoder(n_mel_channels=8, n_speaker_dim=4,
+                                n_layers=2, n_channels=16),
+         (ctx, spk, lens, f0, f0),
+         P.DeterministicDecoder(8, 4, 2, 16, n_context_dim=12)),
+        ("e2e",
+         J.E2ETTSDecoder(n_mel_channels=8, n_speaker_dim=4, n_layers=1,
+                         n_channels=16, vocoder_config=voc),
+         (ctx, spk, lens, f0, f0),
+         P.E2ETTSDecoder(8, 4, 1, 16, HiFiGANConfig(**SMALL_VOCODER),
+                         n_context_dim=12)),
+        ("diffusion",
+         J.DiffusionDecoder(n_mel_channels=8, n_context_dim=12, n_layers=2,
+                            n_channels=16),
+         (jax.random.key(1), mel, ctx, lens),
+         P.DiffusionDecoder(8, 12, 2, 16))]
+
+
+@pytest.mark.parametrize("i", range(3), ids=["deterministic", "e2e",
+                                             "diffusion"])
+def test_alt_decoder_every_leaf_maps_to_one_port_tensor(i):
+    from radmmm_torch.convert import alt_decoder_state_dict_from_jax
+    _, jm, args, port = _alt_decoders()[i]
+    variables = to_numpy(jax.jit(jm.init)(jax.random.key(0), *args))
+    sd = alt_decoder_state_dict_from_jax(variables)
+    assert len(sd) == _n_leaves(variables, ["params"])
+    want = port.state_dict()
+    assert set(sd) == set(want), (set(sd) ^ set(want))
+    for k, v in sd.items():
+        assert v.shape == want[k].shape, k
+    if i == 2:
+        k = variables["params"]["step_embedding"]["Dense_1"]["kernel"]
+        np.testing.assert_array_equal(
+            sd["step_embedding.Dense_1.weight"].numpy(), k.T)
+        assert "net.res_skip_1.v" in sd and "net.cond_0.g" in sd
     with pytest.raises(ValueError, match="batch_stats"):
-        tts_state_dict_from_jax({**variables, "batch_stats": {}})
+        alt_decoder_state_dict_from_jax({**variables, "batch_stats": {}})
 
 
 def test_port_imports_no_jax():

@@ -11,7 +11,9 @@ from the JAX trainer's initial state, carried over by
 ``convert.load_jax_train_state`` through the ``_init_state`` seam; the
 JAX trainer's resume starts from its own fit's last state through the
 same seam (the restore overwrites it), which spares it a second trace of
-the model's init.
+the model's init. Tracked stack (2)'s shape (an LSTMConvDAP duration
+predictor, speaker-only frame predictors, no accent in the encoder) runs
+``fit`` to 4 steps on the same corpus through both trainers.
 
 Tolerances: every scalar of the two ``metrics.jsonl`` files that draws no
 random number (the reconstruction's MCD samples the flow, and steps/s is
@@ -224,6 +226,94 @@ def _first_loader_done(dm, timeout=120.0):
     while getattr(dm.trainset, "n_loaded", 0) < len(dm.trainset):
         assert time.monotonic() < deadline, "the first loader stalled"
         time.sleep(0.01)
+
+
+def _lstm_conv_dap(**kw):
+    return {"class_path": "attribute_predictors.LSTMConvDAP",
+            "init_args": dict(n_speaker_dim=4, in_dim=16, out_dim=1,
+                              reduction_factor=2, n_backbone_layers=2,
+                              n_hidden=8, kernel_size=3, p_dropout=0.0,
+                              **kw)}
+
+
+def _frame_dap(**kw):
+    """A frame predictor of tracked stack (2): speaker-only, no accent."""
+    d = _dap(**kw)
+    d["init_args"].update(n_accent_dim=0, use_accent_embedding=False,
+                          in_dim=16)
+    return d
+
+
+@pytest.fixture(scope="module")
+def stack2_runs(cfg_files):
+    """Tracked stack (2)'s shape at the tiny width (configs/radtts_*.yaml:
+    no accent in the encoder or the alignment keys, the decoder's accent
+    embedding on, speaker-only frame predictors and an LSTMConvDAP
+    duration predictor) on the same corpus: fit to 4 steps on both
+    trainers, binarization and KL on from the first step (one phase, one
+    compile of the JAX step; the phase switches are the recipe test's),
+    validation and checkpoints every 2."""
+    path, _, out = cfg_files
+    with open(path) as f:
+        doc = yaml.safe_load(f)
+    m = doc["model"]
+    m.update(use_accent_emb_for_encoder=False,
+             use_speaker_emb_for_alignment=False,
+             binarization_start_iter=0, iters_per_checkpoint=2)
+    m["decoder"]["init_args"].update(n_text_dim=16,
+                                     use_accent_emb_for_decoder=True)
+    m["decoder_loss"]["init_args"]["kl_loss_start_iter"] = -1
+    m["f0_predictor"] = _frame_dap(target_offset=-5)
+    m["energy_predictor"] = _frame_dap(target_offset=-0.75)
+    m["voiced_predictor"] = _frame_dap()
+    m["duration_predictor"] = _lstm_conv_dap(log_target=True)
+    doc["trainer"].update(max_steps=4, val_check_interval=2)
+    stack2 = out / "stack2.yaml"
+    stack2.write_text(yaml.safe_dump(doc))
+
+    jcfg = jax_load_configs([str(stack2)])
+    jcfg["model"]["output_directory"] = str(out / "jax2")
+    jdm, jtr = jax_cli.build_all(jcfg)
+    jtr.model = JaxTTSModel(config=_no_encoder_dropout(jtr.model.config))
+    captured = {}
+    init = jtr._init_state
+
+    def capture(batch):
+        _first_loader_done(jdm)
+        state = init(batch)
+        captured["state"] = jax.tree_util.tree_map(np.asarray, state)
+        return state
+
+    jtr._init_state = capture
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JaxAudioDataset, "__getitem__", _counted_getitem)
+        jtr.fit(jdm)
+
+    cfg = load_configs([str(stack2)])
+    cfg["model"]["output_directory"] = str(out / "torch2")
+    dm, tr = torch_cli.build_all(cfg, device="cpu")
+    tr.__class__ = _PortTrainerFromJax
+    tr.tts_config = _no_encoder_dropout(tr.tts_config)
+    tr.jax_state = captured["state"]
+    state = tr.fit(dm)
+    return dict(out=out, trainer=tr, state=state)
+
+
+def test_stack2_fit_matches_jax(stack2_runs):
+    """Tracked stack (2)'s shape: the port's metrics.jsonl rows equal
+    JAX's, every logged loss finite (the duration loss of the LSTMConvDAP
+    among them)."""
+    from radmmm_torch.models.attributes import LSTMConvDAP
+    out, tr = stack2_runs["out"], stack2_runs["trainer"]
+    assert isinstance(tr.model.duration_predictor, LSTMConvDAP)
+    got, want = _rows(out / "torch2"), _rows(out / "jax2")
+    assert [r["step"] for r in want] == [2, 2, 2, 4, 4, 4], \
+        [r["step"] for r in want]
+    _rows_close(got, want)
+    assert any("train/duration_loss" in r for r in got)
+    assert all(np.isfinite(v) for r in got for k, v in r.items()
+               if "loss" in k)
+    assert tr.ckpt.steps() == [2, 4] and stack2_runs["state"].step == 4
 
 
 @pytest.fixture(scope="module")

@@ -94,6 +94,58 @@ def test_single_stage_bucketed_mel_matches_jax(ported, rng, tmp_path):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
+def test_m12_model_serves_as_jax(rng, tmp_path):
+    """A model with an LSTMConvDAP duration predictor, a spline first
+    step and FiLM-stack couplings, its running statistics moved off their
+    init: the two-stage v2 artifact carries them (the loaded buffers are
+    the exported ones, and it answers as the in-process model does), and
+    its frame counts equal the JAX package's two-stage call on the same
+    variables. The mels agree within 5e-4: JAX's quadratic spline
+    inverse cancels where a bin's slope barely changes (its result is off
+    by up to about 1e-3 there, tests/test_torch_couplings.py and
+    tests/test_torch_splines.py), which here moves its mel by 1.4e-4; the
+    port's inverse, in the conjugate form, is held to its own forward."""
+    import dataclasses
+
+    from radmmm_torch.convert import tts_state_dict_from_jax
+    from radmmm_torch.models.tts import TTSConfig, TTSModel
+    from tests.test_torch_convert import jax_m12_tts, perturb
+    jm, v = jax_m12_tts("spline_film")
+    v = perturb(v, seed=8)
+    g = np.random.default_rng(9)
+    v["batch_stats"] = jax.tree_util.tree_map(
+        lambda a: (a + 0.2 * g.uniform(0.5, 1.0, a.shape)).astype(np.float32),
+        v["batch_stats"])
+    port = TTSModel(TTSConfig(**dataclasses.asdict(jm.config)))
+    port.load_state_dict(tts_state_dict_from_jax(v))
+    port.eval().cache_inverses()
+    path = str(tmp_path / "m12.pt")
+    export_tts(port, path, sigma=0.0, buckets=TEXT_BUCKETS,
+               frame_buckets=FRAME_BUCKETS)
+    served = load_tts(path, device="cpu")
+    bundle = torch.load(path, weights_only=True)
+    stats = {k: t for k, t in bundle["tts_state"].items()
+             if k.endswith((".bn.mean", ".bn.var"))}
+    assert stats and all(
+        torch.equal(t, port.get_buffer(k)) for k, t in stats.items())
+    dur_fn, make_decode = jax_serving.make_two_stage_fns(jm, v, sigma=0.0)
+    dur = {bt: types.SimpleNamespace(call=jax.jit(dur_fn))
+           for bt in TEXT_BUCKETS}
+    dec = {bt: {f: types.SimpleNamespace(call=jax.jit(make_decode(f)))
+                for f in FRAME_BUCKETS} for bt in TEXT_BUCKETS}
+    jax_call = jax_serving._two_stage_call(dur, dec)[0]
+    r1, r2 = _requests(rng)
+    for req in (r1, r2):
+        want, want_lens = jax_call(*req, np.int32(0))
+        got, got_lens = served(*req, 0)
+        np.testing.assert_array_equal(got_lens.numpy(), np.asarray(want_lens))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-4)
+    text_p = np.zeros((1, 8), np.int32)
+    text_p[:, :5] = r1[0]
+    mine, _ = TwoStageTTS(port, FRAME_BUCKETS, sigma=0.0)(text_p, *r1[1:], 0)
+    assert torch.equal(served(*r1, 0)[0], mine)
+
+
 def test_artifact_round_trip(ported, rng, tmp_path):
     """A loaded v2 artifact equals the in-process TwoStageTTS at the same
     seed (sigma 0.8: the latent comes from the seeded generator); the

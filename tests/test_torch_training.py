@@ -322,3 +322,116 @@ def test_phase_flags_match_jax():
     for s in (0, 19999, 20000, 25000, 25001):
         assert step.phase_flags(s, step.LossConfig()) == \
             jax_step.phase_flags(s, jax_step.LossConfig())
+
+
+def _spline_setup():
+    """The tiny model with a spline flow step first (2 flows; flow 0 holds
+    the whitening 1x1 and a quadratic spline coupling with batch norms),
+    dropout at 0."""
+    cfg = _no_dropout_config()
+    cfg = dataclasses.replace(cfg, decoder=dict(cfg.decoder, n_splines=1,
+                                                use_bn=True))
+    jm = JaxTTSModel(config=cfg)
+    # 64 frames: the whitening init needs a full-rank covariance (61
+    # valid frames of 16 channels)
+    batch = tiny_batch(np.random.default_rng(1), T_mel=64)
+    v = jax.jit(functools.partial(jm.init, binarize=False, train=True))(
+        {"params": jax.random.key(0), "dropout": jax.random.key(1)}, batch)
+    assert v["batch_stats"]
+    return jm, perturb(v, seed=6), {k: np.asarray(a)
+                                    for k, a in batch.items()}
+
+
+def _batch_stats_close(port, batch_stats):
+    stats = tts_state_dict_from_jax({"batch_stats": batch_stats})
+    assert stats and all(k.endswith((".mean", ".var")) for k in stats)
+    for k, want in stats.items():
+        np.testing.assert_allclose(port.get_buffer(k).numpy(),
+                                   want.numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+
+
+def test_spline_flow_training_steps_match_jax():
+    """3 training steps (binarize and kl on) of the model with a spline
+    step, then the validation step: every loss term, the grad norm and
+    the gradients of the first step, the parameters and the batch norms'
+    running statistics after the steps (each step moves them, as JAX's
+    mutable batch_stats does), and the validation step on the running
+    statistics. The whitening init leaves the spline coupling alone and
+    matches JAX's; a port state loaded from the JAX state carries the
+    running statistics over."""
+    jm, v, batch = _spline_setup()
+    jcfg = jax_step.LossConfig(**REG)
+    tx = jax_optim.build_optimizer("RAdam", **OPT)
+    params = _params(v)
+    jstate = jax_step.TrainState(
+        step=jnp.zeros((), jnp.int32), params=params, buffers=v["buffers"],
+        batch_stats=v["batch_stats"], spectral=v["spectral"],
+        opt_state=tx.init(params))
+    port = _port(jm, v)
+    assert type(port.decoder.flows[0].coupling).__name__ == "SplineCoupling"
+    state = step.create_train_state(port, device="cpu", **OPT)
+    tb = _t(batch)
+    jstate = jax.jit(jax_step.make_whitening_init(jm))(jstate, batch)
+    step.make_whitening_init(port)(state, tb)
+    jp = jstate.params["decoder"]["flow_0"]["invtbl_conv"]
+    np.testing.assert_allclose(
+        port.decoder.flows[0].invtbl_conv.upper.detach().numpy(),
+        np.asarray(jp["upper"]), rtol=1e-4, atol=1e-5)
+    before = copy.deepcopy(port.decoder.flows[0].coupling.state_dict())
+    for k, t in port.decoder.flows[0].coupling.state_dict().items():
+        assert torch.equal(t, before[k])
+
+    jfn = jax.jit(jax_step.make_train_step(jm, jcfg, tx, True, True))
+    fn = step.make_train_step(port, step.LossConfig(**REG), True, True)
+    gen = torch.Generator()
+    for k in range(3):
+        jstate, jmet = jfn(jstate, batch, jax.random.key(k))
+        state, met = fn(state, tb, gen)
+        assert set(met) == set(jmet)
+        for name, val in met.items():
+            np.testing.assert_allclose(val.item(), float(jmet[name]),
+                                       rtol=1e-4, atol=ATOL,
+                                       err_msg=f"step {k}: {name}")
+        _batch_stats_close(port, jstate.batch_stats)
+    want = tts_state_dict_from_jax({"params": jstate.params})
+    for name, p in port.named_parameters():
+        _close(p.detach().numpy(), want[name].numpy(), name, atol=1e-5)
+
+    jval = jax.jit(jax_step.make_val_step(jm, jcfg))(jstate, batch)
+    val = step.make_val_step(port, step.LossConfig(**REG))(state, tb)
+    for name, x in val.items():
+        _close(x.item(), jval[name], f"val {name}")
+    _batch_stats_close(port, jstate.batch_stats)     # eval moves nothing
+
+    resumed = step.create_train_state(_port(jm, v), device="cpu", **OPT)
+    load_jax_train_state(resumed, jax.tree_util.tree_map(np.asarray, jstate))
+    _batch_stats_close(resumed.model, jstate.batch_stats)
+
+
+def test_spline_flow_first_step_gradients_match_jax():
+    """One step's full gradient tree through the spline coupling, its FiLM
+    stack and batch norms, in training mode."""
+    jm, v, batch = _spline_setup()
+    jcfg = jax_step.LossConfig(**REG)
+
+    def loss_fn(params):
+        out, mut = jm.apply(
+            {"params": params, "buffers": v["buffers"],
+             "batch_stats": v["batch_stats"], "spectral": v["spectral"]},
+            batch, binarize=True, train=True,
+            mutable=["batch_stats", "spectral"],
+            rngs={"dropout": jax.random.key(2)})
+        ld = jax_step.compute_losses(jm, jcfg, params, out, batch,
+                                     binarization_on=True)
+        return jax_step.total_loss(ld), mut
+
+    (_, mut), g = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        _params(v))
+    port = _port(jm, v)
+    tb = _t(batch)
+    out = port(tb, binarize=True, train=True)
+    step.total_loss(step.compute_losses(port, step.LossConfig(**REG), out,
+                                        tb, True)).backward()
+    _grads_close(port, g)
+    _batch_stats_close(port, mut["batch_stats"])

@@ -180,7 +180,7 @@ def test_denoiser_matches_jax(rng):
     gen, variables = jax_small_vocoder("1")
     port = torch_vocoder(variables, "1")
     want_den = jh.Denoiser(gen.apply, variables, n_mel_channels=8)
-    got_den = th.Denoiser(lambda m: port(m), n_mel_channels=8)
+    got_den = th.Denoiser(lambda m: port(m), n_mel_channels=8, device="cpu")
     np.testing.assert_allclose(got_den.bias_spec.detach().numpy(),
                                np.asarray(want_den.bias_spec), rtol=1e-4,
                                atol=1e-6)
@@ -192,6 +192,20 @@ def test_denoiser_matches_jax(rng):
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+
+
+def test_denoiser_runs_on_the_card_unless_given_the_cpu():
+    """The Denoiser makes its bias spectrum on the card by default, as the
+    other entry points do; without one it raises unless asked for the
+    CPU, where it holds the bias spectrum of the CPU generator."""
+    _, variables = jax_small_vocoder("1")
+    port = torch_vocoder(variables, "1")
+    den = th.Denoiser(lambda m: port(m), n_mel_channels=8, device="cpu")
+    assert den.bias_spec.device.type == "cpu"
+    assert den.bias_spec.shape == (1, 1, 513)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            th.Denoiser(lambda m: port(m), n_mel_channels=8)
 
 
 def _write_g_file(tmp_path, config, seed=11):
