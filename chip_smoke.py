@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases build,kernels,serve,parity,train,
                            train_parity,wn,featurize,vocoder,fit,
-                           radtts_fit,m12] [--seed 0]
+                           radtts_fit,m12,ddp] [--seed 0]
 
 Phases (all by default):
 
@@ -143,7 +143,37 @@ Phases (all by default):
             on the card (backward and Adam) with the loss terms held against
             the CPU, and the diffusion decoder's 100-step ancestral sampling
             with its draws fed. Each part prints its ms and its error
-            beside its bound, and its kernels' launches are checked.
+            beside its bound, and its kernels' launches are checked;
+13. ddp     training on two ranks (radmmm_torch.parallel): NCCL with a
+            card a rank when there are two cards or more, else both ranks
+            on card 0 over gloo with CUDA tensors (then also a one-rank
+            NCCL group on card 0 runs NCCL's all-gather, reduce-scatter
+            and all-reduce once, and the references run in it), chosen by
+            the count of cards. Each rank is a child process of this one
+            (chip_smoke.py --ddp-child) under a timeout. TF32 off, dropout
+            off, the flagship model at full width from --seed. (a) data
+            parallel: two ranks of B 8 (T_text 96, T_mel 512, ragged
+            lengths, so they hold other numbers of valid frames) against
+            one rank on their B 16: the whitening init's mean and
+            covariance, every loss term and the grad norm, every
+            gradient (the train_parity bound), then 3 timed steps with
+            each rank's ms a step, its gradient all-reduce (ms, bytes),
+            peak memory and launches (K4 4 + 4, K1 1, K2 1, K3 1 a step),
+            and the ranks' parameter checksums equal after; gloo's answer
+            to each collective on CUDA tensors is printed. (b) tensor
+            parallel: n_model 2, both ranks B 8, the WN stacks split
+            (assert_tp_layout on each rank), against one rank on B 8,
+            the same checks, the replicated parameters equal; with NCCL
+            and four cards or more, also n_data 2 x n_model 2 on four
+            ranks against one rank on B 16. (c) fit
+            --distributed of the 7-language recipe at full width through
+            python -m torch.distributed.run --standalone --nproc-per-node 2
+            on a synthetic 16 kHz corpus of 16 copies of one line of each
+            of the fit phase's two filelists: fit to 3 steps (validation
+            at 3), then a resume to 5: one checkpoint after the fit, one
+            writer of metrics.jsonl, each step logged once and finite,
+            the launches of each training step, the ranks' parameters
+            alike bit for bit after each run.
 
 Any failure exits non-zero. The line before the last is a JSON object
 with the kernels' numbers; the last line is
@@ -171,7 +201,7 @@ import numpy as np
 import torch
 
 PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity",
-          "wn", "featurize", "vocoder", "fit", "radtts_fit", "m12")
+          "wn", "featurize", "vocoder", "fit", "radtts_fit", "m12", "ddp")
 # (name, lanes, hidden, time steps, LSTM input width) on the serving path
 # at text bucket 96 and frame bucket 800 (the flow context runs at 800/2)
 PATH_SHAPES = (("text_encoder", 2, 260, 96, 520),
@@ -1036,22 +1066,27 @@ def phase_train(seed: int) -> dict:
     return launches
 
 
+def no_dropout_config():
+    """The full-width config with every dropout rate at 0."""
+    from radmmm_torch.models.tts import default_radmmm_config
+    c = default_radmmm_config(encoder_p_dropout=0.0)
+    return dataclasses.replace(c, **{
+        k: dict(getattr(c, k), p_dropout=0.0)
+        for k in ("f0_predictor", "energy_predictor", "voiced_predictor",
+                  "duration_predictor")})
+
+
 @tf32_off()
 def phase_train_parity(seed: int):
     """One training step at full width and short lengths on the card and
     on the CPU from the same weights and batch, dropout off (the card's
     and the CPU's generators draw other bits)."""
-    from radmmm_torch.models.tts import TTSModel, default_radmmm_config
+    from radmmm_torch.models.tts import TTSModel
     from radmmm_torch.training.step import (create_train_state,
                                             make_train_step,
                                             make_whitening_init)
-    c = default_radmmm_config(encoder_p_dropout=0.0)
-    cfg = dataclasses.replace(c, **{
-        k: dict(getattr(c, k), p_dropout=0.0)
-        for k in ("f0_predictor", "energy_predictor", "voiced_predictor",
-                  "duration_predictor")})
     torch.manual_seed(seed + 2)
-    cpu_model = TTSModel(cfg)
+    cpu_model = TTSModel(no_dropout_config())
     _nudge_couplings(cpu_model)
     models = {"cuda": copy.deepcopy(cpu_model), "cpu": cpu_model}
     res = {}
@@ -1109,12 +1144,18 @@ def leaf_grad_errors(got_model, want_model, frobenius: bool = False
     batch norm): both sides hold rounding noise there, 1e-13 against
     1e-13. A parameter with a gradient on one side only counts as
     infinitely wrong."""
-    want = dict(want_model.named_parameters())
-    tree = max(w.grad.abs().max().item() for w in want.values()
-               if w.grad is not None)
+    return grad_errors({n: p.grad for n, p in got_model.named_parameters()},
+                       {n: p.grad for n, p in want_model.named_parameters()},
+                       frobenius)
+
+
+def grad_errors(got: dict, want: dict, frobenius: bool = False) -> list:
+    """``leaf_grad_errors`` on two {name: gradient or None} dicts."""
+    tree = max(w.abs().max().item() for w in want.values()
+               if w is not None)
     out = []
-    for name, p in got_model.named_parameters():
-        g, w = p.grad, want[name].grad
+    for name, g in got.items():
+        w = want[name]
         if g is None or w is None:
             out.append((0.0 if g is w else math.inf, name, 0.0))
             continue
@@ -2503,6 +2544,499 @@ def phase_vocoder(seed: int, work: str) -> dict:
     return {"run_dir": run_dir, "launches": launches}
 
 
+# the ddp phase: two ranks of the flagship step against one rank on their
+# concatenated batch, then fit --distributed under torchrun
+DDP_B, DDP_STEPS = 8, 3
+DDP_CHILD_TIMEOUT = 420
+DDP_FIT_TIMEOUT = 600
+DDP_FIT_STEPS, DDP_RESUME_STEPS = 3, 5
+# copies of one filelist line per corpus in the fit part's corpus
+DDP_FIT_LINES = 16
+# the whitening init's mean and covariance, two ranks against one: f32
+# sums over 3,000-odd frames in another order
+WHITEN_RTOL = 1e-4
+
+
+def ddp_batch(seed: int, device="cpu") -> dict:
+    """The ddp phase's global batch: 2 x DDP_B items at T_text 96 and
+    T_mel 512 with ragged lengths, so its two halves hold different
+    numbers of valid frames."""
+    rng = np.random.default_rng(seed + 7)
+    B = 2 * DDP_B
+    text = rng.integers(48, TRAIN_T_TEXT + 1, B)
+    mel = rng.integers(256, TRAIN_T_MEL + 1, B)
+    text[0], mel[0] = TRAIN_T_TEXT, TRAIN_T_MEL
+    return train_batch(seed + 8, B, TRAIN_T_TEXT, TRAIN_T_MEL, device,
+                       text_lens=text.tolist(), mel_lens=mel.tolist())
+
+
+def _whitening_moments(model, batch):
+    """(mean, covariance) the whitening init fits to ``batch`` (the global
+    batch's under a data mesh)."""
+    from radmmm_torch.models.flow_decoder import squeeze_time
+    from radmmm_torch.models.tts import mel_scale
+    from radmmm_torch.ops.invertible import whitening_stats
+    from radmmm_torch.utils.masking import SeqLens
+    g = model.config.decoder.get("n_group_size", 1)
+    mel = mel_scale(batch["mel"]) if model.config.scale_mel else batch["mel"]
+    lens = SeqLens.create(batch["output_lengths"], mel.shape[1])
+    with torch.no_grad():
+        return whitening_stats(squeeze_time(mel, g),
+                               lens.downsample(g).mask)
+
+
+def ddp_train(seed: int, batch: dict, n_steps: int, mesh) -> dict:
+    """The full-width model from ``seed`` (dropout off) on the card, laid
+    out on ``mesh`` (the active one): the whitening init's moments and the
+    init, one step (its metrics and every gradient, gathered), then
+    ``n_steps`` timed steps with the kernels' counts from zero, each with
+    its gradient all-reduce timed; the parameters' checksums after."""
+    from radmmm_torch.models.tts import TTSModel
+    from radmmm_torch.parallel import mesh as M
+    from radmmm_torch.training.step import (create_train_state,
+                                            make_train_step,
+                                            make_whitening_init)
+    torch.manual_seed(seed)
+    model = TTSModel(no_dropout_config())
+    _nudge_couplings(model)
+    state = create_train_state(model, device=batch["mel"].device)
+    M.shard_state(state, mesh)
+    out = {"split": sorted(mesh.layout)}
+    if out["split"]:
+        out["tp_layout"] = M.assert_tp_layout(model, mesh,
+                                              min_sharded=len(out["split"]))
+    out["whiten"] = [t.cpu() for t in _whitening_moments(model, batch)]
+    make_whitening_init(model)(state, batch)
+    step = make_train_step(model, _loss_config(), binarize=True, kl_on=True)
+    gen = torch.Generator(device=batch["mel"].device)
+    state, met = step(state, batch, gen)
+    out["metrics"] = {k: v.item() for k, v in met.items()}
+    out["grads"] = {n: mesh.gather_param(n, p.grad).cpu()
+                    for n, p in model.named_parameters()}
+    mesh.timed = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts from zero, the timed steps, counts read after
+    _zero_counters()
+    M.reset_collective_stats()
+    out["ms"], out["sync"] = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, met = step(state, batch, gen)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["sync"].append(mesh.last_grad_sync)
+        bad = [k for k, v in met.items() if not math.isfinite(v.item())]
+        if bad:
+            raise FloatingPointError(f"non-finite {bad}")
+    out["launches"] = _counters()
+    out["collectives"] = M.collective_stats()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["sums"] = {n: int(p.detach().view(torch.int32).long().sum())
+                   for n, p in model.named_parameters()}
+    return out
+
+
+def ddp_child(spec_path: str, rank: int) -> int:
+    """One rank of part (a) or (b): joins the group the spec names (its
+    backend, world and port; ranks beyond the cards share them), runs
+    ``ddp_train`` on its data rank's half of the global batch and writes
+    its results (rank 0's with the gradients) for the parent."""
+    import os
+    import torch.distributed as dist
+    from radmmm_torch.parallel import mesh as M
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(spec["backend"],
+                            init_method=f"tcp://127.0.0.1:{spec['port']}",
+                            rank=rank, world_size=spec["world"])
+    m = M.make_mesh(spec["n_data"], spec["n_model"])
+    batch = ddp_batch(spec["seed"], dev)
+    n = len(batch["text"]) // spec["n_data"]
+    if spec["n_model"] > 1:
+        n = DDP_B                     # TP: each rank the first half
+    mine = {k: v[m.data_index * n:(m.data_index + 1) * n]
+            for k, v in batch.items()}
+    if spec["probe"]:
+        spec["gloo_cuda"] = _gloo_cuda_probe(dev, rank)
+    with M.use_mesh(m):
+        out = ddp_train(spec["seed"], mine, DDP_STEPS, m)
+    out.update(rank=rank, device=str(dev), frames=int(
+        mine["output_lengths"].sum()), gloo_cuda=spec.get("gloo_cuda"))
+    if rank:
+        out.pop("grads")
+    torch.save(out, os.path.join(spec["work"], f"{spec['part']}_{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def _gloo_cuda_probe(dev, rank: int):
+    """Which collectives gloo takes on CUDA tensors: each asked of both
+    ranks at once (gloo refuses an op before it talks, alike on both; a
+    hang would meet the child's timeout). The answers on rank 0, None on
+    the other."""
+    import torch.distributed as dist
+    x = torch.ones(4, device=dev)
+    two = torch.ones(8, device=dev)
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x), torch.empty_like(x)], x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty_like(two), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty_like(x), two),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x)}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = True
+        except (RuntimeError, NotImplementedError, ValueError) as e:
+            out[name] = str(e).splitlines()[0][:80]
+    return out if rank == 0 else None
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_children(cmds, timeout: float, what: str) -> list:
+    """Run the commands at once, each under ``timeout``; any that fails or
+    hangs fails the phase (the others are killed). Returns their output."""
+    import subprocess
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = []
+    try:
+        for i, p in enumerate(procs):
+            try:
+                outs.append(p.communicate(timeout=timeout)[0])
+            except subprocess.TimeoutExpired:
+                fail(f"{what}: process {i} did not end in {timeout} s")
+            if p.returncode != 0:
+                log(outs[-1][-6000:])
+                fail(f"{what}: process {i} exited {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _nccl_one_rank(fn):
+    """``fn()`` inside a one-rank NCCL group on card 0, after NCCL's
+    all-gather and reduce-scatter (the port's wrappers) and an all-reduce
+    ran in it once: on one card that is what NCCL can run."""
+    import torch.distributed as dist
+    from radmmm_torch.parallel import collectives as C
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        g = C.Group(dist.group.WORLD, 1, 0, dist.get_backend())
+        x = torch.randn(3, 5, device="cuda")
+        stack = C._gather_stack(x, g)
+        back = C._reduce_scatter_stack(stack, g)
+        y = x.clone()
+        dist.all_reduce(y)
+        torch.cuda.synchronize()
+        if not (torch.equal(stack[0], x) and torch.equal(back, x)
+                and torch.equal(y, x)):
+            fail("a one-rank NCCL group changed its input")
+        log(f"[ddp] NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}: "
+            "a one-rank group on card 0 built, its all-gather, "
+            "reduce-scatter and all-reduce returned their input")
+        return fn()
+    finally:
+        dist.destroy_process_group()
+
+
+def _ddp_parts(seed: int, backend: str, work: str, refs: dict) -> dict:
+    """Parts (a) and (b): two ranks as children of this process (and a
+    2 x 2 mesh of four where NCCL has four cards), against the one-rank
+    references. Returns the kernels' launches on rank 0's timed steps,
+    summed."""
+    import os
+    total = dict.fromkeys(PER_STEP, 0)
+    parts = [("a", 2, 1), ("b", 1, 2)]
+    if backend == "nccl" and torch.cuda.device_count() >= 4:
+        parts.append(("b 2x2", 2, 2))
+    for part, n_data, n_model in parts:
+        ref = refs["B8"] if n_data == 1 else refs["B16"]
+        world = n_data * n_model
+        spec = dict(part=part, seed=seed, n_data=n_data, n_model=n_model,
+                    backend=backend, world=world, port=_free_port(),
+                    work=work, probe=part == "a" and backend == "gloo")
+        path = os.path.join(work, f"{part}.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        _run_children([[sys.executable, __file__, "--ddp-child", path,
+                        str(r)] for r in range(world)], DDP_CHILD_TIMEOUT,
+                      f"ddp ({part})")
+        res = [torch.load(os.path.join(work, f"{part}_{r}.pt"),
+                          weights_only=False) for r in range(world)]
+        what = {"a": "data parallel, B 8 a rank, against one rank on B 16",
+                "b": "tensor parallel, n_model 2, B 8 on each rank, "
+                     "against one rank on B 8",
+                "b 2x2": "n_data 2 x n_model 2, B 8 a data rank, against "
+                         "one rank on B 16"}[part]
+        log(f"[ddp] ({part}) {what}: {world} ranks in "
+            f"{time.perf_counter() - t0:.1f} s")
+        _ddp_check(part, res, ref, n_model)
+        for k in total:
+            total[k] += res[0]["launches"][k]
+    return total
+
+
+def _ddp_check(part: str, res: list, ref: dict, n_model: int) -> None:
+    """Every rank's numbers printed; rank 0's loss terms, gradients and
+    whitening moments held against the one-rank reference; the ranks'
+    metrics and parameters alike bit for bit (a split one across the
+    ranks of one model index)."""
+    want_launches = {k: n * DDP_STEPS for k, n in PER_STEP.items()}
+    for r in res:
+        syncs = r["sync"]
+        log(f"[ddp] ({part}) rank {r['rank']} on {r['device']}: "
+            f"{r['frames']} valid mel frames, ms a step "
+            + ", ".join(f"{ms:.1f}" for ms in r["ms"])
+            + "; gradient all-reduce a step "
+            + ", ".join(f"{ms:.1f} ms" for ms, _ in syncs)
+            + f" of {syncs[0][1] / 1e6:.1f} MB; peak "
+            f"{r['peak_gib']:.2f} GiB; collectives on {DDP_STEPS} steps "
+            f"{r['collectives']}; kernel launches {r['launches']}")
+        if r["launches"] != want_launches:
+            fail(f"ddp ({part}) rank {r['rank']}: kernel launches "
+                 f"{r['launches']}, expected {want_launches}")
+        if r.get("gloo_cuda"):
+            log(f"[ddp] gloo on CUDA tensors: {r['gloo_cuda']}")
+    if n_model > 1:
+        n = [r["tp_layout"] for r in res]
+        log(f"[ddp] ({part}) assert_tp_layout passed on every rank: {n} "
+            f"parameters split ({len(res[0]['split'])} by the rules)")
+    got = res[0]
+    worst = 0.0
+    for k, want in ref["metrics"].items():
+        g = got["metrics"][k]
+        err = abs(g - want)
+        worst = max(worst, err / (1e-5 + abs(want)))
+        if not (math.isfinite(g) and err <= 1e-5 + TRAIN_PARITY_RTOL
+                * abs(want)):
+            fail(f"ddp ({part}): {k} {g} against one rank's {want}")
+        if any(r["metrics"][k] != g for r in res):
+            fail(f"ddp ({part}): the ranks logged other {k}")
+    log(f"[ddp] ({part}) loss terms and grad norm, rank 0 / one rank: "
+        + ", ".join(f"{k} {got['metrics'][k]!r} / {w!r}"
+                    for k, w in ref["metrics"].items()))
+    log(f"[ddp] ({part}) worst relative error {worst:.3e} (rtol "
+        f"{TRAIN_PARITY_RTOL:g})")
+    for name, g, w in zip(("mean", "covariance"), got["whiten"],
+                          ref["whiten"]):
+        err = (g - w).abs().max().item() / w.abs().max().item()
+        log(f"[ddp] ({part}) whitening init's {name}: {err:.3e} of its "
+            f"largest entry (bound {WHITEN_RTOL:g})")
+        if not err <= WHITEN_RTOL:
+            fail(f"ddp ({part}): the whitening init's {name} disagrees")
+    errs = grad_errors(got["grads"], ref["grads"])
+    log(f"[ddp] ({part}) gradients of {len(errs)} parameters against one "
+        f"rank, worst: " + ", ".join(f"{e:.3e} {n}" for e, n, _ in errs[:3])
+        + f" (bound {GRAD_PARITY_RTOL:g})")
+    if not errs[0][0] <= GRAD_PARITY_RTOL:
+        fail(f"ddp ({part}): gradients disagree on {errs[0][1]}")
+    differ = sorted({n for i, r in enumerate(res) for n, v in r["sums"].items()
+                     if v != res[i % n_model if n in got["split"] else 0][
+                         "sums"][n]})
+    log(f"[ddp] ({part}) after {DDP_STEPS + 1} steps the {len(res)} ranks' "
+        f"checksums of {len(got['sums'])} parameters ({len(got['split'])} "
+        f"split): {len(got['sums']) - len(differ)} alike")
+    if differ:
+        fail(f"ddp ({part}): the ranks' parameters differ: {differ[:5]}")
+
+
+def ddp_corpus(root: str, seed: int) -> dict:
+    """The fit part's corpus: for each of FIT_SOURCES, DDP_FIT_LINES copies
+    of its first training line of at most FIT_MAX_S seconds (text,
+    speaker, emotion and duration kept), for training and for validation,
+    each with its own voiced audio. Every batch of a corpus then has one
+    scheduled shape, so the loader deals whole rounds to the two ranks."""
+    import os
+    from scipy.io import wavfile
+    rng = np.random.default_rng(seed)
+    out = {"train": {}, "val": {}}
+    rate = f"{FIT_SR // 1000}khz"
+    for c, (name, lang, train_list, _) in enumerate(FIT_SOURCES):
+        with open(train_list, encoding="utf-8") as f:
+            parts = next(p for p in (line.rstrip("\n").split("|")
+                                     for line in f)
+                         if len(p) >= 5 and float(p[4]) <= FIT_MAX_S)
+        base = os.path.join(root, name)
+        os.makedirs(os.path.join(base, rate), exist_ok=True)
+        for split in ("train", "val"):
+            rows = []
+            for j in range(DDP_FIT_LINES):
+                wav = f"{split}_{j}.wav"
+                wavfile.write(os.path.join(base, rate, wav), FIT_SR,
+                              _voiced_wav(int(float(parts[4]) * FIT_SR),
+                                          100.0 + 25.0 * c + 7.0 * j, rng))
+                rows.append("|".join([wav] + parts[1:]))
+            filelist = os.path.join(root, f"{name}_{split}.txt")
+            with open(filelist, "w", encoding="utf-8") as f:
+                f.write("\n".join(rows) + "\n")
+            out[split][name] = {
+                "basedir": base, "sampling_rate": rate,
+                "filelist_basedir": "", "filelist": filelist,
+                "language": lang, "phonemized": True}
+    return out
+
+
+def ddp_fit_child(result_dir: str, argv: list) -> int:
+    """One rank of part (c), started by torchrun: the training CLI's
+    ``main(argv)`` with the kernels' counts from zero and each training
+    step's launches recorded, then this rank's parameter checksums
+    (gathered), logger, checkpoints and step walls for the parent."""
+    import os
+    from radmmm_torch.training import cli
+    from radmmm_torch.training.loop import Trainer
+    steps = []
+    _zero_counters()
+    with _counted(Trainer, "_run_step", steps):
+        _, tr = cli.main(argv)
+    starts = tr.stats["step_starts"]
+    out = dict(rank=int(os.environ["RANK"]), device=str(tr.device),
+               launches=_counters(), steps=steps,
+               logger=tr.logger.enabled, ckpts=tr.ckpt.steps(),
+               n_steps=tr.stats["steps"], mesh=tr.mesh.shape,
+               walls=[(b - a) * 1e3 for a, b in zip(starts, starts[1:])],
+               sums=[int(tr.mesh.gather_param(n, p).detach().view(
+                   torch.int32).long().sum())
+                   for n, p in tr.model.named_parameters()])
+    with open(os.path.join(result_dir, f"rank{out['rank']}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _ddp_fit(seed: int, backend: str, work: str) -> dict:
+    """Part (c): ``fit --distributed`` of the recipe at full width on two
+    ranks launched by torchrun, to DDP_FIT_STEPS, then a resume to
+    DDP_RESUME_STEPS. Returns rank 0's kernel launches over both runs."""
+    import os
+    root = os.path.join(work, "fit")
+    os.makedirs(root)
+    overlay = fit_overlay(root, ddp_corpus(root, seed))
+    base = [a for c in RECIPE + (overlay,) for a in ("-c", c)]
+    base += ["--distributed", "--trainer.log_interval=1",
+             f"--trainer.val_check_interval={DDP_FIT_STEPS}",
+             "--model.iters_per_checkpoint=100"]
+    if backend == "gloo":
+        base += ["--dist-backend", "gloo"]
+    total = dict.fromkeys(PER_STEP, 0)
+    ckpt_dir = os.path.join(root, "run", "ckpt")
+    rows_before = 0
+    for tag, steps in (("fit", DDP_FIT_STEPS), ("resume", DDP_RESUME_STEPS)):
+        res_dir = os.path.join(work, f"ranks_{tag}")
+        os.makedirs(res_dir)
+        argv = ["fit"] + base + [f"--trainer.max_steps={steps}"]
+        log(f"[ddp] (c) python -m torch.distributed.run --standalone "
+            f"--nproc-per-node 2 chip_smoke.py --ddp-fit-child DIR -- "
+            f"{' '.join(argv)} (each rank: radmmm_torch.training.cli.main)")
+        t0 = time.perf_counter()
+        (out,) = _run_children([[
+            sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "2", __file__, "--ddp-fit-child", res_dir,
+            "--"] + argv], DDP_FIT_TIMEOUT, f"ddp (c) {tag}")
+        wall = time.perf_counter() - t0
+        res = [json.load(open(os.path.join(res_dir, f"rank{r}.json")))
+               for r in range(2)]
+        saved = sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit())
+        rows = _metrics_rows(os.path.join(root, "run"))
+        train = [r["step"] for r in rows[rows_before:] if "train/loss" in r]
+        rows_before = len(rows)
+        for r in res:
+            log(f"[ddp] (c) {tag}: rank {r['rank']} on {r['device']}, mesh "
+                f"{r['mesh']}, {r['n_steps']} steps, ms a step (start to "
+                f"next start) " + ", ".join(f"{w:.1f}" for w in r["walls"])
+                + f", logger {'on' if r['logger'] else 'off'}, checkpoints "
+                f"{r['ckpts']}, kernel launches {r['launches']}")
+        log(f"[ddp] (c) {tag} in {wall:.1f} s: checkpoints on disk {saved}, "
+            f"metrics.jsonl train rows for steps {train}")
+        first = DDP_FIT_STEPS if tag == "resume" else 0
+        bad = [r for r in rows for k, v in r.items()
+               if k != "step" and "loss" in k and not math.isfinite(v)]
+        if (saved != sorted({DDP_FIT_STEPS, steps})
+                or train != list(range(first + 1, steps + 1)) or bad):
+            fail(f"ddp (c) {tag}: checkpoints {saved}, logged steps {train}"
+                 f", non-finite rows {bad[:2]}")
+        if [r["logger"] for r in res] != [True, False]:
+            fail(f"ddp (c) {tag}: only rank 0 should log")
+        if res[0]["sums"] != res[1]["sums"]:
+            fail(f"ddp (c) {tag}: the ranks' parameters differ")
+        if tag == "resume" and out.count(
+                f"resumed from step {DDP_FIT_STEPS}") != 2:
+            fail("ddp (c): both ranks should resume from step "
+                 f"{DDP_FIT_STEPS}")
+        for i, got in enumerate(res[0]["steps"]):
+            want = dict(PER_STEP)
+            if first + i < FIT_BINARIZE_FROM:
+                want["mas_width1"] = 0
+            if got != want:
+                fail(f"ddp (c) {tag}: step {first + i + 1} launched {got}, "
+                     f"expected {want}")
+        for k in total:
+            total[k] += res[0]["launches"][k]
+    log(f"[ddp] (c) both ranks' parameters bit for bit alike after each "
+        f"run; one writer of metrics.jsonl; the resume went on from step "
+        f"{DDP_FIT_STEPS}")
+    return total
+
+
+def phase_ddp(seed: int) -> dict:
+    """Training on two ranks: (a) data parallel and (b) tensor parallel
+    against one rank, (c) fit --distributed with a resume. Returns the
+    kernels' launches on rank 0's counted steps of the three parts."""
+    import os
+    from radmmm_torch.parallel.mesh import Mesh
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    log(f"[ddp] {n_cards} card(s), PyTorch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}: backend {backend}, world size 2"
+        + (" (both ranks on card 0 over gloo: CUDA tensors through host "
+           "memory, which proves the arithmetic, not NCCL's bandwidth)"
+           if backend == "gloo" else ", a card a rank"))
+    t0 = time.perf_counter()
+    batch = ddp_batch(seed, torch.device("cuda"))
+    half = {k: v[:DDP_B] for k, v in batch.items()}
+
+    def references():
+        with tf32_off():
+            return {"B16": ddp_train(seed, batch, 0, Mesh(1, 1)),
+                    "B8": ddp_train(seed, half, 0, Mesh(1, 1))}
+
+    refs = _nccl_one_rank(references)
+    del batch, half
+    torch.cuda.empty_cache()
+    log(f"[ddp] one-rank references (B 16 and B 8) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    work = tempfile.mkdtemp(prefix="radmmm_ddp_")
+    try:
+        total = _ddp_parts(seed, backend, work, refs)
+        fit = _ddp_fit(seed, backend, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[ddp] phase in {time.perf_counter() - t0:.1f} s")
+    return {k: total[k] + fit[k] for k in total}
+
+
 def kernel_entries(rows: list, serve_launches, train_launches,
                    wn_launches, path_launches: dict) -> list:
     """The kernels' JSON entries. K4 forward keeps its serving numbers (one
@@ -2514,8 +3048,8 @@ def kernel_entries(rows: list, serve_launches, train_launches,
     paths' runs, listed under ``launches_by_path``: serving, training and
     fit (its training steps and validations) for K4 forward, the wn phase
     and fit for K5, training and fit for the rest, and ``path_launches``'
-    paths (fit, the vocoder path, which runs none of them, radtts_fit and
-    m12; None for a phase not run)."""
+    paths (fit, the vocoder path, which runs none of them, radtts_fit, m12
+    and ddp, rank 0's counted steps; None for a phase not run)."""
     def by(kernel, **kw):
         return [r for r in rows if r["kernel"] == kernel
                 and all(r.get(k) == v for k, v in kw.items())]
@@ -2583,6 +3117,12 @@ def kernel_entries(rows: list, serve_launches, train_launches,
 
 
 def main() -> int:
+    # the ddp phase's children: chip_smoke.py --ddp-child SPEC RANK, and
+    # under torchrun chip_smoke.py --ddp-fit-child DIR -- CLI-ARGS
+    if sys.argv[1:2] == ["--ddp-child"]:
+        return ddp_child(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--ddp-fit-child"]:
+        return ddp_fit_child(sys.argv[2], sys.argv[4:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--seed", type=int, default=0)
@@ -2597,7 +3137,7 @@ def main() -> int:
     t_start = time.perf_counter()
     rows, serve_launches, train_launches, wn_launches = [], None, None, None
     fit_launches = vocoder_launches = vocoder_run = None
-    radtts_launches = m12_launches = None
+    radtts_launches = m12_launches = ddp_launches = None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -2642,11 +3182,14 @@ def main() -> int:
             radtts_prompts)["fit"]
     if "m12" in phases:
         m12_launches = phase_m12(args.seed)
+    if "ddp" in phases:
+        ddp_launches = phase_ddp(args.seed)
     if rows:
         log(json.dumps({"kernels": kernel_entries(
             rows, serve_launches, train_launches, wn_launches,
             {"fit": fit_launches, "vocoder": vocoder_launches,
-             "radtts_fit": radtts_launches, "m12": m12_launches})}))
+             "radtts_fit": radtts_launches, "m12": m12_launches,
+             "ddp": ddp_launches})}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -33,7 +33,9 @@ key is its flax path joined with dots, with these layout rules:
   conv rules above;
 * a training state: the optimizer's moments are parameter-shaped trees and
   take the parameters' rules (``load_jax_train_state``,
-  ``load_jax_vocoder_state``).
+  ``load_jax_vocoder_state``);
+* a rank of an (n_data, n_model) mesh: ``rank_state_dict`` cuts a full
+  state dict to the rank's shards by the TP rules of ``parallel.mesh``.
 
 Inputs are nested dicts of numpy arrays (``jax.tree.map(np.asarray, ...)``
 of the flax variables); nothing here imports JAX.
@@ -45,6 +47,8 @@ from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+
+from radmmm_torch.parallel.mesh import param_spec, shard_tensor
 
 _TTS_COLLECTIONS = ("params", "buffers", "batch_stats", "spectral")
 
@@ -100,6 +104,22 @@ def tts_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
             key, value = _tts_leaf(col, path, a)
             _put(sd, key, value)
     return sd
+
+
+def rank_state_dict(sd: Dict[str, torch.Tensor], n_data: int, n_model: int,
+                    rank: int) -> Dict[str, torch.Tensor]:
+    """The entries of a full TTS state dict (or a moment tree in its
+    names) that rank ``rank`` of an (n_data, n_model) mesh holds: split by
+    the TP rules at model index ``rank % n_model``, whole elsewhere (every
+    data rank holds the same)."""
+    if not 0 <= rank < n_data * n_model:
+        raise ValueError(f"rank {rank} outside an {n_data} x {n_model} mesh")
+    out = {}
+    for k, v in sd.items():
+        dim = param_spec(k, v.shape, n_model)
+        out[k] = (v if dim is None
+                  else shard_tensor(v, dim, n_model, rank % n_model))
+    return out
 
 
 def _moments(opt_state):

@@ -8,9 +8,12 @@ the batch a training step takes (``training/step.make_train_step``).
 ``BucketBatcher`` groups utterances of similar length into batches.
 
 Mel noise is drawn from a ``torch.Generator`` seeded with a key derived
-from (seed, process index 0, step) by numpy's ``SeedSequence``: fresh noise
-on every call, and a key per trainer step that replays. The bits differ
-from the JAX package's, the schedule is the same.
+from (seed, process index, step) by numpy's ``SeedSequence``: fresh noise
+on every call, and a key per trainer step that replays. The process index
+is the rank's index in the data group of the active ``parallel.mesh`` (0
+in one process), so ranks that load other batches draw other noise and
+ranks of one model group draw the same. The bits differ from the JAX
+package's, the schedule is the same.
 """
 from __future__ import annotations
 
@@ -20,12 +23,10 @@ import numpy as np
 import torch
 
 from radmmm_torch.data.pitch import pyin_f0, yin_f0
+from radmmm_torch.parallel import mesh
 from radmmm_torch.ops.priors import beta_binomial_prior
 from radmmm_torch.ops.stft import MelSpectrogram
 from radmmm_torch.utils.device import resolve_device
-
-# one process: the port runs on one card (multi-GPU is a later slice)
-PROCESS_INDEX = 0
 
 
 def round_up(n: int, multiple: int) -> int:
@@ -152,12 +153,13 @@ class Featurizer:
         """The mel-noise key of trainer step ``step``, from (seed, process
         index, step): the same data sees one noise sequence however the
         steps are grouped, and a resume at step N continues it exactly."""
-        return _key(self.seed, PROCESS_INDEX, int(step))
+        return _key(self.seed, mesh.get_mesh().data_index, int(step))
 
     def _next_noise_key(self) -> Optional[int]:
         if self.mel_noise_scale <= 0:
             return None
-        key = _key(self.seed, PROCESS_INDEX, self._noise_base, self._n_calls)
+        key = _key(self.seed, mesh.get_mesh().data_index, self._noise_base,
+                   self._n_calls)
         self._n_calls += 1
         return key
 

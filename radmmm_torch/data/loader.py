@@ -1,10 +1,19 @@
 """Threaded prefetching data loader.
 
-Counterpart of ``radmmm_tpu/data/loader.py`` on one process (several
-cards are ROADMAP item M13). A thread pool loads and augments items (host
-work), batches are collated on the host and, when a featurizer is given,
-featurized on its device, and a small queue keeps the next batches ready.
-Broken items (None) are dropped, as the reference's collate drops them.
+Counterpart of ``radmmm_tpu/data/loader.py``. A thread pool loads and
+augments items (host work), batches are collated on the host and, when a
+featurizer is given, featurized on its device, and a small queue keeps the
+next batches ready. Broken items (None) are dropped, as the reference's
+collate drops them.
+
+Over several processes (``process_count`` > 1, by default the data group
+of the active ``parallel.mesh``: ranks of one model group load the same
+batches) each epoch's batches are grouped by scheduled (B, frames, text)
+shape and dealt to the processes in rounds within each group, so every
+process runs the same number of steps at the same shapes, each batch
+padded to its round's shape; batches that cannot fill a round are dropped
+(a warning on process 0), as the JAX package deals them. Validation
+loaders (``uniform_shape``) then schedule one shape for the whole set.
 
 With ``shape_runs=k`` each epoch's batches are reordered so that batches of
 one scheduled (B, frames, text) shape come out in consecutive runs of up to
@@ -24,6 +33,7 @@ import numpy as np
 import torch
 
 from radmmm_torch.data.collate import BucketBatcher, collate_host, round_up
+from radmmm_torch.parallel import mesh
 
 
 def stack_raw_batches(raws):
@@ -83,19 +93,27 @@ class DataLoader:
                  featurizer: Optional[Callable] = None,
                  num_threads: int = 4, prefetch: int = 2, seed: int = 0,
                  hop_length: int = 256, uniform_shape: bool = False,
-                 shape_runs: int = 0):
+                 shape_runs: int = 0, process_index: Optional[int] = None,
+                 process_count: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.featurizer = featurizer
         self.num_threads = num_threads
         self.prefetch = prefetch
         self.hop_length = hop_length
+        if process_count is None:
+            m = mesh.get_mesh()
+            process_index, process_count = m.data_index, m.n_data
+        self.process_index = process_index or 0
+        self.process_count = max(1, process_count)
+        self._seed = seed
         self.batcher = BucketBatcher([u.duration for u in dataset.data],
                                      batch_size, shuffle, seed)
         self.shape_runs = int(shape_runs)
         self._runs_rng = np.random.default_rng(seed ^ 0x5EED)
         self._uniform_shape = False
-        if self.shape_runs > 0:
+        self._warned_drop = False
+        if self.process_count > 1 or self.shape_runs > 0:
             # shapes scheduled from filelist metadata: mel frames from the
             # durations (scaled by the largest duration stretch an
             # augmentation can apply, so pad_to always covers it), text
@@ -113,7 +131,22 @@ class DataLoader:
             self._uniform_shape = uniform_shape
 
     def __len__(self):
-        return len(self.batcher)
+        """Batches this process yields an epoch. Over several processes:
+        counted on a same-seed copy of the batcher, so the dropped rounds
+        are left out (exact for the first epoch; later epochs reshuffle)."""
+        if self.process_count == 1:
+            return len(self.batcher)
+        if not hasattr(self, "_len_cache"):
+            clone = BucketBatcher(self.batcher.lengths,
+                                  self.batcher.batch_size,
+                                  self.batcher.shuffle, self._seed)
+            counts: dict = {}
+            for indices in clone:
+                key = self._shape_key(np.asarray(indices))
+                counts[key] = counts.get(key, 0) + 1
+            self._len_cache = sum(n // self.process_count
+                                  for n in counts.values())
+        return self._len_cache
 
     def _shape_key(self, indices):
         sel = slice(None) if self._uniform_shape else indices
@@ -122,10 +155,14 @@ class DataLoader:
         return (len(indices), frames, text)
 
     def _batches(self):
-        """Yield (indices, pad_to): every batch at its natural bucket
-        shape, or, with ``shape_runs``, grouped by scheduled shape into
-        runs of up to ``shape_runs`` in a shuffled run order, each batch
-        padded to its run's shape."""
+        """Yield (indices, pad_to) for this process: in one process every
+        batch at its natural bucket shape, or, with ``shape_runs``, grouped
+        by scheduled shape into runs of up to ``shape_runs`` in a shuffled
+        run order, each batch padded to its run's shape; over several, the
+        deal in rounds (``_dealt``)."""
+        if self.process_count > 1:
+            yield from self._dealt()
+            return
         if self.shape_runs <= 0:
             for indices in self.batcher:
                 yield indices, None
@@ -143,6 +180,42 @@ class DataLoader:
         for key, batches in runs:
             for indices in batches:
                 yield indices, key[1:]
+
+    def _dealt(self):
+        """Batches grouped by scheduled shape; each time a shape has one
+        batch for every process, process i takes the i-th. With
+        ``shape_runs`` the completed rounds of a shape are buffered into
+        runs of that many, so every process ends its runs at the same
+        steps; partial runs come out at the epoch's end."""
+        pending: dict = {}
+        runs_pending: dict = {}
+        for indices in self.batcher:
+            indices = np.asarray(indices)
+            key = self._shape_key(indices)
+            group = pending.setdefault(key, [])
+            group.append(indices)
+            if len(group) < self.process_count:
+                continue
+            mine = list(map(int, group[self.process_index]))
+            pending[key] = []
+            if self.shape_runs <= 0:
+                yield mine, key[1:]
+                continue
+            run = runs_pending.setdefault(key, [])
+            run.append(mine)
+            if len(run) == self.shape_runs:
+                for m in run:
+                    yield m, key[1:]
+                runs_pending[key] = []
+        for key, run in runs_pending.items():
+            for m in run:
+                yield m, key[1:]
+        dropped = sum(len(g) for g in pending.values())
+        if dropped and not self._warned_drop and self.process_index == 0:
+            self._warned_drop = True
+            print(f"DataLoader: dropped {dropped} tail batch(es)/epoch that "
+                  f"couldn't fill a {self.process_count}-process round "
+                  "(shape-grouped multi-process scheduling)")
 
     def _load_batch(self, pool, indices, pad_to=None):
         items = list(pool.map(self.dataset.__getitem__, indices))

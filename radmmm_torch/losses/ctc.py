@@ -6,7 +6,9 @@ sequence of text tokens 1..S with a blank column (log-prob
 ``blank_logprob``) prepended; states s in [0, 2S] (even: blank, odd: token
 (s+1)/2). The loss of an item is -log p / S (torch CTCLoss 'mean' for one
 item), zero where it is not finite (``zero_infinity``), averaged over the
-batch.
+batch: under a data mesh (``parallel.mesh``) over the global batch, each
+rank holding an equal share of it, so a rank's loss is the sum over its
+items over the global count.
 
 ``attention_ctc_loss`` is a ``torch.autograd.Function``: its forward runs
 the alpha DP (``ctc_kernel.ctc_alpha``, K1) and keeps every row; its
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from radmmm_torch.losses.ctc_kernel import NEG_INF, ctc_alpha, ctc_beta
+from radmmm_torch.parallel import mesh
 
 
 def _masked_log_softmax(x, valid, dim):
@@ -55,11 +58,11 @@ def _ll_from_alpha(alpha, text_lens):
     return m + torch.log(torch.exp(end_blank - m) + torch.exp(end_label - m))
 
 
-def _loss_from_ll(ll, text_lens):
+def _loss_from_ll(ll, text_lens, n_items: int):
     per_item = -ll / text_lens.to(ll.dtype).clamp_min(1.0)
     finite = torch.isfinite(per_item) & (per_item < 1e29)    # zero_infinity
     per_item = torch.where(finite, per_item, 0.0)
-    return per_item.mean(), finite
+    return per_item.sum() / n_items, finite
 
 
 class _AttentionCTC(torch.autograd.Function):
@@ -70,7 +73,8 @@ class _AttentionCTC(torch.autograd.Function):
                                                blank_logprob)
         alphas = ctc_alpha(emit_all, text_lens, mel_lens)
         ll = _ll_from_alpha(alphas[-1], text_lens)
-        loss, finite = _loss_from_ll(ll, text_lens)
+        ctx.n_items = attn_logprob.shape[0] * mesh.n_data()
+        loss, finite = _loss_from_ll(ll, text_lens, ctx.n_items)
         ctx.save_for_backward(logp, emit_all, alphas, ll, finite, text_lens,
                               mel_lens, col_valid)
         return loss
@@ -79,7 +83,7 @@ class _AttentionCTC(torch.autograd.Function):
     def backward(ctx, ct):
         (logp, emit_all, alphas, ll, finite, text_lens, mel_lens,
          col_valid) = ctx.saved_tensors
-        B, T_mel, _ = logp.shape
+        T_mel = logp.shape[1]
         betas = ctc_beta(emit_all, text_lens, mel_lens)
         # state posteriors folded to columns: odd states are the text
         # columns, the even states sum into the blank
@@ -89,7 +93,7 @@ class _AttentionCTC(torch.autograd.Function):
         # the posterior sums to 1 on a valid frame, so the log-softmax
         # jacobian collapses to u - softmax
         coef = -ct * finite.to(logp.dtype) / (
-            text_lens.to(logp.dtype).clamp_min(1.0) * B)
+            text_lens.to(logp.dtype).clamp_min(1.0) * ctx.n_items)
         dx = coef[:, None, None] * (u - torch.exp(logp))
         t_in = (torch.arange(T_mel, device=logp.device)[None, :]
                 < mel_lens[:, None])

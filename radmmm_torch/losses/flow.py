@@ -8,6 +8,13 @@ the alternative decoders' ``RADTTSDeterministicLoss``,
 and ``AttributeBCELoss``). A loss dict maps a name to (value, weight), as
 in the JAX package; every decoder's loss adds the attention terms (the CTC
 loss through K1 and K2 on the card).
+
+Under a data mesh (``parallel.mesh``) each value is this rank's share of
+the term over the global batch: its sums over its own items divided by
+the global normaliser (frames, items or mask entries summed over the data
+group), so the shares add up over the ranks to the term the JAX step
+computes on the concatenated batch, and so do their gradients. In one
+process the share is the term.
 """
 from __future__ import annotations
 
@@ -17,17 +24,21 @@ import torch
 
 from radmmm_torch.losses.ctc import attention_ctc_loss
 from radmmm_torch.losses.stft_loss import MultiResolutionSTFTLoss
+from radmmm_torch.parallel import mesh
 from radmmm_torch.utils.masking import SeqLens
 
 
 def compute_flow_loss(z, log_det_W_list, log_s_list, n_elements, n_dims,
-                      mask, sigma=1.0):
+                      mask, sigma=1.0, n_local=None):
     """Masked flow NLL. z (B, Tg, C); mask (B, Tg) float; n_elements the
-    number of valid frames. Returns (loss, prior NLL), both per element."""
+    number of valid frames of the global batch, ``n_local`` this rank's
+    (by default ``n_elements``). Returns (loss, prior NLL), both per
+    element: this rank's shares."""
     m = mask[..., None]
     log_s_total = sum((ls * m).sum() for ls in log_s_list)
     log_det_W_total = sum(log_det_W_list) if log_det_W_list else 0.0
-    log_det_W_total = log_det_W_total * n_elements
+    log_det_W_total = log_det_W_total * (n_elements if n_local is None
+                                         else n_local)
     z = z * m
     prior_nll = (z * z).sum() / (2 * sigma * sigma)
     loss = prior_nll - log_s_total - log_det_W_total
@@ -40,7 +51,7 @@ def attention_binarization_loss(hard_attention, soft_attention):
     a constant)."""
     hard = hard_attention.detach()
     logp = torch.log(soft_attention.clamp(1e-12, 1.0))
-    return -(hard * logp).sum() / hard.sum().clamp_min(1.0)
+    return -(hard * logp).sum() / mesh.data_sum(hard.sum()).clamp_min(1.0)
 
 
 def attention_loss(attn, attn_soft, attn_logprob, binarization_on: bool,
@@ -73,12 +84,12 @@ class RADMMMLoss:
         loss_dict = {}
         if model_output.get("z_mel") is not None:
             glens = out_lens.downsample(self.n_group_size)
-            n_elements = glens.lengths.sum().to(torch.float32)
+            n_local = glens.lengths.sum().to(torch.float32)
             n_dims = model_output["z_mel"].shape[-1]
             loss_mel, loss_prior = compute_flow_loss(
                 model_output["z_mel"], model_output["log_det_W_list"],
-                model_output["log_s_list"], n_elements, n_dims,
-                glens.fmask(), self.sigma)
+                model_output["log_s_list"], mesh.data_sum(n_local), n_dims,
+                glens.fmask(), self.sigma, n_local=n_local)
             loss_dict["loss_mel"] = (loss_mel, 1.0)
             loss_dict["loss_prior_mel"] = (loss_prior, 0.0)
         loss_dict.update(attention_loss(
@@ -118,7 +129,7 @@ class RADTTSDeterministicLoss(_AttentionTerms):
             m = out_lens.fmask()[..., None]
             mel, mel_hat = model_output["mel"], model_output["mel_hat"]
             loss = (torch.abs(mel - mel_hat) * m).sum() / (
-                mel.shape[-1] * m.sum().clamp_min(1.0))
+                mel.shape[-1] * mesh.data_sum(m.sum()).clamp_min(1.0))
             loss_dict["mel_mae_loss"] = (loss, 1.0)
         loss_dict.update(self._attention(model_output, in_lens, out_lens,
                                          binarization_on))
@@ -135,7 +146,7 @@ class RADTTSDiffusionLoss(_AttentionTerms):
             m = out_lens.fmask()[..., None]
             noise, noise_hat = model_output["noise"], model_output["noise_hat"]
             loss = (((noise - noise_hat) ** 2) * m).sum() / (
-                noise.shape[-1] * m.sum().clamp_min(1.0))
+                noise.shape[-1] * mesh.data_sum(m.sum()).clamp_min(1.0))
             loss_dict["noise_mse_loss"] = (loss, 1.0)
         loss_dict.update(self._attention(model_output, in_lens, out_lens,
                                          binarization_on))
@@ -145,7 +156,9 @@ class RADTTSDiffusionLoss(_AttentionTerms):
 class RADTTSE2EGANLoss(_AttentionTerms):
     """Multi-resolution STFT reconstruction of the waveform (five
     resolutions, A-weighted log magnitudes by default) + the attention
-    losses."""
+    losses. One process only: its spectral convergence is a ratio of norms
+    over the batch and its length ratios are relative to the batch's
+    longest item, which a rank's share does not give."""
 
     def __init__(self, ctc_blank_logprob=-1.0, kl_loss_start_iter=5000,
                  binarization_loss_weight=1.0, ctc_loss_weight=0.1,
@@ -163,6 +176,10 @@ class RADTTSE2EGANLoss(_AttentionTerms):
 
     def __call__(self, model_output, audio, audio_lens, in_lens: SeqLens,
                  out_lens: SeqLens, binarization_on: bool):
+        if mesh.n_data() > 1:
+            raise NotImplementedError(
+                "the E2E-GAN decoder's STFT loss over a data mesh: it is "
+                "not a sum over items; train this decoder in one process")
         audio_hat = model_output["audio_hat"]
         T = min(audio.shape[-1], audio_hat.shape[-1])
         audio, audio_hat = audio[..., :T], audio_hat[..., :T]
@@ -179,7 +196,7 @@ def masked_regression_loss(prediction, target, mask):
     """Masked MSE, the mean over valid entries (mask broadcastable)."""
     m = mask.to(prediction.dtype)
     se = (prediction - target) ** 2 * m
-    return se.sum() / m.sum().clamp_min(1.0)
+    return se.sum() / mesh.data_sum(m.sum()).clamp_min(1.0)
 
 
 def masked_bce_loss(prediction_logits, target, mask):
@@ -187,7 +204,7 @@ def masked_bce_loss(prediction_logits, target, mask):
     m = mask.to(prediction_logits.dtype)
     x, y = prediction_logits, target
     per = x.clamp_min(0) - x * y + torch.log1p(torch.exp(-x.abs()))
-    return (per * m).sum() / m.sum().clamp_min(1.0)
+    return (per * m).sum() / mesh.data_sum(m.sum()).clamp_min(1.0)
 
 
 class AttributeRegressionLoss:

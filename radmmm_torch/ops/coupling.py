@@ -20,12 +20,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from radmmm_torch.ops import splines as S
+from radmmm_torch.parallel import collectives as C
 from radmmm_torch.ops.conv import MaskedConv1d
 from radmmm_torch.ops.norms import MaskedBatchNorm
 
 
 class WN(nn.Module):
-    """(z_half (B,T,C_half), context (B,T,C_ctx)) -> (B, T, 2*C_half)."""
+    """(z_half (B,T,C_half), context (B,T,C_ctx)) -> (B, T, 2*C_half).
+
+    Tensor-parallel once ``parallel.mesh.shard_state`` has split it over a
+    model group (``tp``): ``start``, ``in_i`` and ``res_skip_i`` hold a
+    slice of the hidden channels (column-parallel), h is gathered after
+    ``start`` and after each ``in_i`` (one gather a layer, read by both
+    ``res_skip_i`` and ``in_{i+1}``), and ``end`` holds a slice of its
+    input channels (row-parallel): its partial products are summed over
+    the group, then the bias added. The stack's input is replicated, so
+    its gradient is summed over the group."""
 
     def __init__(self, n_in_channels: int, n_context_channels: int,
                  n_layers: int = 4, n_channels: int = 1024,
@@ -46,14 +56,30 @@ class WN(nn.Module):
                 n_channels, n_channels, 1, use_weight_norm=True))
         self.end = MaskedConv1d(n_channels, 2 * n_in_channels, 1,
                                 zero_init=True)
+        self.tp = None          # a collectives.Group once split
 
     def forward(self, z, context, mask=None):
+        if self.tp is not None:
+            return self._forward_split(z, context, mask)
         h = self.start(torch.cat([z, context], dim=-1))
         output = torch.zeros_like(h)
         for i in range(self.n_layers):
             h = self.act(getattr(self, f"in_{i}")(h, mask))
             output = output + self.act(getattr(self, f"res_skip_{i}")(h))
         return self.end(output)
+
+    def _forward_split(self, z, context, mask):
+        g = self.tp
+        x = C.copy_to_group(torch.cat([z, context], dim=-1), g)
+        h = C.gather(self.start(x), g, dim=-1)
+        output = 0.0
+        for i in range(self.n_layers):
+            h = C.gather(self.act(getattr(self, f"in_{i}")(h, mask)), g,
+                         dim=-1)
+            output = output + self.act(getattr(self, f"res_skip_{i}")(h))
+        partial = F.conv1d(output.transpose(1, 2),
+                           self.end.kernel()).transpose(1, 2)
+        return C.reduce_from_group(partial, g) + self.end.bias
 
 
 class SimpleConvNet(nn.Module):

@@ -30,6 +30,8 @@ import scipy.linalg
 import torch
 from torch import nn
 
+from radmmm_torch.parallel import mesh
+
 
 @functools.lru_cache(maxsize=None)
 def _lu_factors_host(seed: int, c: int):
@@ -130,12 +132,15 @@ class WhiteningConv(_Invertible1x1):
 def whitening_stats(data: torch.Tensor, mask: torch.Tensor):
     """Masked mean (C,) and covariance (C, C) over the valid frames of
     data (B, T, C), mask (B, T); the covariance from the centred data
-    (two passes: E[x^2] - E[x]^2 cancels in f32 at the mel floor)."""
+    (two passes: E[x^2] - E[x]^2 cancels in f32 at the mel floor). Under a
+    data mesh the sums run over the global batch (n and the first moment,
+    then the centred second moment), as the JAX function's psums."""
     m = mask.to(data.dtype)
-    n = m.sum()
-    mean = torch.einsum("btc,bt->c", data, m) / n
+    n = mesh.data_sum(m.sum())
+    mean = mesh.data_sum(torch.einsum("btc,bt->c", data, m)) / n
     centered = (data - mean) * m[..., None]
-    covar = torch.einsum("btc,btd->cd", centered, centered) / n
+    covar = mesh.data_sum(
+        torch.einsum("btc,btd->cd", centered, centered)) / n
     return mean, covar
 
 

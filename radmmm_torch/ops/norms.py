@@ -10,6 +10,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from radmmm_torch.parallel import mesh
+
 
 class MaskedInstanceNorm1d(nn.Module):
     """Affine instance norm over valid frames: biased variance
@@ -44,7 +46,14 @@ class MaskedBatchNorm(nn.Module):
     momentum 0.1 as torch's BatchNorm1d. Eval: normalise with the running
     statistics. ``scale`` and ``bias`` are parameters; ``mean`` and
     ``var`` are buffers (the JAX module's ``batch_stats`` collection).
-    The padded frames are normalised too, as in the JAX module."""
+    The padded frames are normalised too, as in the JAX module.
+
+    Under a data mesh (``parallel.mesh``) the statistics are the global
+    batch's: (sum x, sum x², n) are summed over the data group, with their
+    gradient, whatever ``sync`` says. In the JAX package the step is one
+    program over the global batch, so its statistics are global whether
+    or not ``sync`` binds an axis; ``sync`` is accepted and changes
+    nothing."""
 
     def __init__(self, features: int, momentum: float = 0.1,
                  eps: float = 1e-5):
@@ -58,16 +67,20 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 train: bool = True, sync: bool = False) -> torch.Tensor:
-        if sync:
-            raise NotImplementedError(
-                "sync-BN across cards comes with ROADMAP item M13; the port "
-                "normalises over one device's batch")
+        del sync
         if train:
             m = (x.new_ones(x.shape[:2]) if mask is None
                  else mask.to(x.dtype))
             n = m.sum()
-            mean = torch.einsum("btc,bt->c", x, m) / n
-            var = torch.einsum("btc,bt->c", x * x, m) / n - mean ** 2
+            sum_x = torch.einsum("btc,bt->c", x, m)
+            sum_xsq = torch.einsum("btc,bt->c", x * x, m)
+            if mesh.n_data() > 1:
+                sum_x, sum_xsq, n = mesh.data_all_reduce(
+                    torch.cat([sum_x, sum_xsq, n[None]])).split(
+                        [len(sum_x), len(sum_x), 1])
+                n = n[0]
+            mean = sum_x / n
+            var = sum_xsq / n - mean ** 2
             with torch.no_grad():
                 unbiased = var * n / (n - 1.0).clamp_min(1.0)
                 self.mean.copy_(self.momentum * mean

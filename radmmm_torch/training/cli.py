@@ -1,6 +1,6 @@
 """CLI: ``python -m radmmm_torch.training.cli fit|predict|export|vocoder-fit
 -c cfg.yaml [-c more.yaml ...] [--dotted.key=value ...] [--ckpt_path P]
-[--device cuda|cpu]``.
+[--device cuda|cpu] [--distributed [--dist-backend nccl|gloo]]``.
 
 Counterpart of ``radmmm_tpu/training/cli.py`` (the reference's
 tts_main.py:36-68, RADTTSLightningCLI): several configs merged in order,
@@ -11,7 +11,18 @@ text-frontend flags flow from the data section, and n_text_tokens comes
 from the symbol table. ``vocoder-fit`` trains a vocoder on the data
 section's corpus (``training/vocoder_loop.py``). ``--device`` defaults to
 the card and fails without one unless ``cpu`` is asked for.
-``--distributed`` (ROADMAP item M13) is not ported yet and says so.
+
+``--distributed`` joins the process group torchrun sets up, one process a
+card (``parallel.mesh.init_distributed``; NCCL on the cards, gloo on the
+CPU or, with ``--dist-backend gloo``, ranks sharing a card):
+
+    torchrun --nproc-per-node N -m radmmm_torch.training.cli fit \
+        --distributed -c ...
+
+``trainer.devices`` (or ``trainer.n_data``) and ``trainer.n_model`` must
+multiply to the number of processes; each process loads its own batch of
+``batchsize``. ``predict`` and ``export`` run on rank 0 while the others
+wait; ``vocoder-fit`` trains in one process.
 """
 from __future__ import annotations
 
@@ -21,8 +32,11 @@ import os
 import sys
 from typing import List
 
+import torch
+
 from radmmm_torch.data.module import AudioDataModule
 from radmmm_torch.models.tts import TTSConfig
+from radmmm_torch.parallel.mesh import init_distributed
 from radmmm_torch.training.loop import Trainer, TrainerConfig
 from radmmm_torch.training.step import LossConfig
 from radmmm_torch.utils.config import (apply_overrides, load_configs,
@@ -102,13 +116,20 @@ def main(argv: List[str] = None):
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; fails without a card) or cpu")
     parser.add_argument("--distributed", action="store_true",
-                        help="several processes (ROADMAP item M13)")
+                        help="one process a card under torchrun")
+    parser.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                        default=None,
+                        help="with --distributed: nccl (the default on the "
+                             "card, one card a rank) or gloo")
     args, unknown = parser.parse_known_args(argv)
 
     if args.distributed:
-        parser.error("--distributed: training across processes comes with "
-                     "ROADMAP item M13; the port trains on one device")
-    device = str(resolve_device(args.device))
+        if args.subcommand == "vocoder-fit":
+            parser.error("vocoder-fit trains in one process; drop "
+                         "--distributed")
+        device = str(init_distributed(args.device, args.dist_backend))
+    else:
+        device = str(resolve_device(args.device))
 
     cfg = load_configs(args.config)
     cfg = apply_overrides(cfg, [u for u in unknown if "=" in u])
@@ -119,6 +140,11 @@ def main(argv: List[str] = None):
                              device=device)
         return dm, vocoder_fit(cfg, dm, device=device)
 
+    if args.distributed and args.subcommand != "fit" \
+            and torch.distributed.get_rank() != 0:
+        # predict and export run on rank 0, with the full model
+        torch.distributed.barrier()
+        return None, None
     dm, trainer = build_all(cfg, device=device)
     if args.ckpt_path is not None:
         trainer.cfg.ckpt_path = args.ckpt_path
@@ -144,6 +170,8 @@ def main(argv: List[str] = None):
             buckets=buckets, frame_buckets=frame_buckets)
     else:
         trainer.predict(dm)
+    if args.distributed and args.subcommand != "fit":
+        torch.distributed.barrier()
     return dm, trainer
 
 

@@ -1,4 +1,4 @@
-"""Trainer: fit / validate / predict / export on one device.
+"""Trainer: fit / validate / predict / export, on one card or several.
 
 Counterpart of ``radmmm_tpu/training/loop.py`` (the reference's
 PyTorch-Lightning Trainer, the TTSModel LightningModule and its
@@ -13,8 +13,19 @@ The JAX package scans K featurize + train steps in one program
 batches in the same order (the loader's shape runs), the same noise key
 per step (``Featurizer.noise_key_for_step``) and the same bookkeeping: a
 whole group of K is logged, validated and saved once, after its last
-step. Several cards (``n_data``, ``n_model``, sync-BN) are ROADMAP item
-M13.
+step.
+
+Several cards: one process a card under torchrun (``training/cli.py
+--distributed``), laid out on an (n_data, n_model) mesh
+(``parallel/mesh.py``; ``n_data`` defaults to the world over ``n_model``).
+Each process loads its own batch of ``batch_size`` (the global batch is
+``batch_size`` x n_data, as in the JAX package's multi-process runs and
+the reference's DDP), dealt in rounds of one shape by the loader; the
+ranks of a model group take the batch of its first rank. The step is the
+JAX step on the global batch (``training/step.py``). Rank 0 logs, writes
+the code snapshot and the checkpoints (full, gathered); validation runs
+each rank's dealt share and sums the metrics, and its images and audio
+come from the first data rank.
 """
 from __future__ import annotations
 
@@ -25,10 +36,13 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from scipy.io import wavfile
 
 from radmmm_torch.data.loader import DataLoader, prefetch_raw_groups
 from radmmm_torch.models.tts import TTSConfig, TTSModel
+from radmmm_torch.parallel.mesh import (Mesh, assert_tp_layout, make_mesh,
+                                        shard_state, use_mesh)
 from radmmm_torch.training.step import (LossConfig, TrainState,
                                         create_train_state, make_train_step,
                                         make_val_step, make_whitening_init,
@@ -111,10 +125,11 @@ class Trainer:
         self.loss_cfg = loss_config
         self.cfg = trainer_config
         c = self.cfg
-        if (c.n_data or 1) > 1 or c.n_model > 1 or c.use_syncbnorm:
-            raise NotImplementedError(
-                "data or model parallelism and sync-BN across cards come "
-                "with ROADMAP item M13; the port trains on one device")
+        # one process until fit lays the ranks out (n_data, n_model); the
+        # batch norms and the whitening init read the global batch whatever
+        # use_syncbnorm says, as in the JAX package (ROADMAP Queue 3)
+        self.mesh = Mesh(1, 1)
+        rank = dist.get_rank() if dist.is_initialized() else 0
         if c.conv_precision != "f32":
             raise ValueError(f"conv_precision {c.conv_precision!r}: the "
                              "port trains in f32")
@@ -124,7 +139,8 @@ class Trainer:
         self.logger = TrainLogger(
             os.path.join(c.output_directory, "tb"),
             artifact_dir=(os.path.join(c.output_directory, "val_artifacts")
-                          if c.save_val_artifacts else None))
+                          if c.save_val_artifacts else None),
+            enabled=rank == 0)
         self.ckpt = CheckpointManager(
             os.path.join(c.output_directory, "ckpt"),
             max_to_keep=c.max_to_keep)
@@ -203,6 +219,12 @@ class Trainer:
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
+    def _dropout_generator(self) -> torch.Generator:
+        """The training steps' dropout stream: one a data rank (the ranks of
+        a model group draw alike, as their replicated work must)."""
+        return self._generator(self.cfg.seed + 1
+                               + 1_000_003 * self.mesh.data_index)
+
     # ------------------------------------------------------------------
     def save_current_code(self):
         """Tar the framework's sources into the run directory
@@ -223,16 +245,21 @@ class Trainer:
         print(f"saved code snapshot to {out}")
 
     def fit(self, dm, resume: bool = True):
+        self.mesh = m = make_mesh(self.cfg.n_data, self.cfg.n_model)
         dm.setup("fit")
-        if self.cfg.save_code_snapshot:
+        if self.cfg.save_code_snapshot and m.rank == 0:
             self.save_current_code()
-        return self._fit_loop(dm, resume)
+        if m.n_data * m.n_model > 1:
+            print(f"training over mesh {m.shape} (rank {m.rank}, "
+                  f"{self.device})")
+        with use_mesh(m):
+            return self._fit_loop(dm, resume)
 
     def _fit_loop(self, dm, resume: bool):
         c = self.cfg
         train_loader = dm.train_dataloader()
         t0 = time.perf_counter()
-        first_batch = train_loader.first_batch()
+        first_batch = self.mesh.broadcast_batch(train_loader.first_batch())
         first_batch_s = time.perf_counter() - t0
         state = self._init_state(first_batch)
 
@@ -245,12 +272,14 @@ class Trainer:
                 start_step = int(restored)
                 print(f"resumed from step {start_step}")
                 dm.featurizer.set_noise_base(start_step)
+        if shard_state(state, self.mesh):
+            assert_tp_layout(self.model, self.mesh)
         if restored is None:
             make_whitening_init(self.model)(state, first_batch)
             print("initialized whitening conv from first batch")
 
         val_step = make_val_step(self.model, self.loss_cfg)
-        gen = self._generator(c.seed + 1)
+        gen = self._dropout_generator()
         # step_starts and noise_keys: one entry a step (the key is None
         # where the loader featurizes); pause_s: validation and checkpoint
         # seconds after a step, by step
@@ -263,8 +292,9 @@ class Trainer:
         t_fit = time.perf_counter()
         t_last = time.perf_counter()
         last_logged = start_step
-        self._profiler = StepProfiler(c.profile_dir, c.profile_start_step,
-                                      c.profile_n_steps, self.device)
+        self._profiler = StepProfiler(
+            c.profile_dir if self.mesh.rank == 0 else None,
+            c.profile_start_step, c.profile_n_steps, self.device)
 
         def paused(step, t0) -> float:
             dt = time.perf_counter() - t0
@@ -347,6 +377,7 @@ class Trainer:
         its batch was featurized with, recorded in the stats."""
         self.stats["step_starts"].append(time.perf_counter())
         self.stats["noise_keys"].append(noise_key)
+        batch = self.mesh.broadcast_batch(batch)
         self._profiler.before(step)
         state, metrics = self._train_step_fn(
             *phase_flags(step, self.loss_cfg))(state, batch, gen)
@@ -411,9 +442,13 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def validate(self, state: TrainState, dm, val_step, step: int):
+        """The validation set's losses (each rank its dealt share, the
+        metrics summed over the data group by the step), then the samples
+        of the first data rank's model group (rank 0 logs them)."""
         agg: Dict[str, list] = {}
         first = None
         for batch in dm.val_dataloader():
+            batch = self.mesh.broadcast_batch(batch)
             for k, v in val_step(state, batch).items():
                 agg.setdefault(k, []).append(v.item())
             if first is None:
@@ -421,10 +456,11 @@ class Trainer:
         if agg:
             self.logger.scalars(
                 "val", {k: float(np.mean(v)) for k, v in agg.items()}, step)
-        if first is not None and self.cfg.log_decoder_samples:
-            self._log_val_samples(state, first, step)
-        if self.cfg.val_prompts_path:
-            self._log_tts_samples(state, dm, step)
+        if self.mesh.data_index == 0:
+            if first is not None and self.cfg.log_decoder_samples:
+                self._log_val_samples(state, first, step)
+            if self.cfg.val_prompts_path:
+                self._log_tts_samples(state, dm, step)
         self.logger.flush()
 
     @torch.no_grad()

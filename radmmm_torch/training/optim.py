@@ -23,6 +23,8 @@ from typing import Iterable, List, Optional
 import numpy as np
 import torch
 
+from radmmm_torch.parallel.collectives import all_reduce_
+
 
 class Optimizer:
     """``step()`` reads every parameter's ``.grad`` (None counts as zero),
@@ -46,6 +48,10 @@ class Optimizer:
         self.exp_avg = [torch.zeros_like(p) for p in self.params]
         self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
         self.frozen = [False] * len(self.params)
+        # parameters split over a model group (``parallel.mesh.shard_state``)
+        # and that group: the norms sum their squares over it
+        self.sharded = [False] * len(self.params)
+        self.shard_group = None
 
     def freeze(self, frozen) -> None:
         """Freeze the parameters whose entry of ``frozen`` is true."""
@@ -59,21 +65,30 @@ class Optimizer:
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for p in self.params]
 
-    @staticmethod
-    def _global_norm(grads) -> torch.Tensor:
-        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    def _global_norm(self, grads, indices) -> torch.Tensor:
+        """The norm of the full gradient over ``indices``: a split
+        parameter's squares are summed over its model group."""
+        norms = torch._foreach_norm(grads)
+        split = [n for n, i in zip(norms, indices) if self.sharded[i]]
+        if not split:
+            return torch.linalg.vector_norm(torch.stack(norms))
+        whole = [n for n, i in zip(norms, indices) if not self.sharded[i]]
+        sq = all_reduce_(torch.stack(split).square().sum(), self.shard_group)
+        if whole:
+            sq = sq + torch.stack(whole).square().sum()
+        return torch.sqrt(sq)
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         grads = self._grads()
-        total = self._global_norm(grads)
+        total = self._global_norm(grads, range(len(grads)))
         live = [i for i, f in enumerate(self.frozen) if not f]
         params = [self.params[i] for i in live]
         exp_avg = [self.exp_avg[i] for i in live]
         exp_avg_sq = [self.exp_avg_sq[i] for i in live]
         grads = [grads[i] for i in live]
         norm = (total if len(live) == len(self.frozen)
-                else self._global_norm(grads))
+                else self._global_norm(grads, live))
         if self.clip:
             # below the limit the gradients pass unchanged
             scale = torch.where(norm < self.clip, torch.ones_like(norm),

@@ -16,6 +16,16 @@ validation step normalises with them. The phase flags (binarize, kl_on)
 are plain Python booleans, one step function per phase, as in the JAX
 package.
 
+Under a data mesh (``parallel.mesh.use_mesh``) the step computes what the
+JAX step computes on the global batch from this rank's share of it: each
+loss term is the rank's share (``losses/flow.py``; a term every rank
+computes whole, as the table regularizers, counts 1/n_data on each), the
+gradients are summed over the data group, so they are the gradient of the
+global loss, and the metrics are summed likewise, so every rank logs the
+global values. Under tensor parallelism the replicated parameters'
+gradients are averaged over the model group, so its ranks stay alike.
+The whitening init's moments are the global batch's.
+
     model = TTSModel(default_radmmm_config())
     state = create_train_state(model)            # to CUDA, RAdam, clip 1.0
     make_whitening_init(model)(state, batch)     # batch on the same device
@@ -37,6 +47,7 @@ from radmmm_torch.models.flow_decoder import squeeze_time
 from radmmm_torch.models.tts import TTSModel, mel_scale
 from radmmm_torch.ops.invertible import (whitening_params_from_stats,
                                          whitening_stats)
+from radmmm_torch.parallel import mesh
 from radmmm_torch.training.optim import Optimizer, build_optimizer
 from radmmm_torch.utils.device import resolve_device
 from radmmm_torch.utils.masking import SeqLens
@@ -74,9 +85,17 @@ class LossConfig:
     kl_loss_start_iter: int = 25000
 
 
+def _whole(loss_dict):
+    """A term every data rank computes whole: each holds 1/n_data of it."""
+    k = mesh.n_data()
+    return loss_dict if k == 1 else {
+        name: (v / k, w) for name, (v, w) in loss_dict.items()}
+
+
 def compute_losses(model: TTSModel, cfg: LossConfig, outputs, batch,
                    binarization_on: bool):
-    """Every loss term as {name: (value, weight)}."""
+    """Every loss term as {name: (value, weight)}: this rank's share of it
+    over the global batch (the term itself in one process)."""
     in_lens = SeqLens.create(batch["input_lengths"], batch["text"].shape[1])
     out_lens = SeqLens.create(batch["output_lengths"], batch["mel"].shape[1])
     ld = RADMMMLoss(
@@ -111,19 +130,22 @@ def compute_losses(model: TTSModel, cfg: LossConfig, outputs, batch,
     spk_table = model.speaker_embeddings.weight
     use_accent = model.config.use_accent
     if cfg.speaker_reg is not None:
-        ld.update(VarianceCovarianceEmbeddingRegLoss(
+        ld.update(_whole(VarianceCovarianceEmbeddingRegLoss(
             "speaker", cfg.speaker_reg.get("variance", 0.0),
-            cfg.speaker_reg.get("covariance", 0.0))(spk_table))
+            cfg.speaker_reg.get("covariance", 0.0))(spk_table)))
     if cfg.accent_reg is not None and use_accent:
-        ld.update(VarianceCovarianceEmbeddingRegLoss(
+        ld.update(_whole(VarianceCovarianceEmbeddingRegLoss(
             "accent", cfg.accent_reg.get("variance", 0.0),
             cfg.accent_reg.get("covariance", 0.0))(
-                model.accent_embeddings.weight))
+                model.accent_embeddings.weight)))
     if cfg.cross_covariance_weight is not None and use_accent:
-        ld.update(AttributeMinCrossCovarianceRegLoss(
+        # the batch's cross-covariance is not a sum over items: it reads
+        # the global batch's vectors, gathered with their gradient
+        ld.update(_whole(AttributeMinCrossCovarianceRegLoss(
             "speaker", "accent", cfg.cross_covariance_weight)(
-                outputs["spk_vecs"], outputs["accent_vecs"], spk_table,
-                model.accent_embeddings.weight))
+                mesh.data_gather(outputs["spk_vecs"]),
+                mesh.data_gather(outputs["accent_vecs"]), spk_table,
+                model.accent_embeddings.weight)))
     return ld
 
 
@@ -144,9 +166,12 @@ def create_train_state(model: TTSModel, device: str = "cuda",
 
 
 def _metrics(ld, loss) -> Dict[str, torch.Tensor]:
-    metrics = {k: v.detach() for k, (v, _) in ld.items()}
-    metrics["loss"] = loss.detach()
-    return metrics
+    """The loss terms and the loss, summed over the data group: the global
+    batch's values, alike on every rank."""
+    names = list(ld) + ["loss"]
+    values = torch.stack([v.detach() for v, _ in ld.values()]
+                         + [loss.detach()])
+    return dict(zip(names, mesh.data_sum(values).unbind()))
 
 
 def make_train_step(model: TTSModel, cfg: LossConfig, binarize: bool,
@@ -164,6 +189,7 @@ def make_train_step(model: TTSModel, cfg: LossConfig, binarize: bool,
                             binarization_on=(binarize and kl_on))
         loss = total_loss(ld)
         loss.backward()
+        mesh.get_mesh().sync_grads(state.optimizer)
         grad_norm = state.optimizer.step()
         state.step += 1
         metrics = _metrics(ld, loss)

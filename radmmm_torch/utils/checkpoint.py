@@ -12,6 +12,12 @@ name, all on the host. The reference's protocol (SURVEY.md §5):
 * a save drops the frozen submodules, and a restore keeps the live values
   of whatever the checkpoint lacks (on_save_checkpoint /
   on_load_checkpoint, tts_lightning_modules.py:514-540).
+
+Over several processes (the active ``parallel.mesh``) a checkpoint has no
+layout: the parameters a rank holds a shard of, and their moments, are
+gathered over its model group, rank 0 writes the full state and the
+others wait at a barrier. A restore loads the full state into a full
+model; the trainer then cuts each rank's shards (``mesh.shard_state``).
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ import shutil
 from typing import Dict, Optional, Sequence
 
 import torch
+
+from radmmm_torch.parallel.mesh import get_mesh
 
 ENCODER_SUBMODULES = ("text_embeddings", "text_encoder",
                       "speaker_embeddings", "attention",
@@ -32,8 +40,10 @@ def _top(name: str) -> str:
 
 
 def _host(sd: Dict[str, torch.Tensor], exclude: Sequence[str]):
-    return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()
-            if _top(k) not in exclude}
+    """The full tensors of ``sd`` on the host, gathered where split."""
+    mesh = get_mesh()
+    return {k: mesh.gather_param(k, v).detach().to("cpu", copy=True)
+            for k, v in sd.items() if _top(k) not in exclude}
 
 
 def _load_file(path: str) -> dict:
@@ -61,7 +71,18 @@ class CheckpointManager:
              ) -> int:
         """Save a ``training.step.TrainState`` through host memory; frozen
         submodules (``exclude_prefixes``) are left out. Returns the bytes
-        written."""
+        written (0 on a rank that does not write)."""
+        mesh = get_mesh()
+        n = 0
+        # the first data rank's model group gathers; rank 0 writes
+        if mesh.data_index == 0:
+            payload = self._payload(state, exclude_prefixes)
+            if mesh.rank == 0:
+                n = self.save_payload(step, payload)
+        mesh.barrier()
+        return n
+
+    def _payload(self, state, exclude_prefixes: Sequence[str]) -> dict:
         opt = state.optimizer
         names = {id(p): n for n, p in state.model.named_parameters()}
         moments = {}
@@ -69,10 +90,10 @@ class CheckpointManager:
                           ("exp_avg_sq", opt.exp_avg_sq)):
             moments[key] = _host({names[id(p)]: b for p, b in
                                   zip(opt.params, bufs)}, exclude_prefixes)
-        return self.save_payload(step, {
+        return {
             "step": int(state.step),
             "model": _host(state.model.state_dict(), exclude_prefixes),
-            "optimizer": {"count": int(opt.count), **moments}})
+            "optimizer": {"count": int(opt.count), **moments}}
 
     def save_payload(self, step: int, payload: dict) -> int:
         """Write ``payload`` (tensors on the host) as step ``step``'s

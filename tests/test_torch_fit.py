@@ -13,7 +13,10 @@ JAX trainer's resume starts from its own fit's last state through the
 same seam (the restore overwrites it), which spares it a second trace of
 the model's init. Tracked stack (2)'s shape (an LSTMConvDAP duration
 predictor, speaker-only frame predictors, no accent in the encoder) runs
-``fit`` to 4 steps on the same corpus through both trainers.
+``fit`` to 4 steps on the same corpus through both trainers. ``fit
+--distributed`` runs over two gloo processes in torchrun's environment
+(the invariants of tests/test_multihost.py: identical parameters, finite
+losses, logging on rank 0 only, one checkpoint, a resume that goes on).
 
 Tolerances: every scalar of the two ``metrics.jsonl`` files that draws no
 random number (the reconstruction's MCD samples the flow, and steps/s is
@@ -41,6 +44,7 @@ from radmmm_tpu.utils.config import load_configs as jax_load_configs
 from radmmm_torch.convert import load_jax_train_state
 from radmmm_torch.training import cli as torch_cli
 from radmmm_torch.utils.config import load_configs
+from tests.test_torch_parallel import ROOT, _free_port, run_ranks
 
 RTOL = ATOL = 1e-4
 # scalars that draw random numbers or read a clock
@@ -571,7 +575,7 @@ def test_griffin_lim_with_a_fed_phase_matches_jax():
                                atol=1e-4 * np.abs(want).max())
 
 
-def test_cli_needs_a_card_unless_asked_for_the_cpu(cfg_files, capsys):
+def test_cli_needs_a_card_unless_asked_for_the_cpu(cfg_files):
     path, _, out = cfg_files
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
@@ -579,9 +583,10 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(cfg_files, capsys):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             torch_cli.main([sub, "-c", path,
                             f"--model.output_directory={out / 'nocard'}"])
-    with pytest.raises(SystemExit):
-        torch_cli.main(["fit", "-c", path, "--distributed"])
-    assert "M13" in capsys.readouterr().err
+    # --distributed reads torchrun's environment and says how to launch
+    with pytest.raises(RuntimeError, match="torchrun"):
+        torch_cli.main(["fit", "-c", path, "--distributed",
+                        "--device", "cpu"])
 
 
 def test_logger_writes_metrics_images_and_audio(tmp_path):
@@ -619,3 +624,76 @@ def test_logger_writes_metrics_images_and_audio(tmp_path):
     sr, wav = wavfile.read(step_dir / "val_wav.wav")
     assert sr == 16000 and wav.dtype == np.int16 and wav.size == 800
     assert np.abs(wav).max() == 32767          # peak-normalised from 2.0
+
+
+FIT_CHILD = r"""
+import hashlib, json, os, sys
+sys.path.insert(0, {root!r})
+import torch
+torch.set_num_threads(1)
+from radmmm_torch.training import cli
+dm, trainer = cli.main(sys.argv[1:])
+blob = b"".join(trainer.mesh.gather_param(n, p).detach().numpy().tobytes()
+                for n, p in trainer.model.named_parameters())
+rank = int(os.environ["RANK"])
+with open(os.path.join(os.environ["RESULT_DIR"], f"rank{{rank}}.json"),
+          "w") as f:
+    json.dump(dict(digest=hashlib.sha256(blob).hexdigest(),
+                   logger=trainer.logger.enabled, ckpts=trainer.ckpt.steps(),
+                   steps=trainer.stats["steps"]), f)
+"""
+
+
+@pytest.mark.parametrize("n_data,n_model", [(2, 1), (1, 2)])
+def test_distributed_fit_and_resume(cfg_files, tmp_path, n_data, n_model):
+    """``fit --distributed --device cpu`` in two processes with torchrun's
+    environment, data parallel (n_data 2, batches of 2 a rank: the 8
+    utterances make two rounds an epoch) or tensor parallel (n_model 2,
+    both ranks the same batches, the WN stacks split), in groups of 2
+    steps: fit to 4 steps, validating every 2, then a resume to 6. Both
+    ranks end each run with the same (gathered) parameters, only rank 0
+    logs (each step once, every loss finite), the first run leaves one
+    checkpoint, and the resume starts from it and adds its steps."""
+    path, _, _ = cfg_files
+    out = tmp_path / "run"
+    script = tmp_path / "fit_child.py"
+    script.write_text(FIT_CHILD.format(root=ROOT))
+
+    def launch(max_steps, tag):
+        res = tmp_path / tag
+        res.mkdir()
+        port = str(_free_port())
+        argv = ["fit", "-c", path, "--device", "cpu", "--distributed",
+                f"--model.output_directory={out}",
+                f"--trainer.n_data={n_data}", f"--trainer.n_model={n_model}",
+                f"--trainer.max_steps={max_steps}",
+                "--trainer.val_check_interval=2",
+                "--model.iters_per_checkpoint=100"]
+        logs = run_ranks(str(script), lambda r: argv, lambda r: dict(
+            RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2",
+            LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+            RESULT_DIR=str(res)))
+        results = [json.loads((res / f"rank{r}.json").read_text())
+                   for r in range(2)]
+        assert results[0]["digest"] == results[1]["digest"], tag
+        assert [r["logger"] for r in results] == [True, False]
+        return logs, results
+
+    logs, results = launch(4, "fit")
+    assert all(r["ckpts"] == [4] and r["steps"] == 4 for r in results)
+    assert (f"training over mesh {{'data': {n_data}, 'model': {n_model}}}"
+            in logs[0])
+    rows = _rows(out)
+    # groups of 2 log once, the group that crosses the binarization switch
+    # (step 3) step by step; one writer, so no step twice
+    assert [r["step"] for r in rows if "train/loss" in r] == [2, 3, 4]
+    assert [r["step"] for r in rows if "val/loss" in r] == [2, 4]
+    for r in rows:
+        assert all(np.isfinite(v) for k, v in r.items() if k != "step"), r
+
+    logs, results = launch(6, "resume")
+    assert "resumed from step 4" in logs[0] and "resumed from step 4" in \
+        logs[1]
+    assert all(r["ckpts"] == [4, 6] and r["steps"] == 2 for r in results)
+    rows = _rows(out)
+    assert [r["step"] for r in rows if "train/loss" in r][-2:] == [5, 6]

@@ -260,6 +260,14 @@ def test_masked_batch_norm_gradients_match_jax(rng):
 
 
 def test_sync_batch_norm_names_m13(rng):
+    """sync=True (M13's sync-BN) in one process: the batch is the global
+    batch, so it normalises and moves the running statistics exactly as
+    sync=False does."""
     x, mask = _bn_inputs(rng)
-    with pytest.raises(NotImplementedError, match="M13"):
-        MaskedBatchNorm(6)(_t(x), _t(mask), sync=True)
+    outs, stats = [], []
+    for sync in (False, True):
+        bn = MaskedBatchNorm(6)
+        outs.append(bn(_t(x), _t(mask), sync=sync))
+        stats.append((bn.mean.clone(), bn.var.clone()))
+    assert torch.equal(outs[0], outs[1])
+    assert all(torch.equal(a, b) for a, b in zip(*stats))
