@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases build,kernels,serve,parity,train,
                            train_parity,wn,featurize,vocoder,fit,
-                           radtts_fit,m12,ddp] [--seed 0]
+                           radtts_fit,m12,ddp,caches] [--seed 0]
 
 Phases (all by default):
 
@@ -173,7 +173,23 @@ Phases (all by default):
             at 3), then a resume to 5: one checkpoint after the fit, one
             writer of metrics.jsonl, each step logged once and finite,
             the launches of each training step, the ranks' parameters
-            alike bit for bit after each run.
+            alike bit for bit after each run;
+14. caches  TF32 off: the feature caches (radmmm_torch/native.py,
+            data/f0_cache.py) on a synthetic 22,050 Hz corpus like
+            radtts_fit's (24 training and 4 validation lines): the audio
+            cache and the F0 cache (pYIN on the card) built through
+            radmmm_torch.scripts.build_audio_cache and build_f0_cache, with
+            their records and seconds; eight items' batch from the caches
+            against the wavs' with pYIN, featurized on the card (mel and
+            energy within 1e-6, F0 within 5e-3 on more than 90% of each
+            item's valid frames, voicing equal on more than 90%, padding
+            zero) and the featurize ms of each; native.mas_batch_cpu against
+            K3 bit for bit at (8, 512, 96), full and ragged; then stack
+            (2)'s fit to 6 steps without the caches and with them (steps
+            5-6 profiled): every batch with its tracks (pYIN skipped) or
+            without, each step's launches (K4 4 + 4, K1 1, K2 1, K3 1 once
+            binarized), ms a step, the loader's share and the card's busy
+            share of each.
 
 Any failure exits non-zero. The line before the last is a JSON object
 with the kernels' numbers; the last line is
@@ -201,7 +217,8 @@ import numpy as np
 import torch
 
 PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity",
-          "wn", "featurize", "vocoder", "fit", "radtts_fit", "m12", "ddp")
+          "wn", "featurize", "vocoder", "fit", "radtts_fit", "m12", "ddp",
+          "caches")
 # (name, lanes, hidden, time steps, LSTM input width) on the serving path
 # at text bucket 96 and frame bucket 800 (the flow context runs at 800/2)
 PATH_SHAPES = (("text_encoder", 2, 260, 96, 520),
@@ -1820,6 +1837,280 @@ def phase_fit(seed: int, tag: str, configs: tuple, sr: int, overlay,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# the caches phase: tracked stack (2) on a synthetic 22,050 Hz corpus like
+# the radtts_fit phase's, its audio and F0 caches built on the card through
+# radmmm_torch.scripts.build_audio_cache and build_f0_cache, then fit to
+# CACHE_STEPS without the caches and with them, steps CACHE_PROFILE_FROM + 1
+# to CACHE_STEPS profiled in each; the host MAS (native.mas_batch_cpu)
+# against K3 at the training batch's shape and on a ragged batch
+CACHE_STEPS, CACHE_PROFILE_FROM = 6, 4
+# the cache-fed batch against the compute path, as tests/test_f0_cache.py
+# holds the JAX package's: mel and energy within CACHE_FEAT_ATOL; F0 (log
+# F0) within CACHE_F0_ATOL on more than CACHE_AGREE of each item's valid
+# frames (the cache ran pYIN over another padded length, so a Viterbi tie
+# at the tail may go the other way), voicing equal on more than
+# CACHE_AGREE of them
+CACHE_FEAT_ATOL, CACHE_F0_ATOL, CACHE_AGREE = 1e-6, 5e-3, 0.9
+
+
+def soft_attention(rng, B: int, T_mel: int, T_text: int) -> np.ndarray:
+    """Plausible soft attention: a noisy diagonal, each row normalised
+    over the text (tests/test_alignment.py's ``soft_attn``)."""
+    a = rng.uniform(0.01, 1.0, (B, T_mel, T_text)).astype(np.float32)
+    i = np.arange(T_mel)
+    a[:, i, (i * T_text) // T_mel] += 3.0
+    return a / a.sum(-1, keepdims=True)
+
+
+def _caches_mas(seed: int) -> None:
+    """``native.mas_batch_cpu`` against K3 on the card, bit for bit, at the
+    training batch's (B, T_mel, T_text) with full lengths and on a ragged
+    batch (text_len 1 and mel_len 1 among its items)."""
+    import os
+    from radmmm_torch import native
+    from radmmm_torch.ops.alignment import mas_width1
+    rng = np.random.default_rng(seed)
+    B, T_mel, T_text = TRAIN_B, TRAIN_T_MEL, TRAIN_T_TEXT
+    attn = soft_attention(rng, B, T_mel, T_text)
+    ragged = (np.r_[1, T_text, rng.integers(2, T_text, B - 2)],
+              np.r_[T_mel, 1, rng.integers(2, T_mel, B - 2)])
+    for name, (tl, ml) in (("full", (np.full(B, T_text), np.full(B, T_mel))),
+                           ("ragged", ragged)):
+        tl, ml = tl.astype(np.int32), ml.astype(np.int32)
+        t0 = time.perf_counter()
+        host = native.mas_batch_cpu(attn, tl, ml)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        card = mas_width1(torch.from_numpy(attn).cuda(),
+                          torch.from_numpy(tl).cuda(),
+                          torch.from_numpy(ml).cuda()).cpu().numpy()
+        diff = int((host != card).sum())
+        log(f"[caches] native.mas_batch_cpu against K3 at ({B}, {T_mel}, "
+            f"{T_text}), {name} (text lengths {tl.tolist()}, mel lengths "
+            f"{ml.tolist()}): {diff} elements differ; the host's "
+            f"{os.cpu_count()} threads {host_ms:.2f} ms")
+        if diff:
+            fail(f"native.mas_batch_cpu and K3 disagree on {diff} elements "
+                 f"of the {name} batch")
+
+
+def _caches_features(dm_plain, dm_cached, card: str) -> dict:
+    """The first eight training items, from the wavs with pYIN and from
+    the audio and F0 caches, featurized on the card and compared; the
+    featurize ms of each batch."""
+    from radmmm_torch.data.collate import collate_host
+    n = min(8, len(dm_plain.trainset))
+    host_p = collate_host([dm_plain.trainset[i] for i in range(n)])
+    host_c = collate_host([dm_cached.trainset[i] for i in range(n)])
+    if "cached_f0" not in host_c or "cached_f0" in host_p:
+        fail("the cache-fed batch has no F0 tracks (or the plain one has)")
+    if not np.array_equal(host_p["audio"], host_c["audio"]):
+        fail("the audio cache's batch differs from the wavs'")
+    b_p, b_c = dm_plain.featurizer(host_p), dm_cached.featurizer(host_c)
+    errs = {k: float((b_c[k] - b_p[k]).abs().max())
+            for k in ("mel", "energy_avg")}
+    lens = b_p["output_lengths"].cpu().numpy()
+    f0_p, f0_c = b_p["f0"].cpu().numpy(), b_c["f0"].cpu().numpy()
+    v_p = b_p["voiced_mask"].cpu().numpy()
+    v_c = b_c["voiced_mask"].cpu().numpy()
+    f0_ok = [float(np.isclose(f0_c[i, :m], f0_p[i, :m],
+                              atol=CACHE_F0_ATOL).mean())
+             for i, m in enumerate(lens)]
+    v_ok = [float((v_c[i, :m] == v_p[i, :m]).mean())
+            for i, m in enumerate(lens)]
+    pad = max(max(np.abs(f0_c[i, m:]).max(initial=0.0),
+                  np.abs(v_c[i, m:]).max(initial=0.0))
+              for i, m in enumerate(lens))
+    log(f"[caches] the cache-fed batch ({n} items, {f0_p.shape[1]} frames) "
+        f"against the compute path on the card: mel max |diff| "
+        f"{errs['mel']:.3e}, energy {errs['energy_avg']:.3e} (bound "
+        f"{CACHE_FEAT_ATOL}); share of each item's valid frames with F0 "
+        f"within {CACHE_F0_ATOL}: {', '.join(f'{x:.3f}' for x in f0_ok)}; "
+        f"voicing equal: {', '.join(f'{x:.3f}' for x in v_ok)} (bound > "
+        f"{CACHE_AGREE}); padding max {pad}")
+    if (max(errs.values()) > CACHE_FEAT_ATOL or min(f0_ok) <= CACHE_AGREE
+            or min(v_ok) <= CACHE_AGREE or pad != 0):
+        fail("the cache-fed batch disagrees with the compute path")
+    raws = {}
+    for tag, dm, host in (("without", dm_plain, host_p),
+                          ("with", dm_cached, host_c)):
+        feat = dm.featurizer
+        raws[tag] = {k: torch.from_numpy(v).cuda()
+                     for k, v in feat.raw_arrays(host).items()}
+    ms = {}
+    for tag in ("without", "with", "with", "without"):
+        feat = (dm_cached if tag == "with" else dm_plain).featurizer
+        raw = raws[tag]
+        ms.setdefault(tag, []).append(
+            cuda_ms(lambda: feat.featurize_raw(raw, 0), 3))
+    log(f"[caches] ({card}) featurize of that batch, in turns without, "
+        f"with, with, without the F0 cache: without "
+        + ", ".join(f"{x:.2f}" for x in ms["without"]) + " ms; with "
+        + ", ".join(f"{x:.2f}" for x in ms["with"]) + " ms")
+    return {k: sum(v) / len(v) for k, v in ms.items()}
+
+
+def _caches_overlay(root: str, corpus: dict, tag: str,
+                    caches: dict = None) -> str:
+    """The overlay over stack (2) for one fit of the caches phase: the
+    synthetic corpus (and, given ``caches``, its audio and F0 caches),
+    CACHE_STEPS steps, no validation, one checkpoint at the end, the
+    phase switches of the fit phase and the profiled window."""
+    import os
+    data = _data_overlay(root, corpus, RADTTS_STACK[5], ("LJS",))
+    if caches:
+        data.update(lmdb_cache_path=caches["audio"],
+                    f0_cache_path=caches["f0"])
+    return _write_overlay(root, f"overlay_{tag}.yaml", {
+        "model": {"output_directory": os.path.join(root, f"run_{tag}"),
+                  "iters_per_checkpoint": 1000,
+                  "binarization_start_iter": FIT_BINARIZE_FROM,
+                  "decoder_loss": {"init_args": {"kl_loss_start_iter": 4}}},
+        "trainer": {"max_steps": CACHE_STEPS, "val_check_interval": 1000,
+                    "log_interval": 1,
+                    "profile_dir": os.path.join(root, f"profile_{tag}"),
+                    "profile_start_step": CACHE_PROFILE_FROM,
+                    "profile_n_steps": CACHE_STEPS - CACHE_PROFILE_FROM},
+        "data": data})
+
+
+@tf32_off()
+def phase_caches(seed: int) -> dict:
+    """The feature caches on the card: both caches of a synthetic 22,050
+    Hz corpus built through the two scripts' entry points, the cache-fed
+    batch against the compute path, ``native.mas_batch_cpu`` against K3,
+    then stack (2)'s ``fit`` to CACHE_STEPS without and with the caches.
+    Returns the kernels' launches of the two fits (the main path)."""
+    import os
+    from radmmm_torch.data.collate import Featurizer
+    from radmmm_torch.data.module import AudioDataModule
+    from radmmm_torch.scripts import build_audio_cache, build_f0_cache
+    from radmmm_torch.training.loop import Trainer
+    from radmmm_torch.utils.config import (load_configs,
+                                           translate_reference_data_config)
+    from radmmm_torch.utils.device import card_line
+    card = card_line()
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="radmmm_caches_")
+    try:
+        corpus = fit_corpus(root, seed, RADTTS_TRAIN, RADTTS_SOURCES,
+                            RADTTS_SR)
+        caches = {"audio": os.path.join(root, "cache", "audio"),
+                  "f0": os.path.join(root, "cache", "f0")}
+        plain = [a for c in RADTTS_STACK + (
+            _caches_overlay(root, corpus, "without"),) for a in ("-c", c)]
+        cached = [a for c in RADTTS_STACK + (
+            _caches_overlay(root, corpus, "with", caches),)
+            for a in ("-c", c)]
+        t0 = time.perf_counter()
+        n_audio = build_audio_cache.main(plain + ["-o", caches["audio"]])
+        audio_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_f0 = build_f0_cache.main(plain + ["-o", caches["f0"]])
+        torch.cuda.synchronize()
+        f0_s = time.perf_counter() - t0
+        n_lines = RADTTS_TRAIN + FIT_VAL
+        size = sum(os.path.getsize(caches[k] + ext)
+                   for k in caches for ext in (".dat", ".idx"))
+        log(f"[caches] ({card}) build_audio_cache: {n_audio} records in "
+            f"{audio_s:.2f} s; build_f0_cache (pYIN on the card, batches of "
+            f"8): {n_f0} records in {f0_s:.2f} s; {size / 1e6:.1f} MB on "
+            f"disk")
+        if n_audio != n_lines or n_f0 != n_lines:
+            fail(f"expected {n_lines} records in each cache, got audio "
+                 f"{n_audio}, F0 {n_f0}")
+
+        def module(argv):
+            cfg = load_configs(argv[1::2])
+            dm = AudioDataModule(**translate_reference_data_config(cfg))
+            dm.setup("fit")
+            return dm
+
+        feat_ms = _caches_features(module(plain), module(cached), card)
+        _caches_mas(seed)
+
+        # the main path: counts from zero, the two fits, counts read after
+        _zero_counters()
+        runs = {}
+        for tag, argv in (("without", plain), ("with", cached)):
+            steps, fed = [], []
+            featurize_raw = Featurizer.featurize_raw
+
+            def recording(self, raw, noise_key):
+                fed.append("cached_f0" in raw)
+                return featurize_raw(self, raw, noise_key)
+
+            Featurizer.featurize_raw = recording
+            try:
+                with _counted(Trainer, "_run_step", steps):
+                    dm, tr, _, fit_s = _run_cli(
+                        ["fit"] + argv, f"fit to {CACHE_STEPS} steps "
+                        f"{tag} the caches", "caches")
+            finally:
+                Featurizer.featurize_raw = featurize_raw
+            # every batch featurized (the first batch's and the steps')
+            # carried its tracks with the caches, none without
+            if len(fed) < CACHE_STEPS or set(fed) != {tag == "with"}:
+                fail(f"fit {tag} the caches: the featurized batches "
+                     f"carried F0 tracks {fed}")
+            if (tag == "with") != (dm.trainset.f0_cache is not None
+                                   and dm.trainset.audio_cache is not None):
+                fail(f"fit {tag} the caches read the wrong dataset")
+            for i, got in enumerate(steps):
+                want = dict(PER_STEP)
+                if i < FIT_BINARIZE_FROM:
+                    want["mas_width1"] = 0
+                if got != want:
+                    fail(f"caches: fit {tag} the caches, step {i + 1} "
+                         f"launched {got}, expected {want}")
+            rows = _metrics_rows(os.path.join(root, f"run_{tag}"))
+            bad = [r for r in rows for k, v in r.items()
+                   if k != "step" and "loss" in k and not math.isfinite(v)]
+            if bad or [r["step"] for r in rows] != list(
+                    range(1, CACHE_STEPS + 1)):
+                fail(f"caches: fit {tag} the caches logged {rows}")
+            s = tr.stats
+            starts, pauses = s["step_starts"], s["pause_s"]
+            walls = [1e3 * (starts[i + 1] - starts[i] - pauses.get(i + 1, 0))
+                     for i in range(1, CACHE_PROFILE_FROM)]
+            runs[tag] = dict(
+                walls=walls, fit_s=fit_s,
+                loader=100 * s["loader_wait_s"] / s["train_s"],
+                busy=s.get("profile_busy_s"), wall=s.get("profile_wall_s"),
+                top=s.get("profile_top_ms", [])[:6],
+                loss=[r["train/loss"] for r in rows])
+        launches = _counters()
+        for tag, r in runs.items():
+            n = CACHE_STEPS - CACHE_PROFILE_FROM
+            step_ms = sum(r["walls"]) / len(r["walls"])
+            busy = ("not measured (the profiler saw no device time)"
+                    if not r["busy"] else
+                    f"{1e3 * r['busy'] / n:.1f} ms a step, "
+                    f"{100 * r['busy'] / r['wall']:.1f}% of the profiled "
+                    f"wall, {1e5 * r['busy'] / n / step_ms:.1f}% of the "
+                    f"unprofiled {step_ms:.2f} ms a step")
+            log(f"[caches] ({card}) fit {tag} the caches: steps 2-"
+                f"{CACHE_PROFILE_FROM} " + ", ".join(
+                    f"{w:.1f}" for w in r["walls"])
+                + f" ms (mean {step_ms:.2f}; "
+                f"featurize, loader and logging in); featurize "
+                f"{feat_ms[tag]:.2f} ms a batch; the loader "
+                f"{r['loader']:.1f}% of the {CACHE_STEPS} steps; steps "
+                f"{CACHE_PROFILE_FROM + 1}-{CACHE_STEPS} profiled: the card "
+                f"busy {busy}; fit wall {r['fit_s']:.2f} s; train loss by "
+                f"step " + ", ".join(f"{x:.4f}" for x in r["loss"]))
+            log(f"[caches] fit {tag} the caches, the profiled steps' top "
+                f"kernels, ms summed: " + "; ".join(
+                    f"{name[:60]} {ms:.2f}" for name, ms in r["top"]))
+        log(f"[caches] kernel launches on each of the {CACHE_STEPS} "
+            f"training steps of both fits as expected: {PER_STEP} "
+            f"(mas_width1 0 before step {FIT_BINARIZE_FROM + 1}); the two "
+            f"fits launched {launches}")
+        log(f"[caches] phase in {time.perf_counter() - t_phase:.1f} s")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # the m12 phase: the spline flow of configs/radtts_model.yaml (n_splines
 # 2) at the training batch, both new affine couplings at the flow's widths
 # (160 channels of z, the 1,048-channel context), and the alternative
@@ -3048,8 +3339,9 @@ def kernel_entries(rows: list, serve_launches, train_launches,
     paths' runs, listed under ``launches_by_path``: serving, training and
     fit (its training steps and validations) for K4 forward, the wn phase
     and fit for K5, training and fit for the rest, and ``path_launches``'
-    paths (fit, the vocoder path, which runs none of them, radtts_fit, m12
-    and ddp, rank 0's counted steps; None for a phase not run)."""
+    paths (fit, the vocoder path, which runs none of them, radtts_fit, m12,
+    ddp, rank 0's counted steps, and caches, its two fits; None for a
+    phase not run)."""
     def by(kernel, **kw):
         return [r for r in rows if r["kernel"] == kernel
                 and all(r.get(k) == v for k, v in kw.items())]
@@ -3137,7 +3429,7 @@ def main() -> int:
     t_start = time.perf_counter()
     rows, serve_launches, train_launches, wn_launches = [], None, None, None
     fit_launches = vocoder_launches = vocoder_run = None
-    radtts_launches = m12_launches = ddp_launches = None
+    radtts_launches = m12_launches = ddp_launches = caches_launches = None
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -3184,12 +3476,14 @@ def main() -> int:
         m12_launches = phase_m12(args.seed)
     if "ddp" in phases:
         ddp_launches = phase_ddp(args.seed)
+    if "caches" in phases:
+        caches_launches = phase_caches(args.seed)
     if rows:
         log(json.dumps({"kernels": kernel_entries(
             rows, serve_launches, train_launches, wn_launches,
             {"fit": fit_launches, "vocoder": vocoder_launches,
              "radtts_fit": radtts_launches, "m12": m12_launches,
-             "ddp": ddp_launches})}))
+             "ddp": ddp_launches, "caches": caches_launches})}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -10,9 +10,14 @@ The reference's dataset dict format (basedir / sampling_rate / filelist /
 language / phonemized), pipe-separated filelists
 ``path|text|speaker|emotion|duration``, speaker and accent id tables sorted
 and unique over the training set, the speaker / emotion / duration filters
-and the speaker-stats JSON. The mmap'd audio cache and the F0 cache
-(``audio_cache_path``, ``f0_cache_path``) come with ROADMAP item M14 and
-raise until then.
+and the speaker-stats JSON. An optional mmap'd audio cache
+(``audio_cache_path``, the LMDB store of the reference, data.py:264-269)
+replaces the wav reads, and an optional F0 cache (``f0_cache_path``,
+``data/f0_cache.py``) gives each item its precomputed track, transformed
+for the item's augmentation, so the featurizer skips pYIN; both are
+``native.FeatureCache`` files, written by
+``radmmm_torch.scripts.build_audio_cache`` and ``build_f0_cache`` (or by
+the JAX package's scripts: the format is shared).
 """
 from __future__ import annotations
 
@@ -24,7 +29,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 from scipy.io import wavfile
 
+from radmmm_torch.data.f0_cache import f0_key, transform_cached_f0
 from radmmm_torch.data.wave_transforms import WaveAugmentations
+from radmmm_torch.native import FeatureCache
 
 
 @dataclasses.dataclass
@@ -140,12 +147,11 @@ class AudioDataset:
             self.data = [x for x in self.data
                          if dur_min <= x.duration <= dur_max]
 
-        for name, path in (("audio_cache_path", audio_cache_path),
-                           ("f0_cache_path", f0_cache_path)):
-            if path:
-                raise NotImplementedError(
-                    f"{name} needs the native feature cache, which the "
-                    "port brings with ROADMAP item M14")
+        # the audio, keyed by audiopath, in place of the wav files
+        self.audio_cache = (FeatureCache(audio_cache_path)
+                            if audio_cache_path else None)
+        # (3, F) [f0, voiced, p_voiced] tracks keyed f0::<audiopath>
+        self.f0_cache = FeatureCache(f0_cache_path) if f0_cache_path else None
 
         self.n_base_speakers = len(self.speaker_ids)
         self.augmentations = None
@@ -180,7 +186,13 @@ class AudioDataset:
     def __getitem__(self, index: int) -> Optional[Dict[str, Any]]:
         item = self.data[index]
         try:
-            audio, sr = load_wav(item.audiopath)
+            if self.audio_cache is not None:
+                cached = self.audio_cache.get_array(item.audiopath)
+                if cached is None:
+                    raise KeyError(f"{item.audiopath} not in audio cache")
+                audio, sr = cached.astype(np.float32), self.sampling_rate
+            else:
+                audio, sr = load_wav(item.audiopath)
         except Exception as e:  # broken audio -> dropped by collate
             print(f"wav loading failed for {item.audiopath}: {e}")
             return None
@@ -211,11 +223,17 @@ class AudioDataset:
             item.text, language=item.language,
             is_phonemized=item.phonemized), np.int32)
 
+        cached_f0 = None
+        if self.f0_cache is not None:
+            track = self.f0_cache.get_array(f0_key(item.audiopath))
+            if track is not None:
+                cached_f0 = transform_cached_f0(track, aug_factors)
+
         f0_mean, f0_std, energy_mean, energy_std = self._stats_for(
             item.speaker)
         return {
             "audio": audio.astype(np.float32),
-            "cached_f0": None,
+            "cached_f0": cached_f0,
             "text_encoded": text_encoded,
             "speaker_id": speaker_id,
             "accent_id": accent_id,
