@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases build,kernels,serve,parity,train,
                            train_parity,wn,featurize,vocoder,fit,
-                           radtts_fit,m12,ddp,caches] [--seed 0]
+                           radtts_fit,m12,ddp,caches,bf16] [--seed 0]
 
 Phases (all by default):
 
@@ -173,7 +173,12 @@ Phases (all by default):
             at 3), then a resume to 5: one checkpoint after the fit, one
             writer of metrics.jsonl, each step logged once and finite,
             the launches of each training step, the ranks' parameters
-            alike bit for bit after each run;
+            alike bit for bit after each run. (d) the E2E-GAN decoder's
+            STFT loss (RADTTSE2EGANLoss, five resolutions) on two data
+            ranks of 2 items of up to 2 s of audio, the longest on rank 1
+            only (chip_smoke.py --e2e-child), against one rank on the 4:
+            the ranks' loss terms sum to its, their audio_hat gradients
+            are its rows;
 14. caches  TF32 off: the feature caches (radmmm_torch/native.py,
             data/f0_cache.py) on a synthetic 22,050 Hz corpus like
             radtts_fit's (24 training and 4 validation lines): the audio
@@ -189,7 +194,24 @@ Phases (all by default):
             5-6 profiled): every batch with its tracks (pYIN skipped) or
             without, each step's launches (K4 4 + 4, K1 1, K2 1, K3 1 once
             binarized), ms a step, the loader's share and the card's busy
-            share of each.
+            share of each;
+15. bf16    model.conv_precision bf16 (the process-wide switch of
+            radmmm_torch/ops/conv.py), TF32 off but for the requests:
+            K4's bf16 variant at the serving shapes (B 1 and 8) and the
+            training shapes, its backward's at the training shapes, each
+            against its bf16 twin with its route, us a step, the twin's
+            ms, cuDNN's nn.LSTM in bf16, the bound and the f32 kernel's ms
+            at the same shape; the flow context's lane on the 16-CTA
+            cluster its bf16 slices fit, against the plan's grid; the LSTM
+            input projections in bf16; the
+            flagship step in bf16 (3 warm steps, launches K4-bf16 4 + 4,
+            K1 1, K2 1, K3 1 and no f32 K4, peak memory, one profiled step,
+            beside the train phase's f32 ms), its loss terms against f32's
+            from the same weights and batch, and the short step of
+            train_parity card against CPU in bf16 (loss terms, gradients
+            by Frobenius norm); the recipe's fit for 4 steps and predict
+            through the CLI with model.conv_precision bf16; the serve
+            phase's four HTTP requests in bf16, with its TF32 settings.
 
 Any failure exits non-zero. The line before the last is a JSON object
 with the kernels' numbers; the last line is
@@ -201,6 +223,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import functools
 import http.client
 import io
 import json
@@ -218,7 +241,7 @@ import torch
 
 PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity",
           "wn", "featurize", "vocoder", "fit", "radtts_fit", "m12", "ddp",
-          "caches")
+          "caches", "bf16")
 # (name, lanes, hidden, time steps, LSTM input width) on the serving path
 # at text bucket 96 and frame bucket 800 (the flow context runs at 800/2)
 PATH_SHAPES = (("text_encoder", 2, 260, 96, 520),
@@ -236,6 +259,12 @@ KERNEL_ATOL = 1e-5
 # the backward's dgates and the CTC band values grow with depth: held to
 # 1e-5 relative to their magnitude, with a 1e-5 floor
 KERNEL_RTOL = 1e-5
+# the bf16 variants of K4 against their bf16 twins: the same bf16-rounded
+# operands and f32 sums in another order, so an h (or dgates) value each
+# side rounds may land on either side of a bf16 rounding boundary and move
+# by 2^-8 of itself: absolute in the forward, relative with that floor in
+# the backward
+BF16_KERNEL_ATOL = 1e-3
 PARITY_ATOL = 1e-3
 TRAIN_PARITY_RTOL = 1e-3
 # each parameter's gradient, card against CPU, over its leaf's largest
@@ -332,43 +361,58 @@ def _bound(n_bytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound_ms(L, T, B, H, valid_frames, save=False) -> tuple:
+def bound_ms(L, T, B, H, valid_frames, save=False, bf16=False) -> tuple:
     """Least time for the recurrence: each input read once, the output
     (and in training the saved gates, c and h) written once; 8H² FLOP per
-    (lane, valid frame) for h @ Wh."""
+    (lane, valid frame) for h @ Wh, at the bf16 peak for the bf16 variant
+    (its operands are bf16; every input and output stays f32)."""
     n_out = L * T * B * H * (7 if save else 1)
     n_bytes = 4 * (L * T * B * 4 * H + T * B + L * H * 4 * H + n_out)
-    return _bound(n_bytes, 8.0 * H * H * L * valid_frames)
+    return _bound(n_bytes, 8.0 * H * H * L * valid_frames,
+                  PEAK_BF16_FLOP_PER_S if bf16 else PEAK_F32_FLOP_PER_S)
 
 
-def bound_bwd_ms(L, T, B, H, valid_frames) -> tuple:
+def bound_bwd_ms(L, T, B, H, valid_frames, bf16=False) -> tuple:
     """The backward reads dout, the saved gates and c, the mask and Wh and
-    writes dgates; 8H² FLOP per (lane, valid frame) for dgates @ Wh^T."""
+    writes dgates; 8H² FLOP per (lane, valid frame) for dgates @ Wh^T (at
+    the bf16 peak for the bf16 variant)."""
     n_bytes = 4 * (L * T * B * H * 2 + L * T * B * 4 * H * 2 + T * B
                    + L * H * 4 * H)
-    return _bound(n_bytes, 8.0 * H * H * L * valid_frames)
+    return _bound(n_bytes, 8.0 * H * H * L * valid_frames,
+                  PEAK_BF16_FLOP_PER_S if bf16 else PEAK_F32_FLOP_PER_S)
 
 
-def _rel_err_ok(got, want) -> tuple:
-    """(max abs error, within KERNEL_RTOL of the magnitude with a 1e-5
-    floor)."""
+def _rel_err_ok(got, want, rtol=KERNEL_RTOL, floor=1e-5) -> tuple:
+    """(max abs error, within ``rtol`` of the magnitude with a ``floor``)."""
     diff = (got - want).abs()
-    ok = bool((diff <= 1e-5 + KERNEL_RTOL * want.abs()).all())
+    ok = bool((diff <= floor + rtol * want.abs()).all())
     return diff.max().item(), ok
 
 
-def _cudnn_lstms(L, H, cin, dev):
-    return [torch.nn.LSTM(cin, H, bidirectional=True).to(dev)
+def _cudnn_lstms(L, H, cin, dev, dtype=torch.float32):
+    return [torch.nn.LSTM(cin, H, bidirectional=True).to(dev, dtype)
             for _ in range(L // 2)]
 
 
-def _lstm_rows(gen, dev, name, L, H, T, cin, B, train: bool):
+def _lstm_rows(gen, dev, name, L, H, T, cin, B, train: bool,
+               bf16: bool = False):
     """K4 forward (and in training K4 backward) at one shape: error
-    against the twin, times of kernel, twin and cuDNN, the bound."""
+    against the twin, times of kernel, twin and cuDNN, the bound. With
+    ``bf16`` the kernels' bf16 variants against the bf16 twins (within
+    BF16_KERNEL_ATOL), cuDNN's LSTM in bf16, and the f32 kernel's time at
+    the same shape beside them."""
     from radmmm_torch.ops.lstm_kernel import (
         _backward_kernel, _forward_kernel, card_backward_plan,
         card_forward_plan, lstm_recurrence,
         lstm_recurrence_backward_reference, lstm_recurrence_reference)
+    twin = functools.partial(lstm_recurrence_reference, bf16=bf16)
+    twin_bwd = functools.partial(lstm_recurrence_backward_reference,
+                                 bf16=bf16)
+    fwd_k = functools.partial(_forward_kernel, bf16=bf16)
+    bwd_k = functools.partial(_backward_kernel, bf16=bf16)
+    atol = BF16_KERNEL_ATOL if bf16 else KERNEL_ATOL
+    suffix = "_bf16" if bf16 else ""
+    ldt = torch.bfloat16 if bf16 else torch.float32
     lens = _lengths(T, B)
     mask = (torch.arange(T)[:, None] < lens[None, :]).float().to(dev)
     xp = torch.randn((L, T, B, 4 * H), generator=gen, device=dev)
@@ -378,86 +422,100 @@ def _lstm_rows(gen, dev, name, L, H, T, cin, B, train: bool):
     valid = int(lens.sum())
     # cuDNN yardstick: L/2 bidirectional nn.LSTM calls over packed
     # sequences of the layer's real input (its x @ W_ih included)
-    lstms = _cudnn_lstms(L, H, cin, dev)
-    x = torch.randn((T, B, cin), generator=gen, device=dev,
+    lstms = _cudnn_lstms(L, H, cin, dev, ldt)
+    x = torch.randn((T, B, cin), generator=gen, device=dev, dtype=ldt,
                     requires_grad=train)
     packed = torch.nn.utils.rnn.pack_padded_sequence(x, lens,
                                                      enforce_sorted=False)
     tag = "train" if train else "serve"
     if not train:
-        got = lstm_recurrence(xp, mask, wh, rev)
-        want = lstm_recurrence_reference(xp, mask, wh, rev)
+        got = lstm_recurrence(xp, mask, wh, rev, bf16=bf16)
+        want = twin(xp, mask, wh, rev)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        ok = err <= KERNEL_ATOL
-        k_ms = cuda_ms(lambda: lstm_recurrence(xp, mask, wh, rev), 20)
-        p_ms = cuda_ms(
-            lambda: lstm_recurrence_reference(xp, mask, wh, rev), 2)
+        ok = err <= atol
+        k_ms = cuda_ms(lambda: lstm_recurrence(xp, mask, wh, rev, bf16=bf16),
+                       20)
+        p_ms = cuda_ms(lambda: twin(xp, mask, wh, rev), 2)
+        f32_ms = cuda_ms(lambda: lstm_recurrence(
+            xp, mask, wh, rev, bf16=False), 20) if bf16 else None
     else:
-        got = _forward_kernel(xp, mask, wh, rev, save=True)
-        want = lstm_recurrence_reference(xp, mask, wh, rev, save=True)
+        got = fwd_k(xp, mask, wh, rev, save=True)
+        want = twin(xp, mask, wh, rev, save=True)
         torch.cuda.synchronize()
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
-        ok = err <= KERNEL_ATOL
-        k_ms = cuda_ms(lambda: _forward_kernel(xp, mask, wh, rev, True), 20)
-        p_ms = cuda_ms(lambda: lstm_recurrence_reference(
-            xp, mask, wh, rev, save=True), 2)
+        ok = err <= atol
+        k_ms = cuda_ms(lambda: fwd_k(xp, mask, wh, rev, True), 20)
+        p_ms = cuda_ms(lambda: twin(xp, mask, wh, rev, save=True), 2)
+        f32_ms = cuda_ms(lambda: _forward_kernel(
+            xp, mask, wh, rev, True), 20) if bf16 else None
 
     def library():
         for m in lstms:
             m(packed)
     with torch.no_grad():
         lib_ms = cuda_ms(library, 10)
-    b_ms, b_by = bound_ms(L, T, B, H, valid, save=train)
-    fplan = card_forward_plan(L, B, H)
-    fwd = dict(kernel="lstm_recurrence", path=tag, shape=name, L=L, H=H,
-               T=T, B=B, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+    b_ms, b_by = bound_ms(L, T, B, H, valid, save=train, bf16=bf16)
+    fplan = card_forward_plan(L, B, H, bf16)
+    fwd = dict(kernel="lstm_recurrence" + suffix, path=tag, shape=name, L=L,
+               H=H, T=T, B=B, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                us_per_step=k_ms * 1e3 / T, route=fplan.route,
                ctas_per_lane=fplan.n_cta, hb=fplan.hb)
-    log(f"[kernels] K4 {tag} {name} L={L} H={H} T={T} B={B}: max_abs_err "
-        f"{err:.3e} (atol {KERNEL_ATOL:g}"
+    if bf16:
+        fwd["f32_ms"] = f32_ms
+    phase = "bf16" if bf16 else "kernels"
+    log(f"[{phase}] K4{suffix} {tag} {name} L={L} H={H} T={T} B={B}: "
+        f"max_abs_err {err:.3e} (atol {atol:g}"
         f"{', saved states included' if train else ''}), kernel_ms "
         f"{k_ms:.4f} ({k_ms * 1e3 / T:.2f} us/step, route {fplan.route}: "
         f"{fplan.n_cta} CTAs a lane of {fplan.hb} units, ks {fplan.ks}), "
-        f"plain_ms {p_ms:.3f}, library_ms {lib_ms:.4f}, bound_ms "
-        f"{b_ms:.5f} ({b_by})")
+        f"plain_ms {p_ms:.3f}, library_ms {lib_ms:.4f}"
+        f"{' (cuDNN in bf16)' if bf16 else ''}, bound_ms {b_ms:.5f} "
+        f"({b_by})" + (f", f32 kernel_ms {f32_ms:.4f}" if bf16 else ""))
     if not ok:
-        fail(f"K4 forward disagrees with its twin at {tag} {name} B={B}")
+        fail(f"K4{suffix} forward disagrees with its twin at {tag} {name} "
+             f"B={B}")
     if not train:
         return fwd, None
 
     _, act, cs, _ = got
     dout = torch.randn((L, T, B, H), generator=gen, device=dev)
-    g = _backward_kernel(dout, act, cs, mask, wh, rev)
-    w = lstm_recurrence_backward_reference(dout, act, cs, mask, wh, rev)
+    g = bwd_k(dout, act, cs, mask, wh, rev)
+    w = twin_bwd(dout, act, cs, mask, wh, rev)
     torch.cuda.synchronize()
-    err_b, ok_b = _rel_err_ok(g, w)
-    kb_ms = cuda_ms(lambda: _backward_kernel(dout, act, cs, mask, wh, rev),
-                    20)
-    pb_ms = cuda_ms(lambda: lstm_recurrence_backward_reference(
-        dout, act, cs, mask, wh, rev), 2)
+    err_b, ok_b = (_rel_err_ok(g, w, BF16_KERNEL_ATOL, BF16_KERNEL_ATOL)
+                   if bf16 else _rel_err_ok(g, w))
+    kb_ms = cuda_ms(lambda: bwd_k(dout, act, cs, mask, wh, rev), 20)
+    pb_ms = cuda_ms(lambda: twin_bwd(dout, act, cs, mask, wh, rev), 2)
+    fb_ms = cuda_ms(lambda: _backward_kernel(
+        dout, act, cs, mask, wh, rev), 20) if bf16 else None
     outs = [m(packed)[0].data for m in lstms]
     grads = [torch.randn_like(o) for o in outs]
     inputs = [x] + [p for m in lstms for p in m.parameters()]
     libb_ms = cuda_ms(lambda: torch.autograd.grad(
         outs, inputs, grads, retain_graph=True), 10)
-    bb_ms, bb_by = bound_bwd_ms(L, T, B, H, valid)
-    plan = card_backward_plan(L, B, H)
-    bwd = dict(kernel="lstm_recurrence_bwd", path=tag, shape=name, L=L, H=H,
-               T=T, B=B, max_abs_err=err_b, ms=kb_ms, plain_ms=pb_ms,
-               library_ms=libb_ms, bound_ms=bb_ms, bound_by=bb_by,
-               us_per_step=kb_ms * 1e3 / T, route=plan.route,
-               ctas_per_lane=plan.n_cta, hb=plan.hb)
-    log(f"[kernels] K4-backward {name} L={L} H={H} T={T} B={B}: "
-        f"max_abs_err {err_b:.3e} (rtol {KERNEL_RTOL:g}, floor 1e-5, of "
+    bb_ms, bb_by = bound_bwd_ms(L, T, B, H, valid, bf16)
+    plan = card_backward_plan(L, B, H, bf16)
+    bwd = dict(kernel="lstm_recurrence_bwd" + suffix, path=tag, shape=name,
+               L=L, H=H, T=T, B=B, max_abs_err=err_b, ms=kb_ms,
+               plain_ms=pb_ms, library_ms=libb_ms, bound_ms=bb_ms,
+               bound_by=bb_by, us_per_step=kb_ms * 1e3 / T,
+               route=plan.route, ctas_per_lane=plan.n_cta, hb=plan.hb)
+    if bf16:
+        bwd["f32_ms"] = fb_ms
+    tol = (f"rtol {BF16_KERNEL_ATOL:g}, floor {BF16_KERNEL_ATOL:g}" if bf16
+           else f"rtol {KERNEL_RTOL:g}, floor 1e-5")
+    log(f"[{phase}] K4{suffix}-backward {name} L={L} H={H} T={T} B={B}: "
+        f"max_abs_err {err_b:.3e} ({tol}, of "
         f"|dgates| up to {w.abs().max().item():.2f}), kernel_ms "
         f"{kb_ms:.4f} ({kb_ms * 1e3 / T:.2f} us/step, route {plan.route}: "
         f"{plan.n_cta} CTAs a lane of {plan.hb} units, ks {plan.ks}), "
         f"plain_ms {pb_ms:.3f}, library_ms {libb_ms:.4f}, "
-        f"bound_ms {bb_ms:.5f} ({bb_by})")
+        f"bound_ms {bb_ms:.5f} ({bb_by})"
+        + (f", f32 kernel_ms {fb_ms:.4f}" if bf16 else ""))
     if not ok_b:
-        fail(f"K4 backward disagrees with its twin at {name}")
+        fail(f"K4{suffix} backward disagrees with its twin at {name}")
     return fwd, bwd
 
 
@@ -759,8 +817,12 @@ def _wavs(blob: bytes, n_items: int):
     return out
 
 
-def phase_serve(seed: int, model, vocoder, model_gpu) -> int:
-    from radmmm_torch.ops import lstm_kernel
+def phase_serve(seed: int, model, vocoder, model_gpu, tag: str = "serve",
+                kernel: str = "lstm_recurrence") -> int:
+    """Four HTTP requests to the daemon over an artifact of ``model`` and
+    ``vocoder``, checked, at the conv precision set; returns the
+    launches of ``kernel`` (K4, or its bf16 variant) on them, the only
+    kernel of K1-K5 the path may launch."""
     from radmmm_torch.serving import (_pad_request, export_tts,
                                       make_two_stage_fns)
     from radmmm_torch.server import serve
@@ -799,11 +861,11 @@ def phase_serve(seed: int, model, vocoder, model_gpu) -> int:
         t0 = time.perf_counter()
         n_bytes = export_tts(model, path, vocoder=vocoder,
                              buckets=TEXT_BUCKETS, frame_buckets=FRAME_BUCKETS)
-        log(f"[serve] artifact {n_bytes / 2**20:.1f} MiB written in "
+        log(f"[{tag}] artifact {n_bytes / 2**20:.1f} MiB written in "
             f"{time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
         httpd = serve(path, host="127.0.0.1", port=0, device="cuda")
-        log(f"[serve] artifact loaded on the card in "
+        log(f"[{tag}] artifact loaded on the card in "
             f"{time.perf_counter() - t0:.2f} s")
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
     th.start()
@@ -811,10 +873,10 @@ def phase_serve(seed: int, model, vocoder, model_gpu) -> int:
         for k, req in enumerate(requests):   # cold: first use of each shape
             t0 = time.perf_counter()
             status, _ = _post(httpd.server_address, req)
-            log(f"[serve] cold request {k}: HTTP {status}, "
+            log(f"[{tag}] cold request {k}: HTTP {status}, "
                 f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
         # the main path: counts from zero, four requests, counts read after
-        lstm_kernel.launches = 0
+        _zero_counters()
         for k, req in enumerate(requests):
             ids = req["text_ids"]
             n_items = len(ids)
@@ -839,10 +901,12 @@ def phase_serve(seed: int, model, vocoder, model_gpu) -> int:
                          f"expected {want}")
                 if pcm.size == 0 or not np.abs(pcm).max() > 0:
                     fail(f"request {k} item {i}: empty or silent audio")
-            log(f"[serve] request {k}: {n_items} text(s), "
+            log(f"[{tag}] request {k}: {n_items} text(s), "
                 f"{[len(s) for s in ids]} "
                 f"tokens, frames {expect[k].tolist()}, {ms:.1f} ms")
-        launches = lstm_kernel.launches
+        counts = _counters()
+        launches = counts.pop(kernel)
+        other = {k: v for k, v in counts.items() if v}
         # where the device time of one warm 96-token request goes, through
         # the callable the daemon dispatches to
         profile(lambda: httpd.service.tts(*calls[2]),
@@ -852,11 +916,19 @@ def phase_serve(seed: int, model, vocoder, model_gpu) -> int:
         httpd.server_close()
         th.join(timeout=10)
     want = 4 * len(requests)   # encoder + duration DAP + frame DAPs + context
-    log(f"[serve] lstm_recurrence launches on the main path: {launches} "
-        f"(expected {want})")
-    if launches < want:
-        fail("the serving path did not go through the LSTM kernel")
+    log(f"[{tag}] {kernel} launches on the main path: {launches} "
+        f"(expected {want}), other kernels {other or 'none'}")
+    if launches < want or other:
+        fail(f"the {tag} path did not go through its LSTM kernel alone")
     return launches
+
+
+# names of cuDNN's convolution kernels (implicit GEMMs, its legacy
+# engines, Winograd, FFT) and of its NCHW <-> NHWC transposes, as the
+# profiler reports them on an H100
+CONV_KERNEL_KEYS = ("cudnn", "implicit_convolve", "xmma_fprop",
+                    "xmma_dgrad", "xmma_wgrad", "dgrad_engine",
+                    "wgrad_alg", "winograd", "convolve")
 
 
 def profile(fn, what: str, top: int = 12):
@@ -885,6 +957,11 @@ def profile(fn, what: str, top: int = 12):
     log(f"[profile] {what}: wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
         f"{sum(r[2] for r in rows)} kernels")
+    conv = [r for r in rows if any(k in r[0] for k in CONV_KERNEL_KEYS)]
+    conv_ms = sum(r[1] for r in conv)
+    log(f"[profile]   cuDNN's convolution kernels and their layout "
+        f"transposes: {conv_ms:.2f} ms ({100 * conv_ms / busy_ms:.1f}% of "
+        f"busy) in {sum(r[2] for r in conv)} launches")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"[profile]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% "
             f"x{n:<5d} {key[:90]}")
@@ -952,6 +1029,8 @@ def _counters() -> dict:
     from radmmm_torch.ops import alignment, lstm_kernel, wn_kernel
     return {"lstm_recurrence": lstm_kernel.launches,
             "lstm_recurrence_bwd": lstm_kernel.backward_launches,
+            "lstm_recurrence_bf16": lstm_kernel.bf16_launches,
+            "lstm_recurrence_bwd_bf16": lstm_kernel.bf16_backward_launches,
             "ctc_alpha": ctc_kernel.alpha_launches,
             "ctc_beta": ctc_kernel.beta_launches,
             "mas_width1": alignment.launches,
@@ -962,6 +1041,7 @@ def _zero_counters() -> None:
     from radmmm_torch.losses import ctc_kernel
     from radmmm_torch.ops import alignment, lstm_kernel, wn_kernel
     lstm_kernel.launches = lstm_kernel.backward_launches = 0
+    lstm_kernel.bf16_launches = lstm_kernel.bf16_backward_launches = 0
     ctc_kernel.alpha_launches = ctc_kernel.beta_launches = 0
     alignment.launches = 0
     wn_kernel.launches = 0
@@ -970,9 +1050,14 @@ def _zero_counters() -> None:
 # launches of each kernel in one step of make_train_step(binarize=True):
 # the encoder, duration-DAP, ganged frame-DAP and flow-context recurrences
 # forward and backward, one CTC loss (alpha; beta in its backward), one
-# MAS; the package's WN layers do not run K5
-PER_STEP = {"lstm_recurrence": 4, "lstm_recurrence_bwd": 4, "ctc_alpha": 1,
-            "ctc_beta": 1, "mas_width1": 1, "conv_softplus": 0}
+# MAS; the package's WN layers do not run K5; in f32 the bf16 variants of
+# K4 never run (PER_STEP_BF16: in bf16 mode the reverse)
+PER_STEP = {"lstm_recurrence": 4, "lstm_recurrence_bwd": 4,
+            "lstm_recurrence_bf16": 0, "lstm_recurrence_bwd_bf16": 0,
+            "ctc_alpha": 1, "ctc_beta": 1, "mas_width1": 1,
+            "conv_softplus": 0}
+PER_STEP_BF16 = dict(PER_STEP, lstm_recurrence=0, lstm_recurrence_bwd=0,
+                     lstm_recurrence_bf16=4, lstm_recurrence_bwd_bf16=4)
 
 
 def train_batch(seed: int, B: int, T_text: int, T_mel: int, device,
@@ -1008,12 +1093,15 @@ def _loss_config():
                       speaker_reg={"variance": 0.0, "covariance": 0.0})
 
 
-def _flagship_training(seed: int, batch: dict, tag: str):
+def _flagship_training(seed: int, batch: dict, tag: str,
+                       per_step: dict = PER_STEP):
     """The full-width model from ``seed`` on the card, its whitening init
     on ``batch``, one warm-up step, then TRAIN_STEPS timed steps of
     make_train_step(binarize=True, kl_on=True) with the kernels' counts
-    from zero: every metric finite and each kernel launched as PER_STEP
-    says. Returns (model, step, state, generator, launches, mean ms)."""
+    from zero, at the conv precision set: every metric finite and each
+    kernel launched as ``per_step`` says. Returns (model, step, state,
+    generator, launches, mean ms)."""
+    from radmmm_torch.ops.conv import get_conv_precision
     from radmmm_torch.models.tts import TTSModel, default_radmmm_config
     from radmmm_torch.training.step import (create_train_state,
                                             make_train_step,
@@ -1054,7 +1142,7 @@ def _flagship_training(seed: int, batch: dict, tag: str):
                         if k not in ("loss", "grad_norm")))
         if bad:
             fail(f"{tag} training step {i}: non-finite {bad}")
-    want = {k: n * TRAIN_STEPS for k, n in PER_STEP.items()}
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     log(f"[{tag}] kernel launches on {TRAIN_STEPS} steps: {launches} "
         f"(expected {want})")
     if launches != want:
@@ -1065,22 +1153,24 @@ def _flagship_training(seed: int, batch: dict, tag: str):
     log(f"[{tag}] {ms:.2f} ms/step (mean of {TRAIN_STEPS} warm steps), "
         f"{B * T_mel / ms * 1e3:.0f} mel frames/s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (B={B}, "
-        f"T_text={batch['text'].shape[1]}, T_mel={T_mel}, f32)")
+        f"T_text={batch['text'].shape[1]}, T_mel={T_mel}, "
+        f"{get_conv_precision()})")
     return model, step, state, gen, launches, ms
 
 
 @tf32_off()
-def phase_train(seed: int) -> dict:
+def phase_train(seed: int) -> tuple:
     """The flagship training step at full width, f32 (TF32 off), on the
-    benchmark's batch. Returns the kernels' launches on the timed steps."""
+    benchmark's batch. Returns the kernels' launches on the timed steps
+    and the mean ms a step."""
     batch = train_batch(seed, TRAIN_B, TRAIN_T_TEXT, TRAIN_T_MEL,
                         torch.device("cuda"))
-    _, step, state, gen, launches, _ = _flagship_training(seed, batch,
-                                                          "train")
+    _, step, state, gen, launches, ms = _flagship_training(seed, batch,
+                                                           "train")
     profile(lambda: step(state, batch, gen),
             f"one training step (B={TRAIN_B}, T_mel={TRAIN_T_MEL}, traced)",
             top=15)
-    return launches
+    return launches, ms
 
 
 def no_dropout_config():
@@ -1836,6 +1926,346 @@ def phase_fit(seed: int, tag: str, configs: tuple, sr: int, overlay,
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+
+# the bf16 phase: model.conv_precision bf16 (ops/conv.set_conv_precision)
+# on the serving and training paths. The flagship step's loss terms in bf16
+# against f32 from the same weights and batch, relative (read on an H100:
+# 2.3e-3 at worst, energy_loss); the short step card against CPU, both in
+# bf16: the loss terms relative (read 3.1e-4), the gradients by Frobenius
+# norm: the median leaf and the whole tree within BF16_GRAD_RTOL (read
+# 1.8e-3 and 6.6e-3), every leaf within BF16_LEAF_RTOL (read 7.2e-2: the
+# text encoder's convs and norms, near-cancelling sums through leaky-ReLU
+# kinks, where one bf16 rounding apart moves them most, as
+# tests/test_torch_precision.py reads for JAX's bf16 step against its f32
+# one)
+BF16_VS_F32_RTOL = 1e-2
+BF16_PARITY_RTOL = 2e-3
+BF16_GRAD_RTOL = 2e-2
+BF16_LEAF_RTOL = 0.25
+BF16_FIT_STEPS = 4
+
+
+@contextlib.contextmanager
+def conv_precision(mode: str):
+    """The process-wide conv precision set to ``mode`` inside, f32 after."""
+    from radmmm_torch.ops.conv import set_conv_precision
+    set_conv_precision(mode)
+    try:
+        yield
+    finally:
+        set_conv_precision("f32")
+
+
+def _bf16_cluster_route(gen, dev) -> None:
+    """The flow context's lane (H 528) on the route its bf16 Wh slices
+    fit and the plans do not take: one 16-CTA cluster of 33 units a CTA,
+    forward at B 1 (serving) and backward at B 8 (training), against the
+    bf16 twin and timed beside the plan's grid."""
+    from radmmm_torch.ops import lstm_kernel as lk
+    _, L, H, T, _ = PATH_SHAPES[3]
+    for direction, B, T in (("fwd", 1, T),
+                            ("bwd", TRAIN_B, TRAIN_SHAPES[3][3])):
+        lens = _lengths(T, B)
+        mask = (torch.arange(T)[:, None] < lens[None, :]).float().to(dev)
+        xp = torch.randn((L, T, B, 4 * H), generator=gen, device=dev)
+        wh = (torch.rand((L, H, 4 * H), generator=gen, device=dev)
+              * 2 - 1) / H ** 0.5
+        rev = [False, True]
+        hb = -(-H // 16)
+        if direction == "fwd":
+            plan = lk.Plan("cluster", 16, hb, lk._fwd_chunks(hb), 0)
+            plan = dataclasses.replace(plan, smem=lk._fwd_smem(
+                B, H, hb, plan.ks, 16, True, bf16=True))
+            picked = lk.card_forward_plan(L, B, H, True)
+            run = functools.partial(lk._forward_kernel, xp, mask, wh, rev,
+                                    False, bf16=True)
+            want = lk.lstm_recurrence_reference(xp, mask, wh, rev, bf16=True)
+        else:
+            _, act, cs, _ = lk.lstm_recurrence_reference(
+                xp, mask, wh, rev, save=True, bf16=True)
+            dout = torch.randn((L, T, B, H), generator=gen, device=dev)
+            plan = lk.Plan("cluster", 16, hb, lk._CLUSTER_CHUNKS, 0)
+            plan = dataclasses.replace(plan, smem=lk._bwd_smem(
+                B, H, hb, plan.ks, 16, True, bf16=True))
+            picked = lk.card_backward_plan(L, B, H, True)
+            run = functools.partial(lk._backward_kernel, dout, act, cs, mask,
+                                    wh, rev, bf16=True)
+            want = lk.lstm_recurrence_backward_reference(
+                dout, act, cs, mask, wh, rev, bf16=True)
+        got = run(plan=plan)
+        torch.cuda.synchronize()
+        err, ok = _rel_err_ok(got, want, BF16_KERNEL_ATOL, BF16_KERNEL_ATOL)
+        c_ms = cuda_ms(lambda: run(plan=plan), 20)
+        g_ms = cuda_ms(lambda: run(plan=picked), 20)
+        log(f"[bf16] K4_bf16 {direction} flow_context L={L} H={H} T={T} "
+            f"B={B} on a 16-CTA cluster of {hb} units a CTA (the route its "
+            f"bf16 slices fit, {plan.smem} bytes a CTA): max_abs_err "
+            f"{err:.3e}, {c_ms:.4f} ms; the plan's {picked.route} "
+            f"({picked.n_cta} CTAs of {picked.hb} units) {g_ms:.4f} ms")
+        if not ok:
+            fail(f"K4_bf16 {direction} on the cluster route disagrees with "
+                 "its twin")
+
+
+def _bf16_projection() -> None:
+    """The LSTM input projections at the training shapes (the ganged frame
+    DAPs and the flow context), f32 against bf16 mode, and which bf16
+    product the installed PyTorch offers."""
+    from radmmm_torch.ops.conv import matmul
+    dev = torch.device("cuda")
+    out_dtype = "dtype" in torch.ops.aten.mm.overloads()
+    for name, P, n, c, g in (("frame_daps_ganged", 3, TRAIN_B * TRAIN_T_MEL,
+                              256, 1024),
+                             ("flow_context", 1, TRAIN_B * TRAIN_T_MEL // 2,
+                              1060, 4224)):
+        x = torch.randn((P, n, c), device=dev)
+        w = torch.randn((P, c, g), device=dev)
+        f32_ms = cuda_ms(lambda: torch.matmul(x, w), 20)
+        with conv_precision("bf16"):
+            got = matmul(x, w)
+            bf_ms = cuda_ms(lambda: matmul(x, w), 20)
+        want = torch.matmul(x.bfloat16().float(), w.bfloat16().float())
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        log(f"[bf16] LSTM projection {name} ({P}, {n}, {c}) x ({c}, {g}): "
+            f"f32 {f32_ms:.4f} ms, bf16 mode {bf_ms:.4f} ms via "
+            + ("torch.bmm(bf16, bf16, out_dtype=float32)" if out_dtype else
+               "the f32 product of bf16-rounded operands")
+            + f"; against the f32 product of the rounded operands "
+              f"{err:.2e} of its largest magnitude")
+        if not err <= 1e-5:
+            fail(f"bf16: the {name} projection is not the product of the "
+                 "rounded operands")
+
+
+def _bf16_vs_f32_step(seed: int) -> None:
+    """One flagship step (dropout off) from the same weights and batch in
+    f32 and in bf16: the loss terms side by side."""
+    from radmmm_torch.models.tts import TTSModel
+    from radmmm_torch.training.step import (create_train_state,
+                                            make_train_step,
+                                            make_whitening_init)
+    batch = train_batch(seed, TRAIN_B, TRAIN_T_TEXT, TRAIN_T_MEL,
+                        torch.device("cuda"))
+    torch.manual_seed(seed)
+    base = TTSModel(no_dropout_config())
+    _nudge_couplings(base)
+    res = {}
+    for mode in ("f32", "bf16"):
+        m = copy.deepcopy(base)
+        state = create_train_state(m, device="cuda")
+        make_whitening_init(m)(state, batch)
+        with conv_precision(mode):
+            step = make_train_step(m, _loss_config(), binarize=True,
+                                   kl_on=True)
+            _, met = step(state, batch, torch.Generator(device="cuda"))
+        res[mode] = {k: v.item() for k, v in met.items()}
+        del m, state
+    worst = 0.0
+    for k, want in res["f32"].items():
+        got = res["bf16"][k]
+        rel = abs(got - want) / max(abs(want), 1e-6)
+        worst = max(worst, rel)
+        log(f"[bf16]   {k}: bf16 {got:.6f}, f32 {want:.6f}, relative "
+            f"{rel:.3e}")
+        if not math.isfinite(got):
+            fail(f"bf16 step: {k} is not finite")
+    log(f"[bf16] the flagship step's loss terms, bf16 against f32 from the "
+        f"same weights and batch: worst relative {worst:.3e} (bound "
+        f"{BF16_VS_F32_RTOL:g})")
+    if not worst <= BF16_VS_F32_RTOL:
+        fail("bf16 step: a loss term strays from f32's")
+
+
+def _bf16_card_vs_cpu(seed: int) -> None:
+    """phase_train_parity's short step in bf16 on the card and on the CPU
+    (the bf16 twins, PyTorch's bf16 convolutions on the CPU): loss terms,
+    then gradients by Frobenius norm."""
+    from radmmm_torch.models.tts import TTSModel
+    from radmmm_torch.training.step import (create_train_state,
+                                            make_train_step,
+                                            make_whitening_init)
+    torch.manual_seed(seed + 2)
+    cpu_model = TTSModel(no_dropout_config())
+    _nudge_couplings(cpu_model)
+    models = {"cuda": copy.deepcopy(cpu_model), "cpu": cpu_model}
+    res = {}
+    with conv_precision("bf16"):
+        for where, m in models.items():
+            batch = train_batch(seed + 3, 2, 12, 64, where,
+                                text_lens=[12, 9], mel_lens=[64, 50])
+            state = create_train_state(m, device=where)
+            make_whitening_init(m)(state, batch)
+            step = make_train_step(m, _loss_config(), binarize=True,
+                                   kl_on=True)
+            state, met = step(state, batch, torch.Generator(device=where))
+            res[where] = {k: v.item() for k, v in met.items()}
+    worst = max(abs(res["cuda"][k] - w) / (1e-5 + abs(w))
+                for k, w in res["cpu"].items())
+    bad = [k for k, v in res["cuda"].items() if not math.isfinite(v)]
+    log(f"[bf16] short step card against CPU, both bf16: loss terms worst "
+        f"relative {worst:.3e} (bound {BF16_PARITY_RTOL:g}); "
+        + ", ".join(f"{k} {res['cuda'][k]:.5f}/{res['cpu'][k]:.5f}"
+                    for k in ("loss", "loss_mel", "duration_loss",
+                              "grad_norm") if k in res["cpu"]))
+    if bad or not worst <= BF16_PARITY_RTOL:
+        fail(f"bf16: card and CPU disagree on the short step's losses "
+             f"{bad}")
+    errs = leaf_grad_errors(models["cuda"], models["cpu"], frobenius=True)
+    diff2 = norm2 = 0.0
+    for (n, p), q in zip(models["cuda"].named_parameters(),
+                         models["cpu"].parameters()):
+        if q.grad is not None and p.grad is not None:
+            diff2 += (p.grad.cpu() - q.grad).norm().item() ** 2
+            norm2 += q.grad.norm().item() ** 2
+    tree = (diff2 / max(norm2, 1e-30)) ** 0.5
+    median = sorted(e[0] for e in errs)[len(errs) // 2]
+    log(f"[bf16] gradients of {len(errs)} parameters by Frobenius norm, "
+        f"card against CPU: the tree {tree:.3e}, the median leaf "
+        f"{median:.3e} (bound {BF16_GRAD_RTOL:g}); worst leaves (bound "
+        f"{BF16_LEAF_RTOL:g}): " + ", ".join(
+            f"{n} {e:.2e}" for e, n, _ in errs[:5]))
+    if not (tree <= BF16_GRAD_RTOL and median <= BF16_GRAD_RTOL
+            and errs[0][0] <= BF16_LEAF_RTOL):
+        fail("bf16: card and CPU gradients disagree")
+
+
+def _bf16_fit(seed: int) -> dict:
+    """The recipe through ``training/cli.py fit`` with
+    ``model.conv_precision: bf16`` for BF16_FIT_STEPS steps with a
+    validation at the last, then ``predict``: each step's launches
+    (PER_STEP_BF16), finite losses, the predictions' wavs. Returns the
+    launches of the steps, the validation and predict."""
+    import os
+    from radmmm_torch.ops.conv import get_conv_precision
+    from radmmm_torch.training.loop import Trainer
+    root = tempfile.mkdtemp(prefix="radmmm_bf16_fit_")
+    try:
+        base = [a for c in RECIPE + (recipe_overlay(root, seed),)
+                for a in ("-c", c)]
+        base += ["--model.conv_precision=bf16",
+                 f"--trainer.max_steps={BF16_FIT_STEPS}",
+                 f"--trainer.val_check_interval={BF16_FIT_STEPS}",
+                 "--model.iters_per_checkpoint=100"]
+        steps, vals, preds = [], [], []
+        _zero_counters()
+        try:
+            with _counted(Trainer, "_run_step", steps), \
+                    _counted(Trainer, "validate", vals):
+                dm, tr, _, fit_s = _run_cli(
+                    ["fit"] + base, f"fit to {BF16_FIT_STEPS} steps in bf16",
+                    "bf16")
+            if get_conv_precision() != "bf16":
+                fail("bf16 fit: the trainer did not set the precision")
+            with open("model_inputs/resynthesis_prompts.json") as f:
+                prompts = recipe_prompts([p for p in json.load(f)
+                                          if p["language"] in
+                                          dm.trainset.accent_ids],
+                                         dm.trainset)
+            ppath = os.path.join(root, "prompts.json")
+            with open(ppath, "w") as f:
+                json.dump(prompts, f)
+            with _counted(Trainer, "predict", preds):
+                _, tr3, _, predict_s = _run_cli(
+                    ["predict"] + base
+                    + [f"--data.inference_transcript={ppath}"],
+                    f"predict of {len(prompts)} prompts in bf16", "bf16")
+        finally:
+            from radmmm_torch.ops.conv import set_conv_precision
+            set_conv_precision("f32")
+        launches = _counters()
+        rows = _metrics_rows(os.path.join(root, "run"))
+        train_rows = [r for r in rows if "train/loss" in r]
+        bad = [r for r in rows for k, v in r.items()
+               if k != "step" and "loss" in k and not math.isfinite(v)]
+        if bad or len(train_rows) != BF16_FIT_STEPS:
+            fail(f"bf16 fit: non-finite losses or missing steps {bad}")
+        for i, got in enumerate(steps):
+            want = dict(PER_STEP_BF16)
+            if i < FIT_BINARIZE_FROM:
+                want["mas_width1"] = 0
+            if got != want:
+                fail(f"bf16 fit: step {i + 1} launched {got}, expected "
+                     f"{want}")
+        if not vals or any(v["lstm_recurrence"] or v["lstm_recurrence_bwd"]
+                           for v in vals + preds):
+            fail("bf16 fit: validation or predict ran the f32 K4")
+        pred_dir = os.path.join(root, "run", "predictions")
+        wavs = sorted(os.listdir(pred_dir))
+        if len(wavs) != len(prompts) or not prompts:
+            fail(f"bf16 predict: {len(wavs)} wavs for {len(prompts)} "
+                 "prompts")
+        walls = tr.stats["step_starts"]
+        log(f"[bf16] fit in bf16: train loss by step "
+            + ", ".join(f"{r['step']}: {r['train/loss']:.4f}"
+                        for r in train_rows)
+            + f"; steps 2-{BF16_FIT_STEPS}: " + ", ".join(
+                f"{1e3 * (b - a):.1f}" for a, b in zip(walls[1:], walls[2:]))
+            + f" ms start to start; fit {fit_s:.1f} s, predict "
+              f"{predict_s:.1f} s ({len(wavs)} wavs); launches on each "
+              f"step {steps[-1]}, validation {vals[0]}, predict {preds[0]}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_bf16(seed: int, train_ms) -> tuple:
+    """``model.conv_precision: bf16`` on the card: (a) the bf16 variants
+    of K4 and its backward against their bf16 twins at the serving and
+    training shapes, each beside the f32 kernel at its shape and cuDNN's
+    LSTM in bf16; the H 528 lane's cluster route; the LSTM projections;
+    (b) the flagship step in bf16 (3 warm steps, launches, peak memory, a
+    profiled step) beside the train phase's f32 ms, its loss terms against
+    f32's from the same weights, and the short step card against CPU in
+    bf16; (c) ``fit`` and ``predict`` of the recipe in bf16; (a)-(c) with
+    TF32 off, as the kernels, train and fit phases run; (d) the daemon's
+    four requests in bf16 with PyTorch's TF32 defaults, as the serve phase
+    runs (the vocoder's f32 convolutions in TF32). Returns (kernel rows,
+    the launches of the main paths: the training steps, fit, serving)."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    rows = []
+    with tf32_off():
+        for name, L, H, T, cin in PATH_SHAPES:
+            for B in (1, 8):
+                rows.append(_lstm_rows(gen, dev, name, L, H, T, cin, B,
+                                       train=False, bf16=True)[0])
+        for name, L, H, T, cin in TRAIN_SHAPES:
+            rows.extend(_lstm_rows(gen, dev, name, L, H, T, cin, TRAIN_B,
+                                   train=True, bf16=True))
+        _bf16_cluster_route(gen, dev)
+        _bf16_projection()
+        log(f"[bf16] kernels in {time.perf_counter() - t0:.1f} s")
+
+        batch = train_batch(seed, TRAIN_B, TRAIN_T_TEXT, TRAIN_T_MEL, dev)
+        with conv_precision("bf16"):
+            _, step, state, g, train_launches, ms = _flagship_training(
+                seed, batch, "bf16", PER_STEP_BF16)
+            profile(lambda: step(state, batch, g),
+                    f"one bf16 training step (B={TRAIN_B}, "
+                    f"T_mel={TRAIN_T_MEL}, traced)", top=15)
+        log(f"[bf16] the flagship step: bf16 {ms:.2f} ms, f32 (the train "
+            "phase, this call) "
+            + (f"{train_ms:.2f} ms" if train_ms else "not run"))
+        del step, state, batch
+        torch.cuda.empty_cache()
+        _bf16_vs_f32_step(seed)
+        _bf16_card_vs_cpu(seed)
+        torch.cuda.empty_cache()
+        fit_launches = _bf16_fit(seed)
+
+    model, vocoder = build_models(seed)
+    model.cache_inverses()
+    model_gpu = copy.deepcopy(model).cuda().cache_inverses()
+    with conv_precision("bf16"):
+        n = phase_serve(seed, model, vocoder, model_gpu, "bf16 serve",
+                        "lstm_recurrence_bf16")
+    serve_launches = dict(dict.fromkeys(PER_STEP, 0), lstm_recurrence_bf16=n)
+    del model, vocoder, model_gpu
+    torch.cuda.empty_cache()
+    log(f"[bf16] phase in {time.perf_counter() - t0:.1f} s")
+    return rows, {"train": train_launches, "fit": fit_launches,
+                  "serve": serve_launches}
 
 # the caches phase: tracked stack (2) on a synthetic 22,050 Hz corpus like
 # the radtts_fit phase's, its audio and F0 caches built on the card through
@@ -3291,10 +3721,129 @@ def _ddp_fit(seed: int, backend: str, work: str) -> dict:
     return total
 
 
+# the ddp phase's part (d): the E2E-GAN decoder's STFT loss (five
+# resolutions, A-weighted) on two data ranks against one rank on their
+# concatenated batch: E2E_B items of up to E2E_SECONDS of 22,050 Hz audio,
+# the longest on rank 1 only. Each rank's terms are its share of the
+# global loss, so they sum to one rank's; its audio_hat gradient is its
+# rows of one rank's (NaN where a masked frame's zero sum meets the
+# spectral convergence's sqrt, in both). The split changes only the order
+# of the global normalisers' and the loss's sums: rtol 1e-5, the gradient
+# with a floor of 1e-6 of its largest magnitude
+E2E_B, E2E_SECONDS, E2E_T_TEXT = 4, 2.0, 64
+E2E_RTOL = 1e-5
+
+
+def e2e_batch(seed: int, device) -> dict:
+    """Part (d)'s global batch: audio, audio_hat, lengths (the longest,
+    item 2, on rank 1), and a soft alignment for the CTC term."""
+    rng = np.random.default_rng(seed + 21)
+    T = int(E2E_SECONDS * SR)
+    lens = np.asarray([int(T * 0.8), int(T * 0.6), T, int(T * 0.45)])
+    T_mel = -(-T // HOP)
+    attn = rng.uniform(0.01, 1, (E2E_B, T_mel, E2E_T_TEXT)).astype(
+        np.float32)
+    attn /= attn.sum(-1, keepdims=True)
+    arrays = dict(
+        audio=(rng.standard_normal((E2E_B, T)) * 0.1).astype(np.float32),
+        audio_hat=(rng.standard_normal((E2E_B, T)) * 0.1).astype(np.float32),
+        audio_lens=lens.astype(np.float32),
+        mel_lens=(-(-lens // HOP)).astype(np.int32),
+        text_lens=rng.integers(E2E_T_TEXT // 2, E2E_T_TEXT + 1,
+                               E2E_B).astype(np.int32), attn=attn)
+    return {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
+
+
+def e2e_loss(batch: dict) -> tuple:
+    """RADTTSE2EGANLoss on ``batch`` under the current mesh, binarization
+    on: ({term: value}, the gradient of the weighted sum in audio_hat)."""
+    from radmmm_torch.losses.flow import RADTTSE2EGANLoss
+    from radmmm_torch.utils.masking import SeqLens
+    audio_hat = batch["audio_hat"].clone().requires_grad_()
+    attn = batch["attn"]
+    out = {"audio_hat": audio_hat, "attn": attn, "attn_soft": attn,
+           "attn_logprob": attn.log()}
+    terms = RADTTSE2EGANLoss()(
+        out, batch["audio"], batch["audio_lens"],
+        SeqLens.create(batch["text_lens"], attn.shape[-1]),
+        SeqLens.create(batch["mel_lens"], attn.shape[-2]), True)
+    sum(v * w for v, w in terms.values()).backward()
+    return ({k: v.item() for k, (v, _) in terms.items()},
+            audio_hat.grad.cpu())
+
+
+def e2e_child(spec_path: str, rank: int) -> int:
+    """One rank of part (d): its half of the global batch on its card (or
+    the CPU, where the spec says so) under a (2, 1) mesh."""
+    import os
+    import torch.distributed as dist
+    from radmmm_torch.parallel import mesh as M
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if spec["device"] == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cpu")
+    dist.init_process_group(spec["backend"],
+                            init_method=f"tcp://127.0.0.1:{spec['port']}",
+                            rank=rank, world_size=2)
+    half = E2E_B // 2
+    mine = {k: v[rank * half:(rank + 1) * half]
+            for k, v in e2e_batch(spec["seed"], dev).items()}
+    with M.use_mesh(M.make_mesh(2, 1)):
+        terms, grad = e2e_loss(mine)
+    torch.save(dict(terms=terms, grad=grad),
+               os.path.join(spec["work"], f"e2e_{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def _ddp_e2e(seed: int, backend: str, work: str, device: str = "cuda"
+             ) -> None:
+    """Part (d): two ranks as children against one rank here."""
+    import os
+    t0 = time.perf_counter()
+    terms, grad = e2e_loss(e2e_batch(seed, torch.device(device)))
+    spec = dict(seed=seed, backend=backend, port=_free_port(), work=work,
+                device=device)
+    path = os.path.join(work, "e2e.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    _run_children([[sys.executable, __file__, "--e2e-child", path, str(r)]
+                   for r in range(2)], DDP_CHILD_TIMEOUT, "ddp (d)")
+    res = [torch.load(os.path.join(work, f"e2e_{r}.pt"), weights_only=False)
+           for r in range(2)]
+    worst = 0.0
+    for k, want in terms.items():
+        got = res[0]["terms"][k] + res[1]["terms"][k]
+        err = abs(got - want) / max(abs(want), 1e-12)
+        worst = max(worst, err)
+        log(f"[ddp] (d)   {k}: ranks {res[0]['terms'][k]:.6f} + "
+            f"{res[1]['terms'][k]:.6f} = {got:.6f}, one rank {want:.6f}")
+    got = torch.cat([r["grad"] for r in res])
+    nan = torch.isnan(grad)
+    same_nan = bool(torch.equal(nan, torch.isnan(got)))
+    fin = ~nan
+    top = grad[fin].abs().max().item()
+    diff = (got[fin] - grad[fin]).abs()
+    g_ok = bool((diff <= E2E_RTOL * grad[fin].abs() + 1e-6 * top).all())
+    log(f"[ddp] (d) the E2E-GAN loss on two data ranks (B {E2E_B // 2} each, "
+        f"{backend}) against one rank on B {E2E_B} in "
+        f"{time.perf_counter() - t0:.1f} s: loss terms worst relative "
+        f"{worst:.3e}; audio_hat gradient worst difference "
+        f"{diff.max().item() / top:.3e} of its largest magnitude (rtol "
+        f"{E2E_RTOL:g} with a floor of 1e-6 of it: {g_ok}); NaN at the "
+        f"same {int(nan.sum())} of {nan.numel()} samples: {same_nan}")
+    if not (worst <= E2E_RTOL and g_ok and same_nan):
+        fail("ddp (d): the E2E-GAN loss over two ranks is not one rank's")
+
+
 def phase_ddp(seed: int) -> dict:
     """Training on two ranks: (a) data parallel and (b) tensor parallel
-    against one rank, (c) fit --distributed with a resume. Returns the
-    kernels' launches on rank 0's counted steps of the three parts."""
+    against one rank, (d) the E2E-GAN decoder's STFT loss on two data
+    ranks against one, (c) fit --distributed with a resume. Returns the
+    kernels' launches on rank 0's counted steps of (a)-(c)."""
     import os
     from radmmm_torch.parallel.mesh import Mesh
     n_cards = torch.cuda.device_count()
@@ -3321,6 +3870,7 @@ def phase_ddp(seed: int) -> dict:
     work = tempfile.mkdtemp(prefix="radmmm_ddp_")
     try:
         total = _ddp_parts(seed, backend, work, refs)
+        _ddp_e2e(seed, backend, work)
         fit = _ddp_fit(seed, backend, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3340,8 +3890,11 @@ def kernel_entries(rows: list, serve_launches, train_launches,
     fit (its training steps and validations) for K4 forward, the wn phase
     and fit for K5, training and fit for the rest, and ``path_launches``'
     paths (fit, the vocoder path, which runs none of them, radtts_fit, m12,
-    ddp, rank 0's counted steps, and caches, its two fits; None for a
-    phase not run)."""
+    ddp, rank 0's counted steps, caches, its two fits, and the bf16
+    phase's training steps, fit and serving; None for a phase not run).
+    The bf16 variants of K4 and its backward (rows of the bf16 phase) are
+    listed after them the same way, each with the f32 kernel's ms at its
+    shapes beside it."""
     def by(kernel, **kw):
         return [r for r in rows if r["kernel"] == kernel
                 and all(r.get(k) == v for k, v in kw.items())]
@@ -3358,6 +3911,43 @@ def kernel_entries(rows: list, serve_launches, train_launches,
     fwd_n = [n for n in fwd_paths.values() if n is not None]
     serve_b1, bwd = by("lstm_recurrence", path="serve", B=1), \
         by("lstm_recurrence_bwd")
+    bf16_fwd = by("lstm_recurrence_bf16", path="serve", B=1)
+    bf16_bwd = by("lstm_recurrence_bwd_bf16")
+    bf16_entries = [] if not bf16_fwd else [
+        dict(name="lstm_recurrence_bf16", route="cuda",
+             source="radmmm_torch/csrc/lstm_recurrence.cu",
+             replaces="radmmm_tpu/ops/lstm_pallas.py:35",
+             max_abs_err=max(r["max_abs_err"]
+                             for r in by("lstm_recurrence_bf16")),
+             **summed(bf16_fwd),
+             f32_ms=sum(r["f32_ms"] for r in bf16_fwd),
+             bound_by=max(bf16_fwd, key=lambda r: r["bound_ms"])["bound_by"],
+             routes={f"{r['path']} {r['shape']} B={r['B']}": r["route"]
+                     for r in by("lstm_recurrence_bf16")},
+             shapes=by("lstm_recurrence_bf16")),
+        dict(name="lstm_recurrence_bwd_bf16", route="cuda",
+             source="radmmm_torch/csrc/lstm_recurrence_bwd.cu",
+             replaces="radmmm_tpu/ops/lstm.py:103",
+             max_abs_err=max(r["max_abs_err"] for r in bf16_bwd),
+             **summed(bf16_bwd), f32_ms=sum(r["f32_ms"] for r in bf16_bwd),
+             bound_by=max(bf16_bwd, key=lambda r: r["bound_ms"])["bound_by"],
+             shapes=bf16_bwd)]
+
+    def finish(entries):
+        for e in entries:
+            paths = dict(e.get("launches_by_path") or (
+                {"wn": wn_launches} if e["name"] == "conv_softplus"
+                else {} if e["name"].endswith("_bf16")
+                else {"train": trained(e["name"])}))
+            for path, counts in path_launches.items():
+                paths[path] = None if counts is None else counts[e["name"]]
+            counts = [n for n in paths.values() if n is not None]
+            e["launches"] = sum(counts) if counts else None
+            e["launches_by_path"] = paths
+        return entries
+
+    if not by("lstm_recurrence"):    # only the bf16 phase ran
+        return finish(bf16_entries)
     entries = [
         dict(name="lstm_recurrence", route="cuda",
              source="radmmm_torch/csrc/lstm_recurrence.cu",
@@ -3396,25 +3986,20 @@ def kernel_entries(rows: list, serve_launches, train_launches,
         max_abs_err=max(r["max_abs_err"] for r in k5), **summed(k5),
         bound_by=max(k5, key=lambda r: r["bound_ms"])["bound_by"],
         shapes=k5))
-    for e in entries:
-        paths = dict(e.get("launches_by_path") or (
-            {"wn": wn_launches} if e["name"] == "conv_softplus"
-            else {"train": trained(e["name"])}))
-        for path, counts in path_launches.items():
-            paths[path] = None if counts is None else counts[e["name"]]
-        counts = [n for n in paths.values() if n is not None]
-        e["launches"] = sum(counts) if counts else None
-        e["launches_by_path"] = paths
-    return entries
+    entries[2:2] = bf16_entries
+    return finish(entries)
 
 
 def main() -> int:
-    # the ddp phase's children: chip_smoke.py --ddp-child SPEC RANK, and
-    # under torchrun chip_smoke.py --ddp-fit-child DIR -- CLI-ARGS
+    # the ddp phase's children: chip_smoke.py --ddp-child SPEC RANK and
+    # --e2e-child SPEC RANK, and under torchrun chip_smoke.py
+    # --ddp-fit-child DIR -- CLI-ARGS
     if sys.argv[1:2] == ["--ddp-child"]:
         return ddp_child(sys.argv[2], int(sys.argv[3]))
     if sys.argv[1:2] == ["--ddp-fit-child"]:
         return ddp_fit_child(sys.argv[2], sys.argv[4:])
+    if sys.argv[1:2] == ["--e2e-child"]:
+        return e2e_child(sys.argv[2], int(sys.argv[3]))
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--seed", type=int, default=0)
@@ -3428,8 +4013,10 @@ def main() -> int:
 
     t_start = time.perf_counter()
     rows, serve_launches, train_launches, wn_launches = [], None, None, None
+    train_ms = None
     fit_launches = vocoder_launches = vocoder_run = None
     radtts_launches = m12_launches = ddp_launches = caches_launches = None
+    bf16_launches = {}
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -3448,7 +4035,7 @@ def main() -> int:
             phase_parity(args.seed, model, model_gpu)
         del model, vocoder, model_gpu
     if "train" in phases:
-        train_launches = phase_train(args.seed)
+        train_launches, train_ms = phase_train(args.seed)
     if "train_parity" in phases:
         phase_train_parity(args.seed)
     if "wn" in phases:
@@ -3478,12 +4065,17 @@ def main() -> int:
         ddp_launches = phase_ddp(args.seed)
     if "caches" in phases:
         caches_launches = phase_caches(args.seed)
+    if "bf16" in phases:
+        bf16_rows, bf16_launches = phase_bf16(args.seed, train_ms)
+        rows = rows + bf16_rows
     if rows:
         log(json.dumps({"kernels": kernel_entries(
             rows, serve_launches, train_launches, wn_launches,
             {"fit": fit_launches, "vocoder": vocoder_launches,
              "radtts_fit": radtts_launches, "m12": m12_launches,
-             "ddp": ddp_launches, "caches": caches_launches})}))
+             "ddp": ddp_launches, "caches": caches_launches,
+             **{f"bf16_{k}": bf16_launches.get(k)
+                for k in ("train", "fit", "serve")}})}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -156,9 +156,10 @@ class RADTTSDiffusionLoss(_AttentionTerms):
 class RADTTSE2EGANLoss(_AttentionTerms):
     """Multi-resolution STFT reconstruction of the waveform (five
     resolutions, A-weighted log magnitudes by default) + the attention
-    losses. One process only: its spectral convergence is a ratio of norms
-    over the batch and its length ratios are relative to the batch's
-    longest item, which a rank's share does not give."""
+    losses. Under a data mesh the length ratios are relative to the global
+    batch's longest item (a max over the data group) and the losses'
+    normalisers are global (``stft_loss``), so each rank's loss is its
+    share of the global batch's, as JAX computes it on the global batch."""
 
     def __init__(self, ctc_blank_logprob=-1.0, kl_loss_start_iter=5000,
                  binarization_loss_weight=1.0, ctc_loss_weight=0.1,
@@ -176,14 +177,10 @@ class RADTTSE2EGANLoss(_AttentionTerms):
 
     def __call__(self, model_output, audio, audio_lens, in_lens: SeqLens,
                  out_lens: SeqLens, binarization_on: bool):
-        if mesh.n_data() > 1:
-            raise NotImplementedError(
-                "the E2E-GAN decoder's STFT loss over a data mesh: it is "
-                "not a sum over items; train this decoder in one process")
         audio_hat = model_output["audio_hat"]
         T = min(audio.shape[-1], audio_hat.shape[-1])
         audio, audio_hat = audio[..., :T], audio_hat[..., :T]
-        len_ratios = audio_lens / audio_lens.max().clamp_min(1)
+        len_ratios = audio_lens / mesh.data_max(audio_lens.max()).clamp_min(1)
         sc, mag = self.mrstft(audio, audio_hat, len_ratios)
         loss_dict = {"stft_loss_sc": (sc, self.stft_loss_sc_weight),
                      "stft_loss_mag": (mag, self.stft_loss_mag_weight)}

@@ -6,6 +6,11 @@ framing, not ``torch.stft``'s defaults: reflect padding of n_fft // 2 on
 both sides (``ops.stft.frame_signal``), a periodic Hann window of
 win_length zero-padded to the centre of the n_fft frame, and a real FFT;
 magnitudes are clamped at sqrt(1e-7).
+
+With lengths (``len_ratios``) the two losses are means over the valid
+frames of the global batch: each normaliser (frames, or frames x bins) is
+summed over the data group of the current mesh, so under data parallelism
+each rank's loss is its items' share of the global batch's.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import numpy as np
 import torch
 
 from radmmm_torch.ops.stft import frame_signal, hann_window
+from radmmm_torch.parallel import mesh
 from radmmm_torch.utils.masking import mask_from_lengths
 
 
@@ -56,7 +62,7 @@ def spectral_convergence_loss(x_mag, y_mag, len_ratios=None):
     num = torch.sqrt(((y_mag - x_mag) ** 2 * m[..., None]).sum(dim=-1))
     den = torch.sqrt((y_mag ** 2 * m[..., None]).sum(dim=-1))
     per_frame = num / den.clamp_min(1e-12) * m
-    return per_frame.sum() / lens.sum().clamp_min(1)
+    return per_frame.sum() / mesh.data_sum(lens.sum()).clamp_min(1)
 
 
 def log_stft_magnitude_loss(x_mag, y_mag, len_ratios=None,
@@ -69,7 +75,8 @@ def log_stft_magnitude_loss(x_mag, y_mag, len_ratios=None,
         return err.mean()
     m, _ = _lens_mask(y_mag, len_ratios)
     d = y_mag.shape[-1]
-    return (err * m[..., None]).sum() / (m.sum() * d).clamp_min(1.0)
+    return (err * m[..., None]).sum() / (
+        mesh.data_sum(m.sum()) * d).clamp_min(1.0)
 
 
 def a_weights(sampling_rate: int, fft_size: int) -> np.ndarray:

@@ -11,15 +11,137 @@ stored in PyTorch's (C_out, C_in, K) layout and the convolution itself is
 * ``premask_input=False`` convolves the unmasked input (the DAP bottleneck
   reads the padded frame beyond the last valid one);
 * the output is re-zeroed at masked frames whenever a mask is given.
+
+The precision switch (``set_conv_precision``, ``get_conv_precision``, the
+environment variable ``RADMMM_CONV_PRECISION=bf16`` read at import) is
+the JAX module's: process-wide, "f32" by default. In "bf16" mode every
+convolution of ``conv1d`` (each ``MaskedConv1d``, the tensor-parallel
+``end`` partial product and WaveGlow's unmasked convs) casts both operands
+to bf16 and produces bf16 (cuDNN accumulates in f32), then upcasts to f32;
+``matmul`` (the LSTM input projections) takes bf16-rounded operands with
+f32 accumulation and an f32 result. The f32 parameters stay the master
+copy. ``RADMMM_BF16_CAST=0`` (read at import) keeps bf16 mode but drops the
+cast: the convolutions then take bf16-rounded operands and give an f32
+output, forward and backward, which is what ``Precision.DEFAULT`` without
+the cast computes on a TPU.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+_PRECISION = ("bf16" if os.environ.get("RADMMM_CONV_PRECISION") == "bf16"
+              else "f32")
+_BF16_CAST = os.environ.get("RADMMM_BF16_CAST", "1") != "0"
+
+
+def set_conv_precision(precision: str) -> None:
+    """'bf16' | 'f32' (anything but 'bf16' is f32), for every later call."""
+    global _PRECISION
+    _PRECISION = "bf16" if precision == "bf16" else "f32"
+
+
+def get_conv_precision() -> str:
+    return _PRECISION
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest bf16 (ties to even), in its own dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+class _RoundedConv1d(torch.autograd.Function):
+    """conv1d of bf16-rounded operands with an f32 output; its backward
+    rounds the output gradient and the other operand the same way."""
+
+    @staticmethod
+    def forward(ctx, x, w, padding, dilation):
+        x, w = bf16_round(x), bf16_round(w)
+        ctx.save_for_backward(x, w)
+        ctx.conf = (padding, dilation)
+        return F.conv1d(x, w, padding=padding, dilation=dilation)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        padding, dilation = ctx.conf
+        dy = bf16_round(dy)
+        dx = torch.nn.grad.conv1d_input(x.shape, w, dy, padding=padding,
+                                        dilation=dilation)
+        dw = torch.nn.grad.conv1d_weight(x, w.shape, dy, padding=padding,
+                                         dilation=dilation)
+        return dx, dw, None, None
+
+
+def conv1d(x_bct: torch.Tensor, w: torch.Tensor, padding: int = 0,
+           dilation: int = 1, bias: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
+    """(B, C_in, T) x (C_out, C_in, K) -> (B, C_out, T'), zero padding, at
+    the conv precision (the JAX package's ``conv1d_same``); ``bias`` is
+    added in f32, after the upcast in bf16 mode."""
+    if _PRECISION == "f32":
+        return F.conv1d(x_bct, w, bias, padding=padding, dilation=dilation)
+    if not _BF16_CAST:
+        out = _RoundedConv1d.apply(x_bct, w, padding, dilation)
+    else:
+        out = F.conv1d(x_bct.to(torch.bfloat16), w.to(torch.bfloat16),
+                       padding=padding, dilation=dilation).to(x_bct.dtype)
+    return out if bias is None else out + bias[:, None]
+
+
+def bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of bf16-rounded operands, accumulated and returned in f32; a
+    is (M, K) or (N, M, K), b (K, P) or (N, K, P). On the card, PyTorch's
+    bf16 product with an f32 output where the installed build has one
+    (``out_dtype``); otherwise, and on the CPU, the f32 product of the
+    rounded operands, which gives the same values (each product of two
+    bf16 numbers is exact in f32)."""
+    if a.is_cuda and "dtype" in torch.ops.aten.mm.overloads():
+        op = torch.mm if a.dim() == 2 else torch.bmm
+        return op(a.to(torch.bfloat16), b.to(torch.bfloat16),
+                  out_dtype=torch.float32)
+    return torch.matmul(bf16_round(a), bf16_round(b))
+
+
+class _Bf16Matmul(torch.autograd.Function):
+    """x @ w with bf16-rounded operands and an f32 result, for x (..., K)
+    and w (K, P), or x (N, M, K) and w (N, K, P); the backward's two
+    products (the transposed dots JAX takes at the same precision) round
+    their operands the same way."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if w.dim() == 2:
+            return bf16_product(x.reshape(-1, x.shape[-1]), w).view(
+                *x.shape[:-1], w.shape[-1])
+        return bf16_product(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        if w.dim() == 2:
+            x2, dy2 = x.reshape(-1, x.shape[-1]), dy.reshape(-1, dy.shape[-1])
+            return (bf16_product(dy2, w.t()).view(x.shape),
+                    bf16_product(x2.t(), dy2))
+        return (bf16_product(dy, w.transpose(1, 2)),
+                bf16_product(x.transpose(1, 2), dy))
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w at the conv precision (the JAX package's einsums at
+    ``get_conv_precision()``): ``torch.matmul`` in f32 mode; in bf16 mode
+    bf16-rounded operands, f32 accumulation and an f32 result, forward and
+    backward. x (..., K) with w (K, P), or x (N, M, K) with w (N, K, P)."""
+    if _PRECISION == "f32":
+        return torch.matmul(x, w)
+    return _Bf16Matmul.apply(x, w)
 
 
 def calculate_gain(nonlinearity: str) -> float:
@@ -77,7 +199,7 @@ class MaskedConv1d(nn.Module):
         return self.weight
 
     def _conv(self, x_bct: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x_bct, w, padding=self.padding, dilation=self.dilation)
+        return conv1d(x_bct, w, self.padding, self.dilation)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -21,7 +21,7 @@ from torch import nn
 
 from radmmm_torch.ops import splines as S
 from radmmm_torch.parallel import collectives as C
-from radmmm_torch.ops.conv import MaskedConv1d
+from radmmm_torch.ops.conv import MaskedConv1d, conv1d
 from radmmm_torch.ops.norms import MaskedBatchNorm
 
 
@@ -77,8 +77,8 @@ class WN(nn.Module):
             h = C.gather(self.act(getattr(self, f"in_{i}")(h, mask)), g,
                          dim=-1)
             output = output + self.act(getattr(self, f"res_skip_{i}")(h))
-        partial = F.conv1d(output.transpose(1, 2),
-                           self.end.kernel()).transpose(1, 2)
+        partial = conv1d(output.transpose(1, 2),
+                         self.end.kernel()).transpose(1, 2)
         return C.reduce_from_group(partial, g) + self.end.bias
 
 

@@ -3,10 +3,13 @@
 Counterpart of ``radmmm_tpu/ops/lstm.py``. Hidden state is carried through
 masked (padding) steps unchanged and outputs are zero there, which is
 packed-sequence semantics for prefix masks. The input projection
-``x @ Wi + b`` is one ``torch.matmul`` over all frames; the recurrence
-itself goes through ``lstm_kernel.lstm_recurrence`` (the CUDA kernel on the
-card, its plain twin on the CPU), one call per (Bi)LSTM, differentiable in
-every weight (the backward is a kernel too).
+``x @ Wi + b`` is one ``ops.conv.matmul`` over all frames (at the conv
+precision: in bf16 mode bf16-rounded operands, f32 accumulation and an
+f32 result, as the JAX package's einsum at ``Precision.DEFAULT``); the
+recurrence itself goes through ``lstm_kernel.lstm_recurrence`` (the CUDA
+kernel on the card, its plain twin on the CPU; their bf16 variants in
+bf16 mode), one call per (Bi)LSTM, differentiable in every weight (the
+backward is a kernel too).
 
 Weights keep the JAX layout: Wi (C_in, 4H), Wh (H, 4H), b_ih and b_hh
 (4H,), gate order (i, f, g, o).
@@ -19,6 +22,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from radmmm_torch.ops.conv import matmul
 from radmmm_torch.ops.lstm_kernel import lstm_recurrence
 
 
@@ -33,7 +37,7 @@ def multi_bilstm_scan(xs: torch.Tensor, mask: torch.Tensor, wi: torch.Tensor,
     """
     P, B, T, _ = xs.shape
     H = wh.shape[-2]
-    xp = torch.matmul(xs, wi[:, None])                        # (P,B,T,8H)
+    xp = matmul(xs.reshape(P, B * T, -1), wi)                 # (P,BT,8H)
     xp = xp.view(P, B, T, 2, 4 * H) + bias[:, None, None]
     x_l = xp.permute(0, 3, 2, 1, 4).reshape(2 * P, T, B, 4 * H)
     x_l = x_l.contiguous()        # a reshape may keep a strided view
@@ -121,7 +125,7 @@ class MaskedLSTM(nn.Module):
             return multi_bilstm_scan(x[None], m, w["wi"][None],
                                      w["wh"][None], w["bias"][None])[0]
         wi, wh, b = self._weights("fwd", update_sn)
-        xp = (torch.matmul(x, wi) + b).transpose(0, 1)[None].contiguous()
+        xp = (matmul(x, wi) + b).transpose(0, 1)[None].contiguous()
         ys = lstm_recurrence(xp, m.t().contiguous(), wh[None].contiguous(),
                              [False])
         return ys[0].transpose(0, 1)

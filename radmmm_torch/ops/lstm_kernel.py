@@ -24,6 +24,16 @@ for a shape: a thread-block cluster per lane where the lane's Wh fits
 one, else a cooperative grid with a barrier per lane. No barrier spans
 two lanes on either route.
 
+In bf16 mode (``ops.conv.get_conv_precision()``, resolved outside the
+autograd function, as ``lstm_pallas.py`` resolves its ``precision``)
+``h @ Wh`` takes bf16-rounded h and Wh with f32 accumulation, the JAX
+package's product at ``Precision.DEFAULT`` on a TPU; the backward's
+``dgates @ Wh^T`` and ``dWh = sum h_prev^T dgates`` round their operands
+the same way. The gates, c, h and every output stay f32. The kernels'
+bf16 variants keep their Wh slice in shared memory as bf16 (half the
+bytes; each takes its f32 variant's route and sizes) and round h (or
+dgates) as they read it; each variant counts its launches apart.
+
 Tensors on the CPU run the twins. Tensors on a CUDA device launch
 ``csrc/lstm_recurrence.cu`` and ``csrc/lstm_recurrence_bwd.cu`` (built by
 ``utils/cuda_build``) or raise; nothing falls back.
@@ -32,16 +42,19 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
+from radmmm_torch.ops.conv import bf16_product, bf16_round, get_conv_precision
 from radmmm_torch.utils import cuda_build
 
 # kernel launches since the last reset; chip_smoke.py and the tests read
-# them: the forward kernel, and the backward kernel
+# them: the forward kernel and the backward kernel, f32 and bf16 variants
 launches = 0
 backward_launches = 0
+bf16_launches = 0
+bf16_backward_launches = 0
 
 _plans: dict = {}
 
@@ -55,11 +68,17 @@ def _walk(T: int, reverse: Sequence[bool], device):
     return lanes, rev, torch.where(rev[None, :], T - 1 - s, s)
 
 
+def _rounder(bf16: bool):
+    return bf16_round if bf16 else (lambda x: x)
+
+
 def lstm_recurrence_reference(x_proj: torch.Tensor, mask: torch.Tensor,
                               wh: torch.Tensor, reverse: Sequence[bool],
-                              save: bool = False):
+                              save: bool = False, bf16: bool = False):
     """Plain PyTorch twin of the forward kernel: a Python loop over time
-    of ``torch.bmm`` and elementwise gates.
+    of ``torch.bmm`` and elementwise gates; with ``bf16`` the product
+    takes h and Wh rounded to bf16 (an f32 product of bf16 values, exact
+    but for the order of the sums).
 
     x_proj (L, T, B, 4H); mask (T, B) or (L, T, B); wh (L, H, 4H);
     reverse: L flags. Returns out (L, T, B, H), zero at masked frames;
@@ -69,6 +88,8 @@ def lstm_recurrence_reference(x_proj: torch.Tensor, mask: torch.Tensor,
     H = G // 4
     m = mask.expand(L, T, B) if mask.dim() == 2 else mask
     lanes, _, order = _walk(T, reverse, x_proj.device)
+    r = _rounder(bf16)
+    wh_r = r(wh)
     h = x_proj.new_zeros((L, B, H))
     c = x_proj.new_zeros((L, B, H))
     out = x_proj.new_empty((L, T, B, H))
@@ -78,7 +99,7 @@ def lstm_recurrence_reference(x_proj: torch.Tensor, mask: torch.Tensor,
                        x_proj.new_empty((L, T, B, H)))
     for s in range(T):
         t = order[s]
-        gates = x_proj[lanes, t] + torch.bmm(h, wh)
+        gates = x_proj[lanes, t] + torch.bmm(r(h), wh_r)
         i, f, g, o = gates.split(H, dim=-1)
         i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
                       torch.sigmoid(o))
@@ -98,15 +119,18 @@ def lstm_recurrence_reference(x_proj: torch.Tensor, mask: torch.Tensor,
 def lstm_recurrence_backward_reference(dout: torch.Tensor, act: torch.Tensor,
                                        cs: torch.Tensor, mask: torch.Tensor,
                                        wh: torch.Tensor,
-                                       reverse: Sequence[bool]
-                                       ) -> torch.Tensor:
+                                       reverse: Sequence[bool],
+                                       bf16: bool = False) -> torch.Tensor:
     """Plain PyTorch twin of the backward kernel: reverse-time BPTT over
     the saved gate activations ``act`` and carried cell states ``cs``.
     Returns d x_proj (L, T, B, 4H): the gate pre-activations' gradient,
-    zero at masked frames, where dh and dc pass through unchanged."""
+    zero at masked frames, where dh and dc pass through unchanged. With
+    ``bf16`` the product dgates @ Wh^T takes both rounded to bf16."""
     L, T, B, H = dout.shape
     m = mask.expand(L, T, B) if mask.dim() == 2 else mask
     lanes, _, order = _walk(T, reverse, dout.device)
+    r = _rounder(bf16)
+    wh_t = r(wh).transpose(1, 2)
     dxp = dout.new_zeros((L, T, B, 4 * H))
     dh_pass = dout.new_zeros((L, B, H))
     dc_pass = dout.new_zeros((L, B, H))
@@ -129,9 +153,21 @@ def lstm_recurrence_backward_reference(dout: torch.Tensor, act: torch.Tensor,
         dgates = torch.where(keep, dgates, torch.zeros_like(dgates))
         dh_pass = torch.where(keep, torch.zeros_like(dh), dh)
         dc_pass = torch.where(keep, dcn * f, dc_pass)
-        rec = torch.bmm(dgates, wh.transpose(1, 2))
+        rec = torch.bmm(r(dgates), wh_t)
         dxp[lanes, t] = dgates
     return dxp
+
+
+def recurrent_weight_grad(hs: torch.Tensor, dxp: torch.Tensor,
+                          reverse: Sequence[bool],
+                          bf16: bool = False) -> torch.Tensor:
+    """dWh (L, H, 4H) = sum over steps of h_prev^T dgates: one batched
+    product over the carried h entering each step and d x_proj, with
+    bf16-rounded operands and f32 accumulation under ``bf16``."""
+    L, T, B, G = dxp.shape
+    h_prev = _h_before(hs, reverse).view(L, T * B, G // 4).transpose(1, 2)
+    dg = dxp.view(L, T * B, G)
+    return bf16_product(h_prev, dg) if bf16 else torch.bmm(h_prev, dg)
 
 
 def _h_before(hs: torch.Tensor, reverse: Sequence[bool]) -> torch.Tensor:
@@ -175,14 +211,14 @@ class _LSTMRecurrence(torch.autograd.Function):
     twins on the CPU."""
 
     @staticmethod
-    def forward(ctx, x_proj, mask, wh, reverse):
+    def forward(ctx, x_proj, mask, wh, reverse, bf16):
         if x_proj.device.type == "cpu":
             out, act, cs, hs = lstm_recurrence_reference(
-                x_proj, mask, wh, reverse, save=True)
+                x_proj, mask, wh, reverse, save=True, bf16=bf16)
         else:
             out, act, cs, hs = _forward_kernel(x_proj, mask, wh, reverse,
-                                               save=True)
-        ctx.reverse = tuple(reverse)
+                                               save=True, bf16=bf16)
+        ctx.reverse, ctx.bf16 = tuple(reverse), bf16
         ctx.save_for_backward(mask, wh, act, cs, hs)
         return out
 
@@ -191,34 +227,40 @@ class _LSTMRecurrence(torch.autograd.Function):
         mask, wh, act, cs, hs = ctx.saved_tensors
         dout = dout.contiguous()
         if dout.device.type == "cpu":
-            dxp = lstm_recurrence_backward_reference(dout, act, cs, mask, wh,
-                                                     ctx.reverse)
+            dxp = lstm_recurrence_backward_reference(
+                dout, act, cs, mask, wh, ctx.reverse, bf16=ctx.bf16)
         else:
-            dxp = _backward_kernel(dout, act, cs, mask, wh, ctx.reverse)
-        L, T, B, G = dxp.shape
-        h_prev = _h_before(hs, ctx.reverse).view(L, T * B, G // 4)
-        dwh = torch.bmm(h_prev.transpose(1, 2), dxp.view(L, T * B, G))
-        return dxp, None, dwh, None
+            dxp = _backward_kernel(dout, act, cs, mask, wh, ctx.reverse,
+                                   bf16=ctx.bf16)
+        dwh = recurrent_weight_grad(hs, dxp, ctx.reverse, ctx.bf16)
+        return dxp, None, dwh, None, None
 
 
 def lstm_recurrence(x_proj: torch.Tensor, mask: torch.Tensor,
-                    wh: torch.Tensor, reverse: Sequence[bool]) -> torch.Tensor:
+                    wh: torch.Tensor, reverse: Sequence[bool],
+                    bf16: Optional[bool] = None) -> torch.Tensor:
     """The masked multi-lane LSTM recurrence (see the module docstring).
+    ``bf16`` None takes the process-wide conv precision.
 
     CPU tensors run the plain twins; CUDA tensors launch the kernels."""
     _check(x_proj, mask, wh, reverse)
+    if bf16 is None:
+        bf16 = get_conv_precision() == "bf16"
     if torch.is_grad_enabled() and (x_proj.requires_grad
                                     or wh.requires_grad):
-        return _LSTMRecurrence.apply(x_proj, mask, wh, list(reverse))
+        return _LSTMRecurrence.apply(x_proj, mask, wh, list(reverse), bf16)
     if x_proj.device.type == "cpu":
-        return lstm_recurrence_reference(x_proj, mask, wh, reverse)
-    return _forward_kernel(x_proj, mask, wh, reverse, save=False)
+        return lstm_recurrence_reference(x_proj, mask, wh, reverse,
+                                         bf16=bf16)
+    return _forward_kernel(x_proj, mask, wh, reverse, save=False, bf16=bf16)
 
 
-def _forward_kernel(x_proj, mask, wh, reverse, save: bool, plan=None):
-    """The forward kernel's launch, by ``card_forward_plan`` unless a plan
-    is given (``scripts/sweep_lstm.py`` times the alternatives)."""
-    global launches
+def _forward_kernel(x_proj, mask, wh, reverse, save: bool, plan=None,
+                    bf16: bool = False):
+    """The forward kernel's launch (its bf16 variant under ``bf16``), by
+    ``card_forward_plan`` unless a plan is given (``scripts/sweep_lstm.py``
+    times the alternatives)."""
+    global launches, bf16_launches
     L, T, B, G = x_proj.shape
     H = G // 4
     dev = x_proj.device
@@ -231,7 +273,7 @@ def _forward_kernel(x_proj, mask, wh, reverse, save: bool, plan=None):
         return (out, *saved) if save else out
     lib = _library()
     with torch.cuda.device(dev):
-        plan = plan or card_forward_plan(L, B, H)
+        plan = plan or card_forward_plan(L, B, H, bf16)
         grid = plan.route == "grid"
         hbuf = arrived = None
         if grid:
@@ -247,17 +289,22 @@ def _forward_kernel(x_proj, mask, wh, reverse, save: bool, plan=None):
             out.data_ptr(), *ptrs, hbuf.data_ptr() if grid else None,
             arrived.data_ptr() if grid else None, L, T, B, H,
             T * B if mask.dim() == 3 else 0, _bits(reverse),
-            int(not grid), plan.n_cta, plan.hb, plan.ks,
+            int(not grid), plan.n_cta, plan.hb, plan.ks, int(bf16),
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(lib, err, "lstm_recurrence")
-    launches += 1
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return (out, *saved) if save else out
 
 
-def _backward_kernel(dout, act, cs, mask, wh, reverse, plan=None):
-    """The backward kernel's launch, by ``card_backward_plan`` unless a
-    plan is given (``scripts/sweep_lstm.py`` times the alternatives)."""
-    global backward_launches
+def _backward_kernel(dout, act, cs, mask, wh, reverse, plan=None,
+                     bf16: bool = False):
+    """The backward kernel's launch (its bf16 variant under ``bf16``), by
+    ``card_backward_plan`` unless a plan is given
+    (``scripts/sweep_lstm.py`` times the alternatives)."""
+    global backward_launches, bf16_backward_launches
     L, T, B, H = dout.shape
     dev = dout.device
     dxp = torch.empty((L, T, B, 4 * H), dtype=torch.float32, device=dev)
@@ -265,7 +312,7 @@ def _backward_kernel(dout, act, cs, mask, wh, reverse, plan=None):
         return dxp
     lib = _bwd_library()
     with torch.cuda.device(dev):
-        plan = plan or card_backward_plan(L, B, H)
+        plan = plan or card_backward_plan(L, B, H, bf16)
         grid = plan.route == "grid"
         part = arrived = None
         if grid:
@@ -279,10 +326,13 @@ def _backward_kernel(dout, act, cs, mask, wh, reverse, plan=None):
             wh.data_ptr(), dxp.data_ptr(), part.data_ptr() if grid else None,
             arrived.data_ptr() if grid else None, L, T, B, H,
             T * B if mask.dim() == 3 else 0, _bits(reverse),
-            int(not grid), plan.n_cta, plan.hb, plan.ks,
+            int(not grid), plan.n_cta, plan.hb, plan.ks, int(bf16),
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(lib, err, "lstm_recurrence_bwd")
-    backward_launches += 1
+    if bf16:
+        bf16_backward_launches += 1
+    else:
+        backward_launches += 1
     return dxp
 
 
@@ -340,14 +390,19 @@ def _rows(B: int) -> int:
     return 4 if B <= 4 else -(-B // 8) * 8
 
 
+def _w_floats(n: int, bf16: bool) -> int:
+    """Floats of shared memory that n Wh elements take: bf16 packs two."""
+    return (n + 1) // 2 if bf16 else n
+
+
 def _fwd_smem(B: int, H: int, hb: int, ks: int, n_cta: int,
-              cluster: bool) -> int:
+              cluster: bool, bf16: bool = False) -> int:
     """Dynamic shared memory of one forward CTA: make_layout in
-    lstm_recurrence.cu."""
+    lstm_recurrence.cu (the Wh slice in bf16 under ``bf16``)."""
     Bp, nc, kc = _rows(B), 4 * hb, -(-H // ks)
     hp = kc * ks
     hr = max(hp, n_cta * hb)
-    h = _up4(hp * nc)
+    h = _up4(_w_floats(hp * nc, bf16))
     part = _up4(h + (2 if cluster else 1) * hr * Bp)
     return 4 * (part + ks * Bp * nc)
 
@@ -360,12 +415,12 @@ def _fwd_chunks(hb: int) -> int:
 
 
 def _bwd_smem(B: int, H: int, hb: int, ks: int, n_cta: int,
-              cluster: bool) -> int:
+              cluster: bool, bf16: bool = False) -> int:
     """Dynamic shared memory of one backward CTA: make_layout in
-    lstm_recurrence_bwd.cu."""
+    lstm_recurrence_bwd.cu (the Wh slice in bf16 under ``bf16``)."""
     Bp, kc = -(-B // 4) * 4, -(-4 * hb // ks)
     gp = kc * ks
-    dg = _up4(gp * H)
+    dg = _up4(_w_floats(gp * H, bf16))
     part = _up4(dg + gp * Bp)
     rx = _up4(part + (ks * H * Bp if ks > 1 else 0))
     return 4 * (rx + (2 * n_cta * hb * Bp if cluster else _BWD_THREADS))
@@ -414,33 +469,51 @@ def _route_plan(L: int, B: int, H: int, limits: CardLimits, name: str,
         f"{limits.smem_per_block} bytes of shared memory per block")
 
 
-def forward_plan(L: int, B: int, H: int, limits: CardLimits) -> Plan:
+def _as_bf16(plan: Plan, smem_fn, B: int, H: int) -> Plan:
+    """The bf16 variant's plan: the f32 variant's route and sizes with its
+    own (smaller) shared memory. Halving Wh would let the flow context's H
+    528 lane fit one 16-CTA cluster of 33 units a CTA, but the product,
+    not the shared memory, sets the pace: that cluster took 1.8-1.9x the
+    bf16 grid's time forward at B 1 and 1.2-1.3x backward at B 8
+    (``chip_smoke.py`` bf16 phase, NVIDIA H100 80GB HBM3, 700 W)."""
+    return dataclasses.replace(plan, smem=smem_fn(
+        B, H, plan.hb, plan.ks, plan.n_cta, plan.route == "cluster",
+        bf16=True))
+
+
+def forward_plan(L: int, B: int, H: int, limits: CardLimits,
+                 bf16: bool = False) -> Plan:
     """The forward kernel's route and sizes for L lanes of (B, H): see
-    ``_route_plan``. Its CTA splits the H reduction into _FWD_CHUNKS chunks
-    where its threads allow."""
-    return _route_plan(L, B, H, limits, "fwd", _FWD_THREADS, _fwd_smem,
+    ``_route_plan``; its bf16 variant's under ``bf16`` (``_as_bf16``). Its
+    CTA splits the H reduction into _FWD_CHUNKS chunks where its threads
+    allow."""
+    plan = _route_plan(L, B, H, limits, "fwd", _FWD_THREADS, _fwd_smem,
                        _fwd_chunks, _fwd_chunks)
+    return _as_bf16(plan, _fwd_smem, B, H) if bf16 else plan
 
 
-def backward_plan(L: int, B: int, H: int, limits: CardLimits) -> Plan:
+def backward_plan(L: int, B: int, H: int, limits: CardLimits,
+                  bf16: bool = False) -> Plan:
     """The backward kernel's route and sizes for L lanes of (B, H): see
-    ``_route_plan``. Its partial product takes _CLUSTER_CHUNKS chunks on a
-    cluster, _GRID_CHUNKS on the grid."""
-    return _route_plan(L, B, H, limits, "bwd", _BWD_THREADS, _bwd_smem,
+    ``_route_plan``; its bf16 variant's under ``bf16`` (``_as_bf16``). Its
+    partial product takes _CLUSTER_CHUNKS chunks on a cluster,
+    _GRID_CHUNKS on the grid."""
+    plan = _route_plan(L, B, H, limits, "bwd", _BWD_THREADS, _bwd_smem,
                        lambda hb: _CLUSTER_CHUNKS, lambda hb: _GRID_CHUNKS)
+    return _as_bf16(plan, _bwd_smem, B, H) if bf16 else plan
 
 
-def card_limits(library, name: str) -> CardLimits:
+def card_limits(library, name: str, bf16: bool = False) -> CardLimits:
     """The current CUDA device's limits for the plan of the kernel ``name``
-    in ``library()`` (the registers are that kernel's), read from the CUDA
-    driver once per device."""
+    in ``library()`` (the registers are those of its f32 or bf16 variant),
+    read from the CUDA driver once per device."""
     dev = torch.cuda.current_device()
-    key = ("limits", name, dev)
+    key = ("limits", name, dev, bf16)
     if key not in _plans:
         lib = library()
         vals = [ctypes.c_int(0) for _ in range(4)]
         cuda_build.check(lib, getattr(lib, f"{name}_limits")(
-            *[ctypes.byref(v) for v in vals]), name)
+            int(bf16), *[ctypes.byref(v) for v in vals]), name)
         sms, smem_block, smem_sm, regs = (v.value for v in vals)
         hopper = torch.cuda.get_device_capability(dev)[0] >= 9
         _plans[key] = CardLimits(sms, smem_block, smem_sm, regs,
@@ -448,22 +521,24 @@ def card_limits(library, name: str) -> CardLimits:
     return _plans[key]
 
 
-def _card_plan(plan_fn, library, name: str, L: int, B: int, H: int) -> Plan:
-    """``plan_fn``'s plan of the kernel ``name`` in ``library()`` for the
-    current CUDA device, with a cluster plan only where the CUDA driver
-    says such a cluster fits (else the next smaller one). Cached per device
-    and shape."""
-    key = (name, torch.cuda.current_device(), L, B, H)
+def _card_plan(plan_fn, library, name: str, L: int, B: int, H: int,
+               bf16: bool) -> Plan:
+    """``plan_fn``'s plan of the kernel ``name`` (its bf16 variant under
+    ``bf16``) in ``library()`` for the current CUDA device, with a cluster
+    plan only where the CUDA driver says such a cluster fits (else the next
+    smaller one). Cached per device, variant and shape."""
+    key = (name, torch.cuda.current_device(), L, B, H, bf16)
     if key not in _plans:
         lib = library()
-        limits = card_limits(library, name)
+        limits = card_limits(library, name, bf16)
         while True:
-            plan = plan_fn(L, B, H, limits)
+            plan = plan_fn(L, B, H, limits, bf16)
             if plan.route == "grid":
                 break
             fit = ctypes.c_int(0)
             cuda_build.check(lib, getattr(lib, f"{name}_clusters")(
-                B, H, plan.hb, plan.ks, plan.n_cta, ctypes.byref(fit)), name)
+                int(bf16), B, H, plan.hb, plan.ks, plan.n_cta,
+                ctypes.byref(fit)), name)
             if fit.value >= 1:
                 break
             limits = dataclasses.replace(limits, max_cluster=plan.n_cta - 1)
@@ -471,15 +546,16 @@ def _card_plan(plan_fn, library, name: str, L: int, B: int, H: int) -> Plan:
     return _plans[key]
 
 
-def card_forward_plan(L: int, B: int, H: int) -> Plan:
+def card_forward_plan(L: int, B: int, H: int, bf16: bool = False) -> Plan:
     """forward_plan for the current CUDA device (see ``_card_plan``)."""
-    return _card_plan(forward_plan, _library, "lstm_recurrence", L, B, H)
+    return _card_plan(forward_plan, _library, "lstm_recurrence", L, B, H,
+                      bf16)
 
 
-def card_backward_plan(L: int, B: int, H: int) -> Plan:
+def card_backward_plan(L: int, B: int, H: int, bf16: bool = False) -> Plan:
     """backward_plan for the current CUDA device (see ``_card_plan``)."""
     return _card_plan(backward_plan, _bwd_library, "lstm_recurrence_bwd",
-                      L, B, H)
+                      L, B, H, bf16)
 
 
 def _bits(reverse) -> int:
@@ -491,13 +567,14 @@ def _declare(lib, name: str, n_ptrs: int):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     launch = getattr(lib, f"{name}_launch")
     launch.argtypes = [vp] * n_ptrs + [ci, ci, ci, ci, ctypes.c_longlong,
-                                       ctypes.c_ulonglong, ci, ci, ci, ci, vp]
+                                       ctypes.c_ulonglong, ci, ci, ci, ci,
+                                       ci, vp]
     launch.restype = ci
     limits = getattr(lib, f"{name}_limits")
-    limits.argtypes = [ctypes.POINTER(ci)] * 4
+    limits.argtypes = [ci] + [ctypes.POINTER(ci)] * 4
     limits.restype = ci
     clusters = getattr(lib, f"{name}_clusters")
-    clusters.argtypes = [ci] * 5 + [ctypes.POINTER(ci)]
+    clusters.argtypes = [ci] * 6 + [ctypes.POINTER(ci)]
     clusters.restype = ci
 
 

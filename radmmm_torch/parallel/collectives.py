@@ -72,6 +72,15 @@ def all_reduce_(x: torch.Tensor, g: Group) -> torch.Tensor:
     return x
 
 
+def all_reduce_max_(x: torch.Tensor, g: Group) -> torch.Tensor:
+    """The elementwise max of the contiguous ``x`` over the group, in
+    place; returns ``x``."""
+    if g.size > 1:
+        _record("all_reduce_max", x)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g.group)
+    return x
+
+
 def _gather_stack(x: torch.Tensor, g: Group) -> torch.Tensor:
     """(size, *x.shape): every rank's ``x``, in group order."""
     x = x.contiguous()

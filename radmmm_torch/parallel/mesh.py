@@ -16,9 +16,9 @@ global loss (sums over its items over the global normalisers), batch
 statistics and the whitening init's moments are summed over the data
 group, and the gradients are summed over it (``sync_grads``), which
 makes them the gradient of the global loss. The losses and norms read the
-mesh set by ``set_mesh``/``use_mesh`` through ``data_sum``, ``data_all_
-reduce`` and ``data_gather``; with no mesh (one process) these are the
-identity.
+mesh set by ``set_mesh``/``use_mesh`` through ``data_sum``,
+``data_max``, ``data_all_reduce`` and ``data_gather``; with no mesh (one
+process) these are the identity.
 
 The TP rules (``_TP_RULES``) are the JAX package's, on the port's names
 and layouts: the WN ``start``, ``in_i`` and ``res_skip_i`` convs are split
@@ -285,6 +285,13 @@ def data_sum(x: torch.Tensor) -> torch.Tensor:
     count of frames or items)."""
     g = get_mesh().data
     return x if g.size == 1 else C.all_reduce_(C.fresh(x.detach()), g)
+
+
+def data_max(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s elementwise max over the data group, no gradient (the
+    global batch's longest item)."""
+    g = get_mesh().data
+    return x if g.size == 1 else C.all_reduce_max_(C.fresh(x.detach()), g)
 
 
 def data_all_reduce(x: torch.Tensor) -> torch.Tensor:

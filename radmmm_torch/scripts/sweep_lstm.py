@@ -2,7 +2,7 @@
 that fits a shape, on the card, each checked against its plain twin.
 
     python -m radmmm_torch.scripts.sweep_lstm [--direction fwd|bwd]
-        [--shapes 2x260x96x8,...]
+        [--shapes 2x260x96x8,...] [--bf16]
 
 A shape is L x H x T x B (lanes, hidden units, steps, batch), with the
 ragged masks and random inputs of ``chip_smoke.py``'s kernels phase (the
@@ -13,7 +13,9 @@ with its product split into 1, 2, 4, 8 and 16 chunks (the forward) or 1,
 2 and 4 (the backward); those past a block's threads or shared memory are
 skipped, and a launch the card refuses is reported. Prints the plan that
 ``card_forward_plan`` or ``card_backward_plan`` picks, then ms and us a
-step for it and for each other plan. Needs a card; raises without one.
+step for it and for each other plan. ``--bf16`` sweeps the kernels' bf16
+variants (their Wh slices at half the bytes, so more cluster plans fit)
+against the bf16 twins. Needs a card; raises without one.
 """
 from __future__ import annotations
 
@@ -44,12 +46,12 @@ def _inputs(L, H, T, B, dev):
     return xp, mask, wh, rev
 
 
-def _plans(direction, B, H):
+def _plans(direction, B, H, bf16=False):
     """Clusters of 8 and 16 CTAs a lane and the grid at 8 and 16 units a
     CTA, each with every chunk count of the direction, within a block's
     threads and shared memory."""
     threads, smem_fn, library, name, chunks = KERNELS[direction]
-    limits = lk.card_limits(library, name)
+    limits = lk.card_limits(library, name, bf16)
     for route, n_cta, hb in (("cluster", 8, None), ("cluster", 16, None),
                              ("grid", None, 8), ("grid", None, 16)):
         hb = hb or -(-H // n_cta)
@@ -57,7 +59,7 @@ def _plans(direction, B, H):
         for ks in chunks:
             if direction == "fwd" and 2 * hb * ks > threads:
                 continue
-            smem = smem_fn(B, H, hb, ks, n, route == "cluster")
+            smem = smem_fn(B, H, hb, ks, n, route == "cluster", bf16=bf16)
             if B * hb <= threads and smem <= limits.smem_per_block:
                 yield lk.Plan(route, n, hb, ks, smem)
 
@@ -75,39 +77,45 @@ def _ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _case(direction, L, H, T, B, dev):
+def _case(direction, L, H, T, B, dev, bf16=False):
     """(run(plan), the twin's result(s), the card's plan) at one shape."""
     xp, mask, wh, rev = _inputs(L, H, T, B, dev)
     if direction == "fwd":
         def run(plan):
             return lk._forward_kernel(xp, mask, wh, rev, save=True,
-                                      plan=plan)
-        return run, lk.lstm_recurrence_reference(xp, mask, wh, rev, True), \
-            lk.card_forward_plan(L, B, H)
-    _, act, cs, _ = lk.lstm_recurrence_reference(xp, mask, wh, rev, True)
+                                      plan=plan, bf16=bf16)
+        return run, lk.lstm_recurrence_reference(
+            xp, mask, wh, rev, True, bf16=bf16), \
+            lk.card_forward_plan(L, B, H, bf16)
+    _, act, cs, _ = lk.lstm_recurrence_reference(xp, mask, wh, rev, True,
+                                                 bf16=bf16)
     dout = torch.randn((L, T, B, H), device=dev,
                        generator=torch.Generator(device=dev).manual_seed(1))
 
     def run(plan):
-        return lk._backward_kernel(dout, act, cs, mask, wh, rev, plan=plan)
+        return lk._backward_kernel(dout, act, cs, mask, wh, rev, plan=plan,
+                                   bf16=bf16)
     return run, (lk.lstm_recurrence_backward_reference(
-        dout, act, cs, mask, wh, rev),), lk.card_backward_plan(L, B, H)
+        dout, act, cs, mask, wh, rev, bf16=bf16),), \
+        lk.card_backward_plan(L, B, H, bf16)
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--direction", choices=("fwd", "bwd"), default="bwd")
     ap.add_argument("--shapes", default=TRAIN_SHAPES)
+    ap.add_argument("--bf16", action="store_true",
+                    help="the kernels' bf16 variants")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     print(card_line(), flush=True)
     for shape in args.shapes.split(","):
         L, H, T, B = (int(v) for v in shape.split("x"))
-        run, want, picked = _case(args.direction, L, H, T, B, dev)
+        run, want, picked = _case(args.direction, L, H, T, B, dev, args.bf16)
         print(f"{args.direction} L={L} H={H} T={T} B={B}: the plan picks "
               f"{picked}", flush=True)
-        plans = [picked] + [p for p in _plans(args.direction, B, H)
-                            if p != picked]
+        plans = [picked] + [p for p in _plans(args.direction, B, H,
+                                              args.bf16) if p != picked]
         for plan in plans:
             try:
                 got = run(plan)

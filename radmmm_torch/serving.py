@@ -225,7 +225,11 @@ def load_tts(path: str, device: str = "cuda"):
     f0_std, seed) of any shape within the buckets and returns
     (int16 audio | mel, lens) as tensors on ``device``. It exposes
     ``buckets``, ``frame_buckets`` (None for version 1), ``output_kind``
-    ('audio' | 'mel') and ``device``."""
+    ('audio' | 'mel') and ``device``. The artifact holds no precision:
+    each call runs at this process's conv precision
+    (``ops.conv.set_conv_precision``, ``RADMMM_CONV_PRECISION=bf16``),
+    where a JAX package's exported program keeps the one it was traced
+    at."""
     dev = resolve_device(device)
     bundle = torch.load(path, map_location="cpu", weights_only=True)
     if bundle.get("format") != _FORMAT:

@@ -41,6 +41,7 @@ from scipy.io import wavfile
 
 from radmmm_torch.data.loader import DataLoader, prefetch_raw_groups
 from radmmm_torch.models.tts import TTSConfig, TTSModel
+from radmmm_torch.ops.conv import set_conv_precision
 from radmmm_torch.parallel.mesh import (Mesh, assert_tp_layout, make_mesh,
                                         shard_state, use_mesh)
 from radmmm_torch.training.step import (LossConfig, TrainState,
@@ -130,9 +131,9 @@ class Trainer:
         # use_syncbnorm says, as in the JAX package (ROADMAP Queue 3)
         self.mesh = Mesh(1, 1)
         rank = dist.get_rank() if dist.is_initialized() else 0
-        if c.conv_precision != "f32":
-            raise ValueError(f"conv_precision {c.conv_precision!r}: the "
-                             "port trains in f32")
+        # process-wide, as in the JAX package: fit, validation, predict and
+        # export (and every rank under --distributed) run at it
+        set_conv_precision("bf16" if c.conv_precision == "bf16" else "f32")
         self.device = resolve_device(c.device)
         self.model: Optional[TTSModel] = None
         os.makedirs(c.output_directory, exist_ok=True)

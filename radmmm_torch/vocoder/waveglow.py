@@ -31,14 +31,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from radmmm_torch.ops.conv import MaskedConv1d
+from radmmm_torch.ops.conv import MaskedConv1d, conv1d
 from radmmm_torch.ops.invertible import InvertibleConv
 
 
 def _conv(m: MaskedConv1d, x: torch.Tensor) -> torch.Tensor:
-    """``m``'s convolution of a (B, C, T) tensor, no mask."""
-    return F.conv1d(x, m.kernel(), m.bias, padding=m.padding,
-                    dilation=m.dilation)
+    """``m``'s convolution of a (B, C, T) tensor, no mask, at the conv
+    precision."""
+    return conv1d(x, m.kernel(), m.padding, m.dilation, m.bias)
 
 
 class GatedWN(nn.Module):

@@ -14,6 +14,7 @@ from radmmm_torch.ops import alignment
 from radmmm_torch.ops.alignment import (binarize_attention, mas_width1,
                                         mas_width1_ref)
 from tests.test_alignment import soft_attn
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 # (B, T_mel, T_text), text_lens, mel_lens: the JAX suite's cases (the
 # oracle case, text_len 1 and mel_len 1, the Pallas comparison's padded

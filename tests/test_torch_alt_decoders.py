@@ -32,6 +32,7 @@ from radmmm_torch.models import alt_decoders as P
 from radmmm_torch.utils.masking import SeqLens
 from radmmm_torch.vocoder.hifigan import HiFiGANConfig
 from tests.test_torch_convert import SMALL_VOCODER, perturb
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = ATOL = 1e-5
 B, T, C_CTX, N_MEL, N_SPK = 2, 16, 12, 8, 4

@@ -28,6 +28,7 @@ from radmmm_torch.models.tts import TTSConfig, TTSModel
 from radmmm_torch.utils.masking import SeqLens
 from tests.test_torch_convert import perturb
 from tests.test_tts_model import tiny_batch, tiny_config
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 STAGE_ATOL = 1e-4

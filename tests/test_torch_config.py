@@ -18,6 +18,7 @@ from radmmm_torch.models.tts import default_radmmm_config
 from radmmm_torch.training.cli import build_all
 from radmmm_torch.utils import config
 from tests.test_configs import TRACKED
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))

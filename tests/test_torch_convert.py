@@ -26,6 +26,7 @@ from radmmm_torch.convert import (hifigan_state_dict_from_jax,
 from radmmm_torch.models.tts import TTSConfig, TTSModel
 from radmmm_torch.vocoder.hifigan import Generator, HiFiGANConfig
 from tests.test_tts_model import tiny_batch, tiny_config
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL_VOCODER = dict(upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),

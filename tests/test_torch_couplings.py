@@ -27,6 +27,7 @@ from radmmm_torch.models.flow_decoder import RADMMMFlow
 from radmmm_torch.ops import coupling as P
 from radmmm_torch.utils.masking import SeqLens
 from tests.test_torch_convert import perturb
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-5
 FLOW_TOL = 1e-4

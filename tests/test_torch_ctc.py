@@ -19,6 +19,7 @@ from radmmm_tpu.losses import ctc as jax_ctc
 from radmmm_tpu.losses.ctc_pallas import ctc_alpha_pallas, ctc_beta_pallas
 from radmmm_torch.losses import ctc_kernel
 from radmmm_torch.losses.ctc import _ctc_setup, attention_ctc_loss
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 # (text_lens, mel_lens) on (B, T_mel, T_text) logits: ragged lengths with
 # text_len 1, and items with mel_len < text_len (infinite loss, zeroed)

@@ -5,6 +5,7 @@ import os
 import pytest
 
 from radmmm_torch.utils import cuda_build
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

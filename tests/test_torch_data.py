@@ -37,6 +37,7 @@ from radmmm_torch.data.loader import DataLoader, stack_raw_batches
 from radmmm_torch.data.module import AudioDataModule
 from tests.test_data import corpus  # noqa: F401  (module fixture)
 from tests.test_data import tone
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AUDIO_ATOL = 1e-5

@@ -14,6 +14,7 @@ import json
 from pathlib import Path
 
 import pytest
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 DEMO = Path(__file__).resolve().parents[1] / "examples" / "torch_demo_run"
 STEPS_PER_SEC_FLOOR = 3.1

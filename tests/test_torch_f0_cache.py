@@ -47,6 +47,7 @@ from radmmm_torch.utils.config import (load_configs,
 from tests.test_torch_fit import (_PortTrainerFromJax, _counted_getitem,
                                   _first_loader_done, _no_encoder_dropout,
                                   _rows, _rows_close, cfg_files)  # noqa: F401
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 F0_RTOL, PVOICED_ATOL = 1e-5, 1e-6

@@ -34,6 +34,7 @@ from radmmm_torch.ops import priors, stft
 from radmmm_torch.training import step
 from tests.test_torch_convert import perturb
 from tests.test_tts_model import tiny_config
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 SR = 22050
 REPO = Path(__file__).resolve().parents[1]

@@ -45,6 +45,7 @@ from radmmm_torch.convert import load_jax_train_state
 from radmmm_torch.training import cli as torch_cli
 from radmmm_torch.utils.config import load_configs
 from tests.test_torch_parallel import ROOT, _free_port, run_ranks
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = ATOL = 1e-4
 # scalars that draw random numbers or read a clock

@@ -12,7 +12,9 @@ relative to the magnitude (alphas reach -2,500 at 512 frames, where one
 f32 ulp is 2.4e-4; both sides do the same ops in the same order); MAS bit
 for bit (adds and compares of the same f32 values); the fused conv +
 softplus 1e-4 (the same exact bf16 products, up to 5,120 per output, summed
-in f32 in another order)."""
+in f32 in another order); the LSTM kernels' bf16 variants BF16_ATOL."""
+import copy
+
 import pytest
 import torch
 
@@ -26,6 +28,7 @@ from radmmm_torch.ops.lstm_kernel import (_backward_kernel,
                                           lstm_recurrence_backward_reference,
                                           lstm_recurrence_reference)
 from radmmm_torch.utils import cuda_build
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -158,6 +161,112 @@ def test_function_returns_gradients_on_the_card(cuda):
         fd = (f(eps) - f(-eps)) / (2 * eps)
     an = (gx * dx).sum() + (gw * dw).sum()
     torch.testing.assert_close(fd, an, rtol=1e-2, atol=1e-3)
+
+
+# the bf16 variants against their bf16 twins: the same bf16-rounded
+# operands and f32 sums in another order, so the f32 h each side rounds can
+# land on either side of a bf16 rounding boundary and move one operand by
+# 2^-8 of itself: 1e-3 (forward absolute; backward relative with a 1e-3
+# floor)
+BF16_ATOL = 1e-3
+
+
+def _cluster_plan(smem_fn, B, H, ks):
+    """One 16-CTA cluster a lane with the bf16 Wh slices: at H = 528 a
+    route the plans do not take (they keep the f32 plans' grid)."""
+    hb = -(-H // 16)
+    return lstm_kernel.Plan("cluster", 16, hb, ks, smem_fn(
+        B, H, hb, ks, 16, True, bf16=True))
+
+
+@pytest.mark.parametrize("L,H,T,B,save,route", [
+    (2, 260, 96, 1, False, None), (2, 128, 96, 1, False, None),
+    (6, 128, 800, 1, False, None),
+    (2, 528, 400, 1, False, None),   # the serving shapes
+    (2, 528, 400, 1, False, "cluster"),  # its slices fit one cluster
+    (2, 260, 96, 8, True, None), (2, 128, 96, 8, True, None),
+    (6, 128, 512, 8, True, None),
+    (2, 528, 256, 8, True, None)])   # the training step's four
+def test_bf16_kernel_matches_twin(cuda, L, H, T, B, save, route):
+    """The forward kernel's bf16 variant against the bf16 twin, by its
+    plan (the f32 plan's route) or, at H = 528 and B = 1, on the 16-CTA
+    cluster its bf16 slices fit; only the bf16 counter moves."""
+    xp, mask, wh, rev = _lstm_inputs(cuda, L, H, T, B, non_prefix=True)
+    plan = (_cluster_plan(lstm_kernel._fwd_smem, B, H, 3) if route
+            else None)
+    before = (lstm_kernel.launches, lstm_kernel.bf16_launches)
+    if save or plan:
+        got = _forward_kernel(xp, mask, wh, rev, save=save, plan=plan,
+                              bf16=True)
+        got = got if save else (got,)
+    else:
+        got = (lstm_recurrence(xp, mask, wh, rev, bf16=True),)
+    assert (lstm_kernel.launches, lstm_kernel.bf16_launches) == (
+        before[0], before[1] + 1)
+    assert lstm_kernel.card_forward_plan(L, B, H, bf16=True).route == (
+        "grid" if H > 260 else "cluster")
+    want = lstm_recurrence_reference(xp, mask, wh, rev, save=save,
+                                     bf16=True)
+    for g, w in zip(got, want if save else (want,)):
+        torch.testing.assert_close(g, w, atol=BF16_ATOL, rtol=0)
+    w0 = want[0] if save else want
+    f32 = lstm_recurrence_reference(xp, mask, wh, rev)
+    assert (f32 - got[0]).abs().max() > (w0 - got[0]).abs().max()
+
+
+@pytest.mark.parametrize("L,H,T,B,route", [
+    (2, 260, 96, 8, None), (2, 128, 96, 8, None), (6, 128, 512, 8, None),
+    (2, 528, 256, 8, None), (2, 528, 256, 8, "cluster"),
+    (1, 528, 33, 3, "cluster")])
+def test_bf16_backward_kernel_matches_twin(cuda, L, H, T, B, route):
+    """The backward kernel's bf16 variant against the bf16 BPTT twin on
+    the same saved states, by its plan or, at H = 528, on the 16-CTA
+    cluster its bf16 slices fit."""
+    xp, mask, wh, rev = _lstm_inputs(cuda, L, H, T, B, non_prefix=True)
+    out, act, cs, _ = lstm_recurrence_reference(xp, mask, wh, rev,
+                                                save=True, bf16=True)
+    dout = torch.randn_like(out)
+    plan = (_cluster_plan(lstm_kernel._bwd_smem, B, H,
+                          lstm_kernel._CLUSTER_CHUNKS) if route else None)
+    before = (lstm_kernel.backward_launches,
+              lstm_kernel.bf16_backward_launches)
+    got = _backward_kernel(dout, act, cs, mask, wh, rev, plan=plan,
+                           bf16=True)
+    assert (lstm_kernel.backward_launches,
+            lstm_kernel.bf16_backward_launches) == (before[0], before[1] + 1)
+    assert lstm_kernel.card_backward_plan(L, B, H, bf16=True).route == (
+        "grid" if H > 260 else "cluster")
+    want = lstm_recurrence_backward_reference(dout, act, cs, mask, wh, rev,
+                                              bf16=True)
+    torch.testing.assert_close(got, want, atol=BF16_ATOL, rtol=BF16_ATOL)
+
+
+def test_bf16_mode_trains_through_the_bf16_kernels(cuda):
+    """Under set_conv_precision("bf16") a MaskedLSTM's training forward and
+    backward launch the bf16 variants once each and none of the f32 ones,
+    and its gradients equal autograd through the bf16 twins on the CPU."""
+    from radmmm_torch.ops import conv
+    torch.manual_seed(0)
+    lstm = MaskedLSTM(12, 9, spectral_norm=True)
+    x = torch.randn(3, 17, 12)
+    mask = torch.arange(17)[None, :] < torch.tensor([[17], [5], [1]])
+    card = copy.deepcopy(lstm).to(cuda)
+    conv.set_conv_precision("bf16")
+    try:
+        lstm(x, mask).square().sum().backward()
+        counts = (lstm_kernel.launches, lstm_kernel.backward_launches,
+                  lstm_kernel.bf16_launches,
+                  lstm_kernel.bf16_backward_launches)
+        card(x.to(cuda), mask.to(cuda)).square().sum().backward()
+    finally:
+        conv.set_conv_precision("f32")
+    assert (lstm_kernel.launches, lstm_kernel.backward_launches,
+            lstm_kernel.bf16_launches,
+            lstm_kernel.bf16_backward_launches) == (
+        counts[0], counts[1], counts[2] + 1, counts[3] + 1)
+    for (name, p), q in zip(lstm.named_parameters(), card.parameters()):
+        torch.testing.assert_close(q.grad.cpu(), p.grad, atol=1e-3,
+                                   rtol=1e-3, msg=name)
 
 
 def _ctc_inputs(dev, B, T_mel, T_text, seed=0):

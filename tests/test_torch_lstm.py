@@ -26,6 +26,7 @@ from radmmm_torch.ops.lstm_kernel import (lstm_recurrence,
                                           lstm_recurrence_backward_reference,
                                           lstm_recurrence_reference)
 from tests.test_torch_convert import perturb
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

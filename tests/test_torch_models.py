@@ -20,6 +20,7 @@ from radmmm_torch.models.flow_decoder import squeeze_time, unsqueeze_time
 from radmmm_torch.models.tts import TTSConfig, TTSModel
 from radmmm_torch.utils.masking import SeqLens
 from tests.test_torch_convert import jax_tiny_tts, torch_tts
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 STAGE_ATOL = 1e-4

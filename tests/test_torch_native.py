@@ -15,6 +15,7 @@ from radmmm_tpu import native as jax_native
 from radmmm_torch import native
 from radmmm_torch.ops.alignment import mas_width1
 from tests.test_alignment import soft_attn
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_native_builds_under_the_port_build_dir():

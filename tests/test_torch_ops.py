@@ -27,6 +27,7 @@ from radmmm_torch.ops.length_regulator import regulate_length
 from radmmm_torch.ops.norms import MaskedInstanceNorm1d
 from radmmm_torch.utils.masking import SeqLens
 from tests.test_torch_convert import perturb
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

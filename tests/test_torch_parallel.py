@@ -56,6 +56,7 @@ from radmmm_torch.utils.checkpoint import CheckpointManager
 from tests.test_torch_convert import perturb
 from tests.test_torch_training import OPT, REG, _no_dropout_config
 from tests.test_tts_model import tiny_batch
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD_TIMEOUT = 240
@@ -461,3 +462,92 @@ def test_data_and_tensor_parallel_step_matches_jax(reference, tmp_path):
         _bitwise_alike(r["params"], res[0]["params"])
     _bitwise_alike(res[2]["local"], res[0]["local"])
     _bitwise_alike(res[3]["local"], res[1]["local"])
+
+
+# --- the E2E-GAN decoder's STFT loss over two data ranks ------------------
+
+E2E_CHILD = r'''
+import os, sys, torch
+sys.path.insert(0, {root!r})
+import torch.distributed as dist
+from radmmm_torch.losses.flow import RADTTSE2EGANLoss
+from radmmm_torch.parallel import mesh
+from radmmm_torch.utils.masking import SeqLens
+
+rank, inp, port = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.set_num_threads(1)
+spec = torch.load(inp, weights_only=False)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{{port}}",
+                        rank=rank, world_size=2)
+with mesh.use_mesh(mesh.make_mesh(2, 1)):
+    mine = {{k: v[2 * rank:2 * rank + 2].clone() for k, v in
+            spec["batch"].items()}}
+    audio_hat = mine.pop("audio_hat").requires_grad_()
+    out = {{"audio_hat": audio_hat, "attn": mine["attn"],
+           "attn_soft": mine["attn"], "attn_logprob": mine["attn"].log()}}
+    terms = RADTTSE2EGANLoss(**spec["kw"])(
+        out, mine["audio"], mine["audio_lens"],
+        SeqLens.create(mine["text_lens"], mine["attn"].shape[-1]),
+        SeqLens.create(mine["mel_lens"], mine["attn"].shape[-2]), True)
+    sum(v * w for v, w in terms.values()).backward()
+torch.save(dict(terms={{k: v.item() for k, (v, _) in terms.items()}},
+                grad=audio_hat.grad),
+           os.path.join(os.path.dirname(inp), f"rank{{rank}}.pt"))
+dist.destroy_process_group()
+'''
+
+E2E_KW = dict(fft_lengths=(64, 128, 32), hop_lengths=(16, 32, 8),
+              win_lengths=(48, 128, 32))
+
+
+def test_e2e_gan_stft_loss_over_two_data_ranks(tmp_path):
+    """The E2E-GAN decoder's loss on two gloo ranks of B 2 with ragged
+    lengths, the global batch's longest item (256 samples) on rank 1 only,
+    against JAX's ``RADTTSE2EGANLoss`` on the concatenated B 4: the ranks'
+    loss terms sum to JAX's and their ``audio_hat`` gradients, put side by
+    side, are JAX's gradient of the weighted sum, at rtol 1e-5 (atol 1e-7
+    for the loss terms; 1e-8 for the gradient, 5e-7 of its largest entry,
+    for entries near zero, where the global normaliser's other order of
+    sums shows). Both put NaN at the same samples: the spectral
+    convergence's sqrt of a masked frame's zero sum has no derivative
+    there (ROADMAP Queue 3)."""
+    from radmmm_tpu.losses import flow as JL
+    from radmmm_tpu.utils.masking import SeqLens as JaxSeqLens
+    rng = np.random.default_rng(11)
+    T_mel, T_text = 32, 6
+    attn = rng.uniform(0.01, 1, (4, T_mel, T_text)).astype(np.float32)
+    attn /= attn.sum(-1, keepdims=True)
+    batch = dict(
+        audio=(rng.standard_normal((4, 256)) * 0.1).astype(np.float32),
+        audio_hat=(rng.standard_normal((4, 256)) * 0.1).astype(np.float32),
+        audio_lens=np.asarray([200, 160, 256, 120], np.float32),
+        text_lens=np.asarray([6, 4, 5, 6], np.int32),
+        mel_lens=np.asarray([25, 20, 32, 15], np.int32), attn=attn)
+
+    def jax_loss(audio_hat):
+        out = {"audio_hat": audio_hat, "attn": attn, "attn_soft": attn,
+               "attn_logprob": jnp.log(attn)}
+        terms = JL.RADTTSE2EGANLoss(**E2E_KW)(
+            out, jnp.asarray(batch["audio"]), jnp.asarray(batch["audio_lens"]),
+            JaxSeqLens.create(jnp.asarray(batch["text_lens"]), T_text),
+            JaxSeqLens.create(jnp.asarray(batch["mel_lens"]), T_mel), True)
+        return sum(v * w for v, w in terms.values()), terms
+
+    (_, want), grad = jax.value_and_grad(jax_loss, has_aux=True)(
+        jnp.asarray(batch["audio_hat"]))
+    inp = tmp_path / "inputs.pt"
+    torch.save(dict(batch={k: torch.from_numpy(a) for k, a in batch.items()},
+                    kw=E2E_KW), inp)
+    script = tmp_path / "child.py"
+    script.write_text(E2E_CHILD.format(root=ROOT))
+    port = str(_free_port())
+    run_ranks(str(script), lambda r: [str(r), str(inp), port])
+    res = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+           for r in range(2)]
+    assert set(res[0]["terms"]) == set(want)
+    for k, (v, _) in want.items():
+        got = res[0]["terms"][k] + res[1]["terms"][k]
+        np.testing.assert_allclose(got, float(v), rtol=1e-5, atol=1e-7,
+                                   err_msg=k)
+    got = torch.cat([r["grad"] for r in res]).numpy()
+    np.testing.assert_allclose(got, np.asarray(grad), rtol=1e-5, atol=1e-8)

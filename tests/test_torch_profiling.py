@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from radmmm_torch.utils.profiling import StepProfiler, union_length
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("spans, want", [

@@ -18,6 +18,7 @@ import pytest
 from radmmm_torch.data.dataset import load_speaker_stats
 from radmmm_torch.scripts import compute_speaker_prosody_statistics as stats
 from tests.test_torch_fit import cfg_files  # noqa: F401
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 KEYS = ("f0_median", "f0_mean", "f0_std", "log_f0_median", "log_f0_mean",

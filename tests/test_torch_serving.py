@@ -22,6 +22,7 @@ from radmmm_torch.serving import (TwoStageTTS, export_tts, load_tts,
                                   make_tts_fn)
 from tests.test_torch_convert import (jax_small_vocoder, jax_tiny_tts,
                                       torch_tts, torch_vocoder)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 TEXT_BUCKETS = [(1, 8), (4, 12)]
 FRAME_BUCKETS = (16, 48)

@@ -20,6 +20,7 @@ from radmmm_tpu.ops import splines as J
 from radmmm_tpu.ops.norms import MaskedBatchNorm as JaxMaskedBatchNorm
 from radmmm_torch.ops import splines as S
 from radmmm_torch.ops.norms import MaskedBatchNorm
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -12,6 +12,7 @@ import pytest
 from radmmm_tpu.text import processing as jax_processing
 from radmmm_tpu.text import symbols as jax_symbols
 from radmmm_torch.text import processing, symbols
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYMBOL_SETS = ("english_basic", "english_basic_lowercase",

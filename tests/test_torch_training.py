@@ -32,6 +32,7 @@ from radmmm_torch.ops import alignment, lstm_kernel
 from radmmm_torch.training import optim, step
 from tests.test_torch_convert import perturb
 from tests.test_tts_model import tiny_batch, tiny_config
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 REG = dict(cross_covariance_weight=1.0,

@@ -29,6 +29,7 @@ from radmmm_torch.vocoder.hifigan import Generator, HiFiGANConfig
 from radmmm_torch.vocoder.utils import get_audio_for_mels, get_vocoder
 from tests.test_torch_convert import (SMALL_VOCODER, jax_small_vocoder,
                                       perturb, torch_vocoder)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ISTFT_VOCODER = dict(SMALL_VOCODER, gen_istft_n_fft=16, gen_istft_hop=4)
 

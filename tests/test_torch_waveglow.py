@@ -34,6 +34,7 @@ from radmmm_torch.training import vocoder_train as tvt
 from radmmm_torch.vocoder import waveglow as twg
 from radmmm_torch.vocoder.utils import get_audio_for_mels, get_vocoder
 from tests.test_torch_convert import perturb
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(n_mel_channels=8, n_flows=4, n_group=4, n_early_every=2,
             n_early_size=2, wn_channels=16, wn_layers=2, hop_length=64,

@@ -27,6 +27,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from radmmm_torch.ops import wn_kernel
 from radmmm_torch.scripts import bench_wn_kernel as wn
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location(
