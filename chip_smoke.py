@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--phases build,kernels,serve,parity,train,
                            train_parity,wn,featurize,vocoder,fit,
-                           radtts_fit,m12,ddp,caches,bf16] [--seed 0]
+                           radtts_fit,m12,ddp,caches,bf16,graphs]
+                          [--seed 0]
 
 Phases (all by default):
 
@@ -211,7 +212,35 @@ Phases (all by default):
             train_parity card against CPU in bf16 (loss terms, gradients
             by Frobenius norm); the recipe's fit for 4 steps and predict
             through the CLI with model.conv_precision bf16; the serve
-            phase's four HTTP requests in bf16, with its TF32 settings.
+            phase's four HTTP requests in bf16, with its TF32 settings;
+16. graphs  the JAX package's compiled programs as CUDA graphs
+            (radmmm_torch/utils/graphs.py), TF32 off: (a) in f32 and in
+            bf16, the flagship featurize + step from int16 audio (the
+            featurize phase's eight utterances, each step's audio rolled,
+            mel noise 0.01; B 8, T_text 96, T_mel 512; binarize and KL on)
+            through training/step.make_train_megastep, 2 x 8 steps graphed
+            against 2 x 8 eager featurize_raw + make_train_step steps
+            from the same weights, batches and dropout generator, twice,
+            under cuDNN's deterministic algorithms: every metric, every
+            parameter and the generator bit for bit, two captures (RAdam's
+            two branches) whose shared pool is at most 64 MiB larger than
+            the larger graph (the rectified branch) captured alone into a
+            pool of its own, the launch ledger's counts (K4 4 + 4, K1 1,
+            K2 1, K3 1 a step); then at cuDNN's defaults, a new capture and
+            ms a step graphed against eager over 8 steps each, one step of
+            each profiled (busy, kernels, the host's launch calls),
+            capture seconds, the pool's bytes, peak memory; (b) a serving
+            artifact at the (1, 96) and (4, 96) buckets and the four frame
+            buckets loaded with serving.load_tts (every bucket captured at
+            load: seconds and bytes of each), 20 requests a bucket graphed
+            against the eager request path in turns with the same seeds,
+            int16 PCM equal, p50 and p99 each way, K4 4 launches a
+            graphed request; in bf16 one request a bucket; (e) the recipe's
+            fit through the CLI for 24 steps on a corpus of one line a
+            source copied 64 times, megastep_k 4 (whole groups replay the
+            graphed step) against megastep_k 1, each step's launches,
+            captures and replays, ms a step over two whole groups; (c) the
+            port's aug_disentangle_experiment script at 16 steps a fit.
 
 Any failure exits non-zero. The line before the last is a JSON object
 with the kernels' numbers; the last line is
@@ -241,7 +270,7 @@ import torch
 
 PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity",
           "wn", "featurize", "vocoder", "fit", "radtts_fit", "m12", "ddp",
-          "caches", "bf16")
+          "caches", "bf16", "graphs")
 # (name, lanes, hidden, time steps, LSTM input width) on the serving path
 # at text bucket 96 and frame bucket 800 (the flow context runs at 800/2)
 PATH_SHAPES = (("text_encoder", 2, 260, 96, 520),
@@ -1024,27 +1053,23 @@ def phase_parity(seed: int, model, model_gpu):
         fail("card and CPU mels disagree")
 
 
+# the kernels' names in the launch registry (radmmm_torch/utils/launches.py)
+COUNTED = ("lstm_recurrence", "lstm_recurrence_bwd", "lstm_recurrence_bf16",
+           "lstm_recurrence_bwd_bf16", "ctc_alpha", "ctc_beta", "mas_width1",
+           "conv_softplus")
+
+
 def _counters() -> dict:
-    from radmmm_torch.losses import ctc_kernel
-    from radmmm_torch.ops import alignment, lstm_kernel, wn_kernel
-    return {"lstm_recurrence": lstm_kernel.launches,
-            "lstm_recurrence_bwd": lstm_kernel.backward_launches,
-            "lstm_recurrence_bf16": lstm_kernel.bf16_launches,
-            "lstm_recurrence_bwd_bf16": lstm_kernel.bf16_backward_launches,
-            "ctc_alpha": ctc_kernel.alpha_launches,
-            "ctc_beta": ctc_kernel.beta_launches,
-            "mas_width1": alignment.launches,
-            "conv_softplus": wn_kernel.launches}
+    from radmmm_torch.utils.launches import launch_counts
+    if set(launch_counts) - set(COUNTED):
+        fail(f"launches of kernels the script does not know: "
+             f"{sorted(set(launch_counts) - set(COUNTED))}")
+    return {k: launch_counts[k] for k in COUNTED}
 
 
 def _zero_counters() -> None:
-    from radmmm_torch.losses import ctc_kernel
-    from radmmm_torch.ops import alignment, lstm_kernel, wn_kernel
-    lstm_kernel.launches = lstm_kernel.backward_launches = 0
-    lstm_kernel.bf16_launches = lstm_kernel.bf16_backward_launches = 0
-    ctc_kernel.alpha_launches = ctc_kernel.beta_launches = 0
-    alignment.launches = 0
-    wn_kernel.launches = 0
+    from radmmm_torch.utils.launches import launch_counts
+    launch_counts.clear()
 
 
 # launches of each kernel in one step of make_train_step(binarize=True):
@@ -3585,8 +3610,8 @@ def _ddp_check(part: str, res: list, ref: dict, n_model: int) -> None:
         fail(f"ddp ({part}): the ranks' parameters differ: {differ[:5]}")
 
 
-def ddp_corpus(root: str, seed: int) -> dict:
-    """The fit part's corpus: for each of FIT_SOURCES, DDP_FIT_LINES copies
+def ddp_corpus(root: str, seed: int, lines: int = DDP_FIT_LINES) -> dict:
+    """The fit part's corpus: for each of FIT_SOURCES, ``lines`` copies
     of its first training line of at most FIT_MAX_S seconds (text,
     speaker, emotion and duration kept), for training and for validation,
     each with its own voiced audio. Every batch of a corpus then has one
@@ -3605,7 +3630,7 @@ def ddp_corpus(root: str, seed: int) -> dict:
         os.makedirs(os.path.join(base, rate), exist_ok=True)
         for split in ("train", "val"):
             rows = []
-            for j in range(DDP_FIT_LINES):
+            for j in range(lines):
                 wav = f"{split}_{j}.wav"
                 wavfile.write(os.path.join(base, rate, wav), FIT_SR,
                               _voiced_wav(int(float(parts[4]) * FIT_SR),
@@ -3878,6 +3903,479 @@ def phase_ddp(seed: int) -> dict:
     return {k: total[k] + fit[k] for k in total}
 
 
+# the graphs phase: the JAX package's compiled programs as CUDA graphs
+GRAPH_K = 8
+# how much larger a trainer's pool of two graphs may be than the larger
+# graph captured alone: the second capture reuses the first's
+# intermediates (the pool's one stream) and adds its static outputs, a
+# few allocator segments (2 or 20 MiB each)
+GRAPH_SHARED_POOL_SLACK = 64 * 2**20
+GRAPH_NOISE = 0.01      # mel noise, so the noise input is exercised
+GRAPH_REQUESTS = 20
+GRAPH_TEXT_BUCKETS = [(1, 96), (4, 96)]
+# runtime calls that queue work on the card, as the profiler names them
+HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                     "cudaMemcpy", "cudaMemset")
+
+
+def host_profile(fn) -> dict:
+    """torch.profiler over one call of ``fn`` (after one untraced call):
+    the wall ms, the card's busy ms, its kernels and the host's launch
+    calls (kernels, graphs, copies and fills queued)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    dev = [e for e in ev if e.device_type == DeviceType.CUDA
+           and e.device_time_total > 0]
+    host = {e.key: e.count for e in ev if e.device_type == DeviceType.CPU
+            and e.key.startswith(HOST_LAUNCH_CALLS)}
+    return dict(wall_ms=wall,
+                busy_ms=sum(e.device_time_total for e in dev) / 1e3,
+                kernels=sum(e.count for e in dev),
+                host_launches=sum(host.values()), host_calls=host)
+
+
+def _graph_raws(seed: int, feat, dev) -> dict:
+    """GRAPH_K raw batches of featurize_items' eight utterances (each
+    step's audio rolled by another offset), stacked on the card."""
+    from radmmm_torch.data.collate import collate_host
+    from radmmm_torch.training.step import stack_raw_batches
+    raw = feat.raw_arrays(collate_host(featurize_items(seed)))
+    raws = [dict(raw, audio_i16=np.roll(raw["audio_i16"], 997 * i, axis=1))
+            for i in range(GRAPH_K)]
+    return {k: torch.from_numpy(a).to(dev)
+            for k, a in stack_raw_batches(raws).items()}
+
+
+def _max_diff(got: list, want: list) -> float:
+    return max(float((a.detach().double() - b.detach().double()).abs()
+                     .max()) for a, b in zip(got, want))
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN restricted to deterministic algorithms inside
+    (torch.backends.cudnn.deterministic); the previous setting after."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def _graphs_train(seed: int, tag: str) -> dict:
+    """Part (a) at the conv precision set. Equality, with cuDNN's
+    deterministic algorithms (its default f32 algorithms sum in an order
+    that changes from run to run, so two eager runs differ): 2 x GRAPH_K
+    flagship steps (binarize and KL on, B 8, T_text 96, T_mel 512,
+    featurized from int16 audio with mel noise) through
+    make_train_megastep, graphed, from the same model, batches and
+    generators as 2 x GRAPH_K eager featurize_raw + make_train_step steps,
+    twice (the second eager run shows the eager path repeats itself):
+    every metric, every parameter and the dropout generator bit for bit,
+    and the launch ledger's counts. RAdam's plain branch (steps 1-5) and
+    its rectified branch (from 6) each capture a graph. Then the time, at
+    cuDNN's default algorithms: a graph captured anew, GRAPH_K graphed and
+    GRAPH_K eager steps, ms a step over the next GRAPH_K each way, one step
+    each profiled (busy, kernels, the host's launch calls), capture
+    seconds, the pool's bytes and peak memory. Returns the graphed
+    equality run's launches."""
+    from radmmm_torch.data.collate import Featurizer
+    from radmmm_torch.models.tts import TTSModel, default_radmmm_config
+    from radmmm_torch.training.step import (create_train_state,
+                                            make_train_megastep,
+                                            make_train_step,
+                                            make_whitening_init)
+    from radmmm_torch.utils.graphs import GraphPool
+    dev = torch.device("cuda")
+    feat = Featurizer(device="cuda", mel_noise_scale=GRAPH_NOISE)
+    stacked = _graph_raws(seed, feat, dev)
+    first = feat.featurize_raw({k: v[0] for k, v in stacked.items()},
+                               feat.noise_key_for_step(0))
+    torch.manual_seed(seed)
+    base = TTSModel(default_radmmm_config())
+    _nudge_couplings(base)
+    states = []
+    for i in range(3):
+        st = create_train_state(copy.deepcopy(base) if i < 2 else base,
+                                device="cuda")
+        make_whitening_init(st.model)(st, first)
+        states.append(st)
+    del base
+    loss = _loss_config()
+    gens = [torch.Generator(device=dev).manual_seed(seed) for _ in states]
+    eager_fns = [make_train_step(st.model, loss, True, True)
+                 for st in states]
+
+    def eager_steps(i: int, n: int) -> list:
+        rows = []
+        for j in range(n):
+            raw = {k: v[j % GRAPH_K] for k, v in stacked.items()}
+            batch = feat.featurize_raw(raw, feat.noise_key_for_step(
+                states[i].step))
+            states[i], m = eager_fns[i](states[i], batch, gens[i])
+            rows.append(m)
+        return rows
+
+    with cudnn_deterministic():
+        pool = GraphPool()
+        mega = make_train_megastep(states[0].model, loss, feat, True, True,
+                                   pool=pool)
+        _zero_counters()
+        g_met = [mega(states[0], stacked, gens[0])[1] for _ in range(2)]
+        launches = _counters()
+        e_met = [eager_steps(i, 2 * GRAPH_K) for i in (1, 2)]
+        torch.cuda.synchronize()
+    want = {k: n * 2 * GRAPH_K for k, n in (
+        PER_STEP_BF16 if tag == "bf16" else PER_STEP).items()}
+    log(f"[graphs] ({tag}) graphed: kernel launches on {2 * GRAPH_K} steps "
+        f"{launches} (expected {want})")
+    if launches != want:
+        fail(f"({tag}) the graphed steps did not launch each kernel as "
+             "expected (the launch ledger)")
+    if len(pool.captures) != 2:
+        fail(f"({tag}) expected 2 captures (RAdam's two branches), got "
+             f"{len(pool.captures)}")
+    names = list(e_met[0][0])
+    graph_rows = [{n: torch.cat([m[n] for m in g_met])[i] for n in names}
+                  for i in range(2 * GRAPH_K)]
+    bad = [(i, n) for i, r in enumerate(graph_rows) for n, v in r.items()
+           if not math.isfinite(v.item())]
+    if bad:
+        fail(f"({tag}) non-finite graphed metrics {bad[:4]}")
+    params = [list(st.model.parameters()) for st in states]
+
+    def diffs(a_rows, b_rows, a_params, b_params):
+        met = max(abs(a[n].item() - b[n].item()) for a, b in
+                  zip(a_rows, b_rows) for n in names)
+        equal = (all(torch.equal(a[n], b[n]) for a, b in zip(a_rows, b_rows)
+                     for n in names)
+                 and all(torch.equal(a, b) for a, b in zip(a_params,
+                                                           b_params)))
+        return met, _max_diff(a_params, b_params), equal
+
+    g_e = diffs(graph_rows, e_met[0], params[0], params[1])
+    e_e = diffs(e_met[1], e_met[0], params[2], params[1])
+    gen_equal = torch.equal(gens[0].get_state(), gens[1].get_state())
+    log(f"[graphs] ({tag}) deterministic cuDNN, graphed against eager after "
+        f"{2 * GRAPH_K} steps: metrics max |diff| {g_e[0]:.3e}, parameters "
+        f"{g_e[1]:.3e}, bit-equal {g_e[2]}; eager against eager: "
+        f"{e_e[0]:.3e}, {e_e[1]:.3e}, bit-equal {e_e[2]}; dropout "
+        f"generators alike {gen_equal}")
+    log(f"[graphs] ({tag}) loss by step, graphed: " + ", ".join(
+        f"{r['loss'].item():.6f}" for r in graph_rows))
+    if not (g_e[2] and e_e[2] and gen_equal):
+        fail(f"({tag}) the graphed steps are not bit-equal to the eager "
+             "steps")
+    for c in pool.captures:
+        log(f"[graphs] ({tag}) deterministic capture of {c.name} (RAdam "
+            f"rectified {c.signature[0][0]}): {c.seconds:.3f} s, pool "
+            f"+{c.pool_bytes / 2**20:.1f} MiB, launches a replay "
+            f"{c.launches}")
+    # the rectified branch holds one more parameter-sized list at the
+    # update, so it is the larger graph: captured alone into a pool of its
+    # own (one more warm-up and capture of states[0]), it bounds what the
+    # shared pool may hold
+    solo = GraphPool()
+    with cudnn_deterministic():
+        make_train_megastep(states[0].model, loss, feat, True, True,
+                            pool=solo)(
+            states[0], {k: v[:1] for k, v in stacked.items()}, gens[0])
+    (alone,) = solo.captures
+    shared = sum(c.pool_bytes for c in pool.captures)
+    log(f"[graphs] ({tag}) the shared pool of both captures "
+        f"{shared / 2**20:.1f} MiB; the rectified graph alone in a pool of "
+        f"its own +{alone.pool_bytes / 2**20:.1f} MiB")
+    if shared > alone.pool_bytes + GRAPH_SHARED_POOL_SLACK:
+        fail(f"({tag}) the two captures' shared pool is larger than the "
+             f"larger graph's own by over "
+             f"{GRAPH_SHARED_POOL_SLACK / 2**20:.0f} MiB: the second did "
+             "not reuse the first's memory")
+    del solo
+    del pool, mega, e_met, g_met, graph_rows
+    torch.cuda.empty_cache()
+
+    # the time, at cuDNN's default algorithms: a new capture
+    pool = GraphPool()
+    mega = make_train_megastep(states[0].model, loss, feat, True, True,
+                               pool=pool)
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for group in range(2):
+        t0 = time.perf_counter()
+        mega(states[0], stacked, gens[0])
+        torch.cuda.synchronize()
+        out[f"graph_{group}"] = 1e3 * (time.perf_counter() - t0) / GRAPH_K
+    g_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for group in range(2):
+        t0 = time.perf_counter()
+        eager_steps(1, GRAPH_K)
+        torch.cuda.synchronize()
+        out[f"eager_{group}"] = 1e3 * (time.perf_counter() - t0) / GRAPH_K
+    e_peak = torch.cuda.max_memory_allocated()
+    (c,) = pool.captures
+    gp = host_profile(lambda: mega(
+        states[0], {k: v[:1] for k, v in stacked.items()}, gens[0]))
+    ep = host_profile(lambda: eager_steps(1, 1))
+    for name, p in (("graphed", gp), ("eager", ep)):
+        log(f"[graphs] ({tag}) one {name} featurize + step, traced: wall "
+            f"{p['wall_ms']:.2f} ms, busy {p['busy_ms']:.2f} ms "
+            f"({100 * p['busy_ms'] / p['wall_ms']:.1f}%), {p['kernels']} "
+            f"kernels, {p['host_launches']} host launch calls "
+            f"{p['host_calls']}")
+    log(f"[graphs] ({tag}) ms a step (featurize + step, wall, mean of "
+        f"{GRAPH_K}): graphed {out['graph_1']:.2f}, eager "
+        f"{out['eager_1']:.2f}; the group before, graphed (its first step "
+        f"warms up and captures) {out['graph_0']:.2f}, eager "
+        f"{out['eager_0']:.2f}; capture {c.seconds:.3f} s, pool "
+        f"+{c.pool_bytes / 2**30:.2f} GiB; peak memory graphed "
+        f"{g_peak / 2**30:.2f} GiB, eager {e_peak / 2**30:.2f} GiB")
+    return launches
+
+
+def _eager_request(model, vocoder, buckets, frame_buckets, sigma, call):
+    """load_tts's request path without graphs: pad to the bucket, stage A,
+    the frame bucket from the real rows, stage B drawing the latent from
+    a generator of the request's seed, the vocoder, int16 PCM."""
+    from radmmm_torch.serving import _pad_request, _quantize_pcm
+    text, *per_item, seed = call
+    _, b, text_p, padded = _pad_request(buckets, text, per_item)
+    dev = torch.device("cuda")
+    t = [torch.as_tensor(a, device=dev) for a in (text_p, *padded)]
+    with torch.inference_mode():
+        d = model.infer_durations(t[0], t[1], t[2], accent_ids=t[3])
+        need = int(d["n_frames"][:b].max())
+        F = next((f for f in frame_buckets if f >= need), frame_buckets[-1])
+        out = model.infer_decode(
+            d["txt_enc"], d["durations"], t[2], accent_ids=t[3],
+            f0_mean=t[4], f0_std=t[5], sigma=sigma, max_frames=F,
+            generator=torch.Generator(device=dev).manual_seed(int(seed)))
+        audio = _quantize_pcm(vocoder(out["mel"]))
+    return audio[:b], out["lens"].lengths[:b]
+
+
+def _graph_calls(seed: int, B: int, n: int) -> list:
+    """n requests of B texts of 40 to 96 tokens, seeds 100 on."""
+    rng = np.random.default_rng(seed + B)
+    calls = []
+    for k in range(n):
+        lens = rng.integers(40, 97, B)
+        text = np.zeros((B, int(lens.max())), np.int32)
+        for i, L in enumerate(lens):
+            text[i, :L] = rng.integers(1, 426, L)
+        calls.append((text, lens.astype(np.int32),
+                      rng.integers(0, 21, B).astype(np.int32),
+                      rng.integers(0, 7, B).astype(np.int32),
+                      rng.uniform(4.8, 5.4, B).astype(np.float32),
+                      rng.uniform(0.25, 0.4, B).astype(np.float32),
+                      100 + k))
+    return calls
+
+
+def _graphs_serve(seed: int, work: str) -> dict:
+    """Part (b): the serving artifact at GRAPH_TEXT_BUCKETS and the frame
+    buckets loaded with load_tts on the card (every bucket captured at
+    load), GRAPH_REQUESTS requests at each text bucket against the eager
+    request path, in turns, the same seeds: int16 PCM equal, p50 and p99
+    ms each way (after one untimed request each way at the bucket); then
+    one request a bucket in bf16 against bf16 eager. Returns the graphed
+    requests' launches."""
+    from radmmm_torch.serving import export_tts, load_tts
+    model, vocoder = build_models(seed)
+    path = f"{work}/graphs_tts.pt"
+    export_tts(model, path, vocoder=vocoder, buckets=GRAPH_TEXT_BUCKETS,
+               frame_buckets=FRAME_BUCKETS)
+    model = model.cuda().eval().cache_inverses()
+    vocoder = vocoder.cuda().eval()
+    results = {}
+    for mode in ("f32", "bf16"):
+        with conv_precision(mode):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            served = load_tts(path, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            caps = served.graphs.captures
+            log(f"[graphs] ({mode}) load_tts with {len(caps)} captures in "
+                f"{load_s:.2f} s: " + "; ".join(
+                    f"{c.name} B={c.signature[3][0][0]} {c.seconds:.3f} s "
+                    f"+{c.pool_bytes / 2**20:.1f} MiB" for c in caps))
+            if len(caps) != len(GRAPH_TEXT_BUCKETS) * (1 + len(FRAME_BUCKETS)):
+                fail(f"({mode}) load_tts did not capture every bucket")
+            n = GRAPH_REQUESTS if mode == "f32" else 1
+            graphed_launches = {k: 0 for k in _counters()}
+            for B, _ in GRAPH_TEXT_BUCKETS:
+                # one untimed request each way at the bucket first (the
+                # eager path's first call at a shape sets up its libraries)
+                (warm,) = _graph_calls(seed + 1, B, 1)
+                served(*warm)
+                _eager_request(model, vocoder, served.buckets, FRAME_BUCKETS,
+                               0.8, warm)
+                times = {"graphed": [], "eager": []}
+                for k, call in enumerate(_graph_calls(seed, B, n)):
+                    for way in (("graphed", "eager") if k % 2 == 0
+                                else ("eager", "graphed")):
+                        t0 = time.perf_counter()
+                        if way == "graphed":
+                            before = _counters()
+                            g, gl = served(*call)
+                            graphed_launches = {
+                                k: v + _counters()[k] - before[k]
+                                for k, v in graphed_launches.items()}
+                        else:
+                            e, el = _eager_request(
+                                model, vocoder, served.buckets,
+                                FRAME_BUCKETS, 0.8, call)
+                        torch.cuda.synchronize()
+                        times[way].append((time.perf_counter() - t0) * 1e3)
+                    if not (torch.equal(g, e) and torch.equal(gl, el)):
+                        fail(f"({mode}) bucket B={B} seed {call[-1]}: graphed "
+                             f"PCM differs from eager by "
+                             f"{(g.int() - e.int()).abs().max().item()} "
+                             "LSB")
+                results[(mode, B)] = times
+                log(f"[graphs] ({mode}) bucket ({B}, 96), {n} requests, "
+                    f"graphed PCM equal to eager: " + ", ".join(
+                        f"{w} p50 {np.percentile(v, 50):.2f} ms p99 "
+                        f"{np.percentile(v, 99):.2f} ms"
+                        for w, v in times.items()))
+            if mode == "f32":
+                launches = graphed_launches
+                log(f"[graphs] graphed requests' launches {launches}")
+                if launches["lstm_recurrence"] != 4 * n * len(
+                        GRAPH_TEXT_BUCKETS):
+                    fail("the graphed requests did not launch K4 4 times "
+                         "each (the launch ledger)")
+            del served
+            torch.cuda.empty_cache()
+    return launches
+
+
+GRAPH_FIT_K = 4
+GRAPH_FIT_STEPS = 24
+GRAPH_FIT_LINES = 64    # copies of each source's line: 8 batches a shape
+
+
+def _graphs_fit(seed: int, work: str) -> dict:
+    """Part (e): the recipe at full width through the training CLI for
+    GRAPH_FIT_STEPS steps with megastep_k GRAPH_FIT_K (whole groups in one
+    phase, from step 8, replay the graphed step) and again with megastep_k
+    1 (every step eager), on a corpus of GRAPH_FIT_LINES copies of a line
+    a source, so that groups of one shape form; no validation, one
+    checkpoint at the end. The logged losses of the two runs, each step's
+    launches, the captures and replays, and ms a step over steps 12-19
+    (two whole groups, start to start, their bookkeeping in) each way.
+    Returns the graphed fit's launches."""
+    import os
+    overlay = fit_overlay(work, ddp_corpus(work, seed, GRAPH_FIT_LINES))
+    base = [a for c in RECIPE + (overlay,) for a in ("-c", c)] + [
+        f"--trainer.max_steps={GRAPH_FIT_STEPS}",
+        "--trainer.val_check_interval=100000",
+        "--model.iters_per_checkpoint=100000"]
+    runs = {}
+    for k in (GRAPH_FIT_K, 1):
+        run_dir = os.path.join(work, f"run_k{k}")
+        _zero_counters()
+        _, tr, _, fit_s = _run_cli(
+            ["fit"] + base + [f"--trainer.megastep_k={k}",
+                              f"--model.output_directory={run_dir}"],
+            f"fit to {GRAPH_FIT_STEPS} steps, megastep_k {k}", "graphs")
+        # ms a step over the whole groups of steps 12-19, start to start
+        # (the host queues a group's replays, then waits at its end)
+        starts, pauses = tr.stats["step_starts"], tr.stats["pause_s"]
+        lo, hi = 12, 12 + 2 * GRAPH_FIT_K
+        wall = 1e3 * (starts[hi] - starts[lo] - sum(
+            pauses.get(i, 0.0) for i in range(lo + 1, hi + 1))) / (hi - lo)
+        pool = tr._graph_pool
+        runs[k] = dict(launches=_counters(), rows=[
+            r for r in _metrics_rows(run_dir) if "train/loss" in r],
+            wall=wall, fit_s=fit_s,
+            captures=len(pool.captures) if pool else 0,
+            replays=pool.replays if pool else 0)
+        log(f"[graphs] fit megastep_k {k}: {fit_s:.2f} s, ms a step over "
+            f"steps {lo}-{hi - 1}: {wall:.2f}; captures "
+            f"{runs[k]['captures']}, replays {runs[k]['replays']}; launches "
+            f"{runs[k]['launches']}")
+    g, e = runs[GRAPH_FIT_K], runs[1]
+    want = {name: n * GRAPH_FIT_STEPS for name, n in PER_STEP.items()}
+    want["mas_width1"] = GRAPH_FIT_STEPS - FIT_BINARIZE_FROM
+    if g["launches"] != want or e["launches"] != want:
+        fail(f"the fits' launches {g['launches']} (graphed), "
+             f"{e['launches']} (eager), expected {want}")
+    if g["captures"] < 1 or g["replays"] < 2 * GRAPH_FIT_K:
+        fail("the graphed fit did not replay its whole groups' steps")
+    # a whole group logs once, after its last step, as in the JAX package;
+    # megastep_k 1 logs every step (its loader orders the batches apart
+    # from the groups', so the two runs see other batches at a step)
+    for k, run in runs.items():
+        steps = [r["step"] for r in run["rows"]]
+        bad = [r for r in run["rows"] if not math.isfinite(r["train/loss"])]
+        log(f"[graphs] fit megastep_k {k}: logged steps {steps}, train/loss "
+            + ", ".join(f"{r['train/loss']:.4f}" for r in run["rows"]))
+        if bad or steps[-1] != GRAPH_FIT_STEPS:
+            fail(f"the fit with megastep_k {k} logged {bad or steps}")
+    log(f"[graphs] fit: ms a step {g['wall']:.2f} graphed (megastep_k "
+        f"{GRAPH_FIT_K}), {e['wall']:.2f} eager")
+    return g["launches"]
+
+
+def _graphs_aug(work: str) -> None:
+    """Part (c): the port's aug_disentangle_experiment script at 16 steps
+    a fit (8 training and 2 held-out utterances a pair) on the card: both
+    fits, both evaluations, metrics.json in the JAX run's schema."""
+    import os
+    from radmmm_torch.scripts import aug_disentangle_experiment as aug
+    t0 = time.perf_counter()
+    meta = aug.main(["--steps", "16", "--n-train", "8", "--n-val", "2",
+                     "--workdir", os.path.join(work, "aug"),
+                     "--outdir", os.path.join(work, "aug", "out")])
+    res = meta["results"]
+    log(f"[graphs] aug_disentangle_experiment at 16 steps in "
+        f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+            f"{arm} " + ", ".join(f"{k} {v}" for k, v in r.items())
+            for arm, r in res.items()))
+    bad = [(arm, k) for arm, r in res.items() for k in
+           ("cross_nll", "cross_recon_mel_l1", "emb_cross_cov")
+           if not math.isfinite(r[k])]
+    if bad or any(r["ckpt_step"] != 16 for r in res.values()):
+        fail(f"the aug experiment's script gave {res}")
+
+
+@tf32_off()
+def phase_graphs(seed: int) -> dict:
+    """The graphs phase: (a) graphed against eager training in f32 and
+    bf16, (b) graphed against eager serving, (c) the aug experiment's
+    script, (e) a graphed fit against an eager one. Returns the launches
+    of the graphed paths."""
+    train = _graphs_train(seed, "f32")
+    torch.cuda.empty_cache()
+    with conv_precision("bf16"):
+        train_bf16 = _graphs_train(seed, "bf16")
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="radmmm_graphs_")
+    try:
+        serve_launches = _graphs_serve(seed, work)
+        torch.cuda.empty_cache()
+        fit_launches = _graphs_fit(seed, work)
+        torch.cuda.empty_cache()
+        _graphs_aug(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"graphs_train": {k: train[k] + train_bf16[k] for k in train},
+            "graphs_serve": serve_launches, "graphs_fit": fit_launches}
+
+
 def kernel_entries(rows: list, serve_launches, train_launches,
                    wn_launches, path_launches: dict) -> list:
     """The kernels' JSON entries. K4 forward keeps its serving numbers (one
@@ -3890,8 +4388,10 @@ def kernel_entries(rows: list, serve_launches, train_launches,
     fit (its training steps and validations) for K4 forward, the wn phase
     and fit for K5, training and fit for the rest, and ``path_launches``'
     paths (fit, the vocoder path, which runs none of them, radtts_fit, m12,
-    ddp, rank 0's counted steps, caches, its two fits, and the bf16
-    phase's training steps, fit and serving; None for a phase not run).
+    ddp, rank 0's counted steps, caches, its two fits, the bf16 phase's
+    training steps, fit and serving, and the graphs phase's graphed steps,
+    requests and fit, counted through the graphs' launch ledger; None for
+    a phase not run).
     The bf16 variants of K4 and its backward (rows of the bf16 phase) are
     listed after them the same way, each with the f32 kernel's ms at its
     shapes beside it."""
@@ -4068,6 +4568,9 @@ def main() -> int:
     if "bf16" in phases:
         bf16_rows, bf16_launches = phase_bf16(args.seed, train_ms)
         rows = rows + bf16_rows
+    graph_launches = {}
+    if "graphs" in phases:
+        graph_launches = phase_graphs(args.seed)
     if rows:
         log(json.dumps({"kernels": kernel_entries(
             rows, serve_launches, train_launches, wn_launches,
@@ -4075,7 +4578,9 @@ def main() -> int:
              "radtts_fit": radtts_launches, "m12": m12_launches,
              "ddp": ddp_launches, "caches": caches_launches,
              **{f"bf16_{k}": bf16_launches.get(k)
-                for k in ("train", "fit", "serve")}})}))
+                for k in ("train", "fit", "serve")},
+             **{k: graph_launches.get(k)
+                for k in ("graphs_train", "graphs_serve", "graphs_fit")}})}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -163,8 +163,22 @@ class Featurizer:
         self._n_calls += 1
         return key
 
+    def mel_noise(self, raw: Dict[str, torch.Tensor],
+                  noise_key: Optional[int]) -> Optional[torch.Tensor]:
+        """The mel noise ``featurize_raw(raw, noise_key)`` adds, drawn on
+        ``raw``'s device from a generator seeded with ``noise_key`` (None
+        when ``mel_noise_scale`` is 0). A CUDA graph of the featurizer
+        takes it as an input: a fresh generator each call is host work."""
+        if self.mel_noise_scale <= 0:
+            return None
+        audio = raw["audio_i16"]
+        shape = (audio.shape[0], audio.shape[1] // self.hop_length,
+                 self.mel.n_mel_channels)
+        gen = torch.Generator(device=audio.device).manual_seed(noise_key)
+        return torch.randn(shape, generator=gen, device=audio.device)
+
     def _featurize(self, audio, audio_lens, text_lens, max_text: int,
-                   noise_key: Optional[int], cached_f0=None):
+                   noise: Optional[torch.Tensor], cached_f0=None):
         hop = self.hop_length
         # drop the +1 frame so the mel frames equal the bucket multiple
         mel = self.mel(audio)[:, :audio.shape[1] // hop]
@@ -198,10 +212,8 @@ class Featurizer:
             dmap = torch.clamp_min(torch.log(torch.clamp_min(dist, 1e-6)),
                                    0.0)
             f0 = f0 - torch.where(voiced_f0, 0.0, dmap)
-        if self.mel_noise_scale > 0:
-            gen = torch.Generator(device=mel.device).manual_seed(noise_key)
-            mel = mel + torch.randn(mel.shape, generator=gen,
-                                    device=mel.device) * self.mel_noise_scale
+        if noise is not None:
+            mel = mel + noise * self.mel_noise_scale
 
         energy = mel.mean(dim=-1)
         if self.use_scaled_energy:
@@ -233,14 +245,19 @@ class Featurizer:
         return raw
 
     def featurize_raw(self, raw: Dict[str, torch.Tensor],
-                      noise_key: Optional[int]) -> Dict[str, torch.Tensor]:
+                      noise_key: Optional[int],
+                      noise: Optional[torch.Tensor] = None
+                      ) -> Dict[str, torch.Tensor]:
         """``raw_arrays`` as tensors on one device -> the training-step
         batch on that device. ``noise_key`` seeds the mel noise (unused
-        when ``mel_noise_scale`` is 0)."""
+        when ``mel_noise_scale`` is 0), unless ``noise``, drawn by
+        ``mel_noise``, is given."""
+        if noise is None:
+            noise = self.mel_noise(raw, noise_key)
         audio = raw["audio_i16"].to(torch.float32) / 32768.0
         mel, mel_lens, f0, voiced, p_voiced, energy, prior = self._featurize(
             audio, raw["audio_lengths"], raw["input_lengths"],
-            int(raw["text"].shape[1]), noise_key, raw.get("cached_f0"))
+            int(raw["text"].shape[1]), noise, raw.get("cached_f0"))
         batch = {k: v for k, v in raw.items()
                  if k not in ("audio_i16", "cached_f0")}
         batch["audio"] = audio

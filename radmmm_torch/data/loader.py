@@ -46,7 +46,9 @@ def _threaded(produce: Callable[[Callable], None], depth: int) -> Iterable:
     """Run ``produce(put)`` in a daemon thread and yield what it puts. An
     exception in the producer is raised in the consumer; a consumer that
     stops early (a break, an abandoned ``next(iter(...))``) releases the
-    producer, which then ends instead of blocking on a full queue."""
+    producer, which then ends instead of blocking on a full queue, and
+    waits for it: a producer still featurizing on the card when the
+    process exits aborts it."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     sentinel = object()
     stop = threading.Event()
@@ -86,6 +88,7 @@ def _threaded(produce: Callable[[Callable], None], depth: int) -> Iterable:
                 q.get_nowait()
             except queue.Empty:
                 break
+        t.join()
 
 
 class DataLoader:
@@ -267,22 +270,20 @@ class DataLoader:
 def prefetch_raw_groups(loader, featurizer, k: int, device, depth: int = 2):
     """Yield groups of up to ``k`` consecutive same-shape raw batches
     (``featurizer.raw_arrays`` of the loader's host batches, int16 audio),
-    each a list of dicts of tensors on ``device``. A thread stacks and
-    uploads each group ``depth`` groups ahead, from pinned memory on the
-    card, so the upload rides under the previous group's steps. A group
-    ends where the shape changes or at k batches, as in the JAX
-    package."""
+    each ``stack_raw_batches`` of them as tensors on ``device`` (batch i of
+    a group is row i of each). A thread stacks and uploads each group
+    ``depth`` groups ahead, from pinned memory on the card, so the upload
+    rides under the previous group's steps. A group ends where the shape
+    changes or at k batches, as in the JAX package."""
 
     def upload(pending):
-        stacked = stack_raw_batches(pending)
         on = {}
-        for key, a in stacked.items():
+        for key, a in stack_raw_batches(pending).items():
             t = torch.from_numpy(a)
             if device.type == "cuda":
                 t = t.pin_memory().to(device, non_blocking=True)
             on[key] = t
-        return [{key: t[i] for key, t in on.items()}
-                for i in range(len(pending))]
+        return on
 
     def produce(put):
         pending, pshape = [], None

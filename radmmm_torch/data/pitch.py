@@ -56,6 +56,22 @@ def _troughs(cmndf: torch.Tensor, in_range: torch.Tensor):
     return cm_ranged, is_trough
 
 
+# constant tables, uploaded once a device and kept: a CUDA graph of the
+# featurizer (``training/step.make_train_megastep``) cannot hold a copy
+# from pageable host memory, and the eager path skips the upload
+_tables: dict = {}
+
+
+def _table(key: tuple, array: np.ndarray, dev) -> torch.Tensor:
+    """``array`` on ``dev``, cached under ``key`` (the name and every
+    parameter the array depends on)."""
+    k = key + (str(dev),)
+    t = _tables.get(k)
+    if t is None:
+        t = _tables[k] = torch.from_numpy(array).to(dev)
+    return t
+
+
 def yin_f0(audio: torch.Tensor, sampling_rate: int = 22050,
            frame_length: int = 1024, hop_length: int = 256,
            f0_min: float = 80.0, f0_max: float = 640.0):
@@ -71,8 +87,8 @@ def yin_f0(audio: torch.Tensor, sampling_rate: int = 22050,
                                     & (lags <= lag_max))
 
     # p_voiced: the weighted share of thresholds with a trough below them
-    thresholds = torch.from_numpy(
-        np.linspace(0.05, 1.0, 20).astype(np.float32)).to(dev)
+    thresholds = _table(("yin_thresholds",),
+                        np.linspace(0.05, 1.0, 20).astype(np.float32), dev)
     trough_cm = torch.where(is_trough, cm_ranged, torch.inf)
     min_cm = torch.amin(trough_cm, dim=-1)
     weights = torch.exp(-2.0 * thresholds)           # favour strict ones
@@ -157,6 +173,8 @@ def pyin_f0(audio: torch.Tensor, sampling_rate: int = 22050,
     win = frame_length // 2
     cmndf, rms = _cmndf(audio, frame_length, hop_length)
     dev = audio.device
+    key = (sampling_rate, frame_length, hop_length, f0_min, f0_max,
+           bins_per_semitone, n_thresholds, switch_prob, max_octaves_per_sec)
 
     # ---- static lag / pitch-bin tables (numpy) ----------------------------
     lags_np = np.arange(1, win + 1, dtype=np.float64)
@@ -174,14 +192,14 @@ def pyin_f0(audio: torch.Tensor, sampling_rate: int = 22050,
                                ).astype(np.int64), 0, n_bins - 1)
     assign = np.zeros((win, n_bins), np.float32)
     assign[np.arange(win), bin_idx] = in_range_np
-    assign_t = torch.from_numpy(assign).to(dev)
+    assign_t = _table(("assign",) + key, assign, dev)
     thresholds = np.linspace(0.0, 1.0, n_thresholds + 1)[1:]
-    thr_prior = torch.from_numpy(
-        _beta_pmf(thresholds, 2.0, 18.0).astype(np.float32)).to(dev)
-    thr = torch.from_numpy(thresholds.astype(np.float32)).to(dev)
+    thr_prior = _table(("thr_prior",) + key, _beta_pmf(
+        thresholds, 2.0, 18.0).astype(np.float32), dev)
+    thr = _table(("thr",) + key, thresholds.astype(np.float32), dev)
 
     # ---- per-trough observation probabilities -----------------------------
-    in_range = torch.from_numpy(in_range_np).to(dev)
+    in_range = _table(("in_range",) + key, in_range_np, dev)
     cm_ranged, is_trough = _troughs(cmndf, in_range)
     # below[b, f, tau, i]: trough tau under threshold i; its rank is the
     # number of earlier troughs under the same threshold (the Boltzmann
@@ -203,11 +221,11 @@ def pyin_f0(audio: torch.Tensor, sampling_rate: int = 22050,
     delta = torch.clamp(0.5 * (y0 - y2) / torch.where(
         denom.abs() < 1e-9, 1.0, denom), -0.5, 0.5)
     delta = torch.where(torch.isfinite(delta), delta, 0.0)
-    lags = torch.from_numpy(lags_np.astype(np.float32)).to(dev)
+    lags = _table(("lags",) + key, lags_np.astype(np.float32), dev)
     f_interp = sampling_rate / torch.clamp(lags + delta, lag_min, lag_max)
     obs = torch.matmul(w, assign_t)                             # (B, F, K)
     f_num = torch.matmul(w * f_interp, assign_t)
-    bin_f = torch.from_numpy(bin_freqs.astype(np.float32)).to(dev)
+    bin_f = _table(("bin_f",) + key, bin_freqs.astype(np.float32), dev)
     f_bin = torch.where(obs > 1e-9, f_num / torch.clamp_min(obs, 1e-9),
                         bin_f)
 
@@ -225,10 +243,11 @@ def pyin_f0(audio: torch.Tensor, sampling_rate: int = 22050,
     for o, t in zip(offs, tri):
         P += np.diag(np.full(n_bins - abs(o), t), k=int(o))
     P /= P.sum(axis=1, keepdims=True)
-    log_P = torch.from_numpy(np.log(P + 1e-12).astype(np.float32)).to(dev)
-    log_V = torch.from_numpy(np.log(np.array(
+    log_P = _table(("log_P",) + key, np.log(P + 1e-12).astype(np.float32),
+                   dev)
+    log_V = _table(("log_V",) + key, np.log(np.array(
         [[1 - switch_prob, switch_prob],
-         [switch_prob, 1 - switch_prob]])).astype(np.float32)).to(dev)
+         [switch_prob, 1 - switch_prob]])).astype(np.float32), dev)
 
     v_path, k_path = viterbi(log_obs, log_P, log_V)
     f0 = torch.gather(f_bin, -1, k_path[..., None])[..., 0]

@@ -22,12 +22,9 @@ import ctypes
 import torch
 
 from radmmm_torch.utils import cuda_build
+from radmmm_torch.utils.launches import launched
 
 NEG_INF = -1e30
-
-# kernel launches since the last reset; chip_smoke.py and the tests read them
-alpha_launches = 0
-beta_launches = 0
 
 
 def _lse3(a, b, c):
@@ -136,24 +133,22 @@ def ctc_alpha(emit_all: torch.Tensor, text_lens: torch.Tensor,
               mel_lens: torch.Tensor) -> torch.Tensor:
     """Every row of the forward DP, (T_mel, B, S). text_lens and mel_lens
     are (B,) int32 on emit_all's device."""
-    global alpha_launches
     _check(emit_all, text_lens, mel_lens)
     if emit_all.device.type == "cpu":
         return ctc_alpha_reference(emit_all, text_lens, mel_lens)
     out = _launch("alpha", emit_all, text_lens, mel_lens)
-    alpha_launches += 1
+    launched("ctc_alpha")
     return out
 
 
 def ctc_beta(emit_all: torch.Tensor, text_lens: torch.Tensor,
              mel_lens: torch.Tensor) -> torch.Tensor:
     """Every row of the reverse DP, (T_mel, B, S)."""
-    global beta_launches
     _check(emit_all, text_lens, mel_lens)
     if emit_all.device.type == "cpu":
         return ctc_beta_reference(emit_all, text_lens, mel_lens)
     out = _launch("beta", emit_all, text_lens, mel_lens)
-    beta_launches += 1
+    launched("ctc_beta")
     return out
 
 

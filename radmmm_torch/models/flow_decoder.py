@@ -204,6 +204,16 @@ class RADMMMFlow(nn.Module):
                 "log_det_W_list": log_det_W_list, "log_s_list": log_s_list,
                 "context_w_spkvec": ctx}
 
+    def draw_residual(self, batch: int, max_frames: int, sigma: float,
+                      generator: Optional[torch.Generator], device,
+                      dtype=torch.float32) -> torch.Tensor:
+        """The N(0, sigma²) latent ``infer`` draws at ``max_frames`` frames,
+        (batch, max_frames // g, n_mel * g), from ``generator``."""
+        g = self.n_group_size
+        return torch.randn((batch, max_frames // g, self.n_mel_channels * g),
+                           generator=generator, device=device,
+                           dtype=dtype) * sigma
+
     def infer(self, spk_vecs, txt_enc, sigma, dur=None, f0=None,
               energy_avg=None, lens: Optional[SeqLens] = None,
               accent_vecs=None, max_frames: Optional[int] = None,
@@ -226,12 +236,10 @@ class RADMMMFlow(nn.Module):
 
         ctx = self.preprocess_context(txt_expanded, spk_vecs, lens, f0,
                                       energy_avg, accent_vecs)
-        B = txt_enc.shape[0]
-        Tg = lens.max_len // g
         if residual is None:
-            residual = torch.randn(
-                (B, Tg, self.n_mel_channels * g), generator=generator,
-                device=txt_enc.device, dtype=txt_enc.dtype) * sigma
+            residual = self.draw_residual(txt_enc.shape[0], lens.max_len,
+                                          sigma, generator, txt_enc.device,
+                                          txt_enc.dtype)
 
         exits = self.exit_steps
         z = residual[..., len(exits) * self.n_early_size:]

@@ -20,11 +20,9 @@ import numpy as np
 import torch
 
 from radmmm_torch.utils import cuda_build
+from radmmm_torch.utils.launches import launched
 
 NEG_INF = -1e30
-
-# kernel launches since the last reset; chip_smoke.py and the tests read it
-launches = 0
 
 _MAX_SMEM = 227 * 1024
 
@@ -113,7 +111,6 @@ def mas_width1(attn_map: torch.Tensor, text_lens: torch.Tensor,
 def _launch(log_attn: torch.Tensor, text_lens: torch.Tensor,
             mel_lens: torch.Tensor) -> torch.Tensor:
     """The kernel on the masked log attention (CUDA tensors)."""
-    global launches
     B, T_mel, T_text = log_attn.shape
     out = torch.empty_like(log_attn)
     if B == 0 or T_mel == 0 or T_text == 0:
@@ -128,7 +125,7 @@ def _launch(log_attn: torch.Tensor, text_lens: torch.Tensor,
             out.data_ptr(), B, T_mel, T_text,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(lib, err, "mas_width1")
-    launches += 1
+    launched("mas_width1")
     return out
 
 

@@ -48,13 +48,7 @@ import torch
 
 from radmmm_torch.ops.conv import bf16_product, bf16_round, get_conv_precision
 from radmmm_torch.utils import cuda_build
-
-# kernel launches since the last reset; chip_smoke.py and the tests read
-# them: the forward kernel and the backward kernel, f32 and bf16 variants
-launches = 0
-backward_launches = 0
-bf16_launches = 0
-bf16_backward_launches = 0
+from radmmm_torch.utils.launches import launched
 
 _plans: dict = {}
 
@@ -260,7 +254,6 @@ def _forward_kernel(x_proj, mask, wh, reverse, save: bool, plan=None,
     """The forward kernel's launch (its bf16 variant under ``bf16``), by
     ``card_forward_plan`` unless a plan is given (``scripts/sweep_lstm.py``
     times the alternatives)."""
-    global launches, bf16_launches
     L, T, B, G = x_proj.shape
     H = G // 4
     dev = x_proj.device
@@ -292,10 +285,7 @@ def _forward_kernel(x_proj, mask, wh, reverse, save: bool, plan=None,
             int(not grid), plan.n_cta, plan.hb, plan.ks, int(bf16),
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(lib, err, "lstm_recurrence")
-    if bf16:
-        bf16_launches += 1
-    else:
-        launches += 1
+    launched("lstm_recurrence_bf16" if bf16 else "lstm_recurrence")
     return (out, *saved) if save else out
 
 
@@ -304,7 +294,6 @@ def _backward_kernel(dout, act, cs, mask, wh, reverse, plan=None,
     """The backward kernel's launch (its bf16 variant under ``bf16``), by
     ``card_backward_plan`` unless a plan is given
     (``scripts/sweep_lstm.py`` times the alternatives)."""
-    global backward_launches, bf16_backward_launches
     L, T, B, H = dout.shape
     dev = dout.device
     dxp = torch.empty((L, T, B, 4 * H), dtype=torch.float32, device=dev)
@@ -329,10 +318,7 @@ def _backward_kernel(dout, act, cs, mask, wh, reverse, plan=None,
             int(not grid), plan.n_cta, plan.hb, plan.ks, int(bf16),
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(lib, err, "lstm_recurrence_bwd")
-    if bf16:
-        bf16_backward_launches += 1
-    else:
-        backward_launches += 1
+    launched("lstm_recurrence_bwd_bf16" if bf16 else "lstm_recurrence_bwd")
     return dxp
 
 

@@ -32,9 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from radmmm_torch.utils import cuda_build
-
-# kernel launches since the last reset; chip_smoke.py and the tests read it
-launches = 0
+from radmmm_torch.utils.launches import launched
 
 # the TMA tensor maps need 16-byte row strides: 8 bf16 channels
 CHANNEL_MULTIPLE = 8
@@ -94,7 +92,6 @@ def _aligned_bf16(t: torch.Tensor) -> torch.Tensor:
 def conv_softplus(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   dilation: int) -> torch.Tensor:
     """softplus(conv1d(x, w, dilation) + b), (B, T, Cout) f32."""
-    global launches
     _check(x, w, b, dilation)
     if x.device.type == "cpu":
         return conv_softplus_reference(x, w, b, dilation)
@@ -112,7 +109,7 @@ def conv_softplus(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             T, Cin, Cout, K, int(dilation),
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(lib, err, "conv_softplus")
-    launches += 1
+    launched("conv_softplus")
     return out
 
 

@@ -1,9 +1,19 @@
 """Serving: in-process two-stage TTS and the saved serving artifact.
 
-Counterpart of ``radmmm_tpu/serving.py``. The JAX package exports compiled
-programs; PyTorch runs eagerly, so the port's artifact is a ``torch.save``
-bundle of what rebuilds the model: the configs, the state_dicts, the
-(batch, max_text) buckets and the mel-frame buckets.
+Counterpart of ``radmmm_tpu/serving.py``. The JAX package exports
+compiled programs, one per (batch, text) bucket and per frame bucket. The
+port's artifact is a ``torch.save`` bundle of what rebuilds the model:
+the configs, the state_dicts, the (batch, max_text) buckets and the
+mel-frame buckets; on the card each stage then runs as a CUDA graph
+(``utils/graphs.py``), one per input shape, which ``load_tts`` captures
+for every bucket when it loads: stage A (``infer_durations``) per text
+bucket, stage B (``infer_decode``, the vocoder and the int16
+quantisation) per text bucket and frame bucket. A request copies its
+padded arrays into the graph's inputs and launches it once a stage. The
+flow's latent is drawn eagerly from the request's seed
+(``RADMMMFlow.draw_residual``) into stage B's input, the bits
+``infer_decode`` would draw from the same generator. On the CPU the same
+functions run eagerly.
 
     # offline
     from radmmm_torch.serving import export_tts
@@ -22,7 +32,8 @@ row 0, and outputs are trimmed back. The fill rows take part in the
 batch-global F0 statistics of ``infer_decode``, exactly as in the JAX
 package. With frame buckets (version 2) the artifact runs two stages:
 durations first, then the decoder at the smallest frame bucket covering
-the request's real rows. Audio is quantised to int16 PCM on the device.
+the request's real rows, which the host picks between the stages. Audio
+is quantised to int16 PCM on the device.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ import torch
 
 from radmmm_torch.models.tts import TTSConfig, TTSModel
 from radmmm_torch.utils.device import resolve_device
+from radmmm_torch.utils.graphs import Graphed, GraphPool
 from radmmm_torch.vocoder.hifigan import Generator, HiFiGANConfig
 
 _FORMAT = "radmmm_torch.tts"
@@ -68,12 +80,46 @@ def _to(device, *arrays, dtypes):
 _I32, _F32 = torch.int32, torch.float32
 
 
+def _residual(model: TTSModel, batch: int, max_frames: int, sigma: float,
+              seed, device) -> torch.Tensor:
+    """The flow latent of a request: what ``infer_decode`` draws from a
+    generator seeded with ``seed``."""
+    return model.decoder.draw_residual(batch, max_frames, sigma,
+                                       _generator(device, seed), device)
+
+
+def _decode(model: TTSModel, vocoder, pcm_int16: bool, sigma: float,
+            max_frames: int):
+    """Stage B over a dict of device tensors -> (mel | audio, lens)."""
+    def decode(x):
+        out = model.infer_decode(
+            x["txt_enc"], x["durations"], x["spk"], accent_ids=x["acc"],
+            f0_mean=x["f0m"], f0_std=x["f0s"], sigma=sigma,
+            max_frames=max_frames, residual=x["residual"])
+        mel, lens = out["mel"], out["lens"].lengths
+        if vocoder is not None:
+            return _vocode(vocoder, mel, pcm_int16), lens
+        return mel, lens
+    return decode
+
+
 def make_tts_fn(model: TTSModel, *, sigma: float = 0.8,
                 max_frames: int = 1024, vocoder: Optional[Generator] = None,
-                pcm_int16: bool = True):
+                pcm_int16: bool = True, pool: Optional[GraphPool] = None):
     """text -> (mel | audio, lens) at one max_frames, on the model's
-    device. Audio comes back as int16 PCM unless ``pcm_int16=False``."""
+    device (a CUDA graph per request shape on the card, in ``pool``,
+    one of its own by default).
+    Audio comes back as int16 PCM unless ``pcm_int16=False``."""
     device = _device_of(model)
+    decode = _decode(model, vocoder, pcm_int16, sigma, max_frames)
+
+    def both(x):
+        d = model.infer_durations(x["text"], x["text_lens"], x["spk"],
+                                  accent_ids=x["acc"])
+        return decode(dict(x, txt_enc=d["txt_enc"],
+                           durations=d["durations"]))
+
+    graphed = Graphed(both, pool, name="tts")
 
     @torch.inference_mode()
     def tts(text, text_lens, speaker_ids, accent_ids, f0_mean, f0_std,
@@ -81,21 +127,21 @@ def make_tts_fn(model: TTSModel, *, sigma: float = 0.8,
         text, text_lens, spk, acc, f0m, f0s = _to(
             device, text, text_lens, speaker_ids, accent_ids, f0_mean,
             f0_std, dtypes=(_I32, _I32, _I32, _I32, _F32, _F32))
-        out = model.infer(text, text_lens, spk, accent_ids=acc, f0_mean=f0m,
-                          f0_std=f0s, sigma=sigma, max_frames=max_frames,
-                          generator=_generator(device, seed))
-        mel, lens = out["mel"], out["lens"].lengths
-        if vocoder is not None:
-            return _vocode(vocoder, mel, pcm_int16), lens
-        return mel, lens
+        return graphed(dict(
+            text=text, text_lens=text_lens, spk=spk, acc=acc, f0m=f0m,
+            f0s=f0s, residual=_residual(model, text.shape[0], max_frames,
+                                        sigma, seed, device)))
 
     return tts
 
 
 def make_two_stage_fns(model: TTSModel, *, sigma: float = 0.8,
                        vocoder: Optional[Generator] = None,
-                       pcm_int16: bool = True):
-    """Two-stage serving: (dur_fn, make_decode).
+                       pcm_int16: bool = True,
+                       pool: Optional[GraphPool] = None):
+    """Two-stage serving: (dur_fn, make_decode), each stage a CUDA graph
+    per input shape on the card (in ``pool``, one of their own by
+    default).
 
     Stage A ``dur_fn(text, text_lens, speaker_ids, accent_ids)`` ->
     (txt_enc, durations, n_frames). Stage B ``make_decode(max_frames)`` ->
@@ -103,29 +149,37 @@ def make_two_stage_fns(model: TTSModel, *, sigma: float = 0.8,
     seed)`` -> (mel | audio, lens) at that frame bucket."""
     device = _device_of(model)
 
+    def durations(x):
+        out = model.infer_durations(x["text"], x["text_lens"], x["spk"],
+                                    accent_ids=x["acc"])
+        return out["txt_enc"], out["durations"], out["n_frames"]
+
+    stage_a = Graphed(durations, pool, name="stage_a")
+
     @torch.inference_mode()
     def dur_fn(text, text_lens, speaker_ids, accent_ids):
         text, text_lens, spk, acc = _to(
             device, text, text_lens, speaker_ids, accent_ids,
             dtypes=(_I32, _I32, _I32, _I32))
-        out = model.infer_durations(text, text_lens, spk, accent_ids=acc)
-        return out["txt_enc"], out["durations"], out["n_frames"]
+        return stage_a(dict(text=text, text_lens=text_lens, spk=spk,
+                            acc=acc))
 
     def make_decode(max_frames: int):
+        stage_b = Graphed(_decode(model, vocoder, pcm_int16, sigma,
+                                  int(max_frames)), stage_a.pool,
+                          name=f"stage_b_{int(max_frames)}")
+
         @torch.inference_mode()
         def decode(txt_enc, durations, speaker_ids, accent_ids, f0_mean,
                    f0_std, seed):
             spk, acc, f0m, f0s = _to(
                 device, speaker_ids, accent_ids, f0_mean, f0_std,
                 dtypes=(_I32, _I32, _F32, _F32))
-            out = model.infer_decode(
-                txt_enc, durations, spk, accent_ids=acc, f0_mean=f0m,
-                f0_std=f0s, sigma=sigma, max_frames=int(max_frames),
-                generator=_generator(device, seed))
-            mel, lens = out["mel"], out["lens"].lengths
-            if vocoder is not None:
-                return _vocode(vocoder, mel, pcm_int16), lens
-            return mel, lens
+            return stage_b(dict(
+                txt_enc=txt_enc, durations=durations, spk=spk, acc=acc,
+                f0m=f0m, f0s=f0s,
+                residual=_residual(model, txt_enc.shape[0], int(max_frames),
+                                   sigma, seed, device)))
         return decode
 
     return dur_fn, make_decode
@@ -247,9 +301,10 @@ def load_tts(path: str, device: str = "cuda"):
                      key=lambda bt: bt[0] * bt[1])
     frame_buckets = bundle["frame_buckets"]
     sigma = bundle["sigma"]
+    pool = GraphPool() if dev.type == "cuda" else None
     if frame_buckets:
         dur_fn, make_decode = make_two_stage_fns(model, sigma=sigma,
-                                                 vocoder=vocoder)
+                                                 vocoder=vocoder, pool=pool)
         decodes = {f: make_decode(f) for f in frame_buckets}
 
         def run(text_p, text_lens, spk, acc, f0m, f0s, seed, b):
@@ -263,7 +318,8 @@ def load_tts(path: str, device: str = "cuda"):
             return decodes[F](txt_enc, durations, spk, acc, f0m, f0s, seed)
     else:
         tts = make_tts_fn(model, sigma=sigma,
-                          max_frames=bundle["max_frames"], vocoder=vocoder)
+                          max_frames=bundle["max_frames"], vocoder=vocoder,
+                          pool=pool)
 
         def run(text_p, text_lens, spk, acc, f0m, f0s, seed, b):
             return tts(text_p, text_lens, spk, acc, f0m, f0s, seed)
@@ -276,8 +332,28 @@ def load_tts(path: str, device: str = "cuda"):
         out, lens = run(text_p, *per_item, seed, b)
         return out[:b], lens[:b]
 
+    if pool is not None:
+        # every bucket's graphs, captured now rather than at a first
+        # request: a dummy request of each (batch, text) bucket through
+        # stage A and each frame bucket's stage B
+        for B, T in buckets:
+            text = np.zeros((B, T), np.int32)
+            per_item = (np.full(B, T, np.int32), np.zeros(B, np.int32),
+                        np.zeros(B, np.int32), np.zeros(B, np.float32),
+                        np.ones(B, np.float32))
+            if frame_buckets:
+                txt_enc, durations, _ = dur_fn(text, *per_item[:3])
+                for f in frame_buckets:
+                    decodes[f](txt_enc, durations, *per_item[1:], 0)
+            else:
+                tts(text, *per_item, 0)
+        torch.cuda.synchronize()
+
     call.buckets = buckets
     call.frame_buckets = frame_buckets
     call.output_kind = "audio" if vocoder is not None else "mel"
     call.device = dev
+    # the captured graphs (None on the CPU): each capture's seconds, bytes
+    # and launches
+    call.graphs = pool
     return call

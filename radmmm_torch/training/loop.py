@@ -8,12 +8,18 @@ fresh run; validation logs the losses, attention and mel images, the
 quality scalars and Griffin-Lim audio when no vocoder checkpoint is
 configured.
 
-The JAX package scans K featurize + train steps in one program
-(``megastep_k``). Here each of the K steps runs in turn, with the same
-batches in the same order (the loader's shape runs), the same noise key
-per step (``Featurizer.noise_key_for_step``) and the same bookkeeping: a
-whole group of K is logged, validated and saved once, after its last
-step.
+The JAX package scans K featurize + train steps in one compiled program
+(``megastep_k``, ``make_train_megastep``). Here a whole group of K runs
+through the port's ``make_train_megastep``: on the card one CUDA graph of
+featurize + step per (batch shape, phase, RAdam branch), captured at its
+first step and replayed K times, one launch a step; on the CPU the same
+steps eagerly. The batches and their order are the JAX package's (the
+loader's shape runs), each step keys its mel noise by its global step
+(``Featurizer.noise_key_for_step``), and the bookkeeping is the same: a
+whole group is logged, validated and saved once, after its last step.
+Partial and phase-straddling groups, and every group over several
+processes (the graphs hold no NCCL collectives yet), run eager steps.
+Validation is eager.
 
 Several cards: one process a card under torchrun (``training/cli.py
 --distributed``), laid out on an (n_data, n_model) mesh
@@ -45,13 +51,15 @@ from radmmm_torch.ops.conv import set_conv_precision
 from radmmm_torch.parallel.mesh import (Mesh, assert_tp_layout, make_mesh,
                                         shard_state, use_mesh)
 from radmmm_torch.training.step import (LossConfig, TrainState,
-                                        create_train_state, make_train_step,
+                                        create_train_state,
+                                        make_train_megastep, make_train_step,
                                         make_val_step, make_whitening_init,
                                         phase_flags)
 from radmmm_torch.utils.checkpoint import (CheckpointManager,
                                            ENCODER_SUBMODULES, freeze_wrap,
                                            load_pretrained_submodules)
 from radmmm_torch.utils.device import resolve_device
+from radmmm_torch.utils.graphs import GraphPool
 from radmmm_torch.utils.logging import (TrainLogger, plot_alignment_to_numpy,
                                         plot_curves_to_numpy,
                                         plot_mel_to_numpy)
@@ -146,6 +154,9 @@ class Trainer:
             os.path.join(c.output_directory, "ckpt"),
             max_to_keep=c.max_to_keep)
         self._step_cache: Dict[Any, Any] = {}
+        # the memory pool of the graphed steps (on the card), kept with the
+        # model
+        self._graph_pool = GraphPool()
         self.frozen_prefixes = []
         if c.decoder_path:
             self.frozen_prefixes.append("decoder")
@@ -208,6 +219,7 @@ class Trainer:
         freeze_wrap(state.optimizer, model, self.frozen_prefixes)
         self.model = model
         self._step_cache.clear()
+        self._graph_pool = GraphPool()
         return state
 
     def _train_step_fn(self, binarize: bool, kl_on: bool):
@@ -284,12 +296,15 @@ class Trainer:
         # step_starts and noise_keys: one entry a step (the key is None
         # where the loader featurizes); pause_s: validation and checkpoint
         # seconds after a step, by step
-        self.stats = dict(steps=0, loader_wait_s=0.0, val_s=0.0,
+        self.stats = dict(steps=0, megastep_steps=0, loader_wait_s=0.0,
+                          val_s=0.0,
                           ckpt_save_s=0.0, ckpt_bytes=0, ckpt_saves=0,
                           step_starts=[], noise_keys=[], pause_s={},
                           first_batch_s=first_batch_s,
                           restore_s=(time.perf_counter() - t0
                                      if restored is not None else 0.0))
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
         t_fit = time.perf_counter()
         t_last = time.perf_counter()
         last_logged = start_step
@@ -356,12 +371,22 @@ class Trainer:
         s = self.stats
         s["fit_s"] = time.perf_counter() - t_fit
         s["train_s"] = s["fit_s"] - s["val_s"] - s["ckpt_save_s"]
+        pool = self._graph_pool
+        s["captures"], s["replays"] = len(pool.captures), pool.replays
+        s["graph_pool_bytes"] = sum(c.pool_bytes for c in pool.captures)
+        s["peak_reserved_bytes"] = (
+            torch.cuda.max_memory_reserved(self.device)
+            if self.device.type == "cuda" else 0)
         if s["steps"]:
             print(f"fit: {s['steps']} steps, "
                   f"{1e3 * s['train_s'] / s['steps']:.2f} ms a step, "
                   f"{100 * s['loader_wait_s'] / max(s['train_s'], 1e-9):.1f}"
                   f"% of it waiting on the loader; validation "
-                  f"{s['val_s']:.2f} s, checkpoints {s['ckpt_save_s']:.2f} s")
+                  f"{s['val_s']:.2f} s, checkpoints {s['ckpt_save_s']:.2f} s;"
+                  f" {s['megastep_steps']} steps in whole groups (graph "
+                  f"captures {s['captures']}, replays {s['replays']}, pool "
+                  f"{s['graph_pool_bytes'] / 2**20:.1f} MiB); peak "
+                  f"reserved {s['peak_reserved_bytes'] / 2**20:.1f} MiB")
         return state
 
     def _megastep_k(self, dm) -> int:
@@ -372,20 +397,37 @@ class Trainer:
             return 1
         return k
 
+    def _before_step(self, step: int, noise_key=None):
+        """The host's bookkeeping before a training step: its start time,
+        its batch's mel-noise key (None where the loader featurizes) and
+        the profiled window."""
+        self.stats["step_starts"].append(time.perf_counter())
+        self.stats["noise_keys"].append(noise_key)
+        self._profiler.before(step)
+
+    def _after_step(self, step: int):
+        self._profiler.after(step)
+        self.stats.update(self._profiler.stats)
+        self.stats["steps"] += 1
+
     def _run_step(self, state, batch, step: int, gen, noise_key=None):
         """One training step of the phase of ``step``, inside the profiled
         window when one is configured; ``noise_key`` is the mel-noise key
         its batch was featurized with, recorded in the stats."""
-        self.stats["step_starts"].append(time.perf_counter())
-        self.stats["noise_keys"].append(noise_key)
+        self._before_step(step, noise_key)
         batch = self.mesh.broadcast_batch(batch)
-        self._profiler.before(step)
         state, metrics = self._train_step_fn(
             *phase_flags(step, self.loss_cfg))(state, batch, gen)
-        self._profiler.after(step)
-        self.stats.update(self._profiler.stats)
-        self.stats["steps"] += 1
+        self._after_step(step)
         return state, metrics
+
+    def _megastep_fn(self, feat, binarize: bool, kl_on: bool):
+        key = ("mega", binarize, kl_on)
+        if key not in self._step_cache:
+            self._step_cache[key] = make_train_megastep(
+                self.model, self.loss_cfg, feat, binarize=binarize,
+                kl_on=kl_on, pool=self._graph_pool)
+        return self._step_cache[key]
 
     def _timed(self, it):
         """Iterate ``it``, adding the time spent waiting on it to the
@@ -410,26 +452,47 @@ class Trainer:
 
     def _fit_loop_mega(self, dm, state, gen, step, post_step):
         """Groups of up to K same-shape raw batches (the loader's shape
-        runs), uploaded ahead by a thread and featurized step by step with
-        the step's noise key. A whole group (K batches, one phase, inside
-        max_steps) runs its K steps and then the bookkeeping once; a
-        partial or phase-straddling group does the bookkeeping after each
-        step, as the JAX package's per-batch fallback does."""
+        runs), uploaded ahead by a thread. A whole group (K batches, one
+        phase, inside max_steps) runs through ``make_train_megastep`` (on
+        the card, a CUDA graph of featurize + step replayed K times) and
+        then the bookkeeping once; a partial or phase-straddling group runs
+        eager steps, each featurized with its step's noise key and
+        followed by the bookkeeping, as the JAX package's per-batch
+        fallback does. Over several processes every group takes the eager
+        steps: the graphs hold no collectives yet."""
         c, k, feat = self.cfg, self._megastep_k(dm), dm.featurizer
+        world = self.mesh.n_data * self.mesh.n_model
+        mega = world == 1
+        if not mega and self.mesh.rank == 0:
+            print(f"megastep_k {k}: groups of {k} run as eager steps over "
+                  f"{world} processes (the graphed step holds no "
+                  "collectives)")
         loader = DataLoader(dm.trainset, dm.batch_size, shuffle=True,
                             featurizer=None, num_threads=dm.num_threads,
                             prefetch=max(2, k), seed=dm.seed,
                             hop_length=feat.hop_length, shape_runs=k)
         for _ in range(c.max_epochs):
-            for raws in self._timed(prefetch_raw_groups(
+            for stacked in self._timed(prefetch_raw_groups(
                     loader, feat, k, self.device)):
-                n = len(raws)
+                n = next(iter(stacked.values())).shape[0]
+                flags = phase_flags(step, self.loss_cfg)
                 whole = (n == k
-                         and phase_flags(step, self.loss_cfg)
-                         == phase_flags(step + k - 1, self.loss_cfg)
+                         and flags == phase_flags(step + k - 1, self.loss_cfg)
                          and step + k <= c.max_steps)
+                if whole and mega:
+                    state, met = self._megastep_fn(feat, *flags)(
+                        state, stacked, gen, self._before_step,
+                        self._after_step)
+                    self.stats["megastep_steps"] += n
+                    group = [{name: v[i] for name, v in met.items()}
+                             for i in range(n)]
+                    prev, step = step, step + n
+                    if post_step(group, prev, step):
+                        return
+                    continue
                 group, prev = [], step
-                for raw in raws:
+                for i in range(n):
+                    raw = {key: v[i] for key, v in stacked.items()}
                     key = feat.noise_key_for_step(step)
                     batch = feat.featurize_raw(raw, key)
                     state, metrics = self._run_step(state, batch, step, gen,

@@ -15,6 +15,14 @@ unchanged below the limit, g / norm * limit above it). The arithmetic runs
 as multi-tensor ``torch._foreach_*`` ops over every parameter at once;
 the step's scalars (bias corrections, rectification) are float32, as in
 the JAX package.
+
+A step is two halves: ``prepare`` on the host advances the count, computes
+the step's float32 scalars in numpy and writes them into a small tensor
+on the parameters' device (one fill each); ``apply`` is device work only,
+reading that tensor, so a CUDA graph of it (``utils/graphs.py``) replays
+with each step's scalars. ``prepare`` returns whether RAdam takes the
+rectified branch, which changes the ops ``apply`` runs: a graph is keyed
+on it.
 """
 from __future__ import annotations
 
@@ -45,6 +53,10 @@ class Optimizer:
         self.lr, self.wd, self.clip = learning_rate, weight_decay, grad_clip_val
         self.b1, self.b2, self.eps = b1, b2, eps
         self.count = 0
+        # the step's float32 scalars on the parameters' device, written by
+        # prepare and read by apply; rectified: RAdam's branch of the step
+        self.scalars: Optional[torch.Tensor] = None
+        self.rectified = True
         self.exp_avg = [torch.zeros_like(p) for p in self.params]
         self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
         self.frozen = [False] * len(self.params)
@@ -80,6 +92,49 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
+        self.prepare()
+        return self.apply()
+
+    def prepare(self) -> bool:
+        """The host half of a step: advance the count and write the step's
+        float32 scalars into ``self.scalars``. Returns True where RAdam
+        takes the rectified branch (N_sma >= 5; always for AdamW)."""
+        self.count += 1
+        t = np.float32(self.count)
+        b1, b2 = np.float32(self.b1), np.float32(self.b2)
+        bias1 = np.float32(1) - b1 ** t
+        beta2_t = b2 ** t
+        if self.algo == "RAdam":
+            # the constants in float64, then float32 arithmetic in the
+            # JAX package's order: n_sma cancels (1999 - 1993 at step 6),
+            # so a rounding here moves the whole step
+            n_sma_max = 2.0 / (1 - self.b2) - 1.0
+            f32 = np.float32
+            n_sma = f32(n_sma_max) - f32(2) * t * beta2_t / (f32(1) - beta2_t)
+            self.rectified = bool(n_sma >= 5.0)
+            if self.rectified:
+                rect = np.sqrt((f32(1) - beta2_t) * (n_sma - f32(4))
+                               / f32(n_sma_max - 4) * (n_sma - f32(2))
+                               / n_sma * f32(n_sma_max)
+                               / f32(n_sma_max - 2))
+                values = (self.lr * rect / bias1,)
+            else:
+                values = (self.lr / bias1,)
+        else:                                   # AdamW
+            self.rectified = True
+            values = (bias1, np.float32(1) - beta2_t)
+        if self.scalars is None or self.scalars.device != self.params[0].device:
+            self.scalars = torch.zeros(2, dtype=torch.float32,
+                                       device=self.params[0].device)
+        for i, v in enumerate(values):
+            self.scalars[i].fill_(float(np.float32(v)))
+        return self.rectified
+
+    @torch.no_grad()
+    def apply(self) -> torch.Tensor:
+        """The device half of a step (after ``prepare``): clip, update the
+        moments and the parameters in place; returns the global norm of
+        the gradients before the clip."""
         grads = self._grads()
         total = self._global_norm(grads, range(len(grads)))
         live = [i for i, f in enumerate(self.frozen) if not f]
@@ -94,43 +149,24 @@ class Optimizer:
             scale = torch.where(norm < self.clip, torch.ones_like(norm),
                                 self.clip / norm)
             grads = torch._foreach_mul(grads, scale)
-        self.count += 1
-        t = np.float32(self.count)
-        b1, b2 = np.float32(self.b1), np.float32(self.b2)
         torch._foreach_mul_(exp_avg, self.b1)
         torch._foreach_add_(exp_avg, grads, alpha=1 - self.b1)
         torch._foreach_mul_(exp_avg_sq, self.b2)
         torch._foreach_addcmul_(exp_avg_sq, grads, grads,
                                 value=1 - self.b2)
-        bias1 = np.float32(1) - b1 ** t
-        beta2_t = b2 ** t
         if self.algo == "RAdam":
-            # the constants in float64, then float32 arithmetic in the
-            # JAX package's order: n_sma cancels (1999 - 1993 at step 6),
-            # so a rounding here moves the whole step
-            n_sma_max = 2.0 / (1 - self.b2) - 1.0
-            f32 = np.float32
-            n_sma = f32(n_sma_max) - f32(2) * t * beta2_t / (f32(1) - beta2_t)
-            if n_sma >= 5.0:
-                rect = np.sqrt((f32(1) - beta2_t) * (n_sma - f32(4))
-                               / f32(n_sma_max - 4) * (n_sma - f32(2))
-                               / n_sma * f32(n_sma_max)
-                               / f32(n_sma_max - 2))
+            # scalars[0]: lr * rect / bias1 (rectified) or lr / bias1
+            delta = torch._foreach_mul(exp_avg, self.scalars[0])
+            if self.rectified:
                 denom = torch._foreach_sqrt(exp_avg_sq)
                 torch._foreach_add_(denom, self.eps)
-                delta = torch._foreach_mul(exp_avg,
-                                           float(self.lr * rect / bias1))
                 torch._foreach_div_(delta, denom)
-            else:
-                delta = torch._foreach_mul(exp_avg,
-                                           float(self.lr / bias1))
-        else:                                   # AdamW
-            bias2 = np.float32(1) - beta2_t
-            denom = torch._foreach_div(exp_avg_sq, float(bias2))
+        else:                                   # AdamW: bias1, bias2
+            denom = torch._foreach_div(exp_avg_sq, self.scalars[1])
             denom = torch._foreach_sqrt(denom)
             torch._foreach_add_(denom, self.eps)
             delta = torch._foreach_div(
-                torch._foreach_div(exp_avg, float(bias1)), denom)
+                torch._foreach_div(exp_avg, self.scalars[0]), denom)
             torch._foreach_mul_(delta, self.lr)
         if self.wd:
             torch._foreach_add_(delta, params, alpha=self.wd * self.lr)

@@ -39,6 +39,9 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+# the host side of make_train_megastep, as the JAX package's step module
+# has it
+from radmmm_torch.data.loader import stack_raw_batches  # noqa: F401
 from radmmm_torch.losses.flow import (AttributeBCELoss,
                                       AttributeRegressionLoss, RADMMMLoss)
 from radmmm_torch.losses.regularizers import (
@@ -50,6 +53,7 @@ from radmmm_torch.ops.invertible import (whitening_params_from_stats,
 from radmmm_torch.parallel import mesh
 from radmmm_torch.training.optim import Optimizer, build_optimizer
 from radmmm_torch.utils.device import resolve_device
+from radmmm_torch.utils.graphs import Graphed, GraphPool
 from radmmm_torch.utils.masking import SeqLens
 
 
@@ -174,13 +178,14 @@ def _metrics(ld, loss) -> Dict[str, torch.Tensor]:
     return dict(zip(names, mesh.data_sum(values).unbind()))
 
 
-def make_train_step(model: TTSModel, cfg: LossConfig, binarize: bool,
-                    kl_on: bool) -> Callable:
-    """One phase of the training step: ``step(state, batch, generator)``
-    -> (state, metrics), metrics 0-d tensors on the model's device (every
-    loss term, 'loss' and 'grad_norm', the norm before the clip)."""
+def _device_step(model: TTSModel, cfg: LossConfig, binarize: bool,
+                 kl_on: bool) -> Callable:
+    """The device work of one step, after ``optimizer.prepare``:
+    ``run(state, batch, generator)`` -> metrics. It changes no host
+    state that a replay of its CUDA graph would not change again, so the
+    graphed step (``make_train_megastep``) captures it whole."""
 
-    def train_step(state: TrainState, batch, generator: torch.Generator):
+    def run(state: TrainState, batch, generator: torch.Generator):
         model.train()           # also drops the cached flow inverses
         state.optimizer.zero_grad()
         outputs = model(batch, binarize=binarize, train=True,
@@ -190,13 +195,97 @@ def make_train_step(model: TTSModel, cfg: LossConfig, binarize: bool,
         loss = total_loss(ld)
         loss.backward()
         mesh.get_mesh().sync_grads(state.optimizer)
-        grad_norm = state.optimizer.step()
-        state.step += 1
+        grad_norm = state.optimizer.apply()
         metrics = _metrics(ld, loss)
         metrics["grad_norm"] = grad_norm
+        return metrics
+
+    return run
+
+
+def make_train_step(model: TTSModel, cfg: LossConfig, binarize: bool,
+                    kl_on: bool) -> Callable:
+    """One phase of the training step: ``step(state, batch, generator)``
+    -> (state, metrics), metrics 0-d tensors on the model's device (every
+    loss term, 'loss' and 'grad_norm', the norm before the clip)."""
+    run = _device_step(model, cfg, binarize, kl_on)
+
+    def train_step(state: TrainState, batch, generator: torch.Generator):
+        state.optimizer.prepare()
+        metrics = run(state, batch, generator)
+        state.step += 1
         return state, metrics
 
     return train_step
+
+
+def make_train_megastep(model: TTSModel, cfg: LossConfig, featurizer,
+                        binarize: bool, kl_on: bool,
+                        pool: Optional[GraphPool] = None) -> Callable:
+    """K featurize + train steps: ``megastep(state, stacked, generator,
+    before=None, after=None)`` -> (state, metrics), each metric stacked
+    (K,), where ``stacked`` is ``stack_raw_batches`` of K raw batches as
+    tensors on the model's device.
+
+    The JAX package scans the K steps in one compiled program. Here step i
+    featurizes ``stacked``'s row i with the mel noise of its global step
+    (``featurizer.noise_key_for_step``) and trains on it, the same calls
+    as ``featurize_raw`` and ``make_train_step``. On the card the two run
+    as one CUDA graph (``utils/graphs.py``), captured at the first step of
+    each (batch shape, phase, RAdam branch, conv precision) and replayed
+    after; the host draws the mel noise into its input and writes the
+    optimizer's scalars before each replay, and advances the step count.
+    One graph of one step replayed K times, rather than one of K steps:
+    the host launches one graph a step either way, and a graph of K steps
+    would hold K times the nodes. The dropout ``generator`` is registered
+    with the graphs, so a replay draws the bits an eager step would.
+    On the CPU the same code runs eagerly. ``before(step, noise_key)`` and
+    ``after(step)``, where given, run on the host around each step (the
+    trainer's bookkeeping and profiler). ``pool`` is the graphs' memory
+    pool, shared by a trainer's graphs (a new one by default)."""
+    run = _device_step(model, cfg, binarize, kl_on)
+    # the graphs of the (state, generator) last stepped, which they read:
+    # a new pair replaces them, and the pool takes back their memory
+    current = {}
+
+    def graphed_for(state, generator) -> Graphed:
+        if current and current["state"] is state \
+                and current["generator"] is generator:
+            return current["fn"]
+
+        def featurize_and_step(inputs):
+            batch = featurizer.featurize_raw(inputs["raw"], None,
+                                             noise=inputs.get("noise"))
+            met = run(state, batch, generator)
+            return torch.stack(list(met.values())), list(met)
+
+        fn = Graphed(featurize_and_step,
+                     current["fn"].pool if current else pool,
+                     generators=[generator], name="train_step")
+        current.update(state=state, generator=generator, fn=fn)
+        return fn
+
+    def megastep(state: TrainState, stacked, generator: torch.Generator,
+                 before=None, after=None):
+        fn = graphed_for(state, generator)
+        rows, names = [], None
+        for i in range(next(iter(stacked.values())).shape[0]):
+            key = featurizer.noise_key_for_step(state.step)
+            if before is not None:
+                before(state.step, key)
+            inputs = {"raw": {k: v[i] for k, v in stacked.items()}}
+            noise = featurizer.mel_noise(inputs["raw"], key)
+            if noise is not None:
+                inputs["noise"] = noise
+            rectified = state.optimizer.prepare()
+            values, names = fn(inputs, key=(rectified,))
+            state.step += 1
+            rows.append(values)
+            if after is not None:
+                after(state.step - 1)
+        return state, dict(zip(names, torch.stack(rows, dim=1).unbind()))
+
+    return megastep
 
 
 def make_val_step(model: TTSModel, cfg: LossConfig,

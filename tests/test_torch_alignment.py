@@ -10,9 +10,9 @@ import pytest
 import torch
 
 from radmmm_tpu.ops import alignment as jax_alignment
-from radmmm_torch.ops import alignment
 from radmmm_torch.ops.alignment import (binarize_attention, mas_width1,
                                         mas_width1_ref)
+from radmmm_torch.utils.launches import launch_counts
 from tests.test_alignment import soft_attn
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
@@ -88,10 +88,10 @@ def test_empty_items_are_zero(rng):
 
 
 def test_binarize_attention_is_detached_and_counts_nothing_on_cpu(rng):
-    alignment.launches = 0
+    launch_counts.clear()
     attn, tl, ml = _inputs(rng, "oracle")
     soft = torch.from_numpy(attn).requires_grad_()
     hard = binarize_attention(soft, torch.from_numpy(tl).long(),
                               torch.from_numpy(ml).long())
     assert not hard.requires_grad
-    assert alignment.launches == 0
+    assert not launch_counts

@@ -314,22 +314,63 @@ def test_import_check_walks_the_vocoder_slice():
             "radmmm_torch.utils.profiling"} <= walked
 
 
+def _jax_imports(path) -> list:
+    """The JAX-package, jax and flax modules a Python source imports (or
+    names in a string that starts with one, as importlib would take)."""
+    offenders = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        elif (isinstance(node, ast.Constant)
+              and isinstance(node.value, str)
+              and node.value.startswith(("radmmm_tpu", "jax", "flax"))):
+            names = [node.value]
+        offenders += [f"{path.name}: {n}" for n in names
+                      if n.split(".")[0] in ("radmmm_tpu", "jax", "flax")]
+    return offenders
+
+
 def test_port_sources_import_nothing_from_the_jax_package():
     """No Python source under radmmm_torch/ imports radmmm_tpu (docstrings
     name its files only as the counterparts)."""
     offenders = []
     for path in (REPO / "radmmm_torch").rglob("*.py"):
-        for node in ast.walk(ast.parse(path.read_text())):
-            names = []
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            elif (isinstance(node, ast.Constant)
-                  and isinstance(node.value, str)
-                  and node.value.startswith(("radmmm_tpu", "jax", "flax"))):
-                names = [node.value]
-            offenders += [f"{path.name}: {n}" for n in names
-                          if n.split(".")[0] in ("radmmm_tpu", "jax",
-                                                 "flax")]
+        offenders += _jax_imports(path)
     assert not offenders, offenders
+
+
+def test_import_check_walks_the_graphs_slice():
+    """The modules of the graphs slice (the CUDA graphs, the launch
+    registry, the aug experiment's and the graphed fit's scripts) are
+    among those the import check walks."""
+    import pkgutil
+    import radmmm_torch
+    walked = {m.name for m in pkgutil.walk_packages(radmmm_torch.__path__,
+                                                    "radmmm_torch.")}
+    assert {"radmmm_torch.utils.graphs", "radmmm_torch.utils.launches",
+            "radmmm_torch.training.step", "radmmm_torch.serving",
+            "radmmm_torch.scripts.aug_disentangle_experiment",
+            "radmmm_torch.scripts.graph_fit_memory"} <= walked
+
+
+@pytest.mark.parametrize("script", ["examples/torch_synthesize.py",
+                                    "chip_smoke.py"])
+def test_port_scripts_import_no_jax(script):
+    """The port's scripts outside the package import nothing of JAX or
+    of the JAX package, in their source and when imported."""
+    assert not _jax_imports(REPO / script)
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('s', {script!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'radmmm_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr

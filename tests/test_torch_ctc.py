@@ -19,6 +19,7 @@ from radmmm_tpu.losses import ctc as jax_ctc
 from radmmm_tpu.losses.ctc_pallas import ctc_alpha_pallas, ctc_beta_pallas
 from radmmm_torch.losses import ctc_kernel
 from radmmm_torch.losses.ctc import _ctc_setup, attention_ctc_loss
+from radmmm_torch.utils.launches import launch_counts
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 # (text_lens, mel_lens) on (B, T_mel, T_text) logits: ragged lengths with
@@ -97,11 +98,11 @@ def test_zero_infinity_items_get_no_gradient(rng):
 
 
 def test_cpu_tensors_never_launch_the_kernels(rng):
-    ctc_kernel.alpha_launches = ctc_kernel.beta_launches = 0
+    launch_counts.clear()
     logits, tl, ml = _inputs(rng, "degenerate")
     x = torch.from_numpy(logits).requires_grad_()
     attention_ctc_loss(x, torch.from_numpy(tl), torch.from_numpy(ml)).backward()
-    assert ctc_kernel.alpha_launches == ctc_kernel.beta_launches == 0
+    assert not launch_counts
 
 
 def test_wrappers_reject_bad_inputs():

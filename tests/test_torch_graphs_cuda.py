@@ -1,0 +1,213 @@
+"""The port's CUDA graphs on the card (``radmmm_torch/utils/graphs.py``),
+against the eager calls they replay, at the tests' tiny widths.
+
+A CUDA graph has no CPU mode, so these tests carry the ``cuda`` marker
+and skip without a card. The file imports torch and the port only, and
+nothing from ``tests/`` (a namespace package, which an installed package
+named ``tests`` shadows), so it runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_graphs_cuda.py -m cuda --noconftest
+
+Everything is held bit for bit: a replay runs the kernels the eager call
+runs, on the same inputs, in the same order; cuDNN is held to its
+deterministic algorithms, since its default f32 ones sum in an order
+that changes from run to run (``chip_smoke.py``'s graphs phase measured
+it at full width). The served PCM of the card against the CPU: within 1
+LSB (f32 waveforms that differ in the last bits round to neighbouring
+codes)."""
+import numpy as np
+import pytest
+import torch
+
+from radmmm_torch.data import collate
+from radmmm_torch.models.tts import TTSConfig, TTSModel
+from radmmm_torch.serving import export_tts, load_tts
+from radmmm_torch.training import step
+from radmmm_torch.utils import graphs
+from radmmm_torch.utils.launches import launch_counts
+from radmmm_torch.vocoder.hifigan import Generator, HiFiGANConfig
+
+pytestmark = pytest.mark.cuda
+
+K = 3
+SR = 22050
+FEAT = dict(filter_length=256, hop_length=64, win_length=256,
+            n_mel_channels=8, f0_min=120.0, f0_max=500.0,
+            mel_noise_scale=0.05)
+OPT = dict(learning_rate=1e-3, weight_decay=1e-2, grad_clip_val=1.0)
+LOSS = dict(cross_covariance_weight=1.0,
+            speaker_reg={"variance": 1.0, "covariance": 1.0},
+            accent_reg={"variance": 0.5, "covariance": 0.5})
+TEXT_BUCKETS = [(1, 8), (4, 12)]
+FRAME_BUCKETS = (16, 48)
+
+
+def tiny_config() -> TTSConfig:
+    """The tests' tiny model (tests/test_tts_model.py's), as the port's
+    config."""
+    dap = dict(n_speaker_dim=4, n_accent_dim=2, use_accent_embedding=True,
+               in_dim=18, out_dim=1, reduction_factor=2,
+               n_backbone_layers=1, n_hidden=8, kernel_size=3,
+               p_dropout=0.25, lstm_type="bilstm")
+    return TTSConfig(
+        n_text_tokens=30, n_text_dim=16, n_speakers=3, n_speaker_dim=4,
+        n_augmentations=0, use_accent=True, n_accents=2, n_accent_dim=2,
+        n_mel_channels=8, use_accent_emb_for_encoder=True,
+        use_speaker_emb_for_alignment=True, lstm_norm_fn="spectral",
+        decoder=dict(n_speaker_dim=4, use_accent=True, n_accent_dim=2,
+                     n_text_dim=18, use_context_lstm=True, n_f0_dims=1,
+                     n_energy_avg_dims=1, n_mel_channels=8, n_flows=2,
+                     n_conv_layers_per_step=1, n_early_size=2,
+                     n_early_every=2, n_group_size=2,
+                     affine_model="wavenet", scaling_fn="tanh",
+                     use_partial_padding=True),
+        f0_predictor=dict(dap, target_offset=-5.0),
+        energy_predictor=dict(dap, target_offset=-0.75),
+        voiced_predictor=dict(dap), duration_predictor=dict(dap,
+                                                            log_target=True))
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: a CUDA graph has no CPU mode")
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    yield torch.device("cuda")
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cudnn.deterministic) = old
+
+
+def _stacked(dev):
+    """K raw batches of two voiced utterances (0.19 and 0.16 s), each
+    step's tones and text its own, stacked on ``dev``."""
+    rng = np.random.default_rng(5)
+    feat = collate.Featurizer(device="cpu", **FEAT)
+    raws = []
+    for k in range(K):
+        items = []
+        for b, sec in enumerate((0.19, 0.16)):
+            t = np.arange(int(sec * SR)) / SR
+            f = 150.0 + 30 * b + 10 * k
+            audio = (0.5 * np.sin(2 * np.pi * f * t)
+                     + 0.003 * rng.standard_normal(t.size))
+            items.append({
+                "audio": audio.astype(np.float32),
+                "text_encoded": rng.integers(1, 30, 7 - b),
+                "speaker_id": b, "accent_id": b % 2,
+                "speaker_f0_mean": 5.0, "speaker_f0_std": 0.3,
+                "speaker_energy_mean": 0.5, "speaker_energy_std": 0.15,
+                "audiopath": f"u{b}.wav", "text_raw": "x",
+                "language": "en_US", "idx": b})
+        raws.append(feat.raw_arrays(collate.collate_host(
+            items, hop_length=64, audio_frames_multiple=16)))
+    return {k: torch.from_numpy(a).to(dev)
+            for k, a in step.stack_raw_batches(raws).items()}
+
+
+def _models(n: int):
+    out = []
+    for _ in range(n):
+        torch.manual_seed(0)
+        out.append(TTSModel(tiny_config()))
+    return out
+
+
+@pytest.mark.parametrize("phase", [(False, False), (True, True)])
+def test_graphed_megastep_equals_eager_steps(card, phase):
+    """2 x K steps, the second group replayed: metrics, parameters and the
+    dropout generator bit for bit with eager steps, and the ledger counts
+    the launches the eager steps make."""
+    stacked = _stacked(card)
+    g_model, e_model = _models(2)
+    feat = collate.Featurizer(device=card, **FEAT)
+    loss = step.LossConfig(**LOSS)
+    gstate = step.create_train_state(g_model, device=card, **OPT)
+    ggen = torch.Generator(device=card).manual_seed(1)
+    pool = graphs.GraphPool()
+    mega = step.make_train_megastep(g_model, loss, feat, *phase, pool=pool)
+    estate = step.create_train_state(e_model, device=card, **OPT)
+    egen = torch.Generator(device=card).manual_seed(1)
+    fn = step.make_train_step(e_model, loss, *phase)
+    launch_counts.clear()
+    gmet = [mega(gstate, stacked, ggen)[1] for _ in range(2)]
+    launched = dict(launch_counts)
+    launch_counts.clear()
+    emet = []
+    for _ in range(2):
+        for i in range(K):
+            raw = {k: v[i] for k, v in stacked.items()}
+            batch = feat.featurize_raw(raw,
+                                       feat.noise_key_for_step(estate.step))
+            estate, m = fn(estate, batch, egen)
+            emet.append(m)
+    assert launched == dict(launch_counts)
+    # RAdam's plain branch (steps 1-5) and rectified one (step 6) each
+    # capture at their first step
+    assert len(pool.captures) == 2 and pool.replays == 2 * K - 2
+    for name in emet[0]:
+        got = torch.cat([m[name] for m in gmet])
+        assert torch.equal(got, torch.stack([m[name] for m in emet])), name
+    for a, b in zip(g_model.parameters(), e_model.parameters()):
+        assert torch.equal(a, b)
+    assert torch.equal(ggen.get_state(), egen.get_state())
+    assert gstate.optimizer.count == estate.optimizer.count == 2 * K
+
+
+def test_graphed_serving_equals_eager(card, tmp_path):
+    """load_tts on the card captures every bucket's two stages at load; a
+    request replays them: its PCM equals a second replay's bit for bit
+    and the CPU's within 1 LSB, with the same lengths."""
+    torch.manual_seed(3)
+    model = TTSModel(tiny_config()).eval()
+    voc = Generator(HiFiGANConfig(
+        upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
+        upsample_initial_channel=16, resblock_kernel_sizes=(3, 5),
+        resblock_dilation_sizes=((1, 3), (1, 3)), n_mel_channels=8)).eval()
+    path = str(tmp_path / "tts.pt")
+    export_tts(model, path, vocoder=voc, sigma=0.8, buckets=TEXT_BUCKETS,
+               frame_buckets=FRAME_BUCKETS)
+    served = load_tts(path, device="cuda")
+    assert len(served.graphs.captures) == len(TEXT_BUCKETS) * (
+        1 + len(FRAME_BUCKETS))
+    cpu = load_tts(path, device="cpu")
+    rng = np.random.default_rng(4)
+    for B, T in TEXT_BUCKETS:
+        req = (rng.integers(1, 30, (B, T - 1)).astype(np.int32),
+               np.full(B, T - 1, np.int32), np.zeros(B, np.int32),
+               np.ones(B, np.int32), np.full(B, 5.0, np.float32),
+               np.full(B, 0.3, np.float32), 5)
+        a, lens = served(*req)
+        b, _ = served(*req)
+        c, clens = cpu(*req)
+        assert torch.equal(a, b)
+        assert torch.equal(lens.cpu(), clens)
+        assert (a.cpu().int() - c.int()).abs().max() <= 1
+    assert served.graphs.replays >= 2 * len(TEXT_BUCKETS) * 2
+
+
+def test_captures_of_one_pool_share_its_memory(card):
+    """A second capture into a pool reuses the memory the first freed (its
+    intermediates): every capture runs on the pool's one stream, and the
+    caching allocator reuses a block only on the stream that allocated
+    it. The pool grows by 64 MiB of intermediates at the first capture
+    and by at most one 2 MiB segment (the output) at the second."""
+    pool = graphs.GraphPool()
+
+    def fn(x):
+        h = (x["a"] * 2).exp()              # 64 MiB, freed before the end
+        return h.sum()
+
+    a = torch.rand(4096, 4096, device=card)
+    first = graphs.Graphed(fn, pool, name="first")
+    second = graphs.Graphed(fn, pool, name="second")
+    want = fn({"a": a})
+    for g in (first, second):
+        g({"a": a})                         # warm-up and capture
+        assert torch.equal(g({"a": a}), want)           # a replay
+    grew = [c.pool_bytes for c in pool.captures]
+    assert grew[0] >= 64 * 2**20
+    assert grew[1] <= 2 * 2**20

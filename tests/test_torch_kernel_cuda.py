@@ -28,9 +28,21 @@ from radmmm_torch.ops.lstm_kernel import (_backward_kernel,
                                           lstm_recurrence_backward_reference,
                                           lstm_recurrence_reference)
 from radmmm_torch.utils import cuda_build
+from radmmm_torch.utils.launches import launch_counts
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
+
+LSTM_KERNELS = ("lstm_recurrence", "lstm_recurrence_bwd",
+                "lstm_recurrence_bf16", "lstm_recurrence_bwd_bf16")
+# the kernels of a binarized training step
+STEP_KERNELS = ("lstm_recurrence", "lstm_recurrence_bwd", "ctc_alpha",
+                "ctc_beta", "mas_width1")
+
+
+def _counts(*names) -> tuple:
+    """The launch registry's counts of ``names``."""
+    return tuple(launch_counts[n] for n in names)
 
 
 @pytest.fixture
@@ -76,12 +88,12 @@ def test_kernel_matches_twin(cuda, L, H, T, B, save):
     xp, mask, wh, rev = _lstm_inputs(cuda, L, H, T, B, non_prefix=True)
     if B > 1:
         mask[:, -1] = 0.0
-    before = lstm_kernel.launches
+    before = launch_counts["lstm_recurrence"]
     if save:
         got = _forward_kernel(xp, mask, wh, rev, save=True)
     else:
         got = (lstm_recurrence(xp, mask, wh, rev),)
-    assert lstm_kernel.launches == before + 1
+    assert launch_counts["lstm_recurrence"] == before + 1
     assert lstm_kernel.card_forward_plan(L, B, H).route == (
         "grid" if H > 260 else "cluster")
     want = lstm_recurrence_reference(xp, mask, wh, rev, save=save)
@@ -98,9 +110,9 @@ def test_masked_lstm_on_the_card_matches_the_cpu(cuda):
     mask = torch.arange(17)[None, :] < torch.tensor([[17], [5], [0]])
     with torch.inference_mode():
         want = lstm(x, mask)
-        before = lstm_kernel.launches
+        before = launch_counts["lstm_recurrence"]
         got = lstm.to(cuda)(x.to(cuda), mask.to(cuda))
-    assert lstm_kernel.launches == before + 1
+    assert launch_counts["lstm_recurrence"] == before + 1
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
 
 
@@ -123,9 +135,9 @@ def test_backward_kernel_matches_twin(cuda, L, H, T, B):
     out, act, cs, hs = lstm_recurrence_reference(xp, mask, wh, rev,
                                                  save=True)
     dout = torch.randn_like(out)
-    before = lstm_kernel.backward_launches
+    before = launch_counts["lstm_recurrence_bwd"]
     got = _backward_kernel(dout, act, cs, mask, wh, rev)
-    assert lstm_kernel.backward_launches == before + 1
+    assert launch_counts["lstm_recurrence_bwd"] == before + 1
     assert lstm_kernel.card_backward_plan(L, B, H).route == (
         "grid" if H > 260 else "cluster")
     want = lstm_recurrence_backward_reference(dout, act, cs, mask, wh, rev)
@@ -141,13 +153,13 @@ def test_function_returns_gradients_on_the_card(cuda):
     xp, mask, wh, rev = _lstm_inputs(cuda, 2, 12, 9, 3, non_prefix=True)
     xp.requires_grad_()
     wh.requires_grad_()
-    f0, b0 = lstm_kernel.launches, lstm_kernel.backward_launches
+    f0, b0 = _counts("lstm_recurrence", "lstm_recurrence_bwd")
     out = lstm_recurrence(xp, mask, wh, rev)
     assert out.grad_fn is not None
     w = torch.randn_like(out)
     gx, gw = torch.autograd.grad((out * w).sum(), (xp, wh))
-    assert (lstm_kernel.launches, lstm_kernel.backward_launches) == (f0 + 1,
-                                                                     b0 + 1)
+    assert _counts("lstm_recurrence", "lstm_recurrence_bwd") == (f0 + 1,
+                                                                 b0 + 1)
     want = torch.autograd.grad(
         (lstm_recurrence_reference(xp, mask, wh, rev) * w).sum(), (xp, wh))
     torch.testing.assert_close(gx, want[0], atol=1e-5, rtol=1e-5)
@@ -194,14 +206,14 @@ def test_bf16_kernel_matches_twin(cuda, L, H, T, B, save, route):
     xp, mask, wh, rev = _lstm_inputs(cuda, L, H, T, B, non_prefix=True)
     plan = (_cluster_plan(lstm_kernel._fwd_smem, B, H, 3) if route
             else None)
-    before = (lstm_kernel.launches, lstm_kernel.bf16_launches)
+    before = _counts("lstm_recurrence", "lstm_recurrence_bf16")
     if save or plan:
         got = _forward_kernel(xp, mask, wh, rev, save=save, plan=plan,
                               bf16=True)
         got = got if save else (got,)
     else:
         got = (lstm_recurrence(xp, mask, wh, rev, bf16=True),)
-    assert (lstm_kernel.launches, lstm_kernel.bf16_launches) == (
+    assert _counts("lstm_recurrence", "lstm_recurrence_bf16") == (
         before[0], before[1] + 1)
     assert lstm_kernel.card_forward_plan(L, B, H, bf16=True).route == (
         "grid" if H > 260 else "cluster")
@@ -228,12 +240,11 @@ def test_bf16_backward_kernel_matches_twin(cuda, L, H, T, B, route):
     dout = torch.randn_like(out)
     plan = (_cluster_plan(lstm_kernel._bwd_smem, B, H,
                           lstm_kernel._CLUSTER_CHUNKS) if route else None)
-    before = (lstm_kernel.backward_launches,
-              lstm_kernel.bf16_backward_launches)
+    before = _counts("lstm_recurrence_bwd", "lstm_recurrence_bwd_bf16")
     got = _backward_kernel(dout, act, cs, mask, wh, rev, plan=plan,
                            bf16=True)
-    assert (lstm_kernel.backward_launches,
-            lstm_kernel.bf16_backward_launches) == (before[0], before[1] + 1)
+    assert _counts("lstm_recurrence_bwd", "lstm_recurrence_bwd_bf16") == (
+        before[0], before[1] + 1)
     assert lstm_kernel.card_backward_plan(L, B, H, bf16=True).route == (
         "grid" if H > 260 else "cluster")
     want = lstm_recurrence_backward_reference(dout, act, cs, mask, wh, rev,
@@ -254,15 +265,11 @@ def test_bf16_mode_trains_through_the_bf16_kernels(cuda):
     conv.set_conv_precision("bf16")
     try:
         lstm(x, mask).square().sum().backward()
-        counts = (lstm_kernel.launches, lstm_kernel.backward_launches,
-                  lstm_kernel.bf16_launches,
-                  lstm_kernel.bf16_backward_launches)
+        counts = _counts(*LSTM_KERNELS)
         card(x.to(cuda), mask.to(cuda)).square().sum().backward()
     finally:
         conv.set_conv_precision("f32")
-    assert (lstm_kernel.launches, lstm_kernel.backward_launches,
-            lstm_kernel.bf16_launches,
-            lstm_kernel.bf16_backward_launches) == (
+    assert _counts(*LSTM_KERNELS) == (
         counts[0], counts[1], counts[2] + 1, counts[3] + 1)
     for (name, p), q in zip(lstm.named_parameters(), card.parameters()):
         torch.testing.assert_close(q.grad.cpu(), p.grad, atol=1e-3,
@@ -297,11 +304,10 @@ def test_ctc_dps_match_twins(cuda, B, T_mel, T_text):
     wraps 128 times), S past one state a thread (601 states fit 608
     threads; 1,201 take two a thread over 1,024) and a single frame."""
     emit, tl, ml = _ctc_inputs(cuda, B, T_mel, T_text)
-    a0, b0 = ctc_kernel.alpha_launches, ctc_kernel.beta_launches
+    a0, b0 = _counts("ctc_alpha", "ctc_beta")
     alphas = ctc_kernel.ctc_alpha(emit, tl, ml)
     betas = ctc_kernel.ctc_beta(emit, tl, ml)
-    assert (ctc_kernel.alpha_launches, ctc_kernel.beta_launches) == (a0 + 1,
-                                                                     b0 + 1)
+    assert _counts("ctc_alpha", "ctc_beta") == (a0 + 1, b0 + 1)
     _close_band(alphas, ctc_kernel.ctc_alpha_reference(emit, tl, ml))
     _close_band(betas, ctc_kernel.ctc_beta_reference(emit, tl, ml))
 
@@ -323,9 +329,9 @@ def test_ctc_beta_wavefront_matches_twin(cuda, B, T_mel, T_text, mel_lens):
     S = 2 * T_text + 1
     warps, per_lane = ctc_kernel.card_beta_plan(S)
     assert warps * 32 * per_lane >= S and warps <= 32 and per_lane in (1, 2, 4)
-    before = ctc_kernel.beta_launches
+    before = launch_counts["ctc_beta"]
     got = ctc_kernel.ctc_beta(emit, tl, ml)
-    assert ctc_kernel.beta_launches == before + 1
+    assert launch_counts["ctc_beta"] == before + 1
     _close_band(got, ctc_kernel.ctc_beta_reference(emit, tl, ml))
 
 
@@ -356,9 +362,9 @@ def test_mas_matches_twin_bit_for_bit(cuda, B, T_mel, T_text):
     tl[1], ml[2] = 1, 1
     ml[-1] = 0
     a[0] = 1.0 / T_text
-    before = alignment.launches
+    before = launch_counts["mas_width1"]
     got = alignment.mas_width1(a, tl, ml)
-    assert alignment.launches == before + 1
+    assert launch_counts["mas_width1"] == before + 1
     log_attn = alignment._log_attention(a, tl)
     want = alignment.mas_width1_reference(log_attn, tl, ml)
     assert torch.equal(got, want)
@@ -416,9 +422,9 @@ def test_conv_softplus_matches_twin(cuda, B, T, C_in, C_out, dilation):
     x = torch.randn((B, T, C_in), generator=g, device=cuda)
     w = torch.randn((5, C_in, C_out), generator=g, device=cuda) * 0.02
     b = torch.randn((C_out,), generator=g, device=cuda) * 0.1
-    before = wn_kernel.launches
+    before = launch_counts["conv_softplus"]
     got = wn_kernel.conv_softplus(x, w, b, dilation)
-    assert wn_kernel.launches == before + 1
+    assert launch_counts["conv_softplus"] == before + 1
     want = wn_kernel.conv_softplus_reference(x, w, b, dilation)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
@@ -441,12 +447,12 @@ def test_conv_softplus_copies_a_misaligned_view(cuda):
 
 @pytest.mark.parametrize("C_in,C_out", [(12, 16), (16, 20)])
 def test_conv_softplus_refuses_channel_counts_on_the_card(cuda, C_in, C_out):
-    before = wn_kernel.launches
+    before = launch_counts["conv_softplus"]
     with pytest.raises(ValueError, match="multiples of 8"):
         wn_kernel.conv_softplus(torch.zeros((1, 8, C_in), device=cuda),
                                 torch.zeros((5, C_in, C_out), device=cuda),
                                 torch.zeros(C_out, device=cuda), 1)
-    assert wn_kernel.launches == before
+    assert launch_counts["conv_softplus"] == before
 
 
 def _tiny_tts_config():
@@ -504,13 +510,9 @@ def test_training_step_on_the_card_matches_the_cpu(cuda):
         state = step.create_train_state(m, device=where)
         fn = step.make_train_step(m, step.LossConfig(), True, True)
         b = {k: v.to(where) for k, v in batch.items()}
-        before = (lstm_kernel.launches, lstm_kernel.backward_launches,
-                  ctc_kernel.alpha_launches, ctc_kernel.beta_launches,
-                  alignment.launches)
+        before = _counts(*STEP_KERNELS)
         _, met = fn(state, b, torch.Generator(device=where))
-        after = (lstm_kernel.launches, lstm_kernel.backward_launches,
-                 ctc_kernel.alpha_launches, ctc_kernel.beta_launches,
-                 alignment.launches)
+        after = _counts(*STEP_KERNELS)
         want = (4, 4, 1, 1, 1) if where == "cuda" else (0, 0, 0, 0, 0)
         assert tuple(a - b for a, b in zip(after, before)) == want
         metrics[where] = {k: v.item() for k, v in met.items()}

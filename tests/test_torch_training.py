@@ -26,10 +26,9 @@ from radmmm_tpu.models.tts import TTSModel as JaxTTSModel
 from radmmm_tpu.training import optim as jax_optim
 from radmmm_tpu.training import step as jax_step
 from radmmm_torch.convert import load_jax_train_state, tts_state_dict_from_jax
-from radmmm_torch.losses import ctc_kernel
 from radmmm_torch.models.tts import TTSConfig, TTSModel
-from radmmm_torch.ops import alignment, lstm_kernel
 from radmmm_torch.training import optim, step
+from radmmm_torch.utils.launches import launch_counts
 from tests.test_torch_convert import perturb
 from tests.test_tts_model import tiny_batch, tiny_config
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
@@ -287,16 +286,12 @@ def test_infer_after_a_step_uses_fresh_inverses(setup):
 
 def test_training_on_cpu_launches_no_kernel(setup):
     jm, v, batch = setup
-    lstm_kernel.launches = lstm_kernel.backward_launches = 0
-    ctc_kernel.alpha_launches = ctc_kernel.beta_launches = 0
-    alignment.launches = 0
+    launch_counts.clear()
     port = _port(jm, v)
     state = step.create_train_state(port, device="cpu")
     step.make_train_step(port, step.LossConfig(), True, True)(
         state, _t(batch), torch.Generator())
-    assert (lstm_kernel.launches, lstm_kernel.backward_launches,
-            ctc_kernel.alpha_launches, ctc_kernel.beta_launches,
-            alignment.launches) == (0, 0, 0, 0, 0)
+    assert not launch_counts
 
 
 def test_dropout_draws_from_the_generator(setup):
