@@ -202,9 +202,11 @@ Phases (all by default):
             training shapes, its backward's at the training shapes, each
             against its bf16 twin with its route, us a step, the twin's
             ms, cuDNN's nn.LSTM in bf16, the bound and the f32 kernel's ms
-            at the same shape; the flow context's lane on the 16-CTA
-            cluster its bf16 slices fit, against the plan's grid; the LSTM
-            input projections in bf16; the
+            at the same shape (csrc/lstm_recurrence_bf16.cu: the products
+            on the tensor cores), and their sums over the step's and a
+            request's four shapes against the f32 kernels'; the flow
+            context's lane on both routes, the plan's and the other, in
+            turns; the LSTM input projections in bf16; the
             flagship step in bf16 (3 warm steps, launches K4-bf16 4 + 4,
             K1 1, K2 1, K3 1 and no f32 K4, peak memory, one profiled step,
             beside the train phase's f32 ms), its loss terms against f32's
@@ -1981,55 +1983,89 @@ def conv_precision(mode: str):
         set_conv_precision("f32")
 
 
-def _bf16_cluster_route(gen, dev) -> None:
-    """The flow context's lane (H 528) on the route its bf16 Wh slices
-    fit and the plans do not take: one 16-CTA cluster of 33 units a CTA,
-    forward at B 1 (serving) and backward at B 8 (training), against the
-    bf16 twin and timed beside the plan's grid."""
+def _bf16_routes(gen, dev) -> None:
+    """The flow context's lane (H 528) on both routes of the bf16 kernels:
+    the one their plan takes and the other (a 16-CTA cluster of 33 units a
+    CTA, or the 66-CTA grid of 8), forward at B 1 (serving) and B 8
+    (training, states saved) and backward at B 8, each against the bf16
+    twin and timed in turns (plan, other, other, plan)."""
     from radmmm_torch.ops import lstm_kernel as lk
-    _, L, H, T, _ = PATH_SHAPES[3]
-    for direction, B, T in (("fwd", 1, T),
-                            ("bwd", TRAIN_B, TRAIN_SHAPES[3][3])):
+    _, L, H, T_serve, _ = PATH_SHAPES[3]
+    T_train = TRAIN_SHAPES[3][3]
+    for direction, B, T in (("fwd", 1, T_serve), ("fwd", TRAIN_B, T_train),
+                            ("bwd", TRAIN_B, T_train)):
         lens = _lengths(T, B)
         mask = (torch.arange(T)[:, None] < lens[None, :]).float().to(dev)
         xp = torch.randn((L, T, B, 4 * H), generator=gen, device=dev)
         wh = (torch.rand((L, H, 4 * H), generator=gen, device=dev)
               * 2 - 1) / H ** 0.5
         rev = [False, True]
-        hb = -(-H // 16)
+        save = B > 1
         if direction == "fwd":
-            plan = lk.Plan("cluster", 16, hb, lk._fwd_chunks(hb), 0)
-            plan = dataclasses.replace(plan, smem=lk._fwd_smem(
-                B, H, hb, plan.ks, 16, True, bf16=True))
-            picked = lk.card_forward_plan(L, B, H, True)
+            plan_fn, picked = lk.forward_plan, lk.card_forward_plan(
+                L, B, H, True)
             run = functools.partial(lk._forward_kernel, xp, mask, wh, rev,
-                                    False, bf16=True)
-            want = lk.lstm_recurrence_reference(xp, mask, wh, rev, bf16=True)
+                                    save, bf16=True)
+            want = lk.lstm_recurrence_reference(xp, mask, wh, rev, save=save,
+                                                bf16=True)
         else:
             _, act, cs, _ = lk.lstm_recurrence_reference(
                 xp, mask, wh, rev, save=True, bf16=True)
             dout = torch.randn((L, T, B, H), generator=gen, device=dev)
-            plan = lk.Plan("cluster", 16, hb, lk._CLUSTER_CHUNKS, 0)
-            plan = dataclasses.replace(plan, smem=lk._bwd_smem(
-                B, H, hb, plan.ks, 16, True, bf16=True))
-            picked = lk.card_backward_plan(L, B, H, True)
+            plan_fn, picked = lk.backward_plan, lk.card_backward_plan(
+                L, B, H, True)
             run = functools.partial(lk._backward_kernel, dout, act, cs, mask,
                                     wh, rev, bf16=True)
             want = lk.lstm_recurrence_backward_reference(
                 dout, act, cs, mask, wh, rev, bf16=True)
-        got = run(plan=plan)
-        torch.cuda.synchronize()
-        err, ok = _rel_err_ok(got, want, BF16_KERNEL_ATOL, BF16_KERNEL_ATOL)
-        c_ms = cuda_ms(lambda: run(plan=plan), 20)
-        g_ms = cuda_ms(lambda: run(plan=picked), 20)
+        other = plan_fn(L, B, H, lk.card_limits(*lk._kernel(direction, True)),
+                        bf16=True, route=("grid" if picked.route == "cluster"
+                                          else "cluster"))
+        want = want if isinstance(want, tuple) else (want,)
+        errs, ms = {}, {}
+        for plan in (picked, other):
+            got = run(plan=plan)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            checks = [_rel_err_ok(g, w, BF16_KERNEL_ATOL, BF16_KERNEL_ATOL)
+                      for g, w in zip(got, want)]
+            errs[plan.route] = (max(e for e, _ in checks),
+                                all(ok for _, ok in checks))
+        for plan in (picked, other, other, picked):
+            ms.setdefault(plan.route, []).append(
+                cuda_ms(lambda: run(plan=plan), 20))
         log(f"[bf16] K4_bf16 {direction} flow_context L={L} H={H} T={T} "
-            f"B={B} on a 16-CTA cluster of {hb} units a CTA (the route its "
-            f"bf16 slices fit, {plan.smem} bytes a CTA): max_abs_err "
-            f"{err:.3e}, {c_ms:.4f} ms; the plan's {picked.route} "
-            f"({picked.n_cta} CTAs of {picked.hb} units) {g_ms:.4f} ms")
-        if not ok:
-            fail(f"K4_bf16 {direction} on the cluster route disagrees with "
-                 "its twin")
+            f"B={B}, in turns: "
+            + "; ".join(
+                f"{'the plan' if p is picked else 'the other route'}, "
+                f"{p.route} of {p.n_cta} CTAs x {p.hb} units, ks {p.ks}, "
+                f"{p.smem} bytes a CTA: max_abs_err {errs[p.route][0]:.3e}, "
+                + ", ".join(f"{x:.4f}" for x in ms[p.route]) + " ms ("
+                f"{min(ms[p.route]) * 1e3 / T:.2f} us/step)"
+                for p in (picked, other)))
+        if not all(ok for _, ok in errs.values()):
+            fail(f"K4_bf16 {direction} disagrees with its twin on a route "
+                 "of the flow context's lane")
+
+
+def _bf16_against_f32(rows) -> None:
+    """The bf16 kernels' time against the f32 kernels' in this call: the
+    forward over the training step's four shapes and over a B=1 request's
+    four, the backward over the step's four."""
+    for what, kernel, path, B in (
+            ("forward, the training step's four", "lstm_recurrence_bf16",
+             "train", TRAIN_B),
+            ("forward, a B=1 request's four", "lstm_recurrence_bf16",
+             "serve", 1),
+            ("backward, the training step's four",
+             "lstm_recurrence_bwd_bf16", "train", TRAIN_B)):
+        rs = [r for r in rows if r["kernel"] == kernel and r["path"] == path
+              and r["B"] == B]
+        bf, f32 = sum(r["ms"] for r in rs), sum(r["f32_ms"] for r in rs)
+        log(f"[bf16] K4 {what}: bf16 {bf:.4f} ms, f32 {f32:.4f} ms "
+            f"({bf / f32:.3f} of it; "
+            + ", ".join(f"{r['shape']} {r['ms']:.4f} against "
+                        f"{r['f32_ms']:.4f}" for r in rs) + ")")
 
 
 def _bf16_projection() -> None:
@@ -2237,7 +2273,8 @@ def phase_bf16(seed: int, train_ms) -> tuple:
     """``model.conv_precision: bf16`` on the card: (a) the bf16 variants
     of K4 and its backward against their bf16 twins at the serving and
     training shapes, each beside the f32 kernel at its shape and cuDNN's
-    LSTM in bf16; the H 528 lane's cluster route; the LSTM projections;
+    LSTM in bf16; their sums against the f32 kernels'; the H 528 lane on
+    both routes; the LSTM projections;
     (b) the flagship step in bf16 (3 warm steps, launches, peak memory, a
     profiled step) beside the train phase's f32 ms, its loss terms against
     f32's from the same weights, and the short step card against CPU in
@@ -2258,7 +2295,8 @@ def phase_bf16(seed: int, train_ms) -> tuple:
         for name, L, H, T, cin in TRAIN_SHAPES:
             rows.extend(_lstm_rows(gen, dev, name, L, H, T, cin, TRAIN_B,
                                    train=True, bf16=True))
-        _bf16_cluster_route(gen, dev)
+        _bf16_against_f32(rows)
+        _bf16_routes(gen, dev)
         _bf16_projection()
         log(f"[bf16] kernels in {time.perf_counter() - t0:.1f} s")
 
@@ -4415,7 +4453,7 @@ def kernel_entries(rows: list, serve_launches, train_launches,
     bf16_bwd = by("lstm_recurrence_bwd_bf16")
     bf16_entries = [] if not bf16_fwd else [
         dict(name="lstm_recurrence_bf16", route="cuda",
-             source="radmmm_torch/csrc/lstm_recurrence.cu",
+             source="radmmm_torch/csrc/lstm_recurrence_bf16.cu",
              replaces="radmmm_tpu/ops/lstm_pallas.py:35",
              max_abs_err=max(r["max_abs_err"]
                              for r in by("lstm_recurrence_bf16")),
@@ -4426,7 +4464,7 @@ def kernel_entries(rows: list, serve_launches, train_launches,
                      for r in by("lstm_recurrence_bf16")},
              shapes=by("lstm_recurrence_bf16")),
         dict(name="lstm_recurrence_bwd_bf16", route="cuda",
-             source="radmmm_torch/csrc/lstm_recurrence_bwd.cu",
+             source="radmmm_torch/csrc/lstm_recurrence_bf16.cu",
              replaces="radmmm_tpu/ops/lstm.py:103",
              max_abs_err=max(r["max_abs_err"] for r in bf16_bwd),
              **summed(bf16_bwd), f32_ms=sum(r["f32_ms"] for r in bf16_bwd),

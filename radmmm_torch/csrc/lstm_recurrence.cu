@@ -1,5 +1,4 @@
-// Masked multi-lane LSTM recurrence for Hopper (sm_90a), f32, with a bf16
-// variant of its product.
+// Masked multi-lane LSTM recurrence for Hopper (sm_90a), f32.
 //
 // Replaces the TPU kernel radmmm_tpu/ops/lstm_pallas.py::_lstm_kernel
 // (reached through lstm_recurrence_pallas). Per lane l and step t, with the
@@ -58,20 +57,10 @@
 //   an acquire spin until it reaches step x CTAs (lstm_sync.cuh). The
 //   launch is cooperative, so every CTA is resident and the spin cannot
 //   deadlock.
-// No tensor cores: at B <= 8 the product is too thin to feed them, and the
-// plain twin is f32.
-//
-// bf16 variant (kBf16, the JAX package's conv_precision "bf16", where the
-// TPU kernel's dot runs at Precision.DEFAULT: bf16 operands, f32
-// accumulation): the CTA keeps its Wh slice in shared memory as bf16, half
-// the bytes, so a lane may fit a cluster where the f32 slice does not
-// (H = 528 at B = 1), and rounds each h value to bf16 (ties to even) as the
-// product reads it. The sums, c, the gates, the carried h and every output
-// stay f32; the plain twin (ops/lstm_kernel.lstm_recurrence_reference with
-// bf16) rounds the same two operands. Still CUDA-core FMAs: tensor-core mma
-// for the thin product is later work.
+// No tensor cores: they would take f32 operands as TF32, and the plain twin
+// is f32. The bf16 variant (the JAX package's conv_precision "bf16"), whose
+// products run on them, is lstm_recurrence_bf16.cu.
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "lstm_sync.cuh"
@@ -89,8 +78,7 @@ __host__ __device__ inline int pad_rows(int B) {
   return B <= 4 ? 4 : (B + 7) / 8 * 8;
 }
 
-// shared memory of one CTA, in floats, each part on a 16-byte boundary
-// (the Wh slice as bf16 pairs in the bf16 variant);
+// shared memory of one CTA, in floats, each part on a 16-byte boundary;
 // ops/lstm_kernel.py::_fwd_smem mirrors the byte count
 struct Layout {
   int Bp;      // batch rows padded
@@ -102,8 +90,7 @@ struct Layout {
 };
 
 __host__ __device__ inline Layout make_layout(int B, int H, int hb, int ks,
-                                              int n_cta, bool cluster,
-                                              bool bf16) {
+                                              int n_cta, bool cluster) {
   Layout s;
   s.Bp = pad_rows(B);
   s.nc = 4 * hb;
@@ -112,7 +99,7 @@ __host__ __device__ inline Layout make_layout(int B, int H, int hb, int ks,
   s.hr = s.hp > n_cta * hb ? s.hp : n_cta * hb;
   const size_t w_elems = (size_t)s.hp * s.nc;
   s.w_off = 0;                                          // hp x nc    Wh
-  s.h_off = up4(s.w_off + (bf16 ? (w_elems + 1) / 2 : w_elems));
+  s.h_off = up4(s.w_off + w_elems);
                                                         // (2|1) x hr x Bp
   s.part_off = up4(s.h_off + (size_t)(cluster ? 2 : 1) * s.hr * s.Bp);
   s.bytes = (s.part_off + (size_t)ks * s.Bp * s.nc) * sizeof(float);
@@ -138,40 +125,14 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// x rounded to the nearest bf16 (ties to even), as a float
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Wh slice element type: f32, or bf16 in the bf16 variant
-template <bool kBf16> struct WhSlice {
-  using T = float;
-  __device__ static float put(float v) { return v; }
-  __device__ static float2 pair(const float* w) {
-    return *reinterpret_cast<const float2*>(w);
-  }
-  __device__ static float h(float v) { return v; }
-};
-template <> struct WhSlice<true> {
-  using T = __nv_bfloat16;
-  __device__ static __nv_bfloat16 put(float v) {
-    return __float2bfloat16_rn(v);
-  }
-  __device__ static float2 pair(const __nv_bfloat16* w) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w));
-  }
-  __device__ static float h(float v) { return bf16_round(v); }
-};
-
 // kRows: batch rows a thread accumulates at once (4 for B <= 4, else 8)
-template <bool kCluster, int kRows, bool kBf16>
+template <bool kCluster, int kRows>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_recurrence_kernel(const Params p) {
-  using W = WhSlice<kBf16>;
   extern __shared__ __align__(16) float smem[];
   const int H = p.H, B = p.B, T = p.T, G = 4 * H, hb = p.hb, ks = p.ks;
   const int n_cta = p.n_cta, tid = threadIdx.x;
-  const Layout s = make_layout(B, H, hb, ks, n_cta, kCluster, kBf16);
+  const Layout s = make_layout(B, H, hb, ks, n_cta, kCluster);
   const int Bp = s.Bp, nc = s.nc;
   const int lane = blockIdx.x / n_cta;
   const int rank = blockIdx.x % n_cta;    // the cluster rank on that route
@@ -179,7 +140,7 @@ lstm_recurrence_kernel(const Params p) {
   const bool rev = (p.reverse_bits >> lane) & 1ULL;
   const size_t hsize = (size_t)s.hr * Bp;
 
-  typename W::T* w_s = reinterpret_cast<typename W::T*>(smem + s.w_off);
+  float* w_s = smem + s.w_off;
   float* h_s = smem + s.h_off;     // h_s[unit * Bp + b]
   float* part_s = smem + s.part_off;
 
@@ -188,8 +149,7 @@ lstm_recurrence_kernel(const Params p) {
   const float* wh = p.wh + (size_t)lane * H * G;
   for (int i = tid; i < s.hp * nc; i += kThreads) {
     const int k = i / nc, c = i % nc, u = j0 + c % hb;
-    w_s[i] = W::put((k < H && u < H) ? wh[(size_t)k * G + (c / hb) * H + u]
-                                     : 0.f);
+    w_s[i] = (k < H && u < H) ? wh[(size_t)k * G + (c / hb) * H + u] : 0.f;
   }
   // h before the first step, and the padding (rows past B, units past H)
   // that feeds only sums never stored, stays zero
@@ -260,17 +220,18 @@ lstm_recurrence_kernel(const Params p) {
 #pragma unroll
         for (int q = 0; q < kRows; ++q) acc[0][q] = acc[1][q] = 0.f;
         const float* hk = h_cur + (size_t)k_lo * Bp + b0;
-        const typename W::T* wk = w_s + (size_t)k_lo * nc + c0;
+        const float* wk = w_s + (size_t)k_lo * nc + c0;
 #pragma unroll 4
         for (int k = 0; k < s.kc; ++k) {
-          const float2 w = W::pair(wk + (size_t)k * nc);
+          const float2 w = *reinterpret_cast<const float2*>(
+              wk + (size_t)k * nc);
           float hv[kRows];
 #pragma unroll
           for (int q4 = 0; q4 < kRows / 4; ++q4) {
             const float4 v = *reinterpret_cast<const float4*>(
                 hk + (size_t)k * Bp + 4 * q4);
-            hv[4 * q4] = W::h(v.x); hv[4 * q4 + 1] = W::h(v.y);
-            hv[4 * q4 + 2] = W::h(v.z); hv[4 * q4 + 3] = W::h(v.w);
+            hv[4 * q4] = v.x; hv[4 * q4 + 1] = v.y;
+            hv[4 * q4 + 2] = v.z; hv[4 * q4 + 3] = v.w;
           }
 #pragma unroll
           for (int q = 0; q < kRows; ++q) {
@@ -346,17 +307,12 @@ lstm_recurrence_kernel(const Params p) {
 
 using Kernel = void (*)(const Params);
 
-template <bool kBf16>
 Kernel kernel_for(bool cluster, int B) {
   if (cluster)
-    return B <= 4 ? lstm_recurrence_kernel<true, 4, kBf16>
-                  : lstm_recurrence_kernel<true, 8, kBf16>;
-  return B <= 4 ? lstm_recurrence_kernel<false, 4, kBf16>
-                : lstm_recurrence_kernel<false, 8, kBf16>;
-}
-
-Kernel kernel_for(bool cluster, int B, bool bf16) {
-  return bf16 ? kernel_for<true>(cluster, B) : kernel_for<false>(cluster, B);
+    return B <= 4 ? lstm_recurrence_kernel<true, 4>
+                  : lstm_recurrence_kernel<true, 8>;
+  return B <= 4 ? lstm_recurrence_kernel<false, 4>
+                : lstm_recurrence_kernel<false, 8>;
 }
 
 }  // namespace
@@ -364,50 +320,46 @@ Kernel kernel_for(bool cluster, int B, bool bf16) {
 extern "C" {
 
 // The current device's limits for the plan (lstm_sync.cuh), with the
-// registers of the grid-route kernel (its bf16 variant where bf16 is
-// non-zero). Returns a CUDA error code.
-int lstm_recurrence_limits(int bf16, int* sms, int* smem_block, int* smem_sm,
+// registers of the grid-route kernel. Returns a CUDA error code.
+int lstm_recurrence_limits(int* sms, int* smem_block, int* smem_sm,
                            int* regs_grid) {
-  return lstm_card_limits(kernel_for(false, 8, bf16 != 0), sms, smem_block,
-                          smem_sm, regs_grid);
+  return lstm_card_limits(kernel_for(false, 8), sms, smem_block, smem_sm,
+                          regs_grid);
 }
 
-// Clusters of n_cta CTAs of the cluster-route kernel (f32, or bf16 where
-// bf16 is non-zero) for (B, H, hb, ks) that the current device holds at
-// once, in *n_clusters (0: none fits). Returns 0.
-int lstm_recurrence_clusters(int bf16, int B, int H, int hb, int ks,
-                             int n_cta, int* n_clusters) {
-  const Layout s = make_layout(B, H, hb, ks, n_cta, true, bf16 != 0);
-  return lstm_active_clusters(kernel_for(true, B, bf16 != 0), n_cta,
-                              kThreads, s.bytes, n_clusters);
+// Clusters of n_cta CTAs of the cluster-route kernel for (B, H, hb, ks)
+// that the current device holds at once, in *n_clusters (0: none fits).
+// Returns 0.
+int lstm_recurrence_clusters(int B, int H, int hb, int ks, int n_cta,
+                             int* n_clusters) {
+  const Layout s = make_layout(B, H, hb, ks, n_cta, true);
+  return lstm_active_clusters(kernel_for(true, B), n_cta, kThreads, s.bytes,
+                              n_clusters);
 }
 
 // Launches the recurrence on `stream` by the route of the wrapper's plan:
 // `cluster` non-zero for one cluster of n_cta CTAs per lane, else the
 // cooperative grid with the zeroed `hbuf` and `arrived`. act, cs and hs are
-// null when serving, all three set when training. bf16 non-zero launches
-// the bf16 variant. Returns cudaGetLastError() after the launch (0 on
-// success).
+// null when serving, all three set when training. Returns
+// cudaGetLastError() after the launch (0 on success).
 int lstm_recurrence_launch(const float* xp, const float* mask, const float* wh,
                            float* out, float* act, float* cs, float* hs,
                            float* hbuf, unsigned* arrived, int L, int T,
                            int B, int H, long long mask_lane_stride,
                            unsigned long long reverse_bits, int cluster,
-                           int n_cta, int hb, int ks, int bf16,
-                           void* stream) {
+                           int n_cta, int hb, int ks, void* stream) {
   if (B * hb > kThreads || 2 * hb * ks > kThreads || n_cta * hb < H ||
       ks < 1 || L < 1 || L > 64)
     return (int)cudaErrorInvalidValue;
-  const Layout s = make_layout(B, H, hb, ks, n_cta, cluster != 0, bf16 != 0);
+  const Layout s = make_layout(B, H, hb, ks, n_cta, cluster != 0);
   Params p;
   p.xp = xp; p.mask = mask; p.wh = wh; p.out = out;
   p.act = act; p.cs = cs; p.hs = hs; p.hbuf = hbuf; p.arrived = arrived;
   p.L = L; p.T = T; p.B = B; p.H = H; p.hb = hb; p.ks = ks; p.n_cta = n_cta;
   p.mask_lane_stride = mask_lane_stride;
   p.reverse_bits = reverse_bits;
-  return lstm_launch(kernel_for(cluster != 0, B, bf16 != 0), p, cluster != 0,
-                     n_cta, L * n_cta, kThreads, s.bytes,
-                     (cudaStream_t)stream);
+  return lstm_launch(kernel_for(cluster != 0, B), p, cluster != 0, n_cta,
+                     L * n_cta, kThreads, s.bytes, (cudaStream_t)stream);
 }
 
 const char* radmmm_error_string(int code) {

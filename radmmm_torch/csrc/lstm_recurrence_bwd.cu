@@ -1,5 +1,5 @@
 // Backward of the masked multi-lane LSTM recurrence, for Hopper (sm_90a),
-// f32, with a bf16 variant of its product.
+// f32.
 //
 // The TPU kernel radmmm_tpu/ops/lstm_pallas.py::_lstm_kernel has no
 // backward: the JAX package trains its LSTMs by differentiating lax.scan.
@@ -53,17 +53,9 @@
 //   atomicAdd on the lane's counter and an acquire spin until it reaches
 //   step x CTAs. The launch is cooperative, so every CTA is resident and the
 //   spin cannot deadlock.
-//
-// bf16 variant (kBf16): the backward of the forward's bf16 product, as JAX
-// differentiates a Precision.DEFAULT dot (its transposed dot at the same
-// precision): dh_prev = dgates @ Wh^T from bf16-rounded dgates and Wh with
-// f32 sums. The CTA keeps its Wh^T slice in shared memory as bf16 (half the
-// bytes: at H = 528 the lane then fits a 16-CTA cluster, where the f32
-// slice takes the grid) and rounds its dgates to bf16 as it stores them for
-// the product; the dgates it writes out, the cell state and the sums stay
-// f32. The wrapper's dWh product rounds its operands too.
+// The bf16 variant, the backward of the forward's bf16 product on the
+// tensor cores, is in lstm_recurrence_bf16.cu.
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "lstm_sync.cuh"
@@ -77,8 +69,7 @@ constexpr int kTileB = 8;    // batch rows a thread accumulates at once
 
 __host__ __device__ inline size_t up4(size_t n) { return (n + 3) / 4 * 4; }
 
-// shared memory of one CTA, in floats, each part on a 16-byte boundary
-// (the Wh^T slice as bf16 pairs in the bf16 variant);
+// shared memory of one CTA, in floats, each part on a 16-byte boundary;
 // ops/lstm_kernel.py::_bwd_smem mirrors the byte count
 struct Layout {
   int Bp;      // B rounded up to 4, for float4 reads of dgates
@@ -89,8 +80,7 @@ struct Layout {
 };
 
 __host__ __device__ inline Layout make_layout(int B, int H, int hb, int ks,
-                                              int n_cta, bool cluster,
-                                              bool bf16) {
+                                              int n_cta, bool cluster) {
   Layout s;
   s.Bp = (B + 3) / 4 * 4;
   s.nc = 4 * hb;
@@ -98,7 +88,7 @@ __host__ __device__ inline Layout make_layout(int B, int H, int hb, int ks,
   s.gp = s.kc * ks;
   const size_t w_elems = (size_t)s.gp * H;
   s.w_off = 0;                                          // gp x H    Wh^T
-  s.dg_off = up4(s.w_off + (bf16 ? (w_elems + 1) / 2 : w_elems));
+  s.dg_off = up4(s.w_off + w_elems);
                                                         // gp x Bp   dgates
   s.part_off = up4(s.dg_off + (size_t)s.gp * s.Bp);     // ks x H x Bp
   s.rx_off = up4(s.part_off + (ks > 1 ? (size_t)ks * H * s.Bp : 0));
@@ -124,39 +114,19 @@ struct Params {
   unsigned long long reverse_bits;
 };
 
-// Wh^T slice element type: f32, or bf16 in the bf16 variant, which also
-// rounds the dgates the product reads
-template <bool kBf16> struct WhSlice {
-  using T = float;
-  __device__ static float put(float v) { return v; }
-  __device__ static float get(float w) { return w; }
-  __device__ static float dg(float v) { return v; }
-};
-template <> struct WhSlice<true> {
-  using T = __nv_bfloat16;
-  __device__ static __nv_bfloat16 put(float v) {
-    return __float2bfloat16_rn(v);
-  }
-  __device__ static float get(__nv_bfloat16 w) { return __bfloat162float(w); }
-  __device__ static float dg(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-};
-
-template <bool kCluster, bool kBf16>
+template <bool kCluster>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_recurrence_bwd_kernel(const Params p) {
-  using W = WhSlice<kBf16>;
   extern __shared__ __align__(16) float smem[];
   const int H = p.H, B = p.B, T = p.T, G = 4 * H, hb = p.hb, ks = p.ks;
   const int n_cta = p.n_cta, tid = threadIdx.x;
-  const Layout s = make_layout(B, H, hb, ks, n_cta, kCluster, kBf16);
+  const Layout s = make_layout(B, H, hb, ks, n_cta, kCluster);
   const int lane = blockIdx.x / n_cta;
   const int rank = blockIdx.x % n_cta;    // the cluster rank on that route
   const int j0 = rank * hb;
   const bool rev = (p.reverse_bits >> lane) & 1ULL;
 
-  typename W::T* w_s = reinterpret_cast<typename W::T*>(smem + s.w_off);
+  float* w_s = smem + s.w_off;
   float* dg_s = smem + s.dg_off;
   float* part_s = smem + s.part_off;
   float* rx_s = smem + s.rx_off;
@@ -167,8 +137,8 @@ lstm_recurrence_bwd_kernel(const Params p) {
   const float* wh = p.wh + (size_t)lane * H * G;
   for (int i = tid; i < s.gp * H; i += kThreads) {
     const int j = i / s.gp, k = i % s.gp, u = j0 + k % hb;
-    w_s[(size_t)k * H + j] = W::put(
-        (k < s.nc && u < H) ? wh[(size_t)j * G + (k / hb) * H + u] : 0.f);
+    w_s[(size_t)k * H + j] =
+        (k < s.nc && u < H) ? wh[(size_t)j * G + (k / hb) * H + u] : 0.f;
   }
   for (int i = tid; i < s.gp * s.Bp; i += kThreads) dg_s[i] = 0.f;
 
@@ -287,7 +257,7 @@ lstm_recurrence_bwd_kernel(const Params p) {
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
         o[g * H] = dg[g];
-        dg_s[(size_t)(g * hb + cj) * s.Bp + cb] = W::dg(dg[g]);
+        dg_s[(size_t)(g * hb + cj) * s.Bp + cb] = dg[g];
       }
     }
     if (step + 1 == T) break;
@@ -311,8 +281,8 @@ lstm_recurrence_bwd_kernel(const Params p) {
         for (int q = 0; q < kTileB; ++q) acc[0][q] = acc[1][q] = 0.f;
 #pragma unroll 4
         for (int k = k_lo; k < k_lo + s.kc; ++k) {
-          const float w[2] = {W::get(w_s[(size_t)k * H + j]),
-                              W::get(w_s[(size_t)k * H + j2])};
+          const float w[2] = {w_s[(size_t)k * H + j],
+                              w_s[(size_t)k * H + j2]};
           const float4* d =
               reinterpret_cast<const float4*>(dg_s + (size_t)k * s.Bp + b0);
           const float4 d0 = d[0], d1 = d[1];
@@ -376,58 +346,51 @@ extern "C" {
 
 using Kernel = void (*)(const Params);
 
-Kernel kernel_for(bool cluster, bool bf16) {
-  if (cluster)
-    return bf16 ? lstm_recurrence_bwd_kernel<true, true>
-                : lstm_recurrence_bwd_kernel<true, false>;
-  return bf16 ? lstm_recurrence_bwd_kernel<false, true>
-              : lstm_recurrence_bwd_kernel<false, false>;
+Kernel kernel_for(bool cluster) {
+  return cluster ? lstm_recurrence_bwd_kernel<true>
+                 : lstm_recurrence_bwd_kernel<false>;
 }
 
 // The current device's limits for the plan (lstm_sync.cuh), with the
-// registers of the grid-route kernel (its bf16 variant where bf16 is
-// non-zero). Returns a CUDA error code.
-int lstm_recurrence_bwd_limits(int bf16, int* sms, int* smem_block,
-                               int* smem_sm, int* regs_grid) {
-  return lstm_card_limits(kernel_for(false, bf16 != 0), sms, smem_block,
-                          smem_sm, regs_grid);
+// registers of the grid-route kernel. Returns a CUDA error code.
+int lstm_recurrence_bwd_limits(int* sms, int* smem_block, int* smem_sm,
+                               int* regs_grid) {
+  return lstm_card_limits(kernel_for(false), sms, smem_block, smem_sm,
+                          regs_grid);
 }
 
-// Clusters of n_cta CTAs of the cluster-route kernel (f32, or bf16 where
-// bf16 is non-zero) for (B, H, hb, ks) that the current device holds at
-// once, in *n_clusters (0: none fits). Returns 0.
-int lstm_recurrence_bwd_clusters(int bf16, int B, int H, int hb, int ks,
-                                 int n_cta, int* n_clusters) {
-  const Layout s = make_layout(B, H, hb, ks, n_cta, true, bf16 != 0);
-  return lstm_active_clusters(kernel_for(true, bf16 != 0), n_cta, kThreads,
-                              s.bytes, n_clusters);
+// Clusters of n_cta CTAs of the cluster-route kernel for (B, H, hb, ks)
+// that the current device holds at once, in *n_clusters (0: none fits).
+// Returns 0.
+int lstm_recurrence_bwd_clusters(int B, int H, int hb, int ks, int n_cta,
+                                 int* n_clusters) {
+  const Layout s = make_layout(B, H, hb, ks, n_cta, true);
+  return lstm_active_clusters(kernel_for(true), n_cta, kThreads, s.bytes,
+                              n_clusters);
 }
 
 // Launches the backward on `stream` by the route of the wrapper's plan:
 // `cluster` non-zero for one cluster of n_cta CTAs per lane, else the
-// cooperative grid with `part` and the zeroed `arrived`. bf16 non-zero
-// launches the bf16 variant. Returns cudaGetLastError() after the launch (0
-// on success).
+// cooperative grid with `part` and the zeroed `arrived`. Returns
+// cudaGetLastError() after the launch (0 on success).
 int lstm_recurrence_bwd_launch(const float* dout, const float* act,
                                const float* cs, const float* mask,
                                const float* wh, float* dxp, float* part,
                                unsigned* arrived, int L, int T, int B, int H,
                                long long mask_lane_stride,
                                unsigned long long reverse_bits, int cluster,
-                               int n_cta, int hb, int ks, int bf16,
-                               void* stream) {
+                               int n_cta, int hb, int ks, void* stream) {
   if (B * hb > kThreads || n_cta * hb < H || ks < 1 || L < 1 || L > 64)
     return (int)cudaErrorInvalidValue;
-  const Layout s = make_layout(B, H, hb, ks, n_cta, cluster != 0, bf16 != 0);
+  const Layout s = make_layout(B, H, hb, ks, n_cta, cluster != 0);
   Params p;
   p.dout = dout; p.act = act; p.cs = cs; p.mask = mask; p.wh = wh;
   p.dxp = dxp; p.part = part; p.arrived = arrived;
   p.L = L; p.T = T; p.B = B; p.H = H; p.hb = hb; p.ks = ks; p.n_cta = n_cta;
   p.mask_lane_stride = mask_lane_stride;
   p.reverse_bits = reverse_bits;
-  return lstm_launch(kernel_for(cluster != 0, bf16 != 0), p, cluster != 0,
-                     n_cta, L * n_cta, kThreads, s.bytes,
-                     (cudaStream_t)stream);
+  return lstm_launch(kernel_for(cluster != 0), p, cluster != 0, n_cta,
+                     L * n_cta, kThreads, s.bytes, (cudaStream_t)stream);
 }
 
 const char* radmmm_error_string(int code) {

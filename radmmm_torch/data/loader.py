@@ -25,7 +25,9 @@ package, so both run the same batches in the same order.
 from __future__ import annotations
 
 import queue
+import sys
 import threading
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Optional
 
@@ -42,13 +44,29 @@ def stack_raw_batches(raws):
     return {k: np.stack([r[k] for r in raws]) for k in raws[0]}
 
 
+# seconds a consumer that stops early waits for the producer to finish the
+# item in hand and end, before it raises with the producer's stack
+JOIN_TIMEOUT_S = 120.0
+
+
+def _producer_stack(t: threading.Thread) -> str:
+    frame = sys._current_frames().get(t.ident)
+    return "".join(traceback.format_stack(frame)) if frame else "(ended)"
+
+
 def _threaded(produce: Callable[[Callable], None], depth: int) -> Iterable:
     """Run ``produce(put)`` in a daemon thread and yield what it puts. An
     exception in the producer is raised in the consumer; a consumer that
     stops early (a break, an abandoned ``next(iter(...))``) releases the
     producer, which then ends instead of blocking on a full queue, and
     waits for it: a producer still featurizing on the card when the
-    process exits aborts it."""
+    process exits aborts it.
+
+    No wait is without end: the consumer checks every second that the
+    producer is alive, and waits at most JOIN_TIMEOUT_S for it to end,
+    then raises with the producer's stack. A generator closed on its own
+    producer's thread (the garbage collector may finalise it on any
+    thread) does not wait for itself."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     sentinel = object()
     stop = threading.Event()
@@ -70,17 +88,33 @@ def _threaded(produce: Callable[[Callable], None], depth: int) -> Iterable:
         finally:
             put(sentinel)
 
-    t = threading.Thread(target=run, daemon=True)
+    def join():
+        if t is threading.current_thread():
+            return
+        t.join(JOIN_TIMEOUT_S)
+        if t.is_alive():
+            raise RuntimeError(
+                f"the loader's producer thread {t.name} did not end within "
+                f"{JOIN_TIMEOUT_S:g} s of its consumer's stop; it is at:\n"
+                + _producer_stack(t))
+
+    t = threading.Thread(target=run, daemon=True, name="loader-producer")
     t.start()
     try:
         while True:
-            item = q.get()
+            try:
+                item = q.get(timeout=1.0)
+            except queue.Empty:
+                if not t.is_alive() and q.empty():
+                    raise RuntimeError("the loader's producer thread ended "
+                                       "without its end-of-data mark")
+                continue
             if item is sentinel:
                 break
             if isinstance(item, BaseException):
                 raise item
             yield item
-        t.join()
+        join()
     finally:
         stop.set()
         while True:
@@ -88,7 +122,7 @@ def _threaded(produce: Callable[[Callable], None], depth: int) -> Iterable:
                 q.get_nowait()
             except queue.Empty:
                 break
-        t.join()
+        join()
 
 
 class DataLoader:

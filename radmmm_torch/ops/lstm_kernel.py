@@ -30,13 +30,18 @@ autograd function, as ``lstm_pallas.py`` resolves its ``precision``)
 package's product at ``Precision.DEFAULT`` on a TPU; the backward's
 ``dgates @ Wh^T`` and ``dWh = sum h_prev^T dgates`` round their operands
 the same way. The gates, c, h and every output stay f32. The kernels'
-bf16 variants keep their Wh slice in shared memory as bf16 (half the
-bytes; each takes its f32 variant's route and sizes) and round h (or
-dgates) as they read it; each variant counts its launches apart.
+bf16 variants (``csrc/lstm_recurrence_bf16.cu``) run those products on
+the tensor cores: each CTA builds its Wh slice's bf16 A fragments once
+for the whole run (two a thread in registers, the rest in shared memory),
+and h (or dgates) is rounded to bf16 once, by the CTA that owns it. They
+have plans of their own
+(``_fwd_smem_bf16``, ``_bwd_smem_bf16``, ``_bf16_tiling``) and count
+their launches apart.
 
 Tensors on the CPU run the twins. Tensors on a CUDA device launch
-``csrc/lstm_recurrence.cu`` and ``csrc/lstm_recurrence_bwd.cu`` (built by
-``utils/cuda_build``) or raise; nothing falls back.
+``csrc/lstm_recurrence.cu`` and ``csrc/lstm_recurrence_bwd.cu``, or
+``csrc/lstm_recurrence_bf16.cu`` in bf16 (built by ``utils/cuda_build``),
+or raise; nothing falls back.
 """
 from __future__ import annotations
 
@@ -264,27 +269,30 @@ def _forward_kernel(x_proj, mask, wh, reverse, save: bool, plan=None,
              if save else None)
     if T == 0 or B == 0:
         return (out, *saved) if save else out
-    lib = _library()
+    library, name = _kernel("fwd", bf16)
+    lib = library()
     with torch.cuda.device(dev):
         plan = plan or card_forward_plan(L, B, H, bf16)
         grid = plan.route == "grid"
         hbuf = arrived = None
         if grid:
-            # the h exchange through L2 (its padding rows stay zero) and the
-            # lanes' barrier counters, referenced here until the launch is
-            # queued
-            hbuf = torch.zeros((2, L, H, _rows(B)), dtype=torch.float32,
-                               device=dev)
+            # the h exchange through L2 (its padding rows stay zero; bf16 in
+            # N tiles of 8 rows for the bf16 kernel) and the lanes' barrier
+            # counters, referenced here until the launch is queued
+            hbuf = (torch.zeros((2, L, -(-B // 8), H, 8), dtype=torch.bfloat16,
+                                device=dev) if bf16 else
+                    torch.zeros((2, L, H, _rows(B)), dtype=torch.float32,
+                                device=dev))
             arrived = torch.zeros(L, dtype=torch.int32, device=dev)
         ptrs = [t.data_ptr() for t in saved] if save else [None] * 3
-        err = lib.lstm_recurrence_launch(
+        err = getattr(lib, f"{name}_launch")(
             x_proj.data_ptr(), mask.data_ptr(), wh.data_ptr(),
             out.data_ptr(), *ptrs, hbuf.data_ptr() if grid else None,
             arrived.data_ptr() if grid else None, L, T, B, H,
             T * B if mask.dim() == 3 else 0, _bits(reverse),
-            int(not grid), plan.n_cta, plan.hb, plan.ks, int(bf16),
+            int(not grid), plan.n_cta, plan.hb, plan.ks,
             torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(lib, err, "lstm_recurrence")
+    cuda_build.check(lib, err, name)
     launched("lstm_recurrence_bf16" if bf16 else "lstm_recurrence")
     return (out, *saved) if save else out
 
@@ -299,25 +307,28 @@ def _backward_kernel(dout, act, cs, mask, wh, reverse, plan=None,
     dxp = torch.empty((L, T, B, 4 * H), dtype=torch.float32, device=dev)
     if T == 0 or B == 0:
         return dxp
-    lib = _bwd_library()
+    library, name = _kernel("bwd", bf16)
+    lib = library()
     with torch.cuda.device(dev):
         plan = plan or card_backward_plan(L, B, H, bf16)
         grid = plan.route == "grid"
         part = arrived = None
         if grid:
-            # the exchange of partials through L2 and the lanes' barrier
+            # the exchange of partials through L2 (batch rows padded to 4,
+            # or to N tiles of 8 for the bf16 kernel) and the lanes' barrier
             # counters, referenced here until the launch is queued
-            part = torch.empty((L, 2, plan.n_cta, H, -(-B // 4) * 4),
+            rows = -(-B // 8) * 8 if bf16 else -(-B // 4) * 4
+            part = torch.empty((L, 2, plan.n_cta, H, rows),
                                dtype=torch.float32, device=dev)
             arrived = torch.zeros(L, dtype=torch.int32, device=dev)
-        err = lib.lstm_recurrence_bwd_launch(
+        err = getattr(lib, f"{name}_launch")(
             dout.data_ptr(), act.data_ptr(), cs.data_ptr(), mask.data_ptr(),
             wh.data_ptr(), dxp.data_ptr(), part.data_ptr() if grid else None,
             arrived.data_ptr() if grid else None, L, T, B, H,
             T * B if mask.dim() == 3 else 0, _bits(reverse),
-            int(not grid), plan.n_cta, plan.hb, plan.ks, int(bf16),
+            int(not grid), plan.n_cta, plan.hb, plan.ks,
             torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(lib, err, "lstm_recurrence_bwd")
+    cuda_build.check(lib, err, name)
     launched("lstm_recurrence_bwd_bf16" if bf16 else "lstm_recurrence_bwd")
     return dxp
 
@@ -364,6 +375,16 @@ _CLUSTER_CHUNKS, _GRID_CHUNKS = 2, 1
 # of it at every serving and training shape in scripts/sweep_lstm.py on an
 # H100
 _FWD_CHUNKS = 8
+# the bf16 kernels (lstm_recurrence_bf16.cu): kThreads, kRegSlots (A
+# fragments a thread keeps in registers) and kMaxM (M tiles a warp takes at
+# once)
+_BF16_THREADS = 384
+_BF16_WARPS = _BF16_THREADS // 32
+_BF16_REG_SLOTS, _BF16_MAX_M = 2, 3
+# the bf16 forward's warps split its H reduction 4 ways (ks): the fastest
+# or within 1% of it at every serving and training shape in
+# scripts/sweep_lstm.py --bf16 on an H100
+_BF16_FWD_SPLIT = 4
 
 
 def _up4(n: int) -> int:
@@ -376,19 +397,14 @@ def _rows(B: int) -> int:
     return 4 if B <= 4 else -(-B // 8) * 8
 
 
-def _w_floats(n: int, bf16: bool) -> int:
-    """Floats of shared memory that n Wh elements take: bf16 packs two."""
-    return (n + 1) // 2 if bf16 else n
-
-
 def _fwd_smem(B: int, H: int, hb: int, ks: int, n_cta: int,
-              cluster: bool, bf16: bool = False) -> int:
+              cluster: bool) -> int:
     """Dynamic shared memory of one forward CTA: make_layout in
-    lstm_recurrence.cu (the Wh slice in bf16 under ``bf16``)."""
+    lstm_recurrence.cu."""
     Bp, nc, kc = _rows(B), 4 * hb, -(-H // ks)
     hp = kc * ks
     hr = max(hp, n_cta * hb)
-    h = _up4(_w_floats(hp * nc, bf16))
+    h = _up4(hp * nc)
     part = _up4(h + (2 if cluster else 1) * hr * Bp)
     return 4 * (part + ks * Bp * nc)
 
@@ -401,19 +417,55 @@ def _fwd_chunks(hb: int) -> int:
 
 
 def _bwd_smem(B: int, H: int, hb: int, ks: int, n_cta: int,
-              cluster: bool, bf16: bool = False) -> int:
+              cluster: bool) -> int:
     """Dynamic shared memory of one backward CTA: make_layout in
-    lstm_recurrence_bwd.cu (the Wh slice in bf16 under ``bf16``)."""
+    lstm_recurrence_bwd.cu."""
     Bp, kc = -(-B // 4) * 4, -(-4 * hb // ks)
     gp = kc * ks
-    dg = _up4(_w_floats(gp * H, bf16))
+    dg = _up4(gp * H)
     part = _up4(dg + gp * Bp)
     rx = _up4(part + (ks * H * Bp if ks > 1 else 0))
     return 4 * (rx + (2 * n_cta * hb * Bp if cluster else _BWD_THREADS))
 
 
+def _bf16_tiling(M: int, K: int, wk: int) -> tuple:
+    """make_tiling in lstm_recurrence_bf16.cu for a CTA's product of M x K
+    tiles of 16 x 16 over 12 // wk x wk warps: (mma a warp issues for an N
+    tile, M tiles it takes at once, A fragments it keeps in shared memory:
+    those past the registers)."""
+    wm = _BF16_WARPS // wk
+    mpw, kpw = -(-M // wm), -(-K // wk)
+    max_m = min(mpw, _BF16_MAX_M)
+    npass = -(-mpw // max_m)
+    slots = (npass * kpw - min(kpw, _BF16_REG_SLOTS // max_m)) * max_m
+    return mpw * kpw, max_m, slots
+
+
+def _fwd_smem_bf16(B: int, H: int, hb: int, ks: int, n_cta: int,
+                   cluster: bool) -> int:
+    """Dynamic shared memory of one bf16 forward CTA: fwd_layout in
+    lstm_recurrence_bf16.cu (A fragments past the registers, h in bf16
+    rows of 8, the warps' partial gate tiles, 4 floats past each row)."""
+    M, K, NT = -(-4 * hb // 16), -(-H // 16), -(-B // 8)
+    hr = max(16 * K, n_cta * hb)
+    return (_BF16_WARPS * _bf16_tiling(M, K, ks)[2] * 512
+            + (2 if cluster else 1) * NT * hr * 16
+            + ks * NT * 8 * (16 * M + 4) * 4)
+
+
+def _bwd_smem_bf16(B: int, H: int, hb: int, ks: int, n_cta: int,
+                   cluster: bool) -> int:
+    """Dynamic shared memory of one bf16 backward CTA: bwd_layout in
+    lstm_recurrence_bf16.cu (A fragments past the registers, dgates in bf16
+    rows of 8, the partials received or the gather's sums)."""
+    M, K, NT = -(-H // 16), -(-4 * hb // 16), -(-B // 8)
+    return (_BF16_WARPS * _bf16_tiling(M, K, 1)[2] * 512 + NT * K * 256
+            + 4 * (2 * n_cta * hb * NT * 8 if cluster else _BF16_THREADS))
+
+
 def _route_plan(L: int, B: int, H: int, limits: CardLimits, name: str,
-                threads: int, smem_fn, cluster_ks, grid_ks) -> Plan:
+                threads: int, smem_fn, cluster_ks, grid_ks,
+                route: Optional[str] = None) -> Plan:
     """The route and sizes of one kernel for L lanes of (B, H): the kernel
     (``name`` in errors) runs ``threads`` a CTA, takes ``smem_fn(B, H, hb,
     ks, n_cta, cluster)`` bytes of dynamic shared memory, and splits its
@@ -424,9 +476,10 @@ def _route_plan(L: int, B: int, H: int, limits: CardLimits, name: str,
     hb = ceil(H / max_cluster): the most CTAs, since the per-step product
     sets the pace); otherwise as a cooperative grid, with the first slice
     width in _GRID_WIDTHS whose L * ceil(H / hb) CTAs are all resident at
-    once. Each CTA runs one cell per thread, so B * hb is at most the
-    kernel's threads. Raises when no route fits."""
-    if limits.max_cluster >= 1:
+    once. ``route`` "cluster" or "grid" tries that route alone. Each CTA
+    runs one cell per thread, so B * hb is at most the kernel's threads.
+    Raises when no route fits."""
+    if limits.max_cluster >= 1 and route in (None, "cluster"):
         hb = -(-H // limits.max_cluster)
         n_cta = -(-H // hb)
         ks = cluster_ks(hb)
@@ -434,7 +487,7 @@ def _route_plan(L: int, B: int, H: int, limits: CardLimits, name: str,
             smem = smem_fn(B, H, hb, ks, n_cta, True)
             if smem <= limits.smem_per_block:
                 return Plan("cluster", n_cta, hb, ks, smem)
-    for hb in _GRID_WIDTHS:
+    for hb in _GRID_WIDTHS if route in (None, "grid") else ():
         ks = grid_ks(hb)
         if B * hb > threads or ks < 1:
             continue
@@ -450,56 +503,51 @@ def _route_plan(L: int, B: int, H: int, limits: CardLimits, name: str,
         if L * n_cta <= per_sm * limits.sms:
             return Plan("grid", n_cta, hb, ks, smem)
     raise RuntimeError(
-        f"lstm_recurrence ({name}): no route fits the L={L}, B={B}, "
-        f"H={H} recurrence on a card with {limits.sms} SMs and "
+        f"lstm_recurrence ({name}): no {route + ' ' if route else ''}route "
+        f"fits the L={L}, B={B}, H={H} recurrence on a card with "
+        f"{limits.sms} SMs and "
         f"{limits.smem_per_block} bytes of shared memory per block")
 
 
-def _as_bf16(plan: Plan, smem_fn, B: int, H: int) -> Plan:
-    """The bf16 variant's plan: the f32 variant's route and sizes with its
-    own (smaller) shared memory. Halving Wh would let the flow context's H
-    528 lane fit one 16-CTA cluster of 33 units a CTA, but the product,
-    not the shared memory, sets the pace: that cluster took 1.8-1.9x the
-    bf16 grid's time forward at B 1 and 1.2-1.3x backward at B 8
-    (``chip_smoke.py`` bf16 phase, NVIDIA H100 80GB HBM3, 700 W)."""
-    return dataclasses.replace(plan, smem=smem_fn(
-        B, H, plan.hb, plan.ks, plan.n_cta, plan.route == "cluster",
-        bf16=True))
-
-
 def forward_plan(L: int, B: int, H: int, limits: CardLimits,
-                 bf16: bool = False) -> Plan:
-    """The forward kernel's route and sizes for L lanes of (B, H): see
-    ``_route_plan``; its bf16 variant's under ``bf16`` (``_as_bf16``). Its
-    CTA splits the H reduction into _FWD_CHUNKS chunks where its threads
-    allow."""
-    plan = _route_plan(L, B, H, limits, "fwd", _FWD_THREADS, _fwd_smem,
-                       _fwd_chunks, _fwd_chunks)
-    return _as_bf16(plan, _fwd_smem, B, H) if bf16 else plan
+                 bf16: bool = False, route: Optional[str] = None) -> Plan:
+    """The forward kernel's route and sizes for L lanes of (B, H), or its
+    bf16 variant's under ``bf16``: see ``_route_plan``. The f32 CTA splits
+    the H reduction into _FWD_CHUNKS chunks where its threads allow; the
+    bf16 CTA's warps split it _BF16_FWD_SPLIT ways."""
+    if bf16:
+        return _route_plan(L, B, H, limits, "fwd bf16", _BF16_THREADS,
+                           _fwd_smem_bf16, lambda hb: _BF16_FWD_SPLIT,
+                           lambda hb: _BF16_FWD_SPLIT, route)
+    return _route_plan(L, B, H, limits, "fwd", _FWD_THREADS, _fwd_smem,
+                       _fwd_chunks, _fwd_chunks, route)
 
 
 def backward_plan(L: int, B: int, H: int, limits: CardLimits,
-                  bf16: bool = False) -> Plan:
-    """The backward kernel's route and sizes for L lanes of (B, H): see
-    ``_route_plan``; its bf16 variant's under ``bf16`` (``_as_bf16``). Its
-    partial product takes _CLUSTER_CHUNKS chunks on a cluster,
-    _GRID_CHUNKS on the grid."""
-    plan = _route_plan(L, B, H, limits, "bwd", _BWD_THREADS, _bwd_smem,
-                       lambda hb: _CLUSTER_CHUNKS, lambda hb: _GRID_CHUNKS)
-    return _as_bf16(plan, _bwd_smem, B, H) if bf16 else plan
+                  bf16: bool = False, route: Optional[str] = None) -> Plan:
+    """The backward kernel's route and sizes for L lanes of (B, H), or its
+    bf16 variant's under ``bf16``: see ``_route_plan``. The f32 partial
+    product takes _CLUSTER_CHUNKS chunks on a cluster, _GRID_CHUNKS on the
+    grid; the bf16 one one (its warps split the units)."""
+    if bf16:
+        return _route_plan(L, B, H, limits, "bwd bf16", _BF16_THREADS,
+                           _bwd_smem_bf16, lambda hb: 1, lambda hb: 1,
+                           route)
+    return _route_plan(L, B, H, limits, "bwd", _BWD_THREADS, _bwd_smem,
+                       lambda hb: _CLUSTER_CHUNKS, lambda hb: _GRID_CHUNKS,
+                       route)
 
 
-def card_limits(library, name: str, bf16: bool = False) -> CardLimits:
+def card_limits(library, name: str) -> CardLimits:
     """The current CUDA device's limits for the plan of the kernel ``name``
-    in ``library()`` (the registers are those of its f32 or bf16 variant),
-    read from the CUDA driver once per device."""
+    in ``library()``, read from the CUDA driver once per device."""
     dev = torch.cuda.current_device()
-    key = ("limits", name, dev, bf16)
+    key = ("limits", name, dev)
     if key not in _plans:
         lib = library()
         vals = [ctypes.c_int(0) for _ in range(4)]
         cuda_build.check(lib, getattr(lib, f"{name}_limits")(
-            int(bf16), *[ctypes.byref(v) for v in vals]), name)
+            *[ctypes.byref(v) for v in vals]), name)
         sms, smem_block, smem_sm, regs = (v.value for v in vals)
         hopper = torch.cuda.get_device_capability(dev)[0] >= 9
         _plans[key] = CardLimits(sms, smem_block, smem_sm, regs,
@@ -507,24 +555,24 @@ def card_limits(library, name: str, bf16: bool = False) -> CardLimits:
     return _plans[key]
 
 
-def _card_plan(plan_fn, library, name: str, L: int, B: int, H: int,
+def _card_plan(plan_fn, direction: str, L: int, B: int, H: int,
                bf16: bool) -> Plan:
-    """``plan_fn``'s plan of the kernel ``name`` (its bf16 variant under
-    ``bf16``) in ``library()`` for the current CUDA device, with a cluster
-    plan only where the CUDA driver says such a cluster fits (else the next
-    smaller one). Cached per device, variant and shape."""
-    key = (name, torch.cuda.current_device(), L, B, H, bf16)
+    """``plan_fn``'s plan of the ``direction`` kernel (its bf16 variant
+    under ``bf16``) for the current CUDA device, with a cluster plan only
+    where the CUDA driver says such a cluster fits (else the next smaller
+    one). Cached per device, variant and shape."""
+    library, name = _kernel(direction, bf16)
+    key = (name, torch.cuda.current_device(), L, B, H)
     if key not in _plans:
         lib = library()
-        limits = card_limits(library, name, bf16)
+        limits = card_limits(library, name)
         while True:
             plan = plan_fn(L, B, H, limits, bf16)
             if plan.route == "grid":
                 break
             fit = ctypes.c_int(0)
             cuda_build.check(lib, getattr(lib, f"{name}_clusters")(
-                int(bf16), B, H, plan.hb, plan.ks, plan.n_cta,
-                ctypes.byref(fit)), name)
+                B, H, plan.hb, plan.ks, plan.n_cta, ctypes.byref(fit)), name)
             if fit.value >= 1:
                 break
             limits = dataclasses.replace(limits, max_cluster=plan.n_cta - 1)
@@ -534,14 +582,12 @@ def _card_plan(plan_fn, library, name: str, L: int, B: int, H: int,
 
 def card_forward_plan(L: int, B: int, H: int, bf16: bool = False) -> Plan:
     """forward_plan for the current CUDA device (see ``_card_plan``)."""
-    return _card_plan(forward_plan, _library, "lstm_recurrence", L, B, H,
-                      bf16)
+    return _card_plan(forward_plan, "fwd", L, B, H, bf16)
 
 
 def card_backward_plan(L: int, B: int, H: int, bf16: bool = False) -> Plan:
     """backward_plan for the current CUDA device (see ``_card_plan``)."""
-    return _card_plan(backward_plan, _bwd_library, "lstm_recurrence_bwd",
-                      L, B, H, bf16)
+    return _card_plan(backward_plan, "bwd", L, B, H, bf16)
 
 
 def _bits(reverse) -> int:
@@ -549,18 +595,18 @@ def _bits(reverse) -> int:
 
 
 def _declare(lib, name: str, n_ptrs: int):
-    """argtypes of a direction's launch, limits and cluster check."""
+    """argtypes of a kernel's launch, limits and cluster check."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     launch = getattr(lib, f"{name}_launch")
     launch.argtypes = [vp] * n_ptrs + [ci, ci, ci, ci, ctypes.c_longlong,
                                        ctypes.c_ulonglong, ci, ci, ci, ci,
-                                       ci, vp]
+                                       vp]
     launch.restype = ci
     limits = getattr(lib, f"{name}_limits")
-    limits.argtypes = [ci] + [ctypes.POINTER(ci)] * 4
+    limits.argtypes = [ctypes.POINTER(ci)] * 4
     limits.restype = ci
     clusters = getattr(lib, f"{name}_clusters")
-    clusters.argtypes = [ci] * 6 + [ctypes.POINTER(ci)]
+    clusters.argtypes = [ci] * 5 + [ctypes.POINTER(ci)]
     clusters.restype = ci
 
 
@@ -572,3 +618,19 @@ def _library():
 def _bwd_library():
     return cuda_build.load("lstm_recurrence_bwd",
                            lambda lib: _declare(lib, "lstm_recurrence_bwd", 8))
+
+
+def _bf16_library():
+    def declare(lib):
+        _declare(lib, "lstm_bf16_fwd", 9)
+        _declare(lib, "lstm_bf16_bwd", 8)
+    return cuda_build.load("lstm_recurrence_bf16", declare)
+
+
+def _kernel(direction: str, bf16: bool) -> tuple:
+    """(library loader, C name) of the ``direction`` ("fwd" or "bwd")
+    kernel, its bf16 variant under ``bf16``."""
+    if bf16:
+        return _bf16_library, f"lstm_bf16_{direction}"
+    return ((_library, "lstm_recurrence") if direction == "fwd"
+            else (_bwd_library, "lstm_recurrence_bwd"))

@@ -13,9 +13,12 @@ with its product split into 1, 2, 4, 8 and 16 chunks (the forward) or 1,
 2 and 4 (the backward); those past a block's threads or shared memory are
 skipped, and a launch the card refuses is reported. Prints the plan that
 ``card_forward_plan`` or ``card_backward_plan`` picks, then ms and us a
-step for it and for each other plan. ``--bf16`` sweeps the kernels' bf16
-variants (their Wh slices at half the bytes, so more cluster plans fit)
-against the bf16 twins. Needs a card; raises without one.
+step for it and for each other plan: after a warm-up of the picked plan,
+every plan is timed in order and again in reverse order, and the less of
+its two times is printed beside both. ``--bf16`` sweeps the bf16 kernels
+(``csrc/lstm_recurrence_bf16.cu``) against the bf16 twins: the same
+routes, the forward's warps split over 1, 2, 3, 4, 6 and 12 along its
+reduction, the backward's one split. Needs a card; raises without one.
 """
 from __future__ import annotations
 
@@ -27,12 +30,13 @@ from radmmm_torch.ops import lstm_kernel as lk
 from radmmm_torch.utils.device import card_line, resolve_device
 
 TRAIN_SHAPES = "2x260x96x8,2x128x96x8,6x128x512x8,2x528x256x8"
-# per direction: its kernel's threads, shared memory, library and C name,
-# and the product's chunks the sweep tries
-KERNELS = {"fwd": (lk._FWD_THREADS, lk._fwd_smem, lk._library,
-                   "lstm_recurrence", (1, 2, 4, 8, 16)),
-           "bwd": (lk._BWD_THREADS, lk._bwd_smem, lk._bwd_library,
-                   "lstm_recurrence_bwd", (1, 2, 4))}
+# per direction and bf16: its kernel's threads, shared memory, and the
+# product's splits the sweep tries
+KERNELS = {("fwd", False): (lk._FWD_THREADS, lk._fwd_smem, (1, 2, 4, 8, 16)),
+           ("bwd", False): (lk._BWD_THREADS, lk._bwd_smem, (1, 2, 4)),
+           ("fwd", True): (lk._BF16_THREADS, lk._fwd_smem_bf16,
+                           (1, 2, 3, 4, 6, 12)),
+           ("bwd", True): (lk._BF16_THREADS, lk._bwd_smem_bf16, (1,))}
 
 
 def _inputs(L, H, T, B, dev):
@@ -50,16 +54,16 @@ def _plans(direction, B, H, bf16=False):
     """Clusters of 8 and 16 CTAs a lane and the grid at 8 and 16 units a
     CTA, each with every chunk count of the direction, within a block's
     threads and shared memory."""
-    threads, smem_fn, library, name, chunks = KERNELS[direction]
-    limits = lk.card_limits(library, name, bf16)
+    threads, smem_fn, chunks = KERNELS[direction, bf16]
+    limits = lk.card_limits(*lk._kernel(direction, bf16))
     for route, n_cta, hb in (("cluster", 8, None), ("cluster", 16, None),
                              ("grid", None, 8), ("grid", None, 16)):
         hb = hb or -(-H // n_cta)
         n = -(-H // hb)
         for ks in chunks:
-            if direction == "fwd" and 2 * hb * ks > threads:
+            if direction == "fwd" and not bf16 and 2 * hb * ks > threads:
                 continue
-            smem = smem_fn(B, H, hb, ks, n, route == "cluster", bf16=bf16)
+            smem = smem_fn(B, H, hb, ks, n, route == "cluster")
             if B * hb <= threads and smem <= limits.smem_per_block:
                 yield lk.Plan(route, n, hb, ks, smem)
 
@@ -116,6 +120,7 @@ def main(argv=None) -> None:
               f"{picked}", flush=True)
         plans = [picked] + [p for p in _plans(args.direction, B, H,
                                               args.bf16) if p != picked]
+        ok = []
         for plan in plans:
             try:
                 got = run(plan)
@@ -126,11 +131,19 @@ def main(argv=None) -> None:
                 print(f"  {plan.route} {plan.n_cta} x {plan.hb} ks "
                       f"{plan.ks}: refused ({e})", flush=True)
                 continue
-            ms = _ms(lambda: run(plan))
+            ok.append((plan, err))
+        # the card's clocks up first, then every plan timed twice, in order
+        # and in reverse order, so that no plan gains from its place
+        _ms(lambda: run(picked), reps=200)
+        ms = {}
+        for plan, _ in ok + ok[::-1]:
+            ms.setdefault(plan, []).append(_ms(lambda: run(plan)))
+        for plan, err in ok:
+            t = min(ms[plan])
             print(f"  {plan.route} {plan.n_cta} CTAs x {plan.hb} units, ks "
-                  f"{plan.ks}: {ms:.4f} ms, {ms * 1e3 / T:.2f} us/step, "
+                  f"{plan.ks}: {t:.4f} ms, {t * 1e3 / T:.2f} us/step (the "
+                  f"less of {ms[plan][0]:.4f} and {ms[plan][1]:.4f}), "
                   f"max_abs_err {err:.1e}", flush=True)
-
 
 if __name__ == "__main__":
     main()

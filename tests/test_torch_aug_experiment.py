@@ -12,6 +12,7 @@ absolute: f32 through the whole model, as test_torch_featurizer.py holds
 import importlib.util
 import json
 import os
+import shutil
 from pathlib import Path
 
 import jax
@@ -113,7 +114,8 @@ def tiny_run(tmp_path_factory):
                      "--outdir", str(work / "out"), "--n-train", "8",
                      "--n-val", "2", "--device", "cpu", "--tiny",
                      "--trainer.megastep_k=2"])
-    return meta, work
+    yield meta, work
+    shutil.rmtree(work, ignore_errors=True)    # two runs and their corpus
 
 
 def _schema(meta: dict) -> dict:

@@ -30,6 +30,7 @@ from radmmm_torch.utils.checkpoint import (CheckpointManager, freeze_wrap,
 from tests.test_torch_convert import perturb
 from tests.test_torch_training import _no_dropout_config
 from tests.test_tts_model import tiny_batch
+from tests.test_torch_threads import drop_tmp_path  # noqa: F401
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 LR = 0.1

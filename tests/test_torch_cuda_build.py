@@ -3,9 +3,21 @@ its source or any header under csrc/ is newer than it."""
 import os
 
 import pytest
+import torch
 
 from radmmm_torch.utils import cuda_build
-from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch thread for the module's tests, as in every port test
+    file (tests/test_torch_threads.py says why). Defined here, not
+    imported from ``tests``: where the card's tests run, an installed
+    package of that name may shadow the repository's tests directory."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -245,3 +245,53 @@ def test_text_only_items_match_jax(path, tmp_path):
     assert len(port) == len(ref) == len(prompts)
     for i in range(len(ref)):
         _same(port[i], ref[i], f"prompt {i}")
+
+
+def test_a_stopped_consumer_waits_no_longer_than_its_limit(monkeypatch):
+    """A consumer that stops early waits at most JOIN_TIMEOUT_S for the
+    producer to end, then raises with the producer's stack; no wait of the
+    loader is without end."""
+    import threading
+    import time
+
+    from radmmm_torch.data import loader as loader_mod
+    monkeypatch.setattr(loader_mod, "JOIN_TIMEOUT_S", 0.5)
+    release = threading.Event()
+
+    def stuck_producer(put):
+        put(1)
+        release.wait(60)      # ignores the consumer's stop
+
+    gen = loader_mod._threaded(stuck_producer, 1)
+    assert next(gen) == 1
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="did not end") as err:
+        gen.close()
+    assert time.monotonic() - t0 < 10
+    assert "stuck_producer" in str(err.value)
+    release.set()
+
+
+def test_a_generator_closed_on_its_producer_thread_does_not_wait():
+    """The garbage collector may finalise an abandoned loader generator on
+    any thread, its own producer's among them: closing it there neither
+    waits for nor joins the thread that runs the close."""
+    import threading
+
+    from radmmm_torch.data import loader as loader_mod
+    taken, done, errors = threading.Event(), threading.Event(), []
+    box = {}
+
+    def producer(put):
+        put(1)
+        taken.wait(10)
+        try:
+            box["gen"].close()          # on this, the producer's thread
+        except BaseException as e:      # noqa: BLE001 (reported below)
+            errors.append(e)
+        done.set()
+
+    box["gen"] = loader_mod._threaded(producer, 1)
+    assert next(box["gen"]) == 1
+    taken.set()
+    assert done.wait(10) and not errors

@@ -27,6 +27,7 @@ tests/test_torch_training.py; Griffin-Lim with a fed initial phase within
 import dataclasses
 import functools
 import json
+import shutil
 import os
 import time
 
@@ -45,6 +46,7 @@ from radmmm_torch.convert import load_jax_train_state
 from radmmm_torch.training import cli as torch_cli
 from radmmm_torch.utils.config import load_configs
 from tests.test_torch_parallel import ROOT, _free_port, run_ranks
+from tests.test_torch_threads import drop_tmp_path  # noqa: F401
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = ATOL = 1e-4
@@ -178,7 +180,8 @@ def cfg_files(tmp_path_factory):
          "language": "es_ES"},
         {"script": "good morning", "spk_id": "spk_b", "emotion": "neutral",
          "language": "en_US"}]))
-    return str(path), str(prompts), out
+    yield str(path), str(prompts), out
+    shutil.rmtree(out, ignore_errors=True)     # runs and checkpoints
 
 
 def _no_encoder_dropout(cfg):

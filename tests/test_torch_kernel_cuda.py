@@ -29,9 +29,20 @@ from radmmm_torch.ops.lstm_kernel import (_backward_kernel,
                                           lstm_recurrence_reference)
 from radmmm_torch.utils import cuda_build
 from radmmm_torch.utils.launches import launch_counts
-from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch thread for the module's tests, as in every port test
+    file (tests/test_torch_threads.py says why). Defined here, not
+    imported from ``tests``: where this file runs, an installed package
+    of that name may shadow the repository's tests directory."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 LSTM_KERNELS = ("lstm_recurrence", "lstm_recurrence_bwd",
                 "lstm_recurrence_bf16", "lstm_recurrence_bwd_bf16")
@@ -183,29 +194,61 @@ def test_function_returns_gradients_on_the_card(cuda):
 BF16_ATOL = 1e-3
 
 
-def _cluster_plan(smem_fn, B, H, ks):
-    """One 16-CTA cluster a lane with the bf16 Wh slices: at H = 528 a
-    route the plans do not take (they keep the f32 plans' grid)."""
-    hb = -(-H // 16)
-    return lstm_kernel.Plan("cluster", 16, hb, ks, smem_fn(
-        B, H, hb, ks, 16, True, bf16=True))
+def _bf16_plan(direction, L, B, H, route):
+    """The bf16 kernel's plan on this card's limits, on ``route`` alone
+    (None: the route the plan picks)."""
+    library, name = lstm_kernel._kernel(direction, True)
+    plan_fn = {"fwd": lstm_kernel.forward_plan,
+               "bwd": lstm_kernel.backward_plan}[direction]
+    return plan_fn(L, B, H, lstm_kernel.card_limits(library, name),
+                   bf16=True, route=route)
 
 
-@pytest.mark.parametrize("L,H,T,B,save,route", [
-    (2, 260, 96, 1, False, None), (2, 128, 96, 1, False, None),
-    (6, 128, 800, 1, False, None),
-    (2, 528, 400, 1, False, None),   # the serving shapes
-    (2, 528, 400, 1, False, "cluster"),  # its slices fit one cluster
-    (2, 260, 96, 8, True, None), (2, 128, 96, 8, True, None),
-    (6, 128, 512, 8, True, None),
-    (2, 528, 256, 8, True, None)])   # the training step's four
-def test_bf16_kernel_matches_twin(cuda, L, H, T, B, save, route):
-    """The forward kernel's bf16 variant against the bf16 twin, by its
-    plan (the f32 plan's route) or, at H = 528 and B = 1, on the 16-CTA
-    cluster its bf16 slices fit; only the bf16 counter moves."""
-    xp, mask, wh, rev = _lstm_inputs(cuda, L, H, T, B, non_prefix=True)
-    plan = (_cluster_plan(lstm_kernel._fwd_smem, B, H, 3) if route
-            else None)
+def _bf16_case(dev, L, H, T, B, dead_lane):
+    """Inputs with a mask that is not a prefix and, for B > 1, one item
+    with every frame masked; with ``dead_lane`` a mask a lane, lane 0's
+    all zero."""
+    xp, mask, wh, rev = _lstm_inputs(dev, L, H, T, B, non_prefix=True)
+    if B > 1:
+        mask[:, -1] = 0.0
+    if dead_lane:
+        mask = mask.expand(L, T, B).clone()
+        mask[0] = 0.0
+    return xp, mask, wh, rev
+
+
+# (L, H, T, B, route, dead lane): the serving and training shapes by their
+# plans and the flow context's lane on both routes, batches that pad the
+# product's N tile of 8 (1, 3, 5) or take two (11), H that is no multiple
+# of 16 (260, 100, 20), one step, a lane whose every frame is masked, and
+# an H past the model's
+BF16_CASES = [
+    (2, 260, 96, 1, None, False), (2, 128, 96, 1, None, False),
+    (6, 128, 800, 1, None, False), (2, 528, 400, 1, None, False),
+    (2, 528, 400, 1, "cluster", False), (2, 528, 400, 1, "grid", False),
+    (2, 260, 96, 8, None, False), (2, 128, 96, 8, None, False),
+    (6, 128, 512, 8, None, False), (2, 528, 256, 8, None, False),
+    (2, 528, 256, 8, "cluster", False), (2, 528, 256, 8, "grid", False),
+    (2, 260, 40, 3, None, False), (1, 100, 33, 5, None, False),
+    (2, 20, 17, 5, "grid", False), (2, 260, 30, 3, "grid", False),
+    (1, 528, 33, 3, None, False),
+    (2, 260, 1, 8, None, False), (2, 528, 1, 1, None, False),
+    (2, 128, 50, 11, None, False), (2, 528, 30, 11, None, False),
+    (3, 260, 48, 8, None, True),
+    (1, 600, 20, 3, None, False)]   # the backward's warps: two passes of
+                                    # their M tiles (38 over 12 warps)
+
+
+@pytest.mark.parametrize("L,H,T,B,route,dead_lane", BF16_CASES)
+def test_bf16_kernel_matches_twin(cuda, L, H, T, B, route, dead_lane):
+    """The forward kernel's bf16 variant against the bf16 twin, serving
+    (no saved states) at B = 1 and training (gates, c and h saved)
+    otherwise, by its plan (a cluster a lane at B <= 8; at H 528 and B 11
+    the slices take the grid) or on the route given; only the bf16 counter
+    moves."""
+    xp, mask, wh, rev = _bf16_case(cuda, L, H, T, B, dead_lane)
+    save = B > 1
+    plan = _bf16_plan("fwd", L, B, H, route) if route else None
     before = _counts("lstm_recurrence", "lstm_recurrence_bf16")
     if save or plan:
         got = _forward_kernel(xp, mask, wh, rev, save=save, plan=plan,
@@ -215,41 +258,44 @@ def test_bf16_kernel_matches_twin(cuda, L, H, T, B, save, route):
         got = (lstm_recurrence(xp, mask, wh, rev, bf16=True),)
     assert _counts("lstm_recurrence", "lstm_recurrence_bf16") == (
         before[0], before[1] + 1)
-    assert lstm_kernel.card_forward_plan(L, B, H, bf16=True).route == (
-        "grid" if H > 260 else "cluster")
+    if B <= 8 and H <= 528:     # the model's shapes: a cluster a lane
+        assert lstm_kernel.card_forward_plan(L, B, H, bf16=True).route == \
+            "cluster"
     want = lstm_recurrence_reference(xp, mask, wh, rev, save=save,
                                      bf16=True)
     for g, w in zip(got, want if save else (want,)):
         torch.testing.assert_close(g, w, atol=BF16_ATOL, rtol=0)
-    w0 = want[0] if save else want
-    f32 = lstm_recurrence_reference(xp, mask, wh, rev)
-    assert (f32 - got[0]).abs().max() > (w0 - got[0]).abs().max()
+    if dead_lane:       # out, and the carried c and h, stay zero
+        assert not any(g[0].any() for g in (got[:1] + got[2:]))
+    if T > 1:   # from the second step on, bf16 products are not f32's
+        w0 = want[0] if save else want
+        f32 = lstm_recurrence_reference(xp, mask, wh, rev)
+        assert (f32 - got[0]).abs().max() > (w0 - got[0]).abs().max()
 
 
-@pytest.mark.parametrize("L,H,T,B,route", [
-    (2, 260, 96, 8, None), (2, 128, 96, 8, None), (6, 128, 512, 8, None),
-    (2, 528, 256, 8, None), (2, 528, 256, 8, "cluster"),
-    (1, 528, 33, 3, "cluster")])
-def test_bf16_backward_kernel_matches_twin(cuda, L, H, T, B, route):
+@pytest.mark.parametrize("L,H,T,B,route,dead_lane", BF16_CASES)
+def test_bf16_backward_kernel_matches_twin(cuda, L, H, T, B, route,
+                                           dead_lane):
     """The backward kernel's bf16 variant against the bf16 BPTT twin on
-    the same saved states, by its plan or, at H = 528, on the 16-CTA
-    cluster its bf16 slices fit."""
-    xp, mask, wh, rev = _lstm_inputs(cuda, L, H, T, B, non_prefix=True)
+    the same saved states, by its plan or on the route given."""
+    xp, mask, wh, rev = _bf16_case(cuda, L, H, T, B, dead_lane)
     out, act, cs, _ = lstm_recurrence_reference(xp, mask, wh, rev,
                                                 save=True, bf16=True)
     dout = torch.randn_like(out)
-    plan = (_cluster_plan(lstm_kernel._bwd_smem, B, H,
-                          lstm_kernel._CLUSTER_CHUNKS) if route else None)
+    plan = _bf16_plan("bwd", L, B, H, route) if route else None
     before = _counts("lstm_recurrence_bwd", "lstm_recurrence_bwd_bf16")
     got = _backward_kernel(dout, act, cs, mask, wh, rev, plan=plan,
                            bf16=True)
     assert _counts("lstm_recurrence_bwd", "lstm_recurrence_bwd_bf16") == (
         before[0], before[1] + 1)
-    assert lstm_kernel.card_backward_plan(L, B, H, bf16=True).route == (
-        "grid" if H > 260 else "cluster")
+    if B <= 8 and H <= 528:
+        assert lstm_kernel.card_backward_plan(L, B, H, bf16=True).route == \
+            "cluster"
     want = lstm_recurrence_backward_reference(dout, act, cs, mask, wh, rev,
                                               bf16=True)
     torch.testing.assert_close(got, want, atol=BF16_ATOL, rtol=BF16_ATOL)
+    if dead_lane:
+        assert not got[0].any()
 
 
 def test_bf16_mode_trains_through_the_bf16_kernels(cuda):

@@ -361,41 +361,78 @@ def test_bf16_recurrence_matches_jax_at_a_measured_tolerance(rng, bf16):
 
 # --- the bf16 plans --------------------------------------------------------
 
-@pytest.mark.parametrize("L,B,H,direction,route,n_cta,hb,ks", [
-    (2, 8, 260, "fwd", "cluster", 16, 17, 7),    # text encoder
-    (6, 8, 128, "fwd", "cluster", 16, 8, 8),     # frame DAPs, ganged
-    (2, 1, 528, "fwd", "grid", 66, 8, 8),        # flow context, serving
-    (2, 8, 528, "fwd", "grid", 66, 8, 8),        # ... and training
-    (2, 8, 260, "bwd", "cluster", 16, 17, 2),
-    (6, 8, 128, "bwd", "cluster", 16, 8, 2),
-    (2, 8, 528, "bwd", "grid", 66, 8, 1)])
-def test_bf16_plans_at_the_model_shapes(L, B, H, direction, route, n_cta, hb,
-                                        ks):
-    """The bf16 variants take the f32 plans' routes and sizes with their
-    own shared memory: the Wh slice at 2 bytes an element, the rest as in
-    f32 (make_layout's bf16 arm). At H = 528 that halving would let a lane
-    fit one 16-CTA cluster of 33 units a CTA (the f32 slice does not fit
-    one), but the plan keeps the grid, which the card timed faster (the
-    cluster route is held against the twin on the card by
-    tests/test_torch_kernel_cuda.py)."""
-    plan_fn, smem_fn, threads = {
-        "fwd": (lk.forward_plan, lk._fwd_smem, lk._FWD_THREADS),
-        "bwd": (lk.backward_plan, lk._bwd_smem, lk._BWD_THREADS)}[direction]
-    plan = plan_fn(L, B, H, H100, bf16=True)
-    assert (plan.route, plan.n_cta, plan.hb, plan.ks) == (route, n_cta, hb,
-                                                          ks)
+# (L, B, H, direction): the bf16 plan's (route, n_cta, hb, ks), its shared
+# memory in bytes, its tiling (mma a warp issues a step for an N tile of 8
+# rows, M tiles a warp takes at once, A fragments a warp keeps in shared
+# memory: those past its registers' two), and the f32 plan's (route,
+# n_cta, hb, ks), unchanged
+BF16_PLANS = [
+    # text encoder: 5 x 17 tiles over 3 x 4 warps
+    ((2, 8, 260, "fwd"), ("cluster", 16, 17, 4), 68608, (10, 2, 8),
+     ("cluster", 16, 17, 7)),
+    ((2, 1, 260, "fwd"), ("cluster", 16, 17, 4), 68608, (10, 2, 8),
+     ("cluster", 16, 17, 7)),
+    # the duration DAP and the ganged frame DAPs: 2 x 8 tiles over 3 x 4
+    # warps, both fragments of a warp in its registers
+    ((2, 8, 128, "fwd"), ("cluster", 16, 8, 4), 8704, (2, 1, 0),
+     ("cluster", 16, 8, 8)),
+    ((6, 8, 128, "fwd"), ("cluster", 16, 8, 4), 8704, (2, 1, 0),
+     ("cluster", 16, 8, 8)),
+    ((6, 1, 128, "fwd"), ("cluster", 16, 8, 4), 8704, (2, 1, 0),
+     ("cluster", 16, 8, 8)),
+    # the flow context: 9 x 33 tiles over 3 x 4 warps, all 27 fragments of
+    # a warp in shared memory (3 M tiles a warp leave no register for them)
+    ((2, 1, 528, "fwd"), ("cluster", 16, 33, 4), 201728, (27, 3, 27),
+     ("grid", 66, 8, 8)),
+    ((2, 8, 528, "fwd"), ("cluster", 16, 33, 4), 201728, (27, 3, 27),
+     ("grid", 66, 8, 8)),
+    # backward: H / 16 M tiles over 12 warps, the CTA's 4 hb columns deep
+    ((2, 8, 260, "bwd"), ("cluster", 16, 17, 1), 67840, (10, 2, 8),
+     ("cluster", 16, 17, 2)),
+    ((2, 8, 128, "bwd"), ("cluster", 16, 8, 1), 8704, (2, 1, 0),
+     ("cluster", 16, 8, 2)),
+    ((6, 8, 128, "bwd"), ("cluster", 16, 8, 1), 8704, (2, 1, 0),
+     ("cluster", 16, 8, 2)),
+    ((2, 8, 528, "bwd"), ("cluster", 16, 33, 1), 201984, (27, 3, 27),
+     ("grid", 66, 8, 1)),
+    # past the model's batches, two N tiles: the slices no longer fit a
+    # cluster's shared memory at H 528
+    ((2, 11, 528, "fwd"), ("grid", 66, 8, 4), 69120, (9, 1, 7),
+     ("grid", 66, 8, 8)),
+    ((2, 11, 528, "bwd"), ("grid", 66, 8, 1), 39424, (6, 3, 6),
+     ("grid", 66, 8, 1))]
+
+
+@pytest.mark.parametrize("shape,plan,smem,tiling,f32_plan", BF16_PLANS)
+def test_bf16_plans_at_the_model_shapes(shape, plan, smem, tiling, f32_plan):
+    """The bf16 kernels' plans (lstm_recurrence_bf16.cu) on an H100's
+    limits: a cluster a lane at every model shape, the flow context's H 528
+    too, whose Wh slices are A fragments read from shared memory a warp at
+    a time (the f32 plan keeps its 66-CTA grid); the forward's warps split
+    the H reduction 4 ways; the shared memory of fwd_layout and bwd_layout;
+    the warps' tiling of the product and the A fragments past each thread's
+    two registers of fragments. The f32 plans stay as they were."""
+    L, B, H, direction = shape
+    plan_fn, smem_fn = {
+        "fwd": (lk.forward_plan, lk._fwd_smem_bf16),
+        "bwd": (lk.backward_plan, lk._bwd_smem_bf16)}[direction]
+    got = plan_fn(L, B, H, H100, bf16=True)
+    assert (got.route, got.n_cta, got.hb, got.ks) == plan
+    assert got.smem == smem == smem_fn(B, H, got.hb, got.ks, got.n_cta,
+                                       got.route == "cluster")
+    assert got.smem <= H100.smem_per_block
+    assert B * got.hb <= lk._BF16_THREADS
+    M, K = -(-4 * got.hb // 16), -(-H // 16)
+    if direction == "bwd":
+        M, K = K, M
+    assert lk._bf16_tiling(M, K, got.ks) == tiling
     f32 = plan_fn(L, B, H, H100)
-    assert (f32.route, f32.n_cta, f32.hb, f32.ks) == (route, n_cta, hb, ks)
-    cluster = route == "cluster"
-    w = (-(-H // ks) * ks * 4 * hb if direction == "fwd"
-         else -(-4 * hb // ks) * ks * H)
-    assert plan.smem == smem_fn(B, H, hb, ks, n_cta, cluster, bf16=True)
-    assert f32.smem - plan.smem in range(2 * w - 16, 2 * w + 17)
-    if H == 528:
-        ks16 = {"fwd": lk._fwd_chunks(33), "bwd": lk._CLUSTER_CHUNKS}[
-            direction]
-        assert smem_fn(B, H, 33, ks16, 16, True, bf16=True) <= \
-            H100.smem_per_block < smem_fn(B, H, 33, ks16, 16, True)
+    assert (f32.route, f32.n_cta, f32.hb, f32.ks) == f32_plan
+    # the other route, which the card's tests and chip_smoke.py time
+    other = "grid" if got.route == "cluster" else None
+    if other:
+        grid = plan_fn(L, B, H, H100, bf16=True, route=other)
+        assert grid.route == "grid" and grid.n_cta * grid.hb >= H
 
 
 # --- one training step, the port against JAX ------------------------------

@@ -47,6 +47,7 @@ from radmmm_torch.vocoder.hifigan import HiFiGANConfig
 from radmmm_torch.vocoder.utils import get_vocoder
 from tests.test_torch_convert import perturb
 from tests.test_torch_fit import write_corpus
+from tests.test_torch_threads import drop_tmp_path  # noqa: F401
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-4
