@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases build,kernels,serve,parity,train,
                            train_parity,wn,featurize,vocoder,fit,
                            radtts_fit,m12,ddp,caches,bf16,graphs]
-                          [--seed 0]
+                          [--seed 0] [--graph-parts a,b,c,e,f,g]
 
 Phases (all by default):
 
@@ -173,7 +173,8 @@ Phases (all by default):
             of the fit phase's two filelists: fit to 3 steps (validation
             at 3), then a resume to 5: one checkpoint after the fit, one
             writer of metrics.jsonl, each step logged once and finite,
-            the launches of each training step, the ranks' parameters
+            the launches of each training step (graphed over NCCL, eager
+            over gloo, which cannot be captured), the ranks' parameters
             alike bit for bit after each run. (d) the E2E-GAN decoder's
             STFT loss (RADTTSE2EGANLoss, five resolutions) on two data
             ranks of 2 items of up to 2 s of audio, the longest on rank 1
@@ -216,33 +217,54 @@ Phases (all by default):
             through the CLI with model.conv_precision bf16; the serve
             phase's four HTTP requests in bf16, with its TF32 settings;
 16. graphs  the JAX package's compiled programs as CUDA graphs
-            (radmmm_torch/utils/graphs.py), TF32 off: (a) in f32 and in
-            bf16, the flagship featurize + step from int16 audio (the
-            featurize phase's eight utterances, each step's audio rolled,
-            mel noise 0.01; B 8, T_text 96, T_mel 512; binarize and KL on)
-            through training/step.make_train_megastep, 2 x 8 steps graphed
-            against 2 x 8 eager featurize_raw + make_train_step steps
-            from the same weights, batches and dropout generator, twice,
-            under cuDNN's deterministic algorithms: every metric, every
-            parameter and the generator bit for bit, two captures (RAdam's
-            two branches) whose shared pool is at most 64 MiB larger than
-            the larger graph (the rectified branch) captured alone into a
-            pool of its own, the launch ledger's counts (K4 4 + 4, K1 1,
-            K2 1, K3 1 a step); then at cuDNN's defaults, a new capture and
-            ms a step graphed against eager over 8 steps each, one step of
-            each profiled (busy, kernels, the host's launch calls),
-            capture seconds, the pool's bytes, peak memory; (b) a serving
-            artifact at the (1, 96) and (4, 96) buckets and the four frame
-            buckets loaded with serving.load_tts (every bucket captured at
-            load: seconds and bytes of each), 20 requests a bucket graphed
-            against the eager request path in turns with the same seeds,
-            int16 PCM equal, p50 and p99 each way, K4 4 launches a
-            graphed request; in bf16 one request a bucket; (e) the recipe's
-            fit through the CLI for 24 steps on a corpus of one line a
-            source copied 64 times, megastep_k 4 (whole groups replay the
-            graphed step) against megastep_k 1, each step's launches,
-            captures and replays, ms a step over two whole groups; (c) the
-            port's aug_disentangle_experiment script at 16 steps a fit.
+            (radmmm_torch/utils/graphs.py: a signature's first call warms
+            up eagerly, its second captures and replays), TF32 off: (a) in
+            f32 and in bf16, the flagship featurize + step from int16
+            audio (the featurize phase's eight utterances, each step's
+            audio rolled, mel noise 0.01; B 8, T_text 96, T_mel 512;
+            binarize and KL on) through training/step.make_train_megastep,
+            2 x 8 steps graphed against 2 x 8 eager featurize_raw +
+            make_train_step steps from the same weights, batches and
+            dropout generator, twice, under cuDNN's deterministic
+            algorithms: every metric, every parameter and the generator
+            bit for bit, two warm-ups and two captures (RAdam's two
+            branches) and 14 replays, their shared pool at most 64 MiB
+            larger than the larger graph (the rectified branch) captured
+            alone into a pool of its own, the launch ledger's counts (K4
+            4 + 4, K1 1, K2 1, K3 1 a step); then at cuDNN's defaults, a
+            new capture and ms a step graphed against eager over 8 steps
+            each, one step of each profiled (busy, kernels, the host's
+            launch calls), capture seconds, the pool's bytes, peak memory;
+            (b) a serving artifact at the (1, 96) and (4, 96) buckets and
+            the four frame buckets loaded with serving.load_tts (every
+            bucket warmed up and captured at load: seconds and bytes of
+            each), 20 requests a bucket graphed against the eager request
+            path in turns with the same seeds, int16 PCM equal, p50 and
+            p99 each way, K4 4 launches a graphed request; in bf16 one
+            request a bucket; (e) the recipe's fit through the CLI for 24
+            steps on a corpus of one line a source copied 64 times,
+            megastep_k 4 (whole groups), graphed against the trainer's
+            eager steps (a Trainer whose step factory takes no graph
+            pool): each step's launches, warm-ups, captures and replays,
+            the logged losses, ms a step over two whole groups; (f) the
+            recipe's fit for 24 steps, megastep_k 4, on the fit phase's
+            corpus at 32 lines a source (six batch shapes, most groups
+            partial, the binarization and KL switches inside groups),
+            validation every 8 steps (the losses), one loader thread,
+            graphed against eager under cuDNN's deterministic algorithms:
+            the logged losses and validations bit for bit, each step's and
+            each validation's launches alike, the steps that replay
+            exactly those whose (shape, phase, RAdam branch) was seen
+            before, ms a step over them and validation seconds each way;
+            (g) with two cards or more, fit --distributed over NCCL
+            (n_data 2, torchrun, the ddp phase's corpus) for 12 steps in
+            groups of 4 with validation every 6, graphed against eager:
+            rank 0's loss terms within the ddp phase's bounds, its
+            collectives and launches alike, ms a step and a traced step's
+            wall, busy time and host launch calls each way; with one card
+            a line says (g) did not run; (c) the port's
+            aug_disentangle_experiment script at 16 steps a fit.
+            --graph-parts picks the parts (a,b,c,e,f,g by default).
 
 Any failure exits non-zero. The line before the last is a JSON object
 with the kernels' numbers; the last line is
@@ -251,6 +273,7 @@ with the kernels' numbers; the last line is
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -1673,14 +1696,18 @@ def _run_cli(argv, tag: str, phase: str = "fit"):
 
 
 @contextlib.contextmanager
-def _counted(target, name, tally: list):
+def _counted(target, name, tally: list, seconds: list = None):
     """Record the kernels' launches of every call of ``target.name`` (a
-    method) into ``tally``, one dict per call."""
+    method) into ``tally``, one dict per call, and, given ``seconds``,
+    each call's seconds, the card synchronised at its end."""
     orig = getattr(target, name)
 
     def wrapper(*a, **kw):
-        before = _counters()
+        before, t0 = _counters(), time.perf_counter()
         out = orig(*a, **kw)
+        if seconds is not None:
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
         after = _counters()
         tally.append({k: after[k] - before[k] for k in after})
         return out
@@ -2528,9 +2555,9 @@ def phase_caches(seed: int) -> dict:
             steps, fed = [], []
             featurize_raw = Featurizer.featurize_raw
 
-            def recording(self, raw, noise_key):
+            def recording(self, raw, noise_key, noise=None):
                 fed.append("cached_f0" in raw)
-                return featurize_raw(self, raw, noise_key)
+                return featurize_raw(self, raw, noise_key, noise=noise)
 
             Featurizer.featurize_raw = recording
             try:
@@ -2540,9 +2567,11 @@ def phase_caches(seed: int) -> dict:
                         f"{tag} the caches", "caches")
             finally:
                 Featurizer.featurize_raw = featurize_raw
-            # every batch featurized (the first batch's and the steps')
-            # carried its tracks with the caches, none without
-            if len(fed) < CACHE_STEPS or set(fed) != {tag == "with"}:
+            # every batch featurized (the first batch's, and each step's
+            # signature's warm-up and capture: a replay featurizes the raw
+            # batch of the keys it was captured with) carried its tracks
+            # with the caches, none without
+            if not fed or set(fed) != {tag == "with"}:
                 fail(f"fit {tag} the caches: the featurized batches "
                      f"carried F0 tracks {fed}")
             if (tag == "with") != (dm.trainset.f0_cache is not None
@@ -3541,9 +3570,49 @@ def _nccl_one_rank(fn):
         log(f"[ddp] NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}: "
             "a one-rank group on card 0 built, its all-gather, "
             "reduce-scatter and all-reduce returned their input")
+        _nccl_graph_probe(g, x)
         return fn()
     finally:
         dist.destroy_process_group()
+
+
+def _nccl_graph_probe(g, x) -> None:
+    """The one-rank NCCL group's all-gather, reduce-scatter and all-reduce
+    inside a CUDA graph (``utils/graphs.Graphed``, as the trainer's steps
+    hold them over NCCL), called three times: a warm-up, a capture and a
+    replay, then a replay; each result equal to the eager call's, and the
+    collectives' tally three calls' worth (the ledger takes the capture's
+    counts back and adds them at each replay)."""
+    import torch.distributed as dist
+    from radmmm_torch.parallel import collectives as C
+    from radmmm_torch.utils.graphs import Graphed, GraphPool
+
+    def fn(inputs):
+        stack = C._gather_stack(inputs["x"] * 2, g)
+        out = C._reduce_scatter_stack(stack, g)
+        dist.all_reduce(out)
+        return out + 1
+
+    want = fn({"x": x})
+    pool = GraphPool()
+    graphed = Graphed(fn, pool, name="nccl_probe")
+    C.reset_stats()
+    got = [graphed({"x": x}) for _ in range(3)]
+    torch.cuda.synchronize()
+    tally = dict(C.STATS)
+    C.reset_stats()
+    fn({"x": x})
+    once = dict(C.STATS)
+    C.reset_stats()
+    steps = (pool.warmups, len(pool.captures), pool.replays)
+    log(f"[ddp] NCCL's all-gather, reduce-scatter and all-reduce in a CUDA "
+        f"graph on the one-rank group: warm-ups, captures, replays {steps}; "
+        f"equal to eager {[torch.equal(a, want) for a in got]}; collectives "
+        f"counted over the three calls {tally}, one eager call {once}")
+    if steps != (1, 1, 2) or not all(torch.equal(a, want) for a in got) \
+            or tally != {k: 3 * v for k, v in once.items()}:
+        fail("NCCL's collectives in a CUDA graph did not replay as eager, "
+             "or the ledger miscounted them")
 
 
 def _ddp_parts(seed: int, backend: str, work: str, refs: dict) -> dict:
@@ -3684,24 +3753,38 @@ def ddp_corpus(root: str, seed: int, lines: int = DDP_FIT_LINES) -> dict:
     return out
 
 
-def ddp_fit_child(result_dir: str, argv: list) -> int:
-    """One rank of part (c), started by torchrun: the training CLI's
-    ``main(argv)`` with the kernels' counts from zero and each training
-    step's launches recorded, then this rank's parameter checksums
-    (gathered), logger, checkpoints and step walls for the parent."""
+def ddp_fit_child(result_dir: str, argv: list, opts: list) -> int:
+    """One rank of part (c) or of the graphs phase's part (g), started by
+    torchrun: the training CLI's ``main(argv)`` with the kernels' and the
+    collectives' counts from zero and each training step's launches
+    recorded, then this rank's parameter checksums (gathered), logger,
+    checkpoints, step walls (validation and saves out), graphed steps and
+    collectives for the parent. ``opts``: "eager" runs the trainer's
+    eager steps (``_EagerSteps``), "profile:N" traces step N."""
     import os
+    from radmmm_torch.parallel import mesh as M
     from radmmm_torch.training import cli
-    from radmmm_torch.training.loop import Trainer
-    steps = []
+    profiled = next((int(o.split(":")[1]) for o in opts
+                     if o.startswith("profile:")), -1)
+    records = []
     _zero_counters()
-    with _counted(Trainer, "_run_step", steps):
+    M.reset_collective_stats()
+    with _per_step(records, profiled), \
+            _EagerSteps() if "eager" in opts else contextlib.nullcontext():
         _, tr = cli.main(argv)
-    starts = tr.stats["step_starts"]
+    st = tr.stats
     out = dict(rank=int(os.environ["RANK"]), device=str(tr.device),
-               launches=_counters(), steps=steps,
+               launches=_counters(), steps=[r["launches"] for r in records],
+               graphed=[r["graphed"] and not r["captured"]
+                        for r in records],
+               profile=next((r["profile"] for r in records
+                             if "profile" in r), None),
+               collectives=M.collective_stats(),
                logger=tr.logger.enabled, ckpts=tr.ckpt.steps(),
-               n_steps=tr.stats["steps"], mesh=tr.mesh.shape,
-               walls=[(b - a) * 1e3 for a, b in zip(starts, starts[1:])],
+               n_steps=st["steps"], mesh=tr.mesh.shape,
+               walls=_step_walls(st, range(len(st["step_starts"]) - 1)),
+               loader_share=st["loader_wait_s"] / max(st["train_s"], 1e-9),
+               **{k: st[k] for k in ("warmups", "captures", "replays")},
                sums=[int(tr.mesh.gather_param(n, p).detach().view(
                    torch.int32).long().sum())
                    for n, p in tr.model.named_parameters()])
@@ -3748,8 +3831,10 @@ def _ddp_fit(seed: int, backend: str, work: str) -> dict:
         rows_before = len(rows)
         for r in res:
             log(f"[ddp] (c) {tag}: rank {r['rank']} on {r['device']}, mesh "
-                f"{r['mesh']}, {r['n_steps']} steps, ms a step (start to "
-                f"next start) " + ", ".join(f"{w:.1f}" for w in r["walls"])
+                f"{r['mesh']}, {r['n_steps']} steps ({sum(r['graphed'])} "
+                f"replayed a graph captured earlier), ms a step (start to "
+                f"next start, validation and saves out) "
+                + ", ".join(f"{w:.1f}" for w in r["walls"])
                 + f", logger {'on' if r['logger'] else 'off'}, checkpoints "
                 f"{r['ckpts']}, kernel launches {r['launches']}")
         log(f"[ddp] (c) {tag} in {wall:.1f} s: checkpoints on disk {saved}, "
@@ -3958,16 +4043,24 @@ HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
 
 def host_profile(fn) -> dict:
     """torch.profiler over one call of ``fn`` (after one untraced call):
-    the wall ms, the card's busy ms, its kernels and the host's launch
-    calls (kernels, graphs, copies and fills queued)."""
+    see ``traced``."""
+    fn()
+    torch.cuda.synchronize()
+    return traced(fn)[1]
+
+
+def traced(fn) -> tuple:
+    """torch.profiler over one call of ``fn``, the card synchronised
+    before and after: (its result, {the wall ms, the card's busy ms, its
+    kernels and the host's launch calls (kernels, graphs, copies and fills
+    queued)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
-    fn()
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     ev = prof.key_averages()
@@ -3975,10 +4068,10 @@ def host_profile(fn) -> dict:
            and e.device_time_total > 0]
     host = {e.key: e.count for e in ev if e.device_type == DeviceType.CPU
             and e.key.startswith(HOST_LAUNCH_CALLS)}
-    return dict(wall_ms=wall,
-                busy_ms=sum(e.device_time_total for e in dev) / 1e3,
-                kernels=sum(e.count for e in dev),
-                host_launches=sum(host.values()), host_calls=host)
+    return out, dict(wall_ms=wall,
+                     busy_ms=sum(e.device_time_total for e in dev) / 1e3,
+                     kernels=sum(e.count for e in dev),
+                     host_launches=sum(host.values()), host_calls=host)
 
 
 def _graph_raws(seed: int, feat, dev) -> dict:
@@ -4114,6 +4207,9 @@ def _graphs_train(seed: int, tag: str) -> dict:
     if not (g_e[2] and e_e[2] and gen_equal):
         fail(f"({tag}) the graphed steps are not bit-equal to the eager "
              "steps")
+    if pool.warmups != 2 or pool.replays != 2 * GRAPH_K - 2:
+        fail(f"({tag}) expected 2 warm-ups and {2 * GRAPH_K - 2} replays, "
+             f"got {pool.warmups} and {pool.replays}")
     for c in pool.captures:
         log(f"[graphs] ({tag}) deterministic capture of {c.name} (RAdam "
             f"rectified {c.signature[0][0]}): {c.seconds:.3f} s, pool "
@@ -4121,13 +4217,13 @@ def _graphs_train(seed: int, tag: str) -> dict:
             f"{c.launches}")
     # the rectified branch holds one more parameter-sized list at the
     # update, so it is the larger graph: captured alone into a pool of its
-    # own (one more warm-up and capture of states[0]), it bounds what the
-    # shared pool may hold
+    # own (two more steps of states[0], a warm-up and a capture), it
+    # bounds what the shared pool may hold
     solo = GraphPool()
     with cudnn_deterministic():
         make_train_megastep(states[0].model, loss, feat, True, True,
                             pool=solo)(
-            states[0], {k: v[:1] for k, v in stacked.items()}, gens[0])
+            states[0], {k: v[:2] for k, v in stacked.items()}, gens[0])
     (alone,) = solo.captures
     shared = sum(c.pool_bytes for c in pool.captures)
     log(f"[graphs] ({tag}) the shared pool of both captures "
@@ -4175,7 +4271,7 @@ def _graphs_train(seed: int, tag: str) -> dict:
     log(f"[graphs] ({tag}) ms a step (featurize + step, wall, mean of "
         f"{GRAPH_K}): graphed {out['graph_1']:.2f}, eager "
         f"{out['eager_1']:.2f}; the group before, graphed (its first step "
-        f"warms up and captures) {out['graph_0']:.2f}, eager "
+        f"warms up, its second captures) {out['graph_0']:.2f}, eager "
         f"{out['eager_0']:.2f}; capture {c.seconds:.3f} s, pool "
         f"+{c.pool_bytes / 2**30:.2f} GiB; peak memory graphed "
         f"{g_peak / 2**30:.2f} GiB, eager {e_peak / 2**30:.2f} GiB")
@@ -4303,69 +4399,391 @@ def _graphs_serve(seed: int, work: str) -> dict:
 GRAPH_FIT_K = 4
 GRAPH_FIT_STEPS = 24
 GRAPH_FIT_LINES = 64    # copies of each source's line: 8 batches a shape
+# part (f): the fit phase's corpus at 32 lines a source, each of its own
+# length (8 batches an epoch; over 24 steps 6 shapes and groups of 1, 4,
+# 2, 1, 3, 3, 1, 1, 1, 3, 1 and 3, as the loader deals them from its
+# seed), the binarization switch inside the group of steps 1-4 and the KL
+# switch (on from step 13) inside that of steps 11-13; 11 signatures of
+# (shape, phase, RAdam branch), so 13 steps replay; validation every 8
+# steps (one batch: warmed up at 8, captured at 16, replayed at 24)
+GRAPH_MIXED_LINES = 32
+GRAPH_MIXED_BINARIZE, GRAPH_MIXED_KL, GRAPH_MIXED_VAL = 3, 12, 8
+# RAdam's rectified branch from the sixth update (N_sma >= 5 at b2 0.999)
+RADAM_RECTIFIED_FROM = 5
+# part (g): fit --distributed on two cards over NCCL, the ddp phase's
+# corpus (one shape: whole rounds) in groups of 4, validated every 6 steps
+GRAPH_NCCL_STEPS, GRAPH_NCCL_VAL, GRAPH_NCCL_PROFILED = 12, 6, 9
+GRAPH_NCCL_TIMEOUT = 300    # a run's seconds: a rank left alone in a
+                            # capture would wait on its peer for ever
+
+
+class _EagerSteps:
+    """The trainer's eager baseline: inside, ``cli.main`` builds a
+    ``Trainer`` whose step factory hands the training and validation
+    steps no graph pool, so every step runs eagerly (the graphs' own
+    code path otherwise: the same loop, bookkeeping and batches)."""
+
+    def __enter__(self):
+        from radmmm_torch.training import cli
+        from radmmm_torch.training.loop import Trainer
+
+        class EagerTrainer(Trainer):
+            def _step_pool(self):
+                return None
+
+        self.cli, self.orig = cli, cli.Trainer
+        cli.Trainer = EagerTrainer
+        return self
+
+    def __exit__(self, *exc):
+        self.cli.Trainer = self.orig
+
+
+@contextlib.contextmanager
+def _per_step(records: list, profiled: int = -1):
+    """Record every training step of a fit into ``records``: its step,
+    the kernels' launches, whether it replayed a graph and whether it
+    captured one first (its signature's second sighting), its batch's shape
+    (the audio's, the raw batch's where the step featurizes, and the
+    text's) and, for step ``profiled``, ``traced``'s profile of it."""
+    from radmmm_torch.training.loop import Trainer
+    orig = Trainer._run_step
+
+    def run_step(self, state, batch, step, gen, featurizer=None):
+        pool = self._graph_pool
+        before, replays, captures = (_counters(), pool.replays,
+                                     len(pool.captures))
+        audio = batch.get("audio_i16", batch.get("audio"))
+        rec = dict(step=step, shape=(tuple(audio.shape),
+                                     tuple(batch["text"].shape)))
+        if step == profiled:
+            out, rec["profile"] = traced(
+                lambda: orig(self, state, batch, step, gen, featurizer))
+        else:
+            out = orig(self, state, batch, step, gen, featurizer)
+        after = _counters()
+        rec.update(launches={k: after[k] - before[k] for k in after},
+                   graphed=pool.replays > replays,
+                   captured=len(pool.captures) > captures)
+        records.append(rec)
+        return out
+
+    Trainer._run_step = run_step
+    try:
+        yield
+    finally:
+        Trainer._run_step = orig
+
+
+@contextlib.contextmanager
+def _group_sizes(sizes: list):
+    """Record the size of every group of raw batches the trainer takes."""
+    from radmmm_torch.training import loop
+    orig = loop.prefetch_raw_groups
+
+    def groups(*a, **kw):
+        for g in orig(*a, **kw):
+            sizes.append(int(next(iter(g.values())).shape[0]))
+            yield g
+
+    loop.prefetch_raw_groups = groups
+    try:
+        yield
+    finally:
+        loop.prefetch_raw_groups = orig
+
+
+def _step_walls(stats, steps) -> list:
+    """Each of ``steps``' wall ms (0-based, relative to the fit's first
+    step): start to next start, less the validation and checkpoint after
+    it."""
+    starts, pauses = stats["step_starts"], stats["pause_s"]
+    return [1e3 * (starts[i + 1] - starts[i] - pauses.get(i + 1, 0.0))
+            for i in steps]
 
 
 def _graphs_fit(seed: int, work: str) -> dict:
     """Part (e): the recipe at full width through the training CLI for
-    GRAPH_FIT_STEPS steps with megastep_k GRAPH_FIT_K (whole groups in one
-    phase, from step 8, replay the graphed step) and again with megastep_k
-    1 (every step eager), on a corpus of GRAPH_FIT_LINES copies of a line
-    a source, so that groups of one shape form; no validation, one
-    checkpoint at the end. The logged losses of the two runs, each step's
-    launches, the captures and replays, and ms a step over steps 12-19
-    (two whole groups, start to start, their bookkeeping in) each way.
-    Returns the graphed fit's launches."""
+    GRAPH_FIT_STEPS steps with megastep_k GRAPH_FIT_K, graphed and with
+    the trainer's eager steps (``_EagerSteps``), on a corpus of
+    GRAPH_FIT_LINES copies of a line a source, so that groups of one shape
+    form; no validation, one checkpoint at the end. The logged losses of
+    the two runs (whole groups log once, after their last step), each
+    step's launches, the warm-ups, captures and replays, and ms a step
+    over steps 12-19 (two whole groups, start to start, their bookkeeping
+    in) each way. Returns the graphed fit's launches."""
     import os
     overlay = fit_overlay(work, ddp_corpus(work, seed, GRAPH_FIT_LINES))
     base = [a for c in RECIPE + (overlay,) for a in ("-c", c)] + [
         f"--trainer.max_steps={GRAPH_FIT_STEPS}",
+        f"--trainer.megastep_k={GRAPH_FIT_K}",
         "--trainer.val_check_interval=100000",
         "--model.iters_per_checkpoint=100000"]
     runs = {}
-    for k in (GRAPH_FIT_K, 1):
-        run_dir = os.path.join(work, f"run_k{k}")
+    for way in ("graphed", "eager"):
+        run_dir = os.path.join(work, f"run_e_{way}")
         _zero_counters()
-        _, tr, _, fit_s = _run_cli(
-            ["fit"] + base + [f"--trainer.megastep_k={k}",
-                              f"--model.output_directory={run_dir}"],
-            f"fit to {GRAPH_FIT_STEPS} steps, megastep_k {k}", "graphs")
+        with _EagerSteps() if way == "eager" else contextlib.nullcontext():
+            _, tr, _, fit_s = _run_cli(
+                ["fit"] + base + [f"--model.output_directory={run_dir}"],
+                f"fit to {GRAPH_FIT_STEPS} steps, megastep_k {GRAPH_FIT_K}, "
+                f"{way}", "graphs")
         # ms a step over the whole groups of steps 12-19, start to start
         # (the host queues a group's replays, then waits at its end)
-        starts, pauses = tr.stats["step_starts"], tr.stats["pause_s"]
         lo, hi = 12, 12 + 2 * GRAPH_FIT_K
-        wall = 1e3 * (starts[hi] - starts[lo] - sum(
-            pauses.get(i, 0.0) for i in range(lo + 1, hi + 1))) / (hi - lo)
-        pool = tr._graph_pool
-        runs[k] = dict(launches=_counters(), rows=[
+        wall = float(np.mean(_step_walls(tr.stats, range(lo, hi))))
+        st = tr.stats
+        runs[way] = dict(launches=_counters(), rows=[
             r for r in _metrics_rows(run_dir) if "train/loss" in r],
-            wall=wall, fit_s=fit_s,
-            captures=len(pool.captures) if pool else 0,
-            replays=pool.replays if pool else 0)
-        log(f"[graphs] fit megastep_k {k}: {fit_s:.2f} s, ms a step over "
-            f"steps {lo}-{hi - 1}: {wall:.2f}; captures "
-            f"{runs[k]['captures']}, replays {runs[k]['replays']}; launches "
-            f"{runs[k]['launches']}")
-    g, e = runs[GRAPH_FIT_K], runs[1]
+            wall=wall, fit_s=fit_s, **{k: st[k] for k in (
+                "warmups", "captures", "replays", "graphed_steps",
+                "megastep_steps")})
+        log(f"[graphs] (e) fit {way}: {fit_s:.2f} s, ms a step over steps "
+            f"{lo}-{hi - 1}: {wall:.2f}; {st['graphed_steps']} of "
+            f"{st['steps']} steps replayed a graph, {st['megastep_steps']} "
+            f"in whole groups; warm-ups {st['warmups']}, captures "
+            f"{st['captures']}, replays {st['replays']}; launches "
+            f"{runs[way]['launches']}")
+    g, e = runs["graphed"], runs["eager"]
     want = {name: n * GRAPH_FIT_STEPS for name, n in PER_STEP.items()}
     want["mas_width1"] = GRAPH_FIT_STEPS - FIT_BINARIZE_FROM
     if g["launches"] != want or e["launches"] != want:
-        fail(f"the fits' launches {g['launches']} (graphed), "
+        fail(f"(e) the fits' launches {g['launches']} (graphed), "
              f"{e['launches']} (eager), expected {want}")
-    if g["captures"] < 1 or g["replays"] < 2 * GRAPH_FIT_K:
-        fail("the graphed fit did not replay its whole groups' steps")
-    # a whole group logs once, after its last step, as in the JAX package;
-    # megastep_k 1 logs every step (its loader orders the batches apart
-    # from the groups', so the two runs see other batches at a step)
-    for k, run in runs.items():
+    # every step but each (phase, RAdam branch)'s first replays: the
+    # phases plain, binarized and binarized with KL, RAdam's plain branch
+    # in the first two, its rectified one from step 6
+    if g["graphed_steps"] != GRAPH_FIT_STEPS - g["warmups"] or \
+            e["graphed_steps"] or e["captures"]:
+        fail(f"(e) graphed steps {g['graphed_steps']} of {GRAPH_FIT_STEPS} "
+             f"with {g['warmups']} warm-ups; eager {e['graphed_steps']}")
+    for way, run in runs.items():
         steps = [r["step"] for r in run["rows"]]
         bad = [r for r in run["rows"] if not math.isfinite(r["train/loss"])]
-        log(f"[graphs] fit megastep_k {k}: logged steps {steps}, train/loss "
-            + ", ".join(f"{r['train/loss']:.4f}" for r in run["rows"]))
+        log(f"[graphs] (e) fit {way}: logged steps {steps}, train/loss "
+            + ", ".join(f"{r['train/loss']:.6f}" for r in run["rows"]))
         if bad or steps[-1] != GRAPH_FIT_STEPS:
-            fail(f"the fit with megastep_k {k} logged {bad or steps}")
-    log(f"[graphs] fit: ms a step {g['wall']:.2f} graphed (megastep_k "
-        f"{GRAPH_FIT_K}), {e['wall']:.2f} eager")
+            fail(f"(e) the {way} fit logged {bad or steps}")
+    log(f"[graphs] (e) fit: ms a step {g['wall']:.2f} graphed, "
+        f"{e['wall']:.2f} eager (megastep_k {GRAPH_FIT_K}, cuDNN's default "
+        f"algorithms; the runs' losses differ, since four loader threads "
+        f"draw the augmentations in their own order: (f) holds them equal)")
     return g["launches"]
+
+
+def _graphs_mixed(seed: int, work: str) -> dict:
+    """Part (f): the recipe at full width through the training CLI for
+    GRAPH_FIT_STEPS steps with megastep_k GRAPH_FIT_K on the fit phase's
+    corpus (lines of their own lengths: most groups partial), the
+    binarization and KL switches inside groups, validation on (the
+    losses; no samples) and one loader thread, graphed and with the
+    trainer's eager steps, both under cuDNN's deterministic algorithms:
+    the logged losses bit for bit, every step's launches and the
+    validations' alike, the groups (whole, partial, straddling), steps,
+    graphed steps, warm-ups, captures and replays, ms a step over the
+    steps that replayed against the same steps eager, and validation
+    seconds each way. Returns the graphed fit's launches."""
+    import os
+    from radmmm_torch.training.loop import Trainer
+    from radmmm_torch.training.step import LossConfig, phase_flags
+    root = os.path.join(work, "mixed")
+    os.makedirs(root)
+    overlay = fit_overlay(root, fit_corpus(root, seed, GRAPH_MIXED_LINES))
+    base = [a for c in RECIPE + (overlay,) for a in ("-c", c)] + [
+        f"--trainer.max_steps={GRAPH_FIT_STEPS}",
+        f"--trainer.megastep_k={GRAPH_FIT_K}",
+        f"--trainer.val_check_interval={GRAPH_MIXED_VAL}",
+        f"--model.binarization_start_iter={GRAPH_MIXED_BINARIZE}",
+        "--model.decoder_loss.init_args.kl_loss_start_iter="
+        f"{GRAPH_MIXED_KL}",
+        "--model.iters_per_checkpoint=100000",
+        "--trainer.log_decoder_samples=False", "--data.num_workers=1"]
+    cfg = LossConfig(binarization_start_iter=GRAPH_MIXED_BINARIZE,
+                     kl_loss_start_iter=GRAPH_MIXED_KL)
+    runs = {}
+    for way in ("graphed", "eager"):
+        run_dir = os.path.join(root, f"run_{way}")
+        steps, vals, val_s, sizes = [], [], [], []
+        _zero_counters()
+        with cudnn_deterministic(), _per_step(steps), _group_sizes(sizes), \
+                _counted(Trainer, "validate", vals, val_s), \
+                _EagerSteps() if way == "eager" else contextlib.nullcontext():
+            _, tr, _, fit_s = _run_cli(
+                ["fit"] + base + [f"--model.output_directory={run_dir}"],
+                f"(f) fit to {GRAPH_FIT_STEPS} steps, {way}", "graphs")
+        st = tr.stats
+        kinds, at = collections.Counter(), 0
+        for n in sizes:
+            kinds["partial" if n < GRAPH_FIT_K else "straddling"
+                  if phase_flags(at, cfg) != phase_flags(at + n - 1, cfg)
+                  else "whole"] += 1
+            at += n
+        runs[way] = dict(
+            steps=steps, vals=vals, val_s=val_s, launches=_counters(),
+            stats=st,
+            kinds=kinds, sizes=sizes,
+            rows=[r for r in _metrics_rows(run_dir) if "train/loss" in r],
+            val_rows=[r for r in _metrics_rows(run_dir)
+                      if "val/loss" in r])
+        log(f"[graphs] (f) {way}: {fit_s:.2f} s; groups {sizes} "
+            f"({dict(kinds)}); {st['steps']} steps, {st['graphed_steps']} "
+            f"replayed a graph, {st['megastep_steps']} in whole groups; "
+            f"warm-ups {st['warmups']}, captures {st['captures']}, replays "
+            f"{st['replays']} (steps and validation batches); batch shapes "
+            f"{sorted(collections.Counter(r['shape'] for r in steps).items())}"
+            f"; validation {st['val_s']:.3f} s in {len(vals)}")
+    g, e = runs["graphed"], runs["eager"]
+    if len({r["shape"] for r in g["steps"]}) < 3 or not g["kinds"][
+            "partial"] or not g["kinds"]["straddling"]:
+        fail("(f) expected 3 batch shapes or more and partial and "
+             "straddling groups")
+    if [r["launches"] for r in g["steps"]] != [
+            r["launches"] for r in e["steps"]] or g["vals"] != e["vals"] \
+            or g["launches"] != e["launches"]:
+        fail(f"(f) launches graphed {g['launches']}, eager {e['launches']}")
+    # every step replays but each signature's first sighting: a (shape,
+    # phase, RAdam branch) seen once is only warmed up
+    seen, want = set(), []
+    for r in g["steps"]:
+        sig = (r["shape"], phase_flags(r["step"], cfg),
+               r["step"] >= RADAM_RECTIFIED_FROM)
+        want.append(sig in seen)
+        seen.add(sig)
+    n_val = len(e["val_rows"])
+    log(f"[graphs] (f) {len(seen)} signatures of (shape, phase, RAdam "
+        f"branch) over {GRAPH_FIT_STEPS} steps; graphed by step "
+        + "".join("R" if r["graphed"] else "." for r in g["steps"]))
+    if [r["graphed"] for r in g["steps"]] != want or \
+            e["stats"]["graphed_steps"] or e["stats"]["captures"]:
+        fail(f"(f) the steps that replayed a graph are not those whose "
+             f"signature was seen before ({sum(want)} of "
+             f"{GRAPH_FIT_STEPS}); eager {e['stats']['graphed_steps']}")
+    def losses(rows):
+        return [{k: v for k, v in r.items() if k != "train/steps_per_sec"}
+                for r in rows]
+
+    equal = (losses(g["rows"]) == losses(e["rows"])
+             and g["val_rows"] == e["val_rows"])
+    log(f"[graphs] (f) deterministic cuDNN: {len(g['rows'])} logged steps' "
+        f"loss terms and {n_val} validations' losses, graphed "
+        f"against eager, bit-equal {equal}; train/loss by step, graphed: "
+        + ", ".join(f"{r['step']}: {r['train/loss']!r}" for r in g["rows"]))
+    if not equal:
+        fail("(f) the graphed fit's losses are not the eager fit's")
+    # the steady steps: those that replayed without capturing first
+    steady = [r["step"] for r in g["steps"] if r["graphed"]
+              and not r["captured"] and r["step"] < GRAPH_FIT_STEPS - 1]
+    captured = [r["step"] for r in g["steps"] if r["captured"]]
+    for what, steps in (("replayed a graph captured earlier", steady),
+                        ("captured, then replayed", captured)):
+        gw = _step_walls(g["stats"], steps)
+        ew = _step_walls(e["stats"], steps)
+        log(f"[graphs] (f) ms a step over the {len(steps)} steps that "
+            f"{what} (start to next start, validation out): graphed "
+            f"{np.mean(gw):.2f} (median {np.median(gw):.2f}), the same "
+            f"steps eager {np.mean(ew):.2f} (median {np.median(ew):.2f})")
+    log(f"[graphs] (f) validation seconds, each of {len(g['val_s'])} (the "
+        f"losses of one batch; graphed: a warm-up, a capture and a "
+        f"replay): graphed " + ", ".join(f"{x:.3f}" for x in g["val_s"])
+        + ", eager " + ", ".join(f"{x:.3f}" for x in e["val_s"]))
+    return g["launches"]
+
+
+def _graphs_nccl(seed: int, work: str) -> dict:
+    """Part (g), with two cards or more: ``fit --distributed`` over NCCL
+    with n_data 2 as the ddp phase's part (c) runs it (torchrun, a card a
+    rank, its corpus of whole rounds), GRAPH_NCCL_STEPS steps in groups of
+    GRAPH_FIT_K, validated every GRAPH_NCCL_VAL steps (losses only), once
+    graphed and once with the trainer's eager steps: rank 0's loss terms
+    within the ddp phase's bounds (1e-5 + TRAIN_PARITY_RTOL relative;
+    the wave augmentations off, so both runs load the same batches and the
+    loader's four threads keep ahead of the steps: with them on, one
+    thread, which both runs' draws would need, paced the steps at about
+    2.4 s), its collectives (counts and bytes) and launches alike, ms a step over
+    the steps that replayed each way, and step GRAPH_NCCL_PROFILED
+    profiled (wall, busy, host launch calls) each way. Returns rank 0's
+    graphed launches."""
+    import os
+    root = os.path.join(work, "nccl")
+    os.makedirs(root)
+    overlay = fit_overlay(root, ddp_corpus(root, seed))
+    argv = ["fit"] + [a for c in RECIPE + (overlay,) for a in ("-c", c)] + [
+        "--distributed", f"--trainer.max_steps={GRAPH_NCCL_STEPS}",
+        f"--trainer.megastep_k={GRAPH_FIT_K}",
+        f"--trainer.val_check_interval={GRAPH_NCCL_VAL}",
+        "--model.iters_per_checkpoint=100000",
+        "--trainer.log_decoder_samples=False",
+        "--data.use_wave_augmentations=False"]
+    runs = {}
+    for way in ("graphed", "eager"):
+        res_dir = os.path.join(root, f"ranks_{way}")
+        os.makedirs(res_dir)
+        run = argv + [f"--model.output_directory={root}/run_{way}"]
+        opts = [f"profile:{GRAPH_NCCL_PROFILED}"] + (
+            ["eager"] if way == "eager" else [])
+        t0 = time.perf_counter()
+        _run_children([[
+            sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "2", __file__, "--ddp-fit-child", res_dir,
+            *opts, "--"] + run], GRAPH_NCCL_TIMEOUT, f"graphs (g) {way}")
+        res = [json.load(open(os.path.join(res_dir, f"rank{r}.json")))
+               for r in range(2)]
+        runs[way] = dict(res=res, rows=[
+            r for r in _metrics_rows(f"{root}/run_{way}")
+            if "train/loss" in r])
+        r0 = res[0]
+        # the steps that replayed a graph captured at an earlier step
+        steady = [i for i, g in enumerate(r0["graphed"])
+                  if g and i < len(r0["walls"])]
+        runs[way]["steady"] = steady
+        p = r0["profile"]
+        log(f"[graphs] (g) {way}, 2 ranks over NCCL in "
+            f"{time.perf_counter() - t0:.1f} s: rank 0 {r0['n_steps']} steps"
+            f", {sum(r0['graphed'])} replayed a graph captured earlier "
+            f"(warm-ups "
+            f"{r0['warmups']}, captures {r0['captures']}, replays "
+            f"{r0['replays']}); {100 * r0['loader_share']:.1f}% of the fit "
+            f"waiting on the loader; collectives {r0['collectives']}; "
+            f"launches "
+            f"{r0['launches']}; step {GRAPH_NCCL_PROFILED} traced: wall "
+            f"{p['wall_ms']:.2f} ms, busy {p['busy_ms']:.2f} ms, "
+            f"{p['host_launches']} host launch calls {p['host_calls']}")
+        if res[0]["sums"] != res[1]["sums"]:
+            fail(f"(g) {way}: the ranks' parameters differ")
+    g, e = runs["graphed"], runs["eager"]
+    g0, e0 = g["res"][0], e["res"][0]
+    if g0["collectives"] != e0["collectives"] or \
+            g0["launches"] != e0["launches"]:
+        fail("(g) the graphed fit's collectives or launches are not the "
+             "eager fit's")
+    if not g["steady"] or e0["captures"]:
+        fail("(g) no graphed step replayed, or the eager fit captured")
+    worst = 0.0
+    for a, b in zip(g["rows"], e["rows"]):
+        for k, want in b.items():
+            if k in ("step", "train/steps_per_sec"):
+                continue
+            err = abs(a[k] - want)
+            worst = max(worst, err / (1e-5 + abs(want)))
+            if not (math.isfinite(a[k]) and err <= 1e-5
+                    + TRAIN_PARITY_RTOL * abs(want)):
+                fail(f"(g) step {b['step']} {k}: graphed {a[k]!r}, eager "
+                     f"{want!r}")
+    steady = g["steady"]
+    gw = [g0["walls"][i] for i in steady]
+    ew = [e0["walls"][i] for i in steady]
+    log(f"[graphs] (g) loss terms of {len(g['rows'])} logged steps, graphed "
+        f"against eager: worst relative {worst:.3e} (rtol "
+        f"{TRAIN_PARITY_RTOL:g}); ms a step over the {len(steady)} steps "
+        f"that replayed a graph captured earlier: graphed "
+        f"{np.mean(gw):.2f}, eager {np.mean(ew):.2f};"
+        f" a traced step's host launch calls: graphed "
+        f"{g0['profile']['host_launches']}, eager "
+        f"{e0['profile']['host_launches']}; wall against busy: graphed "
+        f"{g0['profile']['wall_ms']:.2f} / {g0['profile']['busy_ms']:.2f} "
+        f"ms, eager {e0['profile']['wall_ms']:.2f} / "
+        f"{e0['profile']['busy_ms']:.2f} ms")
+    return g0["launches"]
 
 
 def _graphs_aug(work: str) -> None:
@@ -4390,28 +4808,49 @@ def _graphs_aug(work: str) -> None:
         fail(f"the aug experiment's script gave {res}")
 
 
+GRAPH_PARTS = "a,b,c,e,f,g"
+
+
 @tf32_off()
-def phase_graphs(seed: int) -> dict:
+def phase_graphs(seed: int, parts: str = GRAPH_PARTS) -> dict:
     """The graphs phase: (a) graphed against eager training in f32 and
     bf16, (b) graphed against eager serving, (c) the aug experiment's
-    script, (e) a graphed fit against an eager one. Returns the launches
-    of the graphed paths."""
-    train = _graphs_train(seed, "f32")
-    torch.cuda.empty_cache()
-    with conv_precision("bf16"):
-        train_bf16 = _graphs_train(seed, "bf16")
-    torch.cuda.empty_cache()
+    script, (e) a graphed fit of whole groups against an eager one, (f) a
+    fit of partial and phase-straddling groups with validation, graphed
+    against eager, bit for bit, (g) with two cards or more, fit
+    --distributed over NCCL graphed against eager. ``parts`` picks them.
+    Returns the launches of the graphed paths (None for a part not run)."""
+    parts = parts.split(",")
+    out = dict.fromkeys(("graphs_train", "graphs_serve", "graphs_fit",
+                         "graphs_mixed", "graphs_nccl"))
+    if "a" in parts:
+        train = _graphs_train(seed, "f32")
+        torch.cuda.empty_cache()
+        with conv_precision("bf16"):
+            train_bf16 = _graphs_train(seed, "bf16")
+        torch.cuda.empty_cache()
+        out["graphs_train"] = {k: train[k] + train_bf16[k] for k in train}
     work = tempfile.mkdtemp(prefix="radmmm_graphs_")
     try:
-        serve_launches = _graphs_serve(seed, work)
-        torch.cuda.empty_cache()
-        fit_launches = _graphs_fit(seed, work)
-        torch.cuda.empty_cache()
-        _graphs_aug(work)
+        if "b" in parts:
+            out["graphs_serve"] = _graphs_serve(seed, work)
+            torch.cuda.empty_cache()
+        if "e" in parts:
+            out["graphs_fit"] = _graphs_fit(seed, work)
+            torch.cuda.empty_cache()
+        if "f" in parts:
+            out["graphs_mixed"] = _graphs_mixed(seed, work)
+            torch.cuda.empty_cache()
+        if "g" in parts and torch.cuda.device_count() >= 2:
+            out["graphs_nccl"] = _graphs_nccl(seed, work)
+        elif "g" in parts:
+            log(f"[graphs] part (g) did not run: it needs NCCL on two "
+                f"cards, and this machine has {torch.cuda.device_count()}")
+        if "c" in parts:
+            _graphs_aug(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {"graphs_train": {k: train[k] + train_bf16[k] for k in train},
-            "graphs_serve": serve_launches, "graphs_fit": fit_launches}
+    return out
 
 
 def kernel_entries(rows: list, serve_launches, train_launches,
@@ -4428,8 +4867,9 @@ def kernel_entries(rows: list, serve_launches, train_launches,
     paths (fit, the vocoder path, which runs none of them, radtts_fit, m12,
     ddp, rank 0's counted steps, caches, its two fits, the bf16 phase's
     training steps, fit and serving, and the graphs phase's graphed steps,
-    requests and fit, counted through the graphs' launch ledger; None for
-    a phase not run).
+    requests and fits (whole groups, mixed groups, and rank 0's steps
+    over NCCL), counted through the graphs' launch ledger; None for a
+    phase or part not run).
     The bf16 variants of K4 and its backward (rows of the bf16 phase) are
     listed after them the same way, each with the f32 kernel's ms at its
     shapes beside it."""
@@ -4535,12 +4975,15 @@ def main() -> int:
     if sys.argv[1:2] == ["--ddp-child"]:
         return ddp_child(sys.argv[2], int(sys.argv[3]))
     if sys.argv[1:2] == ["--ddp-fit-child"]:
-        return ddp_fit_child(sys.argv[2], sys.argv[4:])
+        i = sys.argv.index("--")
+        return ddp_fit_child(sys.argv[2], sys.argv[i + 1:], sys.argv[3:i])
     if sys.argv[1:2] == ["--e2e-child"]:
         return e2e_child(sys.argv[2], int(sys.argv[3]))
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--graph-parts", default=GRAPH_PARTS,
+                    help="the graphs phase's parts, of " + GRAPH_PARTS)
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -4608,7 +5051,7 @@ def main() -> int:
         rows = rows + bf16_rows
     graph_launches = {}
     if "graphs" in phases:
-        graph_launches = phase_graphs(args.seed)
+        graph_launches = phase_graphs(args.seed, args.graph_parts)
     if rows:
         log(json.dumps({"kernels": kernel_entries(
             rows, serve_launches, train_launches, wn_launches,
@@ -4618,7 +5061,8 @@ def main() -> int:
              **{f"bf16_{k}": bf16_launches.get(k)
                 for k in ("train", "fit", "serve")},
              **{k: graph_launches.get(k)
-                for k in ("graphs_train", "graphs_serve", "graphs_fit")}})}))
+                for k in ("graphs_train", "graphs_serve", "graphs_fit",
+                          "graphs_mixed", "graphs_nccl")}})}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
 """Collectives over a process group, with their gradients and a tally.
 
-Each wrapper issues one ``torch.distributed`` call and adds its kind and
-bytes to ``STATS`` (the port's counterpart of reading the collectives out
-of a compiled program's HLO, which PyTorch does not have). The bytes are
-those of the logical result: an all-reduce's tensor, an all-gather's
-output, a reduce-scatter's input.
+Each wrapper issues one ``torch.distributed`` call and adds one to its
+kind's count and its bytes to ``STATS`` (the port's counterpart of reading
+the collectives out of a compiled program's HLO, which PyTorch does not
+have). The bytes are those of the logical result: an all-reduce's tensor,
+an all-gather's output, a reduce-scatter's input. ``STATS`` ticks where a
+collective is issued, so while a CUDA graph is captured and never while it
+replays: the graphs' ledger (``utils/graphs.py``) takes a capture's counts
+back and adds them at each replay, as it does the kernels' launches.
 
 Under NCCL the all-gather and the reduce-scatter are NCCL's own. Under
 gloo both are written from the one collective every gloo build takes on
@@ -31,12 +34,15 @@ needs:
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import collections
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
-STATS: Dict[str, Dict[str, int]] = {}
+# (kind, "count") and (kind, "bytes") of the collectives issued since the
+# last ``reset_stats``
+STATS: collections.Counter = collections.Counter()
 
 
 def reset_stats() -> None:
@@ -44,9 +50,8 @@ def reset_stats() -> None:
 
 
 def _record(kind: str, t: torch.Tensor) -> None:
-    entry = STATS.setdefault(kind, {"count": 0, "bytes": 0})
-    entry["count"] += 1
-    entry["bytes"] += t.numel() * t.element_size()
+    STATS[kind, "count"] += 1
+    STATS[kind, "bytes"] += t.numel() * t.element_size()
 
 
 class Group:

@@ -121,6 +121,13 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return {DATA_AXIS: self.n_data, MODEL_AXIS: self.n_model}
 
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this rank's collectives: in one
+        process, or over NCCL. gloo's cannot be captured: its CUDA tensors
+        go through host memory."""
+        return all(g.nccl for g in (self.data, self.model) if g.size > 1)
+
     def barrier(self) -> None:
         if self.n_data * self.n_model > 1:
             dist.barrier()
@@ -132,10 +139,17 @@ class Mesh:
         the model group: each rank of a model group computes them whole,
         and averaging keeps them alike to the bit where a card's backward
         sums in another order on each rank. Flat buckets of up to 2^26
-        elements."""
+        elements. A ``timed`` mesh synchronises the card around them,
+        which a CUDA graph cannot capture: it raises there."""
         if self.data.size == 1 and self.model.size == 1:
             return
         params = optimizer.params
+        if (self.timed and params[0].is_cuda
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(
+                "a timed mesh synchronises the card around the gradients' "
+                "all-reduces and cannot be captured in a CUDA graph: run "
+                "its steps eager")
         grads = []
         for p in params:
             if p.grad is None:
@@ -158,7 +172,8 @@ class Mesh:
     def broadcast_batch(self, batch: dict) -> dict:
         """The batch of the model group's first rank on every rank of the
         group (its ranks load the same batch, but augmentations drawn by
-        several loader threads may differ)."""
+        several loader threads may differ). Each tensor goes as its bytes:
+        neither NCCL nor gloo takes int16 (the raw batch's audio)."""
         if self.model.size == 1:
             return batch
         out = dict(batch)
@@ -166,7 +181,8 @@ class Mesh:
             if isinstance(v, torch.Tensor):
                 out[k] = v.contiguous()
                 C._record("broadcast", out[k])
-                dist.broadcast(out[k], src=self.model_ranks[0],
+                dist.broadcast(out[k].reshape(-1).view(torch.uint8),
+                               src=self.model_ranks[0],
                                group=self.model.group)
         return out
 
@@ -395,9 +411,12 @@ def assert_tp_layout(model: torch.nn.Module, mesh: Mesh,
 
 
 def collective_stats() -> Dict[str, Dict[str, int]]:
-    """{kind: {"count", "bytes"}} of the collectives issued since
-    ``reset_collective_stats``."""
-    return {k: dict(v) for k, v in C.STATS.items()}
+    """{kind: {"count", "bytes"}} of the collectives the card ran since
+    ``reset_collective_stats`` (a graph's at each replay)."""
+    out: Dict[str, Dict[str, int]] = {}
+    for (kind, field), n in C.STATS.items():
+        out.setdefault(kind, {"count": 0, "bytes": 0})[field] = n
+    return out
 
 
 def reset_collective_stats() -> None:

@@ -208,13 +208,17 @@ Reproduce: `python -m radmmm_torch.scripts.aug_disentangle_experiment`
 
 
 def _fit_lines(stats: dict) -> str:
-    """The fits' own accounts: ms a step, the loader's share, and how many
-    steps ran in whole groups (the graphed megastep on the card)."""
+    """The fits' own accounts: ms a step, the loader's share, how many
+    steps ran in whole groups and how many replayed a graph (on the
+    card)."""
     return " ".join(
         f"{tag}: {s['ms_a_step']:.2f} ms a step, {100 * s['loader_share']:.1f}%"
         f" of it waiting on the loader, {s['megastep_steps']} of "
-        f"{s['steps']} steps in whole groups ({s['captures']} graph "
-        f"captures, {s['replays']} replays)." for tag, s in stats.items())
+        f"{s['steps']} steps in whole groups, "
+        f"{s.get('graphed_steps', 'not counted')} replayed a graph "
+        f"({s.get('warmups', 'not counted')} graph warm-ups, "
+        f"{s['captures']} captures, {s['replays']} replays)."
+        for tag, s in stats.items())
 
 
 def card() -> dict:
@@ -297,7 +301,8 @@ def main(argv=None):
         fit_stats[tag] = {
             "ms_a_step": 1e3 * st["train_s"] / max(st["steps"], 1),
             "loader_share": st["loader_wait_s"] / max(st["train_s"], 1e-9),
-            **{k: st[k] for k in ("steps", "megastep_steps", "captures",
+            **{k: st[k] for k in ("steps", "megastep_steps",
+                                  "graphed_steps", "warmups", "captures",
                                   "replays")}}
         results[tag] = evaluate(cfgs, run_dir, cross_yaml, device)
         results[tag]["fit_seconds"] = round(fit_s, 1)

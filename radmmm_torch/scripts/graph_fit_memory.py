@@ -3,13 +3,15 @@
 Builds the demo recipe's corpus (``scripts/make_demo_corpus.py``, the
 recipe of ``examples/torch_demo_run``) with ``--n-train`` utterances, then
 fits it through the port's CLI twice, each in a process of its own so
-that neither sees the other's cached memory: with megastep_k 8, where
-whole groups of 8 same-shape batches replay the graphed step (one capture
-per batch shape, phase and RAdam branch, all in the trainer's one pool),
-and with megastep_k 1, every step eager. For each fit it records the
-steps, the steps in whole groups, every capture (its key, shape, seconds
-and the bytes it grew the pool by), the replays, ms a step and the card's
-peak reserved and allocated memory.
+that neither sees the other's cached memory: with megastep_k 8 (groups of
+8 same-shape batches from the loader, validated and saved once a group)
+and with megastep_k 1 (the loader's featurized batches one at a time).
+Every step of both runs through the graphed step: one graph per batch
+shape, phase and RAdam branch, captured at its second step, all in the
+trainer's one pool. For each fit it records the steps, the steps in whole
+groups and those that replayed a graph, the warm-ups, every capture (its
+key, shape, seconds and the bytes it grew the pool by), the replays, ms a
+step and the card's peak reserved and allocated memory.
 
     python -m radmmm_torch.scripts.graph_fit_memory [--n-train 480]
         [--steps 1000] [--workdir output/graph_fit_memory]
@@ -17,8 +19,8 @@ peak reserved and allocated memory.
 
 The demo corpus as ``examples/torch_demo_run`` builds it (48 training
 utterances) has 6 batches an epoch, so megastep_k 8 forms no whole group
-there and the fit runs eager steps only; 480 utterances give 60 batches
-an epoch at four shapes. Needs a CUDA card.
+there; 480 utterances give 60 batches an epoch at four shapes. Needs a
+CUDA card.
 """
 from __future__ import annotations
 
@@ -76,6 +78,7 @@ def fit_arm(corpus: str, run_dir: str, steps: int, k: int) -> dict:
         "megastep_k": k, "fit_s": time.perf_counter() - t0,
         "ms_a_step": 1e3 * st["train_s"] / max(st["steps"], 1),
         "steps": st["steps"], "megastep_steps": st["megastep_steps"],
+        "graphed_steps": st["graphed_steps"], "warmups": st["warmups"],
         "replays": st["replays"], "pool_bytes": st["graph_pool_bytes"],
         "peak_reserved_bytes": st["peak_reserved_bytes"],
         "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -127,7 +130,8 @@ def main(argv=None):
         caps = a["captures"]
         later = [c["pool_bytes"] for c in caps[1:]]
         print(f"megastep_k {a['megastep_k']}: {a['steps']} steps, "
-              f"{a['megastep_steps']} in whole groups, {a['ms_a_step']:.2f} "
+              f"{a['megastep_steps']} in whole groups, "
+              f"{a['graphed_steps']} replayed a graph, {a['ms_a_step']:.2f} "
               f"ms a step; {len(caps)} captures, {a['replays']} replays, "
               f"pool {a['pool_bytes'] / 2**20:.1f} MiB (first capture "
               f"+{caps[0]['pool_bytes'] / 2**20 if caps else 0:.1f} MiB, "

@@ -334,9 +334,10 @@ def load_tts(path: str, device: str = "cuda"):
 
     if pool is not None:
         # every bucket's graphs, captured now rather than at a first
-        # request: a dummy request of each (batch, text) bucket through
-        # stage A and each frame bucket's stage B
-        for B, T in buckets:
+        # request: two dummy requests of each (batch, text) bucket through
+        # stage A and each frame bucket's stage B (a graph's first call at
+        # a signature warms up, its second captures)
+        for B, T in buckets * 2:
             text = np.zeros((B, T), np.int32)
             per_item = (np.full(B, T, np.int32), np.zeros(B, np.int32),
                         np.zeros(B, np.int32), np.zeros(B, np.float32),

@@ -8,18 +8,21 @@ fresh run; validation logs the losses, attention and mel images, the
 quality scalars and Griffin-Lim audio when no vocoder checkpoint is
 configured.
 
-The JAX package scans K featurize + train steps in one compiled program
-(``megastep_k``, ``make_train_megastep``). Here a whole group of K runs
-through the port's ``make_train_megastep``: on the card one CUDA graph of
-featurize + step per (batch shape, phase, RAdam branch), captured at its
-first step and replayed K times, one launch a step; on the CPU the same
-steps eagerly. The batches and their order are the JAX package's (the
-loader's shape runs), each step keys its mel noise by its global step
+The JAX package jits its step, scans K featurize + train steps in one
+compiled program (``megastep_k``) and jits its validation step. Here every
+training step, whole group, partial or phase-straddling group and
+``megastep_k`` 1 alike, runs through one graphed step
+(``training/step.make_train_step`` with the trainer's ``GraphPool``): on
+the card one CUDA graph per (batch shape, phase, RAdam branch, conv
+precision), run eagerly at its first step (the warm-up), captured and
+replayed at its second and replayed after, one launch a step; the
+validation step likewise, per batch shape. On the CPU the same steps run
+eagerly. The batches and their order are the JAX package's (the loader's
+shape runs), each step keys its mel noise by its global step
 (``Featurizer.noise_key_for_step``), and the bookkeeping is the same: a
-whole group is logged, validated and saved once, after its last step.
-Partial and phase-straddling groups, and every group over several
-processes (the graphs hold no NCCL collectives yet), run eager steps.
-Validation is eager.
+whole group of K is logged, validated and saved once, after its last
+step, a partial or phase-straddling group after each step. The
+validation samples, predict and the whitening init run eager.
 
 Several cards: one process a card under torchrun (``training/cli.py
 --distributed``), laid out on an (n_data, n_model) mesh
@@ -31,7 +34,11 @@ ranks of a model group take the batch of its first rank. The step is the
 JAX step on the global batch (``training/step.py``). Rank 0 logs, writes
 the code snapshot and the checkpoints (full, gathered); validation runs
 each rank's dealt share and sums the metrics, and its images and audio
-come from the first data rank.
+come from the first data rank. Over NCCL the graphs hold the step's
+collectives, and every rank warms up, captures and replays at the same
+steps (the loader deals rounds of one shape; the phase and the RAdam
+branch follow the global step). gloo's collectives cannot be captured, so
+over gloo the steps run eager.
 """
 from __future__ import annotations
 
@@ -51,10 +58,9 @@ from radmmm_torch.ops.conv import set_conv_precision
 from radmmm_torch.parallel.mesh import (Mesh, assert_tp_layout, make_mesh,
                                         shard_state, use_mesh)
 from radmmm_torch.training.step import (LossConfig, TrainState,
-                                        create_train_state,
-                                        make_train_megastep, make_train_step,
+                                        create_train_state, make_train_step,
                                         make_val_step, make_whitening_init,
-                                        phase_flags)
+                                        phase_flags, step_inputs)
 from radmmm_torch.utils.checkpoint import (CheckpointManager,
                                            ENCODER_SUBMODULES, freeze_wrap,
                                            load_pretrained_submodules)
@@ -222,11 +228,20 @@ class Trainer:
         self._graph_pool = GraphPool()
         return state
 
-    def _train_step_fn(self, binarize: bool, kl_on: bool):
-        key = (binarize, kl_on)
+    def _step_pool(self) -> Optional[GraphPool]:
+        """The pool of the graphed training and validation steps; None
+        where they run eager: over gloo, whose collectives a CUDA graph
+        cannot hold."""
+        return self._graph_pool if self.mesh.capturable else None
+
+    def _train_step_fn(self, binarize: bool, kl_on: bool, featurizer=None):
+        """The training step of one phase, over a featurized batch or,
+        with ``featurizer``, featurizing a raw one."""
+        key = (binarize, kl_on, featurizer)
         if key not in self._step_cache:
             self._step_cache[key] = make_train_step(
-                self.model, self.loss_cfg, binarize=binarize, kl_on=kl_on)
+                self.model, self.loss_cfg, binarize, kl_on, featurizer,
+                pool=self._step_pool())
         return self._step_cache[key]
 
     def _generator(self, seed: int) -> torch.Generator:
@@ -291,13 +306,20 @@ class Trainer:
             make_whitening_init(self.model)(state, first_batch)
             print("initialized whitening conv from first batch")
 
-        val_step = make_val_step(self.model, self.loss_cfg)
+        val_step = make_val_step(self.model, self.loss_cfg,
+                                 pool=self._step_pool())
         gen = self._dropout_generator()
+        m = self.mesh
+        if not m.capturable and m.rank == 0:
+            print(f"training and validation steps run eager over "
+                  f"{m.n_data * m.n_model} processes: gloo's collectives "
+                  "cannot be captured in a CUDA graph (NCCL's can)")
         # step_starts and noise_keys: one entry a step (the key is None
-        # where the loader featurizes); pause_s: validation and checkpoint
-        # seconds after a step, by step
-        self.stats = dict(steps=0, megastep_steps=0, loader_wait_s=0.0,
-                          val_s=0.0,
+        # where the loader featurizes); graphed_steps: steps that replayed
+        # a graph; pause_s: validation and checkpoint seconds after a
+        # step, by step
+        self.stats = dict(steps=0, megastep_steps=0, graphed_steps=0,
+                          loader_wait_s=0.0, val_s=0.0,
                           ckpt_save_s=0.0, ckpt_bytes=0, ckpt_saves=0,
                           step_starts=[], noise_keys=[], pause_s={},
                           first_batch_s=first_batch_s,
@@ -372,7 +394,8 @@ class Trainer:
         s["fit_s"] = time.perf_counter() - t_fit
         s["train_s"] = s["fit_s"] - s["val_s"] - s["ckpt_save_s"]
         pool = self._graph_pool
-        s["captures"], s["replays"] = len(pool.captures), pool.replays
+        s["warmups"], s["captures"] = pool.warmups, len(pool.captures)
+        s["replays"] = pool.replays
         s["graph_pool_bytes"] = sum(c.pool_bytes for c in pool.captures)
         s["peak_reserved_bytes"] = (
             torch.cuda.max_memory_reserved(self.device)
@@ -383,8 +406,10 @@ class Trainer:
                   f"{100 * s['loader_wait_s'] / max(s['train_s'], 1e-9):.1f}"
                   f"% of it waiting on the loader; validation "
                   f"{s['val_s']:.2f} s, checkpoints {s['ckpt_save_s']:.2f} s;"
-                  f" {s['megastep_steps']} steps in whole groups (graph "
-                  f"captures {s['captures']}, replays {s['replays']}, pool "
+                  f" {s['megastep_steps']} steps in whole groups, "
+                  f"{s['graphed_steps']} replayed a graph (graph warm-ups "
+                  f"{s['warmups']}, captures {s['captures']}, replays "
+                  f"{s['replays']}, pool "
                   f"{s['graph_pool_bytes'] / 2**20:.1f} MiB); peak "
                   f"reserved {s['peak_reserved_bytes'] / 2**20:.1f} MiB")
         return state
@@ -410,24 +435,25 @@ class Trainer:
         self.stats.update(self._profiler.stats)
         self.stats["steps"] += 1
 
-    def _run_step(self, state, batch, step: int, gen, noise_key=None):
-        """One training step of the phase of ``step``, inside the profiled
-        window when one is configured; ``noise_key`` is the mel-noise key
-        its batch was featurized with, recorded in the stats."""
-        self._before_step(step, noise_key)
+    def _run_step(self, state, batch, step: int, gen, featurizer=None):
+        """One training step of the phase of ``step`` through its graphed
+        step, inside the profiled window when one is configured. With
+        ``featurizer``, ``batch`` is a raw batch, featurized in the step
+        with the mel noise of its step's key (recorded in the stats)."""
+        key = (None if featurizer is None
+               else featurizer.noise_key_for_step(step))
+        self._before_step(step, key)
+        # the model group's batch, outside the graph
         batch = self.mesh.broadcast_batch(batch)
+        if featurizer is not None:
+            batch = step_inputs(featurizer, batch, key)
+        replays = self._graph_pool.replays
         state, metrics = self._train_step_fn(
-            *phase_flags(step, self.loss_cfg))(state, batch, gen)
+            *phase_flags(step, self.loss_cfg), featurizer)(state, batch, gen)
+        if self._graph_pool.replays > replays:
+            self.stats["graphed_steps"] += 1
         self._after_step(step)
         return state, metrics
-
-    def _megastep_fn(self, feat, binarize: bool, kl_on: bool):
-        key = ("mega", binarize, kl_on)
-        if key not in self._step_cache:
-            self._step_cache[key] = make_train_megastep(
-                self.model, self.loss_cfg, feat, binarize=binarize,
-                kl_on=kl_on, pool=self._graph_pool)
-        return self._step_cache[key]
 
     def _timed(self, it):
         """Iterate ``it``, adding the time spent waiting on it to the
@@ -452,21 +478,13 @@ class Trainer:
 
     def _fit_loop_mega(self, dm, state, gen, step, post_step):
         """Groups of up to K same-shape raw batches (the loader's shape
-        runs), uploaded ahead by a thread. A whole group (K batches, one
-        phase, inside max_steps) runs through ``make_train_megastep`` (on
-        the card, a CUDA graph of featurize + step replayed K times) and
-        then the bookkeeping once; a partial or phase-straddling group runs
-        eager steps, each featurized with its step's noise key and
-        followed by the bookkeeping, as the JAX package's per-batch
-        fallback does. Over several processes every group takes the eager
-        steps: the graphs hold no collectives yet."""
+        runs), uploaded ahead by a thread. Every step featurizes its row
+        and trains on it through the graphed step. A whole group (K
+        batches, one phase, inside max_steps) is then logged, validated
+        and saved once, after its last step, as in the JAX package's
+        megastep; a partial or phase-straddling group after each step, as
+        in its per-batch fallback."""
         c, k, feat = self.cfg, self._megastep_k(dm), dm.featurizer
-        world = self.mesh.n_data * self.mesh.n_model
-        mega = world == 1
-        if not mega and self.mesh.rank == 0:
-            print(f"megastep_k {k}: groups of {k} run as eager steps over "
-                  f"{world} processes (the graphed step holds no "
-                  "collectives)")
         loader = DataLoader(dm.trainset, dm.batch_size, shuffle=True,
                             featurizer=None, num_threads=dm.num_threads,
                             prefetch=max(2, k), seed=dm.seed,
@@ -475,51 +493,43 @@ class Trainer:
             for stacked in self._timed(prefetch_raw_groups(
                     loader, feat, k, self.device)):
                 n = next(iter(stacked.values())).shape[0]
-                flags = phase_flags(step, self.loss_cfg)
                 whole = (n == k
-                         and flags == phase_flags(step + k - 1, self.loss_cfg)
+                         and phase_flags(step, self.loss_cfg)
+                         == phase_flags(step + k - 1, self.loss_cfg)
                          and step + k <= c.max_steps)
-                if whole and mega:
-                    state, met = self._megastep_fn(feat, *flags)(
-                        state, stacked, gen, self._before_step,
-                        self._after_step)
-                    self.stats["megastep_steps"] += n
-                    group = [{name: v[i] for name, v in met.items()}
-                             for i in range(n)]
-                    prev, step = step, step + n
-                    if post_step(group, prev, step):
-                        return
-                    continue
                 group, prev = [], step
                 for i in range(n):
                     raw = {key: v[i] for key, v in stacked.items()}
-                    key = feat.noise_key_for_step(step)
-                    batch = feat.featurize_raw(raw, key)
-                    state, metrics = self._run_step(state, batch, step, gen,
-                                                    key)
+                    state, metrics = self._run_step(state, raw, step, gen,
+                                                    feat)
                     step += 1
                     group.append(metrics)
                     if not whole and post_step(group[-1:], step - 1, step):
                         return
-                if whole and post_step(group, prev, step):
-                    return
+                if whole:
+                    self.stats["megastep_steps"] += n
+                    if post_step(group, prev, step):
+                        return
 
     # ------------------------------------------------------------------
     def validate(self, state: TrainState, dm, val_step, step: int):
         """The validation set's losses (each rank its dealt share, the
-        metrics summed over the data group by the step), then the samples
-        of the first data rank's model group (rank 0 logs them)."""
-        agg: Dict[str, list] = {}
-        first = None
+        metrics summed over the data group by the step), read from the
+        card once, then the samples of the first data rank's model group
+        (rank 0 logs them)."""
+        rows, names, first = [], None, None
         for batch in dm.val_dataloader():
             batch = self.mesh.broadcast_batch(batch)
-            for k, v in val_step(state, batch).items():
-                agg.setdefault(k, []).append(v.item())
+            met = val_step(state, batch)
+            names = list(met)
+            rows.append(torch.stack(list(met.values())))
             if first is None:
                 first = batch
-        if agg:
-            self.logger.scalars(
-                "val", {k: float(np.mean(v)) for k, v in agg.items()}, step)
+        if rows:
+            host = _np(torch.stack(rows))
+            self.logger.scalars("val", {
+                k: float(np.mean(host[:, j].tolist()))
+                for j, k in enumerate(names)}, step)
         if self.mesh.data_index == 0:
             if first is not None and self.cfg.log_decoder_samples:
                 self._log_val_samples(state, first, step)

@@ -31,6 +31,11 @@ The whitening init's moments are the global batch's.
     make_whitening_init(model)(state, batch)     # batch on the same device
     step = make_train_step(model, LossConfig(), binarize=True, kl_on=True)
     state, metrics = step(state, batch, torch.Generator("cuda"))
+
+Given a ``GraphPool``, ``make_train_step`` and ``make_val_step`` run
+through ``utils/graphs.Graphed``: on the card a signature's first call is
+eager, its second is captured as a CUDA graph and replayed, later calls
+replay (the trainer's steps, on one card and over NCCL).
 """
 from __future__ import annotations
 
@@ -183,7 +188,7 @@ def _device_step(model: TTSModel, cfg: LossConfig, binarize: bool,
     """The device work of one step, after ``optimizer.prepare``:
     ``run(state, batch, generator)`` -> metrics. It changes no host
     state that a replay of its CUDA graph would not change again, so the
-    graphed step (``make_train_megastep``) captures it whole."""
+    graphed step captures it whole."""
 
     def run(state: TrainState, batch, generator: torch.Generator):
         model.train()           # also drops the cached flow inverses
@@ -203,47 +208,58 @@ def _device_step(model: TTSModel, cfg: LossConfig, binarize: bool,
     return run
 
 
+def step_inputs(featurizer, raw, noise_key) -> dict:
+    """A featurizing step's inputs: the raw batch (``raw_arrays`` as
+    tensors on the model's device) and the mel noise of ``noise_key``
+    (absent where the featurizer adds none), drawn on the host's side of
+    the step so a graph of it replays with each step's noise."""
+    noise = featurizer.mel_noise(raw, noise_key)
+    return {"raw": raw} if noise is None else {"raw": raw, "noise": noise}
+
+
+def _tensors(batch) -> dict:
+    """The batch's tensors: a graph's signature reads every leaf, and the
+    loader's batches also carry the utterances' paths and text."""
+    return {k: v for k, v in batch.items() if isinstance(v, torch.Tensor)}
+
+
 def make_train_step(model: TTSModel, cfg: LossConfig, binarize: bool,
-                    kl_on: bool) -> Callable:
-    """One phase of the training step: ``step(state, batch, generator)``
+                    kl_on: bool, featurizer=None,
+                    pool: Optional[GraphPool] = None) -> Callable:
+    """One phase of the training step: ``step(state, inputs, generator)``
     -> (state, metrics), metrics 0-d tensors on the model's device (every
-    loss term, 'loss' and 'grad_norm', the norm before the clip)."""
+    loss term, 'loss' and 'grad_norm', the norm before the clip).
+    ``inputs`` is a featurized batch or, with a ``featurizer``,
+    ``step_inputs`` of a raw batch, featurized inside the step.
+
+    With a ``pool`` the step runs through ``utils/graphs.Graphed`` in it,
+    the counterpart of the JAX package's jitted step: on the card one CUDA
+    graph per batch shape, RAdam branch and conv precision of this phase.
+    A signature's first step runs eagerly (the warm-up), its second is
+    captured and replayed, later ones replay: one launch a step. The host
+    writes the optimizer's scalars (``prepare``) before each step and
+    advances the step count after it; the dropout ``generator`` is
+    registered with the graphs, so a replay draws the bits an eager step
+    would. On the CPU the same code runs eagerly. Without a pool the step
+    is eager everywhere (processes that talk over gloo, whose collectives
+    a graph cannot hold)."""
     run = _device_step(model, cfg, binarize, kl_on)
 
-    def train_step(state: TrainState, batch, generator: torch.Generator):
-        state.optimizer.prepare()
-        metrics = run(state, batch, generator)
-        state.step += 1
-        return state, metrics
+    def device_step(state, inputs, generator):
+        if featurizer is not None:
+            inputs = featurizer.featurize_raw(inputs["raw"], None,
+                                              noise=inputs.get("noise"))
+        return run(state, inputs, generator)
 
-    return train_step
+    if pool is None:
+        def train_step(state: TrainState, inputs, generator):
+            state.optimizer.prepare()
+            metrics = device_step(state, inputs, generator)
+            state.step += 1
+            return state, metrics
 
+        return train_step
 
-def make_train_megastep(model: TTSModel, cfg: LossConfig, featurizer,
-                        binarize: bool, kl_on: bool,
-                        pool: Optional[GraphPool] = None) -> Callable:
-    """K featurize + train steps: ``megastep(state, stacked, generator,
-    before=None, after=None)`` -> (state, metrics), each metric stacked
-    (K,), where ``stacked`` is ``stack_raw_batches`` of K raw batches as
-    tensors on the model's device.
-
-    The JAX package scans the K steps in one compiled program. Here step i
-    featurizes ``stacked``'s row i with the mel noise of its global step
-    (``featurizer.noise_key_for_step``) and trains on it, the same calls
-    as ``featurize_raw`` and ``make_train_step``. On the card the two run
-    as one CUDA graph (``utils/graphs.py``), captured at the first step of
-    each (batch shape, phase, RAdam branch, conv precision) and replayed
-    after; the host draws the mel noise into its input and writes the
-    optimizer's scalars before each replay, and advances the step count.
-    One graph of one step replayed K times, rather than one of K steps:
-    the host launches one graph a step either way, and a graph of K steps
-    would hold K times the nodes. The dropout ``generator`` is registered
-    with the graphs, so a replay draws the bits an eager step would.
-    On the CPU the same code runs eagerly. ``before(step, noise_key)`` and
-    ``after(step)``, where given, run on the host around each step (the
-    trainer's bookkeeping and profiler). ``pool`` is the graphs' memory
-    pool, shared by a trainer's graphs (a new one by default)."""
-    run = _device_step(model, cfg, binarize, kl_on)
     # the graphs of the (state, generator) last stepped, which they read:
     # a new pair replaces them, and the pool takes back their memory
     current = {}
@@ -253,52 +269,87 @@ def make_train_megastep(model: TTSModel, cfg: LossConfig, featurizer,
                 and current["generator"] is generator:
             return current["fn"]
 
-        def featurize_and_step(inputs):
-            batch = featurizer.featurize_raw(inputs["raw"], None,
-                                             noise=inputs.get("noise"))
-            met = run(state, batch, generator)
+        def graphed(inputs):
+            met = device_step(state, inputs, generator)
             return torch.stack(list(met.values())), list(met)
 
-        fn = Graphed(featurize_and_step,
-                     current["fn"].pool if current else pool,
-                     generators=[generator], name="train_step")
+        fn = Graphed(graphed, pool, generators=[generator],
+                     name="train_step")
         current.update(state=state, generator=generator, fn=fn)
         return fn
 
-    def megastep(state: TrainState, stacked, generator: torch.Generator,
-                 before=None, after=None):
-        fn = graphed_for(state, generator)
-        rows, names = [], None
+    def graphed_step(state: TrainState, inputs, generator):
+        rectified = state.optimizer.prepare()
+        if featurizer is None:
+            inputs = _tensors(inputs)
+        values, names = graphed_for(state, generator)(inputs,
+                                                      key=(rectified,))
+        state.step += 1
+        return state, dict(zip(names, values.unbind()))
+
+    return graphed_step
+
+
+def make_train_megastep(model: TTSModel, cfg: LossConfig, featurizer,
+                        binarize: bool, kl_on: bool,
+                        pool: Optional[GraphPool] = None) -> Callable:
+    """K featurize + train steps: ``megastep(state, stacked, generator)``
+    -> (state, metrics), each metric stacked (K,), where ``stacked`` is
+    ``stack_raw_batches`` of K raw batches as tensors on the model's
+    device.
+
+    The JAX package scans the K steps in one compiled program. Here step i
+    featurizes ``stacked``'s row i with the mel noise of its global step
+    (``featurizer.noise_key_for_step``) and trains on it, through the
+    graphed step of ``make_train_step`` (one graph of one step replayed K
+    times, rather than one of K steps: the host launches one graph a step
+    either way, and a graph of K steps would hold K times the nodes).
+    ``pool`` is the graphs' memory pool (a new one by default)."""
+    step = make_train_step(model, cfg, binarize, kl_on, featurizer,
+                           pool if pool is not None else GraphPool())
+
+    def megastep(state: TrainState, stacked, generator: torch.Generator):
+        rows = []
         for i in range(next(iter(stacked.values())).shape[0]):
             key = featurizer.noise_key_for_step(state.step)
-            if before is not None:
-                before(state.step, key)
-            inputs = {"raw": {k: v[i] for k, v in stacked.items()}}
-            noise = featurizer.mel_noise(inputs["raw"], key)
-            if noise is not None:
-                inputs["noise"] = noise
-            rectified = state.optimizer.prepare()
-            values, names = fn(inputs, key=(rectified,))
-            state.step += 1
-            rows.append(values)
-            if after is not None:
-                after(state.step - 1)
-        return state, dict(zip(names, torch.stack(rows, dim=1).unbind()))
+            raw = {k: v[i] for k, v in stacked.items()}
+            state, met = step(state, step_inputs(featurizer, raw, key),
+                              generator)
+            rows.append(met)
+        values = torch.stack([torch.stack(list(m.values())) for m in rows],
+                             dim=1)
+        return state, dict(zip(rows[0], values.unbind()))
 
     return megastep
 
 
-def make_val_step(model: TTSModel, cfg: LossConfig,
-                  binarize: bool = True) -> Callable:
+def make_val_step(model: TTSModel, cfg: LossConfig, binarize: bool = True,
+                  pool: Optional[GraphPool] = None) -> Callable:
     """``val(state, batch)`` -> metrics, no dropout, no spectral-norm
-    update, no gradients."""
+    update, no gradients. With a ``pool``, through ``Graphed`` in it, as
+    the JAX package jits it: on the card one CUDA graph per batch shape
+    and conv precision, captured at its second batch and replayed after;
+    eager on the CPU."""
 
     @torch.no_grad()
-    def val_step(state: TrainState, batch):
+    def val_metrics(batch):
         outputs = model(batch, binarize=binarize, train=False)
         ld = compute_losses(model, cfg, outputs, batch,
                             binarization_on=binarize)
         return _metrics(ld, total_loss(ld))
+
+    if pool is None:
+        return lambda state, batch: val_metrics(batch)
+
+    def graphed(batch):
+        met = val_metrics(batch)
+        return torch.stack(list(met.values())), list(met)
+
+    fn = Graphed(graphed, pool, name="val_step")
+
+    def val_step(state: TrainState, batch):
+        values, names = fn(_tensors(batch), key=(binarize,))
+        return dict(zip(names, values.unbind()))
 
     return val_step
 

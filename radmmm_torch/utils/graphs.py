@@ -10,19 +10,22 @@ such as a training phase):
 
     step = Graphed(lambda x: {"y": model(x["x"])}, generators=[gen],
                    name="step")
-    out = step({"x": x})          # first call at a signature: eager, then
-    out = step({"x": x2})         # captured; later calls replay
+    out = step({"x": x})          # first call at a signature: eager
+    out = step({"x": x2})         # second: captured, then replayed
+    out = step({"x": x3})         # later calls replay
 
 On CPU inputs ``Graphed`` calls ``fn`` and nothing else, so the tests run
 the same code eagerly. On the card:
 
 - The first call at a signature is the warm-up PyTorch asks for before a
   capture: ``fn`` runs eagerly on the pool's side stream and its result is
-  that call's result. The capture follows on the same stream; it launches
-  nothing, so it leaves the card's tensors as they were. Host-side state
-  that ``fn`` changes during the capture (Python attributes, the kernel
-  wrappers' launch counts) is the caller's to keep out of ``fn`` or, for
-  the counts, the ledger's to put back.
+  that call's result. A signature seen once (a corpus's one-off tail
+  shape) costs no capture. The second call captures on the same stream
+  and replays at once: the capture launches nothing, so it leaves the
+  card's tensors as they were and the replay computes this call.
+  Host-side state that ``fn`` changes during the capture (Python
+  attributes, the counters below) is the caller's to keep out of ``fn``
+  or, for the counters, the ledger's to put back.
 - Inputs are copied into static buffers before each replay, and outputs
   are cloned out after it, so a caller may hold them across replays.
 - Every graph of a ``GraphPool`` allocates from one private memory pool
@@ -38,11 +41,17 @@ the same code eagerly. On the card:
   (``CUDAGraph.register_generator_state``): a replay draws the bits the
   same calls would draw eagerly from the generator's current offset, and
   advances it as they would.
-- The launch ledger: the kernel wrappers count their launches in one
-  registry (``utils/launches.py``), which ticks while a graph is captured
-  and never while it replays. A capture takes back what it added and
-  records it; each replay adds it again, so the counts stay the number of
-  kernels the card ran.
+- The ledger (``LEDGER``): host-side counters that tick where a call
+  queues work on the card, the kernel wrappers' launches
+  (``utils/launches.py``) and the collectives' counts and bytes
+  (``parallel/collectives.py``), tick while a graph is captured and never
+  while it replays. A capture takes back what it added and records it;
+  each replay adds it again, so the counters stay the work the card ran.
+- Collectives inside ``fn`` (NCCL's) are captured with it: the warm-up's
+  eager collectives create the communicators first, and every rank
+  captures at the same call, since each sees the same signatures in the
+  same order. gloo's cannot be captured (its CUDA tensors go through host
+  memory); its callers keep their steps eager.
 - A failed capture or replay raises: there is no quiet way back to the
   eager path.
 """
@@ -57,7 +66,37 @@ import torch
 from torch.utils import _pytree as pytree
 
 from radmmm_torch.ops.conv import get_conv_precision
+from radmmm_torch.parallel.collectives import STATS as collective_counts
 from radmmm_torch.utils.launches import launch_counts
+
+
+class Ledger:
+    """Host-side counters (``collections.Counter``s) that tick where a
+    call queues work on the card. ``taken = begin()`` before a capture and
+    ``end(taken)`` after it take back what the capture added, counter by
+    counter, and return it; ``replay(added)`` adds it again."""
+
+    def __init__(self, *counters: collections.Counter):
+        self.counters = counters
+
+    def begin(self) -> List[collections.Counter]:
+        return [collections.Counter(c) for c in self.counters]
+
+    def end(self, taken) -> List[collections.Counter]:
+        added = []
+        for c, before in zip(self.counters, taken):
+            added.append(c - before)
+            c.clear()
+            c.update(before)
+        return added
+
+    def replay(self, added) -> None:
+        for c, a in zip(self.counters, added):
+            c.update(a)
+
+
+# the kernel wrappers' launches and the collectives' counts and bytes
+LEDGER = Ledger(launch_counts, collective_counts)
 
 
 @dataclasses.dataclass
@@ -77,13 +116,14 @@ class Capture:
 class GraphPool:
     """One private memory pool and one side stream for a set of graphs
     that never run at once (a trainer's steps, a server's stages), and the
-    record of their captures. The pool and the stream are made at the
-    first capture, so a GraphPool costs nothing on the CPU."""
+    record of their warm-ups, captures and replays. The pool and the
+    stream are made at the first warm-up, so a GraphPool costs nothing on
+    the CPU."""
 
     def __init__(self):
         self.handle = self.stream = None
         self.captures: List[Capture] = []
-        self.replays = 0
+        self.warmups = self.replays = 0
 
     def open(self) -> torch.cuda.Stream:
         """The pool's side stream, made with the pool on first use."""
@@ -101,8 +141,9 @@ def _signature(tree) -> tuple:
 
 
 class StepGraph:
-    """``fn`` at one input signature on the card: eager and captured at the
-    first call, replayed at the next (see the module docstring)."""
+    """``fn`` at one input signature on the card: eager at the first call,
+    captured and replayed at the second, replayed after (see the module
+    docstring)."""
 
     def __init__(self, fn: Callable, pool: GraphPool,
                  generators: Sequence[torch.Generator] = (), name: str = "",
@@ -110,24 +151,28 @@ class StepGraph:
         self.fn, self.pool, self.name = fn, pool, name
         self.signature = signature
         self.generators = list(generators)
+        self.warmed = False
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static_in = self.static_out = None
-        self.launches: Dict[str, int] = {}
+        # what the capture took from the ledger's counters
+        self.added: List[collections.Counter] = []
 
     def __call__(self, inputs):
         if self.graph is None:
-            return self._warm_and_capture(inputs)
-        for s, x in zip(pytree.tree_leaves(self.static_in),
-                        pytree.tree_leaves(inputs)):
-            if isinstance(s, torch.Tensor):
-                s.copy_(x)
+            if not self.warmed:
+                return self._warm_up(inputs)
+            self._capture(inputs)
+        else:
+            for s, x in zip(pytree.tree_leaves(self.static_in),
+                            pytree.tree_leaves(inputs)):
+                if isinstance(s, torch.Tensor):
+                    s.copy_(x)
         self.graph.replay()
         self.pool.replays += 1
-        launch_counts.update(self.launches)
+        LEDGER.replay(self.added)
         return _clone(self.static_out)
 
-    def _warm_and_capture(self, inputs):
-        self.static_in = _clone(inputs)
+    def _warm_up(self, inputs):
         side = self.pool.open()
         # the warm-up allocates on the side stream, which cannot take the
         # blocks the allocator keeps for the other streams: those go back
@@ -136,33 +181,38 @@ class StepGraph:
         torch.cuda.empty_cache()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            out = self.fn(self.static_in)
+            out = self.fn(inputs)
+        torch.cuda.synchronize()
+        self.warmed = True
+        self.pool.warmups += 1
+        return out
+
+    def _capture(self, inputs):
+        self.static_in = _clone(inputs)
+        side = self.pool.open()
         torch.cuda.synchronize()
         # what the allocator caches outside the graphs goes back, so the
         # reserved bytes grow by the pool's share alone
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
-        before = collections.Counter(launch_counts)
+        taken = LEDGER.begin()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             graph.register_generator_state(g)
-        # other threads (the loader's uploads) keep running: only this
-        # thread's calls must be legal under capture
+        # other threads (the loader's uploads, NCCL's watchdog) keep
+        # running: only this thread's calls must be legal under capture
         with torch.cuda.graph(graph, pool=self.pool.handle, stream=side,
                               capture_error_mode="thread_local"):
             self.static_out = self.fn(self.static_in)
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        self.launches = dict(launch_counts - before)
-        launch_counts.clear()
-        launch_counts.update(before)
+        self.added = LEDGER.end(taken)
         self.graph = graph
         self.pool.captures.append(Capture(
             self.name, self.signature, seconds,
-            torch.cuda.memory_reserved() - reserved, dict(self.launches)))
-        return out
+            torch.cuda.memory_reserved() - reserved, dict(self.added[0])))
 
 
 def _clone(tree):

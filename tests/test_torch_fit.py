@@ -45,6 +45,7 @@ from radmmm_tpu.utils.config import load_configs as jax_load_configs
 from radmmm_torch.convert import load_jax_train_state
 from radmmm_torch.training import cli as torch_cli
 from radmmm_torch.utils.config import load_configs
+from radmmm_torch.utils.graphs import Graphed
 from tests.test_torch_parallel import ROOT, _free_port, run_ranks
 from tests.test_torch_threads import drop_tmp_path  # noqa: F401
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
@@ -198,6 +199,18 @@ class _PortTrainerFromJax(torch_cli.Trainer):
         if self.jax_state is not None:
             load_jax_train_state(state, self.jax_state)
         return state
+
+
+_graphed_call = Graphed.__call__
+
+
+def _spy(names: list):
+    """``Graphed.__call__`` that records each call's graph name (on the
+    CPU, ``Graphed`` then calls its function eagerly)."""
+    def call(self, inputs, key=()):
+        names.append(self.name)
+        return _graphed_call(self, inputs, key)
+    return call
 
 
 def _rows(outdir):
@@ -356,13 +369,16 @@ def runs(cfg_files):
     tr.__class__ = _PortTrainerFromJax
     tr.tts_config = _no_encoder_dropout(tr.tts_config)
     tr.jax_state = captured["state"]
-    state = tr.fit(dm)
-    stats6 = dict(tr.stats)
-    tr.jax_state = None              # a resume restores the port's own
-    tr.cfg.max_steps = 8
-    state = tr.fit(dm)
+    graphed = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Graphed, "__call__", _spy(graphed))
+        state = tr.fit(dm)
+        stats6 = dict(tr.stats)
+        tr.jax_state = None              # a resume restores the port's own
+        tr.cfg.max_steps = 8
+        state = tr.fit(dm)
     return dict(jax=(jdm, jtr), torch=(dm, tr), state=state, stats6=stats6,
-                jstate=jstate, prompts=prompts, out=out)
+                jstate=jstate, prompts=prompts, out=out, graphed=graphed)
 
 
 def test_fit_and_resume_trajectories_match_jax(runs):
@@ -375,6 +391,52 @@ def test_fit_and_resume_trajectories_match_jax(runs):
     _, tr = runs["torch"]
     assert runs["stats6"]["steps"] == 6 and tr.stats["steps"] == 2
     assert tr.ckpt.steps() == [3, 6, 8] and runs["state"].step == 8
+
+
+def test_every_fit_step_runs_through_the_graphed_step(runs):
+    """The trajectory above went through the graphed steps: every training
+    step of the fit and the resume, in whole groups of 2 (steps 1-2 and
+    7-8) and in groups that straddle the binarization (step 3) and KL
+    (step 5) switches, through the one graphed step, and every batch of
+    the two validations (4 batches each) through the graphed validation
+    step."""
+    graphed = runs["graphed"]
+    assert graphed.count("train_step") == 8
+    assert graphed.count("val_step") == 2 * 4
+    assert set(graphed) == {"train_step", "val_step"}
+    assert runs["stats6"]["megastep_steps"] == 2
+    assert runs["torch"][1].stats["megastep_steps"] == 2
+
+
+@pytest.mark.parametrize("megastep_k", [1, 3])
+def test_plain_and_partial_fits_run_through_the_graphed_step(
+        cfg_files, tmp_path, megastep_k):
+    """The port's fit alone to 4 steps, validating at step 4: with
+    megastep_k 1 (the plain loop over the loader's featurized batches) or
+    3 (a whole group of 3, then a partial group of the epoch's fourth
+    batch), every step goes through the graphed step and every validation
+    batch through the graphed validation step; one row a step (a whole
+    group's last step only), every logged value finite."""
+    path, _, _ = cfg_files
+    cfg = load_configs([path])
+    cfg["model"]["output_directory"] = str(tmp_path / "run")
+    cfg["trainer"].update(megastep_k=megastep_k, max_steps=4,
+                          val_check_interval=4)
+    dm, tr = torch_cli.build_all(cfg, device="cpu")
+    graphed = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Graphed, "__call__", _spy(graphed))
+        tr.fit(dm)
+    assert graphed == ["train_step"] * 4 + ["val_step"] * 4
+    s = tr.stats
+    assert s["steps"] == 4 and s["graphed_steps"] == 0     # the CPU: eager
+    assert s["megastep_steps"] == (3 if megastep_k == 3 else 0)
+    rows = _rows(tmp_path / "run")
+    assert [r["step"] for r in rows if "train/loss" in r] == (
+        [3, 4] if megastep_k == 3 else [1, 2, 3, 4])
+    assert [r["step"] for r in rows if "val/loss" in r] == [4]
+    for r in rows:
+        assert all(np.isfinite(v) for k, v in r.items() if k != "step"), r
 
 
 def test_predict_writes_the_wavs_jax_writes(runs):

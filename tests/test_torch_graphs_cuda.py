@@ -118,9 +118,11 @@ def _models(n: int):
 
 @pytest.mark.parametrize("phase", [(False, False), (True, True)])
 def test_graphed_megastep_equals_eager_steps(card, phase):
-    """2 x K steps, the second group replayed: metrics, parameters and the
-    dropout generator bit for bit with eager steps, and the ledger counts
-    the launches the eager steps make."""
+    """3 x K steps: metrics, parameters and the dropout generator bit for
+    bit with eager steps, and the ledger counts the launches the eager
+    steps make. RAdam's plain branch (steps 1-5) and rectified one (from
+    step 6) each warm up at their first step and capture at their
+    second; the rest replay."""
     stacked = _stacked(card)
     g_model, e_model = _models(2)
     feat = collate.Featurizer(device=card, **FEAT)
@@ -133,11 +135,11 @@ def test_graphed_megastep_equals_eager_steps(card, phase):
     egen = torch.Generator(device=card).manual_seed(1)
     fn = step.make_train_step(e_model, loss, *phase)
     launch_counts.clear()
-    gmet = [mega(gstate, stacked, ggen)[1] for _ in range(2)]
+    gmet = [mega(gstate, stacked, ggen)[1] for _ in range(3)]
     launched = dict(launch_counts)
     launch_counts.clear()
     emet = []
-    for _ in range(2):
+    for _ in range(3):
         for i in range(K):
             raw = {k: v[i] for k, v in stacked.items()}
             batch = feat.featurize_raw(raw,
@@ -145,16 +147,106 @@ def test_graphed_megastep_equals_eager_steps(card, phase):
             estate, m = fn(estate, batch, egen)
             emet.append(m)
     assert launched == dict(launch_counts)
-    # RAdam's plain branch (steps 1-5) and rectified one (step 6) each
-    # capture at their first step
-    assert len(pool.captures) == 2 and pool.replays == 2 * K - 2
+    assert pool.warmups == len(pool.captures) == 2
+    assert pool.replays == 3 * K - 2
     for name in emet[0]:
         got = torch.cat([m[name] for m in gmet])
         assert torch.equal(got, torch.stack([m[name] for m in emet])), name
     for a, b in zip(g_model.parameters(), e_model.parameters()):
         assert torch.equal(a, b)
     assert torch.equal(ggen.get_state(), egen.get_state())
-    assert gstate.optimizer.count == estate.optimizer.count == 2 * K
+    assert gstate.optimizer.count == estate.optimizer.count == 3 * K
+
+
+def test_partial_and_straddling_groups_graphed_equal_eager_steps(card):
+    """The trainer's steps outside whole groups: a whole group of K at
+    one shape, then a partial group of K - 1 at the same shape that
+    straddles the binarization switch (its first step plain, the rest
+    binarized with KL on), each step through its phase's graphed step
+    (one pool, as the trainer keeps it) against eager steps: metrics,
+    parameters and the generator bit for bit, the launches counted
+    alike. Each (phase, RAdam branch) warms up at its first step and
+    captures at its second."""
+    stacked = _stacked(card)
+    g_model, e_model = _models(2)
+    feat = collate.Featurizer(device=card, **FEAT)
+    loss = step.LossConfig(**LOSS)
+    pool = graphs.GraphPool()
+    runs = []
+    for model, pooled in ((g_model, pool), (e_model, None)):
+        state = step.create_train_state(model, device=card, **OPT)
+        gen = torch.Generator(device=card).manual_seed(1)
+        fns = {ph: step.make_train_step(model, loss, *ph, feat, pooled)
+               for ph in ((False, False), (True, True))}
+        launch_counts.clear()
+        rows = []
+        for n in (K, K - 1):
+            for i in range(n):
+                phase = (True, True) if state.step > K else (False, False)
+                key = feat.noise_key_for_step(state.step)
+                raw = {k: v[i] for k, v in stacked.items()}
+                state, m = fns[phase](
+                    state, step.step_inputs(feat, raw, key), gen)
+                rows.append(m)
+        runs.append((rows, dict(launch_counts), gen))
+    (grows, glaunch, ggen), (erows, elaunch, egen) = runs
+    assert glaunch == elaunch
+    for g, e in zip(grows, erows):
+        for name in e:
+            assert torch.equal(g[name], e[name]), name
+    for a, b in zip(g_model.parameters(), e_model.parameters()):
+        assert torch.equal(a, b)
+    assert torch.equal(ggen.get_state(), egen.get_state())
+    # steps 1-4 plain (plain branch), 5 binarized (plain branch)
+    assert pool.warmups == 2 and len(pool.captures) == 1
+    assert pool.replays == K
+
+
+def test_a_signature_warms_up_once_and_captures_at_its_second_call(card):
+    """A signature seen once runs eagerly and is never captured; one seen
+    three times warms up, captures once and replays twice. Every call's
+    result is the eager one, and the launch ledger counts each call once
+    (the capture's count taken back, each replay's added)."""
+    from radmmm_torch.utils.launches import launched
+    pool = graphs.GraphPool()
+
+    def fn(x):
+        launched("probe")
+        return {"y": x["a"].square().sum(0)}
+
+    g = graphs.Graphed(fn, pool, name="probe")
+    once, thrice = (torch.rand(n, 5, device=card) for n in (3, 4))
+    launch_counts.clear()
+    assert torch.equal(g({"a": once})["y"], fn({"a": once})["y"])
+    for _ in range(3):
+        assert torch.equal(g({"a": thrice})["y"], fn({"a": thrice})["y"])
+    assert (pool.warmups, len(pool.captures), pool.replays) == (2, 1, 2)
+    assert pool.captures[0].signature[3:] == (
+        (tuple(thrice.shape), thrice.dtype, thrice.device),)
+    assert launch_counts["probe"] == 1 + 3 + 4      # g's calls and fn's
+    launch_counts.clear()
+
+
+def test_graphed_val_step_equals_eager(card):
+    """The validation step through ``Graphed`` (the trainer's pool) on a
+    featurized batch, three times (warm-up, capture and replay, replay),
+    against the eager step: every metric bit for bit."""
+    stacked = _stacked(card)
+    (model,) = _models(1)
+    state = step.create_train_state(model, device=card, **OPT)
+    feat = collate.Featurizer(device=card, **FEAT)
+    loss = step.LossConfig(**LOSS)
+    pool = graphs.GraphPool()
+    graphed = step.make_val_step(model, loss, pool=pool)
+    eager = step.make_val_step(model, loss)
+    batch = feat.featurize_raw({k: v[0] for k, v in stacked.items()}, 0)
+    want = eager(state, batch)
+    for _ in range(3):
+        got = graphed(state, batch)
+        assert set(got) == set(want)
+        for name, v in want.items():
+            assert torch.equal(got[name], v), name
+    assert (pool.warmups, len(pool.captures), pool.replays) == (1, 1, 2)
 
 
 def test_graphed_serving_equals_eager(card, tmp_path):
@@ -206,8 +298,9 @@ def test_captures_of_one_pool_share_its_memory(card):
     second = graphs.Graphed(fn, pool, name="second")
     want = fn({"a": a})
     for g in (first, second):
-        g({"a": a})                         # warm-up and capture
-        assert torch.equal(g({"a": a}), want)           # a replay
+        assert torch.equal(g({"a": a}), want)       # the warm-up
+        assert torch.equal(g({"a": a}), want)       # captured, replayed
+        assert torch.equal(g({"a": a}), want)       # a replay
     grew = [c.pool_bytes for c in pool.captures]
     assert grew[0] >= 64 * 2**20
     assert grew[1] <= 2 * 2**20

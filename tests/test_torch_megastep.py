@@ -32,6 +32,7 @@ from radmmm_torch.data import collate
 from radmmm_torch.models.tts import TTSConfig, TTSModel
 from radmmm_torch.serving import export_tts, load_tts
 from radmmm_torch.training import optim, step
+from radmmm_torch.utils.graphs import GraphPool
 from tests.test_torch_convert import perturb
 from tests.test_torch_featurizer import REG, _items
 from tests.test_torch_serving import TEXT_BUCKETS, FRAME_BUCKETS, _requests
@@ -412,3 +413,22 @@ def test_graphed_functions_never_wait_on_the_device(tiny, ported, rng,
     # one read a request: the host picks the frame bucket from stage A's
     # frame counts between the two graphs, as the JAX package does
     assert watch.seen == ["_local_scalar_dense"] * len(requests)
+
+
+def test_graphed_val_step_never_waits_on_the_device(tiny):
+    """The validation step the trainer graphs (binarized: the attention's
+    MAS, the CTC forward and the LSTMs) runs no op that needs a device
+    value on the host, on a batch featurized from raw audio; its metrics
+    are finite."""
+    jm, v, raws = tiny
+    port = _port(jm, v)
+    state = step.create_train_state(port, device="cpu", **OPT)
+    feat = collate.Featurizer(device="cpu", **FEAT)
+    batch = feat.featurize_raw({k: torch.from_numpy(a)
+                                for k, a in raws[0].items()}, 0)
+    val = step.make_val_step(port, step.LossConfig(**REG), pool=GraphPool())
+    watch = _NoHostWaits()
+    with watch:
+        met = val(state, batch)
+    assert watch.seen == []
+    assert all(torch.isfinite(x) for x in met.values()) and "loss" in met

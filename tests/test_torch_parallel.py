@@ -211,6 +211,57 @@ def test_loader_reads_the_mesh():
     assert DataLoader(_Utterances(), 4).process_count == 1
 
 
+@pytest.mark.parametrize("n_proc", [2, 3])
+def test_validation_deal_gives_every_rank_its_batches_at_one_shape(n_proc):
+    """The validation loader as the data module builds it (no shuffle, one
+    scheduled shape for the set) gives every process the same number of
+    batches at the same (B, frames, text) shape, position by position, so
+    the ranks' graphed validation steps warm up, capture and replay their
+    collectives together; the short last batch of the set goes on no
+    rank."""
+    ds = _Utterances()
+    shapes = []
+    for r in range(n_proc):
+        loader = DataLoader(ds, 4, shuffle=False, featurizer=None,
+                            num_threads=1, uniform_shape=True,
+                            process_index=r, process_count=n_proc)
+        shapes.append([(len(i), tuple(p)) for i, p in loader._batches()])
+        assert len(shapes[r]) == len(loader) == len(ds.data) // 4 // n_proc
+    assert all(s == shapes[0] for s in shapes)
+    assert len(set(shapes[0])) == 1 and shapes[0][0][0] == 4
+
+
+def test_graph_ledger_adds_a_captured_steps_collectives_at_replay():
+    """The collectives' counts tick where one is issued, so while a graph
+    is captured and never while it replays. The graphs' ledger takes a
+    capture's counts back and adds them at each replay, with the kernel
+    launches: driven here by hand as ``StepGraph`` drives it on the card,
+    ``collective_stats`` stays what the cards ran."""
+    from radmmm_torch.parallel import collectives as C
+    from radmmm_torch.utils.graphs import LEDGER
+    from radmmm_torch.utils.launches import launch_counts, launched
+    mesh.reset_collective_stats()
+    launch_counts.clear()
+    C._record("all_reduce", torch.zeros(4))          # an eager step's
+    taken = LEDGER.begin()
+    for _ in range(2):                                # the capture's
+        C._record("all_reduce", torch.zeros(8))
+    C._record("all_gather", torch.zeros(2, 3))
+    launched("ctc_alpha")
+    added = LEDGER.end(taken)
+    assert mesh.collective_stats() == {
+        "all_reduce": {"count": 1, "bytes": 16}}
+    assert launch_counts == {}
+    for _ in range(3):
+        LEDGER.replay(added)
+    assert mesh.collective_stats() == {
+        "all_reduce": {"count": 7, "bytes": 16 + 3 * 64},
+        "all_gather": {"count": 3, "bytes": 3 * 24}}
+    assert launch_counts == {"ctc_alpha": 3}
+    mesh.reset_collective_stats()
+    launch_counts.clear()
+
+
 # --- a training step over two processes ----------------------------------
 
 CHILD = r'''

@@ -28,6 +28,7 @@ from radmmm_tpu.training import step as jax_step
 from radmmm_torch.convert import load_jax_train_state, tts_state_dict_from_jax
 from radmmm_torch.models.tts import TTSConfig, TTSModel
 from radmmm_torch.training import optim, step
+from radmmm_torch.utils import graphs
 from radmmm_torch.utils.launches import launch_counts
 from tests.test_torch_convert import perturb
 from tests.test_tts_model import tiny_batch, tiny_config
@@ -213,7 +214,11 @@ def test_trajectory_of_8_steps_in_both_phases(setup):
         _close(p.detach().numpy(), want[name].numpy(), name, atol=1e-5)
 
 
-def test_val_step_matches_jax(setup):
+@pytest.mark.parametrize("graphed", [False, True])
+def test_val_step_matches_jax(setup, monkeypatch, graphed):
+    """The validation step, eager or through ``Graphed`` in a pool (as the
+    trainer runs it; eager on the CPU), against JAX's jitted one on the
+    same weights; it updates no spectral norm."""
     jm, v, batch = setup
     jcfg = jax_step.LossConfig(**REG)
     tx = jax_optim.build_optimizer("RAdam", **OPT)
@@ -222,7 +227,15 @@ def test_val_step_matches_jax(setup):
     port = _port(jm, v)
     u = port.text_encoder.lstm.sn_fwd.u.clone()
     state = step.create_train_state(port, device="cpu")
-    got = step.make_val_step(port, step.LossConfig(**REG))(state, _t(batch))
+    names = []
+    call = graphs.Graphed.__call__
+    monkeypatch.setattr(graphs.Graphed, "__call__", lambda self, x, key=(): (
+        names.append(self.name) or call(self, x, key)))
+    val_step = step.make_val_step(
+        port, step.LossConfig(**REG),
+        pool=graphs.GraphPool() if graphed else None)
+    got = val_step(state, dict(_t(batch), audiopaths=["a.wav"] * 2))
+    assert names == (["val_step"] if graphed else [])
     assert set(got) == set(want)
     for name, val in got.items():
         _close(val.item(), want[name], name)
