@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--phases build,kernels,serve,parity,train,
                            train_parity,wn,featurize,vocoder,fit,
-                           radtts_fit,m12,ddp,caches,bf16,graphs]
-                          [--seed 0] [--graph-parts a,b,c,e,f,g]
+                           radtts_fit,m12,ddp,caches,bf16,graphs,
+                           graphs_nccl]
+                          [--seed 0]
 
 Phases (all by default):
 
@@ -256,15 +257,18 @@ Phases (all by default):
             each validation's launches alike, the steps that replay
             exactly those whose (shape, phase, RAdam branch) was seen
             before, ms a step over them and validation seconds each way;
+            then the same with megastep_k 1 (the loader featurizes each
+            batch in its thread and the step alone is graphed, over the
+            batch's natural bucket shapes); (c) the port's
+            aug_disentangle_experiment script at 16 steps a fit;
+17. graphs_nccl
             (g) with two cards or more, fit --distributed over NCCL
-            (n_data 2, torchrun, the ddp phase's corpus) for 12 steps in
+            (n_data 2, torchrun, the ddp phase's corpus) for 16 steps in
             groups of 4 with validation every 6, graphed against eager:
             rank 0's loss terms within the ddp phase's bounds, its
             collectives and launches alike, ms a step and a traced step's
             wall, busy time and host launch calls each way; with one card
-            a line says (g) did not run; (c) the port's
-            aug_disentangle_experiment script at 16 steps a fit.
-            --graph-parts picks the parts (a,b,c,e,f,g by default).
+            a line says (g) did not run and nothing is reported as passed.
 
 Any failure exits non-zero. The line before the last is a JSON object
 with the kernels' numbers; the last line is
@@ -295,7 +299,7 @@ import torch
 
 PHASES = ("build", "kernels", "serve", "parity", "train", "train_parity",
           "wn", "featurize", "vocoder", "fit", "radtts_fit", "m12", "ddp",
-          "caches", "bf16", "graphs")
+          "caches", "bf16", "graphs", "graphs_nccl")
 # (name, lanes, hidden, time steps, LSTM input width) on the serving path
 # at text bucket 96 and frame bucket 800 (the flow context runs at 800/2)
 PATH_SHAPES = (("text_encoder", 2, 260, 96, 520),
@@ -2552,28 +2556,46 @@ def phase_caches(seed: int) -> dict:
         _zero_counters()
         runs = {}
         for tag, argv in (("without", plain), ("with", cached)):
-            steps, fed = [], []
-            featurize_raw = Featurizer.featurize_raw
+            steps, fed, loaded = [], [], []
+            featurize_raw, load = Featurizer.featurize_raw, \
+                Featurizer.__call__
 
             def recording(self, raw, noise_key, noise=None):
                 fed.append("cached_f0" in raw)
                 return featurize_raw(self, raw, noise_key, noise=noise)
 
-            Featurizer.featurize_raw = recording
+            def loading(self, host_batch):
+                loaded.append(1)
+                return load(self, host_batch)
+
+            Featurizer.featurize_raw, Featurizer.__call__ = recording, \
+                loading
             try:
                 with _counted(Trainer, "_run_step", steps):
                     dm, tr, _, fit_s = _run_cli(
                         ["fit"] + argv, f"fit to {CACHE_STEPS} steps "
                         f"{tag} the caches", "caches")
             finally:
-                Featurizer.featurize_raw = featurize_raw
-            # every batch featurized (the first batch's, and each step's
-            # signature's warm-up and capture: a replay featurizes the raw
-            # batch of the keys it was captured with) carried its tracks
-            # with the caches, none without
-            if not fed or set(fed) != {tag == "with"}:
-                fail(f"fit {tag} the caches: the featurized batches "
-                     f"carried F0 tracks {fed}")
+                Featurizer.featurize_raw, Featurizer.__call__ = \
+                    featurize_raw, load
+            # every batch featurized carried its tracks with the caches,
+            # none without; they are the loader's (the first batch and
+            # those loaded with it) and each step that ran the step's
+            # function: a signature's warm-up (the steps that did not
+            # replay) and its capture (a replay featurizes the raw batch
+            # of the keys it was captured with)
+            s = tr.stats
+            captured = sum(c.name == "train_step"
+                           for c in tr._graph_pool.captures)
+            want_fed = len(loaded) + s["steps"] - s["graphed_steps"] \
+                + captured
+            if not loaded or len(fed) != want_fed or \
+                    set(fed) != {tag == "with"}:
+                fail(f"fit {tag} the caches: {len(fed)} featurized batches"
+                     f" (expected {len(loaded)} loaded, "
+                     f"{s['steps'] - s['graphed_steps']} warm-ups and "
+                     f"{captured} captures of the step), carrying F0 "
+                     f"tracks {fed}")
             if (tag == "with") != (dm.trainset.f0_cache is not None
                                    and dm.trainset.audio_cache is not None):
                 fail(f"fit {tag} the caches read the wrong dataset")
@@ -2590,7 +2612,6 @@ def phase_caches(seed: int) -> dict:
             if bad or [r["step"] for r in rows] != list(
                     range(1, CACHE_STEPS + 1)):
                 fail(f"caches: fit {tag} the caches logged {rows}")
-            s = tr.stats
             starts, pauses = s["step_starts"], s["pause_s"]
             walls = [1e3 * (starts[i + 1] - starts[i] - pauses.get(i + 1, 0))
                      for i in range(1, CACHE_PROFILE_FROM)]
@@ -4411,8 +4432,12 @@ GRAPH_MIXED_BINARIZE, GRAPH_MIXED_KL, GRAPH_MIXED_VAL = 3, 12, 8
 # RAdam's rectified branch from the sixth update (N_sma >= 5 at b2 0.999)
 RADAM_RECTIFIED_FROM = 5
 # part (g): fit --distributed on two cards over NCCL, the ddp phase's
-# corpus (one shape: whole rounds) in groups of 4, validated every 6 steps
-GRAPH_NCCL_STEPS, GRAPH_NCCL_VAL, GRAPH_NCCL_PROFILED = 12, 6, 9
+# corpus (one shape: whole rounds) in groups of 4, validated every 6 steps;
+# ms a step over the whole group of steps 8-11 (every one replays), step
+# 13 traced (the profiler's start and stop, seconds each, fall in the
+# walls of steps 12 and 13, start to start)
+GRAPH_NCCL_STEPS, GRAPH_NCCL_VAL, GRAPH_NCCL_PROFILED = 16, 6, 13
+GRAPH_NCCL_TIMED = range(8, 12)
 GRAPH_NCCL_TIMEOUT = 300    # a run's seconds: a rank left alone in a
                             # capture would wait on its peer for ever
 
@@ -4571,27 +4596,31 @@ def _graphs_fit(seed: int, work: str) -> dict:
     return g["launches"]
 
 
-def _graphs_mixed(seed: int, work: str) -> dict:
+def _graphs_mixed(seed: int, work: str, k: int) -> dict:
     """Part (f): the recipe at full width through the training CLI for
-    GRAPH_FIT_STEPS steps with megastep_k GRAPH_FIT_K on the fit phase's
-    corpus (lines of their own lengths: most groups partial), the
+    GRAPH_FIT_STEPS steps with megastep_k ``k`` on the fit phase's corpus
+    (lines of their own lengths: with ``k`` GRAPH_FIT_K most groups
+    partial; with ``k`` 1 the loop that takes the loader's featurized
+    batches at their natural bucket shapes and graphs the step alone), the
     binarization and KL switches inside groups, validation on (the
     losses; no samples) and one loader thread, graphed and with the
     trainer's eager steps, both under cuDNN's deterministic algorithms:
     the logged losses bit for bit, every step's launches and the
     validations' alike, the groups (whole, partial, straddling), steps,
-    graphed steps, warm-ups, captures and replays, ms a step over the
-    steps that replayed against the same steps eager, and validation
-    seconds each way. Returns the graphed fit's launches."""
+    graphed steps (those of the signatures seen before, so the steps less
+    the train step's warm-ups), warm-ups, captures and replays, ms a step
+    over the steps that replayed against the same steps eager, and
+    validation seconds each way. Returns the graphed fit's launches."""
     import os
     from radmmm_torch.training.loop import Trainer
     from radmmm_torch.training.step import LossConfig, phase_flags
-    root = os.path.join(work, "mixed")
+    part = "(f)" if k > 1 else "(f, megastep_k 1)"
+    root = os.path.join(work, f"mixed_k{k}")
     os.makedirs(root)
     overlay = fit_overlay(root, fit_corpus(root, seed, GRAPH_MIXED_LINES))
     base = [a for c in RECIPE + (overlay,) for a in ("-c", c)] + [
         f"--trainer.max_steps={GRAPH_FIT_STEPS}",
-        f"--trainer.megastep_k={GRAPH_FIT_K}",
+        f"--trainer.megastep_k={k}",
         f"--trainer.val_check_interval={GRAPH_MIXED_VAL}",
         f"--model.binarization_start_iter={GRAPH_MIXED_BINARIZE}",
         "--model.decoder_loss.init_args.kl_loss_start_iter="
@@ -4610,11 +4639,11 @@ def _graphs_mixed(seed: int, work: str) -> dict:
                 _EagerSteps() if way == "eager" else contextlib.nullcontext():
             _, tr, _, fit_s = _run_cli(
                 ["fit"] + base + [f"--model.output_directory={run_dir}"],
-                f"(f) fit to {GRAPH_FIT_STEPS} steps, {way}", "graphs")
+                f"{part} fit to {GRAPH_FIT_STEPS} steps, {way}", "graphs")
         st = tr.stats
         kinds, at = collections.Counter(), 0
         for n in sizes:
-            kinds["partial" if n < GRAPH_FIT_K else "straddling"
+            kinds["partial" if n < k else "straddling"
                   if phase_flags(at, cfg) != phase_flags(at + n - 1, cfg)
                   else "whole"] += 1
             at += n
@@ -4625,7 +4654,7 @@ def _graphs_mixed(seed: int, work: str) -> dict:
             rows=[r for r in _metrics_rows(run_dir) if "train/loss" in r],
             val_rows=[r for r in _metrics_rows(run_dir)
                       if "val/loss" in r])
-        log(f"[graphs] (f) {way}: {fit_s:.2f} s; groups {sizes} "
+        log(f"[graphs] {part} {way}: {fit_s:.2f} s; groups {sizes} "
             f"({dict(kinds)}); {st['steps']} steps, {st['graphed_steps']} "
             f"replayed a graph, {st['megastep_steps']} in whole groups; "
             f"warm-ups {st['warmups']}, captures {st['captures']}, replays "
@@ -4633,14 +4662,22 @@ def _graphs_mixed(seed: int, work: str) -> dict:
             f"{sorted(collections.Counter(r['shape'] for r in steps).items())}"
             f"; validation {st['val_s']:.3f} s in {len(vals)}")
     g, e = runs["graphed"], runs["eager"]
-    if len({r["shape"] for r in g["steps"]}) < 3 or not g["kinds"][
-            "partial"] or not g["kinds"]["straddling"]:
+    if k > 1 and (len({r["shape"] for r in g["steps"]}) < 3 or not g[
+            "kinds"]["partial"] or not g["kinds"]["straddling"]):
         fail("(f) expected 3 batch shapes or more and partial and "
              "straddling groups")
+    # megastep_k 1: the loop of featurized batches, no group taken and no
+    # step featurizing (a step's noise key is None where the loader
+    # featurizes)
+    if k == 1 and (g["sizes"] or any(key is not None for key in
+                                     g["stats"]["noise_keys"])):
+        fail(f"{part} the fit took raw groups {g['sizes']}, not the "
+             f"loader's featurized batches")
     if [r["launches"] for r in g["steps"]] != [
             r["launches"] for r in e["steps"]] or g["vals"] != e["vals"] \
             or g["launches"] != e["launches"]:
-        fail(f"(f) launches graphed {g['launches']}, eager {e['launches']}")
+        fail(f"{part} launches graphed {g['launches']}, eager "
+             f"{e['launches']}")
     # every step replays but each signature's first sighting: a (shape,
     # phase, RAdam branch) seen once is only warmed up
     seen, want = set(), []
@@ -4650,26 +4687,31 @@ def _graphs_mixed(seed: int, work: str) -> dict:
         want.append(sig in seen)
         seen.add(sig)
     n_val = len(e["val_rows"])
-    log(f"[graphs] (f) {len(seen)} signatures of (shape, phase, RAdam "
+    log(f"[graphs] {part} {len(seen)} signatures of (shape, phase, RAdam "
         f"branch) over {GRAPH_FIT_STEPS} steps; graphed by step "
         + "".join("R" if r["graphed"] else "." for r in g["steps"]))
     if [r["graphed"] for r in g["steps"]] != want or \
+            g["stats"]["graphed_steps"] != GRAPH_FIT_STEPS - len(seen) or \
+            not any(want) or \
             e["stats"]["graphed_steps"] or e["stats"]["captures"]:
-        fail(f"(f) the steps that replayed a graph are not those whose "
+        fail(f"{part} the steps that replayed a graph are not those whose "
              f"signature was seen before ({sum(want)} of "
-             f"{GRAPH_FIT_STEPS}); eager {e['stats']['graphed_steps']}")
+             f"{GRAPH_FIT_STEPS}, {len(seen)} warm-ups of the step; "
+             f"graphed {g['stats']['graphed_steps']}); eager "
+             f"{e['stats']['graphed_steps']}")
     def losses(rows):
         return [{k: v for k, v in r.items() if k != "train/steps_per_sec"}
                 for r in rows]
 
     equal = (losses(g["rows"]) == losses(e["rows"])
              and g["val_rows"] == e["val_rows"])
-    log(f"[graphs] (f) deterministic cuDNN: {len(g['rows'])} logged steps' "
+    log(f"[graphs] {part} deterministic cuDNN: {len(g['rows'])} logged "
+        f"steps' "
         f"loss terms and {n_val} validations' losses, graphed "
         f"against eager, bit-equal {equal}; train/loss by step, graphed: "
         + ", ".join(f"{r['step']}: {r['train/loss']!r}" for r in g["rows"]))
     if not equal:
-        fail("(f) the graphed fit's losses are not the eager fit's")
+        fail(f"{part} the graphed fit's losses are not the eager fit's")
     # the steady steps: those that replayed without capturing first
     steady = [r["step"] for r in g["steps"] if r["graphed"]
               and not r["captured"] and r["step"] < GRAPH_FIT_STEPS - 1]
@@ -4678,12 +4720,12 @@ def _graphs_mixed(seed: int, work: str) -> dict:
                         ("captured, then replayed", captured)):
         gw = _step_walls(g["stats"], steps)
         ew = _step_walls(e["stats"], steps)
-        log(f"[graphs] (f) ms a step over the {len(steps)} steps that "
+        log(f"[graphs] {part} ms a step over the {len(steps)} steps that "
             f"{what} (start to next start, validation out): graphed "
             f"{np.mean(gw):.2f} (median {np.median(gw):.2f}), the same "
             f"steps eager {np.mean(ew):.2f} (median {np.median(ew):.2f})")
-    log(f"[graphs] (f) validation seconds, each of {len(g['val_s'])} (the "
-        f"losses of one batch; graphed: a warm-up, a capture and a "
+    log(f"[graphs] {part} validation seconds, each of {len(g['val_s'])} "
+        f"(the losses of one batch; graphed: a warm-up, a capture and a "
         f"replay): graphed " + ", ".join(f"{x:.3f}" for x in g["val_s"])
         + ", eager " + ", ".join(f"{x:.3f}" for x in e["val_s"]))
     return g["launches"]
@@ -4696,11 +4738,12 @@ def _graphs_nccl(seed: int, work: str) -> dict:
     GRAPH_FIT_K, validated every GRAPH_NCCL_VAL steps (losses only), once
     graphed and once with the trainer's eager steps: rank 0's loss terms
     within the ddp phase's bounds (1e-5 + TRAIN_PARITY_RTOL relative;
-    the wave augmentations off, so both runs load the same batches and the
-    loader's four threads keep ahead of the steps: with them on, one
-    thread, which both runs' draws would need, paced the steps at about
-    2.4 s), its collectives (counts and bytes) and launches alike, ms a step over
-    the steps that replayed each way, and step GRAPH_NCCL_PROFILED
+    the wave augmentations off, so both runs load the same batches from
+    the loader's four threads, which would draw augmentations in their
+    own order), its collectives (counts and bytes) and launches alike, ms a
+    step over the whole group GRAPH_NCCL_TIMED (start to next start: the
+    host queues a group's replays, then waits at its end) each way, each
+    step's wall, and step GRAPH_NCCL_PROFILED
     profiled (wall, busy, host launch calls) each way. Returns rank 0's
     graphed launches."""
     import os
@@ -4732,12 +4775,8 @@ def _graphs_nccl(seed: int, work: str) -> dict:
             r for r in _metrics_rows(f"{root}/run_{way}")
             if "train/loss" in r])
         r0 = res[0]
-        # the steps that replayed a graph captured at an earlier step
-        steady = [i for i, g in enumerate(r0["graphed"])
-                  if g and i < len(r0["walls"])]
-        runs[way]["steady"] = steady
         p = r0["profile"]
-        log(f"[graphs] (g) {way}, 2 ranks over NCCL in "
+        log(f"[graphs_nccl] (g) {way}, 2 ranks over NCCL in "
             f"{time.perf_counter() - t0:.1f} s: rank 0 {r0['n_steps']} steps"
             f", {sum(r0['graphed'])} replayed a graph captured earlier "
             f"(warm-ups "
@@ -4747,7 +4786,9 @@ def _graphs_nccl(seed: int, work: str) -> dict:
             f"launches "
             f"{r0['launches']}; step {GRAPH_NCCL_PROFILED} traced: wall "
             f"{p['wall_ms']:.2f} ms, busy {p['busy_ms']:.2f} ms, "
-            f"{p['host_launches']} host launch calls {p['host_calls']}")
+            f"{p['host_launches']} host launch calls {p['host_calls']}; "
+            f"each step's ms, start to next start, validation out: "
+            + ", ".join(f"{w:.1f}" for w in r0["walls"]))
         if res[0]["sums"] != res[1]["sums"]:
             fail(f"(g) {way}: the ranks' parameters differ")
     g, e = runs["graphed"], runs["eager"]
@@ -4756,8 +4797,10 @@ def _graphs_nccl(seed: int, work: str) -> dict:
             g0["launches"] != e0["launches"]:
         fail("(g) the graphed fit's collectives or launches are not the "
              "eager fit's")
-    if not g["steady"] or e0["captures"]:
-        fail("(g) no graphed step replayed, or the eager fit captured")
+    if not all(g0["graphed"][i] for i in GRAPH_NCCL_TIMED) or \
+            e0["captures"]:
+        fail(f"(g) steps {list(GRAPH_NCCL_TIMED)} did not all replay a "
+             f"graph captured earlier, or the eager fit captured")
     worst = 0.0
     for a, b in zip(g["rows"], e["rows"]):
         for k, want in b.items():
@@ -4769,13 +4812,13 @@ def _graphs_nccl(seed: int, work: str) -> dict:
                     + TRAIN_PARITY_RTOL * abs(want)):
                 fail(f"(g) step {b['step']} {k}: graphed {a[k]!r}, eager "
                      f"{want!r}")
-    steady = g["steady"]
-    gw = [g0["walls"][i] for i in steady]
-    ew = [e0["walls"][i] for i in steady]
-    log(f"[graphs] (g) loss terms of {len(g['rows'])} logged steps, graphed "
-        f"against eager: worst relative {worst:.3e} (rtol "
-        f"{TRAIN_PARITY_RTOL:g}); ms a step over the {len(steady)} steps "
-        f"that replayed a graph captured earlier: graphed "
+    gw = [g0["walls"][i] for i in GRAPH_NCCL_TIMED]
+    ew = [e0["walls"][i] for i in GRAPH_NCCL_TIMED]
+    log(f"[graphs_nccl] (g) loss terms of {len(g['rows'])} logged steps, "
+        f"graphed against eager: worst relative {worst:.3e} (rtol "
+        f"{TRAIN_PARITY_RTOL:g}); ms a step over the whole group of steps "
+        f"{GRAPH_NCCL_TIMED[0]}-{GRAPH_NCCL_TIMED[-1]}, every one replaying "
+        f"a graph captured earlier: graphed "
         f"{np.mean(gw):.2f}, eager {np.mean(ew):.2f};"
         f" a traced step's host launch calls: graphed "
         f"{g0['profile']['host_launches']}, eager "
@@ -4808,49 +4851,52 @@ def _graphs_aug(work: str) -> None:
         fail(f"the aug experiment's script gave {res}")
 
 
-GRAPH_PARTS = "a,b,c,e,f,g"
-
-
 @tf32_off()
-def phase_graphs(seed: int, parts: str = GRAPH_PARTS) -> dict:
+def phase_graphs(seed: int) -> dict:
     """The graphs phase: (a) graphed against eager training in f32 and
-    bf16, (b) graphed against eager serving, (c) the aug experiment's
-    script, (e) a graphed fit of whole groups against an eager one, (f) a
-    fit of partial and phase-straddling groups with validation, graphed
-    against eager, bit for bit, (g) with two cards or more, fit
-    --distributed over NCCL graphed against eager. ``parts`` picks them.
-    Returns the launches of the graphed paths (None for a part not run)."""
-    parts = parts.split(",")
-    out = dict.fromkeys(("graphs_train", "graphs_serve", "graphs_fit",
-                         "graphs_mixed", "graphs_nccl"))
-    if "a" in parts:
-        train = _graphs_train(seed, "f32")
-        torch.cuda.empty_cache()
-        with conv_precision("bf16"):
-            train_bf16 = _graphs_train(seed, "bf16")
-        torch.cuda.empty_cache()
-        out["graphs_train"] = {k: train[k] + train_bf16[k] for k in train}
+    bf16, (b) graphed against eager serving, (e) a graphed fit of whole
+    groups against an eager one, (f) fits of partial and phase-straddling
+    groups and of megastep_k 1, with validation, graphed against eager,
+    bit for bit, (c) the aug experiment's script. Returns the launches of
+    the graphed paths."""
+    out = {}
+    train = _graphs_train(seed, "f32")
+    torch.cuda.empty_cache()
+    with conv_precision("bf16"):
+        train_bf16 = _graphs_train(seed, "bf16")
+    torch.cuda.empty_cache()
+    out["graphs_train"] = {k: train[k] + train_bf16[k] for k in train}
     work = tempfile.mkdtemp(prefix="radmmm_graphs_")
     try:
-        if "b" in parts:
-            out["graphs_serve"] = _graphs_serve(seed, work)
-            torch.cuda.empty_cache()
-        if "e" in parts:
-            out["graphs_fit"] = _graphs_fit(seed, work)
-            torch.cuda.empty_cache()
-        if "f" in parts:
-            out["graphs_mixed"] = _graphs_mixed(seed, work)
-            torch.cuda.empty_cache()
-        if "g" in parts and torch.cuda.device_count() >= 2:
-            out["graphs_nccl"] = _graphs_nccl(seed, work)
-        elif "g" in parts:
-            log(f"[graphs] part (g) did not run: it needs NCCL on two "
-                f"cards, and this machine has {torch.cuda.device_count()}")
-        if "c" in parts:
-            _graphs_aug(work)
+        out["graphs_serve"] = _graphs_serve(seed, work)
+        torch.cuda.empty_cache()
+        out["graphs_fit"] = _graphs_fit(seed, work)
+        torch.cuda.empty_cache()
+        out["graphs_mixed"] = _graphs_mixed(seed, work, GRAPH_FIT_K)
+        torch.cuda.empty_cache()
+        out["graphs_plain"] = _graphs_mixed(seed, work, 1)
+        torch.cuda.empty_cache()
+        _graphs_aug(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+@tf32_off()
+def phase_graphs_nccl(seed: int):
+    """Part (g): with two cards or more, fit --distributed over NCCL
+    graphed against eager (``_graphs_nccl``); returns rank 0's graphed
+    launches. With one card a line says that (g) did not run, and it
+    returns None (no launches, nothing passed)."""
+    if torch.cuda.device_count() < 2:
+        log(f"[graphs_nccl] part (g) did not run: it needs NCCL on two "
+            f"cards, and this machine has {torch.cuda.device_count()}")
+        return None
+    work = tempfile.mkdtemp(prefix="radmmm_graphs_nccl_")
+    try:
+        return _graphs_nccl(seed, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def kernel_entries(rows: list, serve_launches, train_launches,
@@ -4867,8 +4913,9 @@ def kernel_entries(rows: list, serve_launches, train_launches,
     paths (fit, the vocoder path, which runs none of them, radtts_fit, m12,
     ddp, rank 0's counted steps, caches, its two fits, the bf16 phase's
     training steps, fit and serving, and the graphs phase's graphed steps,
-    requests and fits (whole groups, mixed groups, and rank 0's steps
-    over NCCL), counted through the graphs' launch ledger; None for a
+    requests and fits (whole groups, mixed groups, megastep_k 1, and rank
+    0's steps over NCCL), counted through the graphs' launch ledger; None
+    for a
     phase or part not run).
     The bf16 variants of K4 and its backward (rows of the bf16 phase) are
     listed after them the same way, each with the f32 kernel's ms at its
@@ -4982,8 +5029,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--graph-parts", default=GRAPH_PARTS,
-                    help="the graphs phase's parts, of " + GRAPH_PARTS)
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -5051,7 +5096,9 @@ def main() -> int:
         rows = rows + bf16_rows
     graph_launches = {}
     if "graphs" in phases:
-        graph_launches = phase_graphs(args.seed, args.graph_parts)
+        graph_launches = phase_graphs(args.seed)
+    if "graphs_nccl" in phases:
+        graph_launches["graphs_nccl"] = phase_graphs_nccl(args.seed)
     if rows:
         log(json.dumps({"kernels": kernel_entries(
             rows, serve_launches, train_launches, wn_launches,
@@ -5062,7 +5109,8 @@ def main() -> int:
                 for k in ("train", "fit", "serve")},
              **{k: graph_launches.get(k)
                 for k in ("graphs_train", "graphs_serve", "graphs_fit",
-                          "graphs_mixed", "graphs_nccl")}})}))
+                          "graphs_mixed", "graphs_plain",
+                          "graphs_nccl")}})}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"ok": True, "device": {

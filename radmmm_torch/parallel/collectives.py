@@ -6,8 +6,9 @@ the collectives out of a compiled program's HLO, which PyTorch does not
 have). The bytes are those of the logical result: an all-reduce's tensor,
 an all-gather's output, a reduce-scatter's input. ``STATS`` ticks where a
 collective is issued, so while a CUDA graph is captured and never while it
-replays: the graphs' ledger (``utils/graphs.py``) takes a capture's counts
-back and adds them at each replay, as it does the kernels' launches.
+replays: it is one of the tallies of ``utils/launches.py``, whose counts
+the graphs' ledger (``utils/graphs.py``) takes back from a capture and adds
+at each replay, as it does the kernels' launches.
 
 Under NCCL the all-gather and the reduce-scatter are NCCL's own. Under
 gloo both are written from the one collective every gloo build takes on
@@ -40,9 +41,12 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from radmmm_torch.utils.launches import TALLIES
+
 # (kind, "count") and (kind, "bytes") of the collectives issued since the
 # last ``reset_stats``
 STATS: collections.Counter = collections.Counter()
+TALLIES.append(STATS)
 
 
 def reset_stats() -> None:

@@ -41,12 +41,12 @@ the same code eagerly. On the card:
   (``CUDAGraph.register_generator_state``): a replay draws the bits the
   same calls would draw eagerly from the generator's current offset, and
   advances it as they would.
-- The ledger (``LEDGER``): host-side counters that tick where a call
-  queues work on the card, the kernel wrappers' launches
-  (``utils/launches.py``) and the collectives' counts and bytes
-  (``parallel/collectives.py``), tick while a graph is captured and never
-  while it replays. A capture takes back what it added and records it;
-  each replay adds it again, so the counters stay the work the card ran.
+- The ledger (``LEDGER``): the host-side counters that tick where a call
+  queues work on the card (``utils/launches.TALLIES``: the kernel
+  wrappers' launches, the collectives' counts and bytes) tick while a
+  graph is captured and never while it replays. A capture takes back
+  what it added and records it; each replay adds it again, so the
+  counters stay the work the card ran.
 - Collectives inside ``fn`` (NCCL's) are captured with it: the warm-up's
   eager collectives create the communicators first, and every rank
   captures at the same call, since each sees the same signatures in the
@@ -66,17 +66,17 @@ import torch
 from torch.utils import _pytree as pytree
 
 from radmmm_torch.ops.conv import get_conv_precision
-from radmmm_torch.parallel.collectives import STATS as collective_counts
-from radmmm_torch.utils.launches import launch_counts
+from radmmm_torch.utils.launches import TALLIES
 
 
 class Ledger:
-    """Host-side counters (``collections.Counter``s) that tick where a
+    """Host-side counters (a list of ``collections.Counter``s, read at
+    each call, so counters added later are kept too) that tick where a
     call queues work on the card. ``taken = begin()`` before a capture and
     ``end(taken)`` after it take back what the capture added, counter by
     counter, and return it; ``replay(added)`` adds it again."""
 
-    def __init__(self, *counters: collections.Counter):
+    def __init__(self, counters: List[collections.Counter]):
         self.counters = counters
 
     def begin(self) -> List[collections.Counter]:
@@ -95,8 +95,8 @@ class Ledger:
             c.update(a)
 
 
-# the kernel wrappers' launches and the collectives' counts and bytes
-LEDGER = Ledger(launch_counts, collective_counts)
+# the kernel wrappers' launches first, then the other tallies
+LEDGER = Ledger(TALLIES)
 
 
 @dataclasses.dataclass
