@@ -3085,9 +3085,12 @@ def phase_m12(seed: int) -> dict:
 
 # the vocoder phase: HiFi-GAN v1 trained at its published batch on
 # segments of 8,192 samples (VocoderTrainConfig's defaults), from a corpus
-# of VOC_TRAIN lines of each source, so every batch holds VOC_B items
+# of VOC_TRAIN lines of each source, so every batch holds VOC_B items;
+# the resumed run's first step warms its graph up and its second captures
+# it, so the profiled steps are the two after those
 VOC_TRAIN, VOC_B = 32, 16
-VOC_STEPS, VOC_RESUME_STEPS, VOC_PROFILED = 6, 8, 2
+VOC_STEPS, VOC_RESUME_STEPS, VOC_PROFILED = 6, 10, 2
+VOC_PROFILED_FROM = VOC_RESUME_STEPS - VOC_PROFILED
 VOC_WG_STEPS = 4
 VOC_MELS = (4, 390)
 # iSTFTNet's C8C8I: two upsamplings of 8, then an inverse STFT of 16
@@ -3100,6 +3103,17 @@ ISTFTNET = dict(upsample_rates=(8, 8), upsample_kernel_sizes=(16, 16),
 # TFLOP a batch is minutes on the host)
 VOCODE_RTOL = 1e-4
 WG_CPU_FRAMES = 96
+# each trainer's step graphed against eager (pool None), at the phase's
+# batch: VOC_PAIR_STEPS steps, HiFi-GAN's input blurred with p 0.5 from
+# seed 1 (steps 0, 2, 4 and 7 of 8 blur: two signatures, each warmed up,
+# captured and replayed twice); the vocoder-fit runs' ms a step over the
+# steps that replay (3 on), graphed against an eager run of the same loop
+VOC_PAIR_STEPS, VOC_BLUR_P, VOC_BLUR_SEED = 8, 0.5, 1
+# where the graphed steps are not bit-equal to eager (an op without a
+# deterministic CUDA path), the gaps allowed after VOC_PAIR_STEPS steps:
+# the losses relative, the parameters absolute (0.25% of what 8 Adam
+# steps at lr 2e-4 can move an element), or 4x a second eager run's gaps
+VOC_GRAPH_LOSS_RTOL, VOC_GRAPH_PARAM_ATOL = 1e-4, 4e-6
 
 
 def write_g_file(root: str, seed: int, sr: int = FIT_SR):
@@ -3176,10 +3190,14 @@ def _walls(stats) -> list:
 
 
 def _vocode_check(name, voc_fn, denoiser, cpu_fn, cpu_den, mels,
-                  n_cpu) -> None:
+                  n_cpu, graphed_fn=None) -> None:
     """Time ``voc_fn`` + Denoiser on the card over ``mels``; hold it
-    against the CPU on the first mel's first ``n_cpu`` frames."""
-    from radmmm_torch.vocoder.utils import get_audio_for_mels
+    against the CPU on the first mel's first ``n_cpu`` frames; then the
+    apply (``graphed_fn``, else ``voc_fn``) with the Denoiser through
+    ``vocode_program``'s graph against its eager call, bit for bit under
+    deterministic cuDNN, and timed."""
+    from radmmm_torch.utils.graphs import GraphPool
+    from radmmm_torch.vocoder.utils import get_audio_for_mels, vocode_program
 
     def run():
         return get_audio_for_mels(mels, name, voc_fn, denoiser)
@@ -3201,6 +3219,26 @@ def _vocode_check(name, voc_fn, denoiser, cpu_fn, cpu_den, mels,
     if err > VOCODE_RTOL * peak:
         fail(f"{name}: card against CPU {err:.3e} over {VOCODE_RTOL} of "
              f"the peak {peak:.3e}")
+    fn = graphed_fn or voc_fn
+    pool = GraphPool()
+    program = vocode_program(name, fn, denoiser, pool)
+    with cudnn_deterministic():
+        want = get_audio_for_mels(mels, name, fn, denoiser)
+        equal = all(torch.equal(program(mels), want) for _ in range(3))
+    # timed with a graph captured at cuDNN's defaults, as the eager call
+    # runs (a graph replays the algorithms of its capture)
+    timed = vocode_program(name, fn, denoiser, GraphPool())
+    timed(mels)
+    g_ms = cuda_ms(lambda: timed(mels), 3)
+    e_ms = cuda_ms(lambda: get_audio_for_mels(mels, name, fn, denoiser), 3)
+    log(f"[vocoder] {name}: the apply with the Denoiser through its graph "
+        f"(warm-ups {pool.warmups}, captures {len(pool.captures)}, replays "
+        f"{pool.replays}, pool "
+        f"{sum(c.pool_bytes for c in pool.captures) / 2**20:.1f} MiB) "
+        f"against eager, bit-equal {equal}; {g_ms:.2f} ms graphed, "
+        f"{e_ms:.2f} eager")
+    if not equal or not pool.replays:
+        fail(f"{name}: the graphed apply is not the eager one")
 
 
 def _cufft_c2r_check() -> None:
@@ -3217,29 +3255,142 @@ def _cufft_c2r_check() -> None:
         " (the port zeroes those parts before its inverse FFT)")
 
 
-def _steps_alone(trainer, seed: int, profile_dir: str, card: str) -> None:
-    """``trainer.train_step`` on one batch already on the card, without
-    the loader: ms a step by CUDA events, then two steps profiled."""
-    from radmmm_torch.utils.profiling import StepProfiler
-    seg = trainer.cfg.segment_size
+class _EagerVocoders:
+    """Inside, ``vocoder_fit`` builds its trainers with ``pool=None``:
+    every step eager (the graphs' own loop and batches otherwise)."""
+
+    def __enter__(self):
+        from radmmm_torch.training import vocoder_loop
+        self.loop = vocoder_loop
+        self.orig = (vocoder_loop.HiFiGANTrainer,
+                     vocoder_loop.WaveGlowTrainer)
+        vocoder_loop.HiFiGANTrainer = functools.partial(self.orig[0],
+                                                        pool=None)
+        vocoder_loop.WaveGlowTrainer = functools.partial(self.orig[1],
+                                                         pool=None)
+        return self
+
+    def __exit__(self, *exc):
+        (self.loop.HiFiGANTrainer, self.loop.WaveGlowTrainer) = self.orig
+
+
+def _nondeterministic_ops(trainer, batch) -> list:
+    """The ops of one eager step that PyTorch names as having no
+    deterministic CUDA implementation (its warnings under
+    ``use_deterministic_algorithms(True, warn_only=True)``)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have")[0]
+                   for w in caught if "deterministic" in str(w.message)})
+
+
+def _vocoder_pair(kind: str, seed: int, card: str) -> dict:
+    """A trainer's step through its graphs against the same trainer with
+    ``pool=None`` (both from the phase's seed, at its batch), under
+    deterministic cuDNN: VOC_PAIR_STEPS steps on the same batches, every
+    metric and parameter bit for bit (or, where not, the worst gaps, a
+    second eager run's gaps beside them, and the ops PyTorch names as
+    nondeterministic); then, with a new pair at cuDNN's defaults (its
+    graph captured there: a graph replays the algorithms of its capture)
+    and no blur (one signature, as a step of PR 8's baseline), ms a step
+    by CUDA events over 4 steps after 3 (warm-up, capture, replay), and
+    one traced step each: device busy share and host launch calls."""
+    from radmmm_torch.training import vocoder_train as tvt
+    from radmmm_torch.vocoder.hifigan import (HiFiGANConfig, blur_draws,
+                                              blur_generator)
+    cfg = tvt.VocoderTrainConfig(
+        sampling_rate=FIT_SR, seed=VOC_BLUR_SEED,
+        blur_p=VOC_BLUR_P if kind == "hifigan" else 0.0)
+
+    def build(pool):
+        if kind == "hifigan":
+            return tvt.HiFiGANTrainer(HiFiGANConfig(sampling_rate=FIT_SR),
+                                      cfg, device="cuda", seed=seed,
+                                      pool=pool)
+        return tvt.WaveGlowTrainer({}, cfg, device="cuda", seed=seed,
+                                   pool=pool)
+
     g = torch.Generator(device="cuda").manual_seed(seed)
-    audio = torch.rand((VOC_B, seg), generator=g, device="cuda") * 0.6 - 0.3
-    batch = {"audio": audio,
-             "mel": trainer.mel_loss_fn(audio)[:, :seg // HOP]}
-    ms = cuda_ms(lambda: trainer.train_step(batch), 4)
-    prof = StepProfiler(profile_dir, 0, VOC_PROFILED, trainer.device)
-    for i in range(VOC_PROFILED):
-        prof.before(i)
-        trainer.train_step(batch)
-        prof.after(i)
-    st = prof.stats
-    log(f"[vocoder] ({card}) the GAN step alone on one batch on the card: "
-        f"{ms:.2f} ms a step (CUDA events, 4 steps), "
-        f"{VOC_B * seg / FIT_SR / (ms / 1e3):.1f} s of audio a second; "
-        f"{VOC_PROFILED} profiled: wall {1e3 * st['profile_wall_s']:.1f} ms, "
-        f"device busy {1e3 * st['profile_busy_s']:.1f} ms "
-        f"({100 * st['profile_busy_s'] / st['profile_wall_s']:.1f}%; kernel "
-        f"time summed {1e3 * st['profile_kernel_s']:.1f} ms)")
+    batches = [{"audio": torch.rand((VOC_B, cfg.segment_size), generator=g,
+                                    device="cuda") * 0.6 - 0.3}
+               for _ in range(VOC_PAIR_STEPS)]
+    modules = ("gen", "mpd", "msd") if kind == "hifigan" else ("model",)
+
+    def run(tr):
+        with cudnn_deterministic():
+            rows = [tr.train_step(b) for b in batches]
+        torch.cuda.synchronize()
+        params = [p.detach().clone() for m in modules
+                  for p in getattr(tr, m).parameters()]
+        return rows, params
+
+    def gaps(a, b):
+        (ra, pa), (rb, pb) = a, b
+        loss = max(float((x[k] - y[k]).abs() / y[k].abs().clamp_min(1e-30))
+                   for x, y in zip(ra, rb) for k in y)
+        param = max(float((x - y).abs().max()) for x, y in zip(pa, pb))
+        return loss, param
+
+    graphed, eager = build(tvt.OWN_POOL), build(None)
+    got, want = run(graphed), run(eager)
+    equal = all(torch.equal(x[k], y[k]) for x, y in zip(got[0], want[0])
+                for k in y) and all(torch.equal(x, y)
+                                    for x, y in zip(got[1], want[1]))
+    pool = graphed.pool
+    branches = ("".join("B" if blur_draws(blur_generator(cfg.seed, i), 4,
+                                          cfg.blur_p)[1] else "."
+                        for i in range(VOC_PAIR_STEPS))
+                if kind == "hifigan" else "")
+    log(f"[vocoder] {kind} step graphed against eager, {VOC_PAIR_STEPS} "
+        f"steps at {VOC_B} x {cfg.segment_size} under deterministic cuDNN"
+        + (f", blurred at steps {branches} (B: blurred)" if branches else "")
+        + f": bit-equal {equal}; warm-ups {pool.warmups}, captures "
+        f"{len(pool.captures)}, replays {pool.replays}; the pool "
+        f"{sum(c.pool_bytes for c in pool.captures) / 2**20:.1f} MiB; "
+        f"capture s " + ", ".join(f"{c.seconds:.2f}" for c in pool.captures))
+    signatures = 1 + ("B" in branches and "." in branches)
+    if pool.warmups != signatures or len(pool.captures) != signatures or             pool.replays != VOC_PAIR_STEPS - signatures:
+        fail(f"{kind}: {signatures} signatures, but warm-ups "
+             f"{pool.warmups}, captures {len(pool.captures)}, replays "
+             f"{pool.replays}")
+    if not equal:
+        loss, param = gaps(got, want)
+        again = run(build(None))
+        e_loss, e_param = gaps(again, want)
+        ops = _nondeterministic_ops(build(None), batches[0])
+        log(f"[vocoder] {kind}: graphed against eager, worst loss "
+            f"{loss:.3e} relative, worst parameter {param:.3e}; a second "
+            f"eager run against the first {e_loss:.3e}, {e_param:.3e}; ops "
+            f"without a deterministic CUDA path: {ops}")
+        if not ops or loss > max(4 * e_loss, VOC_GRAPH_LOSS_RTOL) or                 param > max(4 * e_param, VOC_GRAPH_PARAM_ATOL):
+            fail(f"{kind}: the graphed steps are not the eager ones")
+    del graphed, eager
+    torch.cuda.empty_cache()
+    batch = batches[0]
+    cfg = dataclasses.replace(cfg, blur_p=0.0)
+    ms = {}
+    for way, pool in (("graphed", tvt.OWN_POOL), ("eager", None)):
+        tr = build(pool)
+        for _ in range(3):
+            tr.train_step(batch)
+        ms[way] = cuda_ms(lambda: tr.train_step(batch), 4)
+        prof = traced(lambda: tr.train_step(batch))[1]
+        ms[way + "_trace"] = prof
+        log(f"[vocoder] ({card}) {kind} step {way}: {ms[way]:.2f} ms a step "
+            f"(CUDA events, 4 steps, cuDNN's defaults); a traced step: wall "
+            f"{prof['wall_ms']:.2f} ms, device busy {prof['union_ms']:.2f} "
+            f"ms ({100 * prof['union_ms'] / prof['wall_ms']:.1f}%; kernel "
+            f"time summed {prof['busy_ms']:.2f}), {prof['kernels']} kernels, "
+            f"{prof['host_launches']} host launch calls {prof['host_calls']}")
+        del tr
+    return ms
 
 
 @tf32_off()
@@ -3276,7 +3427,7 @@ def phase_vocoder(seed: int, work: str) -> dict:
         base, run_dir, f"resume to {VOC_RESUME_STEPS}, profiled",
         max_steps=VOC_RESUME_STEPS, iters_per_checkpoint=VOC_STEPS,
         profile_dir=os.path.join(work, "profile"),
-        profile_start_step=VOC_STEPS, profile_n_steps=VOC_PROFILED)
+        profile_start_step=VOC_PROFILED_FROM, profile_n_steps=VOC_PROFILED)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     s2 = tr2.stats
     rows = _metrics_rows(run_dir)
@@ -3301,15 +3452,15 @@ def phase_vocoder(seed: int, work: str) -> dict:
         for r in rows) + f" (steps {VOC_STEPS + 1}-{VOC_RESUME_STEPS} "
         f"after the resume)")
     # steps 2 to VOC_STEPS: the first warms up, the resumed run's first
-    # loads cold and its two are profiled
+    # loads cold and its last two are profiled
     walls = _walls(s1) + _walls(s2)
     steady = walls[1:VOC_STEPS]
     audio_s = VOC_B * tr2.cfg.segment_size / FIT_SR
     mean = sum(steady) / len(steady)
     log(f"[vocoder] ({card}) steps 2-{VOC_RESUME_STEPS}: "
         f"{', '.join(f'{1e3 * w:.1f}' for w in walls[1:])} ms (loader, "
-        f"segments and logging in; {VOC_STEPS + 1}-{VOC_RESUME_STEPS} "
-        f"profiled), steps 2-{VOC_STEPS} mean {1e3 * mean:.2f} ms a step, "
+        f"segments and logging in; {VOC_PROFILED_FROM + 1}-"
+        f"{VOC_RESUME_STEPS} profiled), steps 2-{VOC_STEPS} mean {1e3 * mean:.2f} ms a step, "
         f"{audio_s / mean:.1f} s of {FIT_SR} Hz audio trained a second; "
         f"peak memory {peak_gib:.2f} GiB; checkpoint save "
         f"{s1['ckpt_save_s']:.2f} s of {s1['ckpt_bytes'] / 1e6:.1f} MB, "
@@ -3319,15 +3470,42 @@ def phase_vocoder(seed: int, work: str) -> dict:
     busy, wall = s2.get("profile_busy_s"), s2.get("profile_wall_s")
     if not busy:
         fail("the vocoder profile saw no device time")
-    log(f"[vocoder] ({card}) profiled steps {VOC_STEPS + 1}-"
-        f"{VOC_RESUME_STEPS}: wall {1e3 * wall:.1f} ms, device busy "
+    log(f"[vocoder] ({card}) profiled steps {VOC_PROFILED_FROM + 1}-"
+        f"{VOC_RESUME_STEPS} (replays): wall {1e3 * wall:.1f} ms, device busy "
         f"{1e3 * busy:.1f} ms ({100 * busy / wall:.1f}%; kernel time summed "
         f"{1e3 * s2['profile_kernel_s']:.1f} ms); top kernels (ms summed "
         "over the window): " + "; ".join(
             f"{name[:60]} {ms:.2f}" for name, ms in s2["profile_top_ms"]))
 
-    _steps_alone(tr2, seed, os.path.join(work, "profile_alone"), card)
+    log(f"[vocoder] the graphed steps: {s1['graphed_steps']} of "
+        f"{VOC_STEPS} replayed a graph in the first run (warm-ups "
+        f"{s1['warmups']}, captures {s1['captures']}, replays "
+        f"{s1['replays']}), {s2['graphed_steps']} of "
+        f"{VOC_RESUME_STEPS - VOC_STEPS} in the resumed one")
+    # every step but the first (the warm-up) replays, the second right
+    # after its capture
+    if s1["graphed_steps"] != VOC_STEPS - 1 or s1["warmups"] != 1:
+        fail(f"vocoder-fit: {s1['graphed_steps']} graphed steps of "
+             f"{VOC_STEPS}, {s1['warmups']} warm-ups")
     del tr2
+    with _EagerVocoders():
+        e_tr, _, e_s = _vocoder_fit(base, os.path.join(work, "hifigan_eager"),
+                                    f"vocoder-fit to {VOC_STEPS}, eager",
+                                    max_steps=VOC_STEPS,
+                                    iters_per_checkpoint=VOC_STEPS)
+    if e_tr.stats["graphed_steps"] or e_tr.stats["replays"]:
+        fail("the eager vocoder-fit replayed a graph")
+    g_walls, e_walls = _walls(s1)[2:], _walls(e_tr.stats)[2:]
+    log(f"[vocoder] ({card}) vocoder-fit's loop, steps 3-{VOC_STEPS} "
+        f"(loader, crops and logging in): graphed "
+        f"{', '.join(f'{1e3 * w:.1f}' for w in g_walls)} ms, mean "
+        f"{1e3 * np.mean(g_walls):.2f}; eager "
+        f"{', '.join(f'{1e3 * w:.1f}' for w in e_walls)} ms, mean "
+        f"{1e3 * np.mean(e_walls):.2f}; fit wall {fit_s:.2f} s graphed, "
+        f"{e_s:.2f} s eager")
+    del e_tr
+    _vocoder_pair("hifigan", seed, card)
+    torch.cuda.empty_cache()
 
     wg_dir = os.path.join(work, "waveglow")
     torch.cuda.reset_peak_memory_stats()
@@ -3346,8 +3524,27 @@ def phase_vocoder(seed: int, work: str) -> dict:
         f"parameters), batch {VOC_B} x {wg.cfg.segment_size}: steps "
         f"{', '.join(f'{1e3 * w:.1f}' for w in wg_walls)} ms, NLL {nll}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
-        f"GiB; wall {wg_s:.2f} s")
+        f"GiB; wall {wg_s:.2f} s; {wg.stats['graphed_steps']} of "
+        f"{VOC_WG_STEPS} steps replayed a graph")
+    if wg.stats["graphed_steps"] != VOC_WG_STEPS - 1:
+        fail(f"WaveGlow vocoder-fit: {wg.stats['graphed_steps']} graphed "
+             f"steps of {VOC_WG_STEPS}")
     del wg
+    with _EagerVocoders():
+        e_wg, _, e_s = _vocoder_fit(
+            base, os.path.join(work, "waveglow_eager"),
+            f"WaveGlow vocoder-fit to {VOC_WG_STEPS}, eager",
+            vocoder_type="waveglow", max_steps=VOC_WG_STEPS,
+            iters_per_checkpoint=VOC_WG_STEPS)
+    e_walls = _walls(e_wg.stats)
+    log(f"[vocoder] ({card}) WaveGlow vocoder-fit's loop, steps 3-"
+        f"{VOC_WG_STEPS}: graphed "
+        f"{', '.join(f'{1e3 * w:.1f}' for w in wg_walls[2:])} ms, eager "
+        f"{', '.join(f'{1e3 * w:.1f}' for w in e_walls[2:])} ms; fit wall "
+        f"{wg_s:.2f} s graphed, {e_s:.2f} s eager")
+    del e_wg
+    _vocoder_pair("waveglow", seed, card)
+    torch.cuda.empty_cache()
 
     # vocoding: the trained HiFi-GAN from its run dir, with its Denoiser
     _cufft_c2r_check()
@@ -3370,7 +3567,7 @@ def phase_vocoder(seed: int, work: str) -> dict:
     _vocode_check(
         "WaveGlow file at sigma 0 (random weights)",
         lambda m: wfn(m, sigma=0.0), wden, lambda m: cwfn(m, sigma=0.0),
-        cwden, mels, WG_CPU_FRAMES)
+        cwden, mels, WG_CPU_FRAMES, graphed_fn=wfn)
     launches = _counters()
     if any(launches.values()):
         fail(f"kernels launched on the vocoder path, which runs none: "
@@ -4074,9 +4271,11 @@ def traced(fn) -> tuple:
     """torch.profiler over one call of ``fn``, the card synchronised
     before and after: (its result, {the wall ms, the card's busy ms, its
     kernels and the host's launch calls (kernels, graphs, copies and fills
-    queued)})."""
+    queued), and ``union_ms``, the union of the kernels' intervals (the
+    card's busy time where kernels overlap, as a graph's may)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
+    from radmmm_torch.utils.profiling import union_length
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
@@ -4089,7 +4288,12 @@ def traced(fn) -> tuple:
            and e.device_time_total > 0]
     host = {e.key: e.count for e in ev if e.device_type == DeviceType.CPU
             and e.key.startswith(HOST_LAUNCH_CALLS)}
-    return out, dict(wall_ms=wall,
+    union = union_length((e.time_range.start, e.time_range.end)
+                         for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)
+                         ) / 1e3
+    return out, dict(wall_ms=wall, union_ms=union,
                      busy_ms=sum(e.device_time_total for e in dev) / 1e3,
                      kernels=sum(e.count for e in dev),
                      host_launches=sum(host.values()), host_calls=host)
@@ -4429,6 +4633,16 @@ GRAPH_FIT_LINES = 64    # copies of each source's line: 8 batches a shape
 # steps (one batch: warmed up at 8, captured at 16, replayed at 24)
 GRAPH_MIXED_LINES = 32
 GRAPH_MIXED_BINARIZE, GRAPH_MIXED_KL, GRAPH_MIXED_VAL = 3, 12, 8
+# (f) at megastep_k GRAPH_FIT_K logs the validation samples: the recipe's
+# prompts of the corpus's two speakers (their own languages), vocoded by a
+# HiFi-GAN v1 g_* file of random weights with its Denoiser; each
+# validation launches the losses' and samples' K4 10, K1 1 and K3 3 (its
+# binarized eval forward and reconstruct), and the prompts' infer K4 4
+GRAPH_SAMPLE_SPEAKERS = ("ljs-other", "mailabs-tux-other")
+VAL_LAUNCHES = dict.fromkeys(COUNTED, 0)
+VAL_LAUNCHES.update(lstm_recurrence=10 + 4, ctc_alpha=1, mas_width1=3)
+# the trainer's inference programs (utils/graphs names)
+SAMPLE_PROGRAMS = ("tts_infer", "val_forward", "reconstruct", "vocode")
 # RAdam's rectified branch from the sixth update (N_sma >= 5 at b2 0.999)
 RADAM_RECTIFIED_FROM = 5
 # part (g): fit --distributed on two cards over NCCL, the ddp phase's
@@ -4518,6 +4732,64 @@ def _group_sizes(sizes: list):
         loop.prefetch_raw_groups = orig
 
 
+@contextlib.contextmanager
+def _graph_replays(counts: collections.Counter):
+    """Count every graph's replays by its name into ``counts``."""
+    from radmmm_torch.utils import graphs
+    orig = graphs.StepGraph.__call__
+
+    def call(self, inputs):
+        before = self.pool.replays
+        out = orig(self, inputs)
+        counts[self.name] += self.pool.replays - before
+        return out
+
+    graphs.StepGraph.__call__ = call
+    try:
+        yield
+    finally:
+        graphs.StepGraph.__call__ = orig
+
+
+def _on_host(tree):
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(lambda t: t.detach().cpu()
+                           if isinstance(t, torch.Tensor) else t, tree)
+
+
+@contextlib.contextmanager
+def _samples(records: list):
+    """Record the result of every call of the trainer's sample programs
+    and its vocoding (``Trainer._infer``, ``_val_forward``,
+    ``_reconstruct``, ``_vocode``), on the host, as (name, result)."""
+    from radmmm_torch.training.loop import Trainer
+    names = ("_infer", "_val_forward", "_reconstruct", "_vocode")
+    origs = {n: getattr(Trainer, n) for n in names}
+
+    def recorded(name, orig):
+        def call(self, *a, **kw):
+            out = orig(self, *a, **kw)
+            records.append((name, _on_host(out)))
+            return out
+        return call
+
+    for n, orig in origs.items():
+        setattr(Trainer, n, recorded(n, orig))
+    try:
+        yield
+    finally:
+        for n, orig in origs.items():
+            setattr(Trainer, n, orig)
+
+
+def _records_equal(got: list, want: list) -> bool:
+    from torch.utils import _pytree as pytree
+    if [n for n, _ in got] != [n for n, _ in want]:
+        return False
+    return all(torch.equal(a, b) for (_, g), (_, w) in zip(got, want)
+               for a, b in zip(pytree.tree_leaves(g), pytree.tree_leaves(w)))
+
+
 def _step_walls(stats, steps) -> list:
     """Each of ``steps``' wall ms (0-based, relative to the fit's first
     step): start to next start, less the validation and checkpoint after
@@ -4596,7 +4868,8 @@ def _graphs_fit(seed: int, work: str) -> dict:
     return g["launches"]
 
 
-def _graphs_mixed(seed: int, work: str, k: int) -> dict:
+def _graphs_mixed(seed: int, work: str, k: int, samples: bool = False
+                  ) -> dict:
     """Part (f): the recipe at full width through the training CLI for
     GRAPH_FIT_STEPS steps with megastep_k ``k`` on the fit phase's corpus
     (lines of their own lengths: with ``k`` GRAPH_FIT_K most groups
@@ -4610,7 +4883,15 @@ def _graphs_mixed(seed: int, work: str, k: int) -> dict:
     graphed steps (those of the signatures seen before, so the steps less
     the train step's warm-ups), warm-ups, captures and replays, ms a step
     over the steps that replayed against the same steps eager, and
-    validation seconds each way. Returns the graphed fit's launches."""
+    validation seconds each way. With ``samples``, each validation also
+    logs its samples (the prompts' TTS audio, the attention maps, the
+    reconstruction, its audio and the quality scalars), vocoded by a
+    HiFi-GAN with its Denoiser: every sample bit for bit, the sample
+    programs replaying from the second validation on (the third after
+    training steps, with their weights), and then ``predict`` in
+    reconstruction mode over the training set's batches, graphed against
+    eager (``_samples``' records bit for bit, ms a batch). Returns the
+    graphed fit's launches."""
     import os
     from radmmm_torch.training.loop import Trainer
     from radmmm_torch.training.step import LossConfig, phase_flags
@@ -4625,21 +4906,37 @@ def _graphs_mixed(seed: int, work: str, k: int) -> dict:
         f"--model.binarization_start_iter={GRAPH_MIXED_BINARIZE}",
         "--model.decoder_loss.init_args.kl_loss_start_iter="
         f"{GRAPH_MIXED_KL}",
-        "--model.iters_per_checkpoint=100000",
-        "--trainer.log_decoder_samples=False", "--data.num_workers=1"]
+        "--model.iters_per_checkpoint=100000", "--data.num_workers=1"]
+    if samples:
+        g_path, g_cfg = write_g_file(root, seed)
+        with open("model_inputs/resynthesis_prompts.json") as f:
+            prompts = [p for p in json.load(f)
+                       if p["spk_id"] in GRAPH_SAMPLE_SPEAKERS]
+        ppath = _write_overlay(root, "prompts.json", prompts)
+        base += ["--trainer.log_decoder_samples=True",
+                 f"--trainer.val_prompts_path={ppath}",
+                 f"--model.vocoder_checkpoint_path={g_path}",
+                 f"--model.vocoder_config_path={g_cfg}"]
+    else:
+        base.append("--trainer.log_decoder_samples=False")
     cfg = LossConfig(binarization_start_iter=GRAPH_MIXED_BINARIZE,
                      kl_loss_start_iter=GRAPH_MIXED_KL)
     runs = {}
     for way in ("graphed", "eager"):
         run_dir = os.path.join(root, f"run_{way}")
-        steps, vals, val_s, sizes = [], [], [], []
+        steps, vals, val_s, sizes, recs = [], [], [], [], []
+        replays = collections.Counter()
         _zero_counters()
         with cudnn_deterministic(), _per_step(steps), _group_sizes(sizes), \
                 _counted(Trainer, "validate", vals, val_s), \
+                _samples(recs), _graph_replays(replays), \
                 _EagerSteps() if way == "eager" else contextlib.nullcontext():
             _, tr, _, fit_s = _run_cli(
                 ["fit"] + base + [f"--model.output_directory={run_dir}"],
                 f"{part} fit to {GRAPH_FIT_STEPS} steps, {way}", "graphs")
+        pool_mib = {n: sum(c.pool_bytes for c in tr._graph_pool.captures
+                           if c.name == n) / 2**20
+                    for n in ("train_step", "val_step") + SAMPLE_PROGRAMS}
         st = tr.stats
         kinds, at = collections.Counter(), 0
         for n in sizes:
@@ -4649,7 +4946,7 @@ def _graphs_mixed(seed: int, work: str, k: int) -> dict:
             at += n
         runs[way] = dict(
             steps=steps, vals=vals, val_s=val_s, launches=_counters(),
-            stats=st,
+            stats=st, recs=recs, replays=replays, pool_mib=pool_mib,
             kinds=kinds, sizes=sizes,
             rows=[r for r in _metrics_rows(run_dir) if "train/loss" in r],
             val_rows=[r for r in _metrics_rows(run_dir)
@@ -4661,6 +4958,14 @@ def _graphs_mixed(seed: int, work: str, k: int) -> dict:
             f"{st['replays']} (steps and validation batches); batch shapes "
             f"{sorted(collections.Counter(r['shape'] for r in steps).items())}"
             f"; validation {st['val_s']:.3f} s in {len(vals)}")
+        if samples:
+            log(f"[graphs] {part} {way}: replays by graph {dict(replays)}; "
+                f"the pool's growth at each graph's captures, MiB: "
+                + ", ".join(f"{n} {v:.1f}" for n, v in pool_mib.items())
+                + f" (all {st['graph_pool_bytes'] / 2**20:.1f}); "
+                f"{len(recs)} sample results recorded")
+            runs[way]["predict"] = _graphs_predict_reconstruction(
+                base, run_dir, part, way)
     g, e = runs["graphed"], runs["eager"]
     if k > 1 and (len({r["shape"] for r in g["steps"]}) < 3 or not g[
             "kinds"]["partial"] or not g["kinds"]["straddling"]):
@@ -4724,11 +5029,93 @@ def _graphs_mixed(seed: int, work: str, k: int) -> dict:
             f"{what} (start to next start, validation out): graphed "
             f"{np.mean(gw):.2f} (median {np.median(gw):.2f}), the same "
             f"steps eager {np.mean(ew):.2f} (median {np.median(ew):.2f})")
+    what = ("the losses of one batch and the samples" if samples
+            else "the losses of one batch")
     log(f"[graphs] {part} validation seconds, each of {len(g['val_s'])} "
-        f"(the losses of one batch; graphed: a warm-up, a capture and a "
+        f"({what}; graphed: a warm-up, a capture and a "
         f"replay): graphed " + ", ".join(f"{x:.3f}" for x in g["val_s"])
         + ", eager " + ", ".join(f"{x:.3f}" for x in e["val_s"]))
+    if samples:
+        _check_samples(part, g, e)
     return g["launches"]
+
+
+def _check_samples(part: str, g: dict, e: dict) -> None:
+    """(f)'s samples and predict_reconstruction, graphed against eager."""
+    if any(v != VAL_LAUNCHES for v in g["vals"] + e["vals"]) or \
+            len(g["vals"]) < 3:
+        fail(f"{part} a validation's launches: graphed {g['vals']}, eager "
+             f"{e['vals']}, expected {len(g['vals'])} (3 or more) of "
+             f"{VAL_LAUNCHES}")
+    equal = _records_equal(g["recs"], e["recs"])
+    log(f"[graphs] {part} the validations' samples ("
+        + ", ".join(f"{n} {c}" for n, c in collections.Counter(
+            n for n, _ in g["recs"]).items())
+        + " calls: mels, attention maps, predictor outputs, audio) graphed "
+        f"against eager, bit-equal {equal}; the quality scalars are in the "
+        f"validation rows compared above; each validation launched "
+        f"{VAL_LAUNCHES}")
+    if not equal:
+        fail(f"{part} the graphed validation samples are not the eager ones")
+    missing = [n for n in SAMPLE_PROGRAMS if not g["replays"][n]]
+    if missing or any(e["replays"].values()):
+        fail(f"{part} sample programs that never replayed: {missing}; "
+             f"eager replays {dict(e['replays'])}")
+    gp, ep = g["predict"], e["predict"]
+    equal = _records_equal(gp["recs"], ep["recs"])
+    replaying = [i for i, r in enumerate(gp["replayed"]) if r]
+    log(f"[graphs] {part} predict_reconstruction over {gp['batches']} "
+        f"batches of mel shapes {gp['shapes']}: graphed against eager, "
+        f"bit-equal {equal}; graphed replays {dict(gp['replays'])}, by "
+        f"batch " + "".join("R" if r else "." for r in gp["replayed"])
+        + "; ms a batch (reconstruct + vocode, each synchronised), graphed "
+        + ", ".join(f"{x:.2f}" for x in gp["ms"]) + ", eager " + ", ".join(
+            f"{x:.2f}" for x in ep["ms"]) + f"; the {len(replaying)} batches "
+        f"whose reconstruct replayed: graphed mean "
+        f"{np.mean([gp['ms'][i] for i in replaying]):.2f}, the same batches "
+        f"eager {np.mean([ep['ms'][i] for i in replaying]):.2f}")
+    if not equal or gp["batches"] < 4 or not gp["replays"]["reconstruct"] \
+            or not gp["replays"]["vocode"] or any(ep["replays"].values()):
+        fail(f"{part} predict_reconstruction: bit-equal {equal}, "
+             f"{gp['batches']} batches, replays {dict(gp['replays'])}, "
+             f"eager {dict(ep['replays'])}")
+
+
+def _graphs_predict_reconstruction(base: list, run_dir: str, part: str,
+                                   way: str) -> dict:
+    """``predict`` in reconstruction mode from ``run_dir``'s checkpoint
+    over the training set, in the way of the fit before it (graphed, or
+    the trainer's eager programs): its samples' records, replays by graph,
+    batches and their shapes, and ms a batch (reconstruct and vocode, each
+    synchronised at its end)."""
+    from radmmm_torch.training.loop import Trainer
+    recs, rec_s, voc_s, shapes, replayed = [], [], [], [], []
+    replays = collections.Counter()
+    orig = Trainer._reconstruct
+
+    def reconstruct(self, batch, generator):
+        shapes.append(tuple(batch["mel"].shape))
+        before = self._graph_pool.replays
+        out = orig(self, batch, generator)
+        replayed.append(self._graph_pool.replays > before)
+        return out
+
+    Trainer._reconstruct = reconstruct
+    try:
+        with cudnn_deterministic(), _samples(recs), _graph_replays(replays), \
+                _counted(Trainer, "_reconstruct", [], rec_s), \
+                _counted(Trainer, "_vocode", [], voc_s), \
+                _EagerSteps() if way == "eager" else contextlib.nullcontext():
+            _run_cli(["predict"] + base + [
+                f"--model.output_directory={run_dir}",
+                "--model.predict_mode=reconstruction"],
+                f"{part} predict_reconstruction, {way}", "graphs")
+    finally:
+        Trainer._reconstruct = orig
+    return dict(recs=recs, replays=replays, batches=len(shapes),
+                shapes=sorted(collections.Counter(shapes).items()),
+                replayed=replayed,
+                ms=[1e3 * (a + b) for a, b in zip(rec_s, voc_s)])
 
 
 def _graphs_nccl(seed: int, work: str) -> dict:
@@ -4872,7 +5259,8 @@ def phase_graphs(seed: int) -> dict:
         torch.cuda.empty_cache()
         out["graphs_fit"] = _graphs_fit(seed, work)
         torch.cuda.empty_cache()
-        out["graphs_mixed"] = _graphs_mixed(seed, work, GRAPH_FIT_K)
+        out["graphs_mixed"] = _graphs_mixed(seed, work, GRAPH_FIT_K,
+                                            samples=True)
         torch.cuda.empty_cache()
         out["graphs_plain"] = _graphs_mixed(seed, work, 1)
         torch.cuda.empty_cache()

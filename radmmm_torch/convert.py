@@ -224,14 +224,17 @@ def waveglow_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def _load_adam(opt: torch.optim.Optimizer, module_sds, count: int) -> None:
-    """Set each parameter's Adam state in ``opt`` from the moments'
-    state dicts: ``module_sds`` pairs (prefix, module, first, second)."""
-    for prefix, module, first, second in module_sds:
-        for name, p in module.named_parameters():
-            opt.state[p] = {"step": torch.tensor(float(count)),
-                            "exp_avg": first[prefix + name].to(p),
-                            "exp_avg_sq": second[prefix + name].to(p)}
+def _load_adam(opt, module_sds, count: int) -> None:
+    """Set the moments and count of the port's ``Optimizer`` ``opt`` from
+    the moments' state dicts: ``module_sds`` pairs (prefix, module, first,
+    second), whose parameters, in order, are ``opt``'s."""
+    names = [(prefix + name, first, second)
+             for prefix, module, first, second in module_sds
+             for name, _ in module.named_parameters()]
+    opt.load_state_dict({
+        "count": count,
+        "exp_avg": [first[name] for name, first, _ in names],
+        "exp_avg_sq": [second[name] for name, _, second in names]})
 
 
 def load_jax_vocoder_state(trainer, jax_state) -> None:

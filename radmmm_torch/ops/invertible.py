@@ -13,7 +13,11 @@ computes it once after the weights are loaded (the serving loader calls it
 through ``TTSModel.cache_inverses``) and stores it in a non-persistent
 buffer that follows the module across devices. ``train()`` and
 ``drop_inverse()`` drop the cache, since the weights may change from then
-on; without a cache the inverse is computed on each call. It is computed in
+on; without a cache the inverse is computed on each call. A later
+``cache_inverse()`` on the same device writes into the storage of the
+first, so a CUDA graph that reads the cache (the trainer's sample graphs)
+replays with the inverse of the weights at the last call, never with a
+freed or stale one. It is computed in
 float64: the whitening W is ill-conditioned (cond ~ 200 at 160 channels),
 and an inverse taken while TF32 matmuls are enabled would carry their
 error into every mel. The whitening init takes its inverse and Cholesky in
@@ -51,6 +55,8 @@ class _Invertible1x1(nn.Module):
     def __init__(self):
         super().__init__()
         self.register_buffer("w_inv", None, persistent=False)
+        # the cache's storage, kept when the cache is dropped
+        self._inv_store = None
 
     def weight(self) -> torch.Tensor:
         raise NotImplementedError
@@ -61,7 +67,15 @@ class _Invertible1x1(nn.Module):
 
     def cache_inverse(self) -> None:
         with torch.no_grad():
-            self.w_inv = self.inverse_weight()
+            w_inv = self.inverse_weight()
+            store = self._inv_store
+            if store is None or store.shape != w_inv.shape \
+                    or store.device != w_inv.device \
+                    or store.dtype != w_inv.dtype:
+                self._inv_store = store = w_inv
+            else:
+                store.copy_(w_inv)
+            self.w_inv = store
 
     def drop_inverse(self) -> None:
         self.w_inv = None
@@ -171,11 +185,26 @@ class InvertibleConv(nn.Module):
                                                  channels)
         w = p @ (lower + np.eye(channels)) @ (upper + np.diag(diag))
         self.weight = nn.Parameter(torch.from_numpy(w.astype(np.float32)))
+        self.register_buffer("w_inv", None, persistent=False)
 
     def forward(self, z: torch.Tensor):
         """(z @ W.T, log|det W|)."""
         return (torch.matmul(z, self.weight.t()),
                 torch.linalg.slogdet(self.weight)[1])
 
+    def cache_inverse(self) -> None:
+        """Keep W^-1 for ``inverse`` (a vocoder's fixed weights: its
+        graphed apply then runs no ``linalg.inv``, whose error check reads
+        the card on the host); ``train()`` drops it."""
+        with torch.no_grad():
+            self.w_inv = torch.linalg.inv(self.weight.float())
+
+    def train(self, mode: bool = True):
+        if mode:
+            self.w_inv = None
+        return super().train(mode)
+
     def inverse(self, z: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(z, torch.linalg.inv(self.weight.float()).t())
+        w_inv = (self.w_inv if self.w_inv is not None
+                 else torch.linalg.inv(self.weight.float()))
+        return torch.matmul(z, w_inv.t())

@@ -165,10 +165,13 @@ def istft_frames(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int,
     ignores them, and a predicted phase (the iSTFTNet head's) makes them
     nonzero, so the card computes what the CPU does."""
     imag = magnitude * torch.sin(phase)
-    edges = torch.ones(imag.shape[-1], dtype=imag.dtype, device=imag.device)
-    edges[0] = 0.0
+    # 0 at those bins, 1 elsewhere, made on the device (a CUDA graph
+    # refuses a host scalar written into a device tensor)
+    bins = torch.arange(imag.shape[-1], device=imag.device)
+    edges = bins > 0
     if n_fft % 2 == 0:
-        edges[-1] = 0.0
+        edges &= bins < imag.shape[-1] - 1
+    edges = edges.to(imag.dtype)
     spec = torch.complex(magnitude * torch.cos(phase), imag * edges)
     frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * window
     B, n_frames, _ = frames.shape

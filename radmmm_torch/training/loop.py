@@ -21,8 +21,21 @@ eagerly. The batches and their order are the JAX package's (the loader's
 shape runs), each step keys its mel noise by its global step
 (``Featurizer.noise_key_for_step``), and the bookkeeping is the same: a
 whole group of K is logged, validated and saved once, after its last
-step, a partial or phase-straddling group after each step. The
-validation samples, predict and the whitening init run eager.
+step, a partial or phase-straddling group after each step.
+
+The validation samples, ``predict`` and ``predict_reconstruction`` go
+through the same pool, as the JAX package jits ``tts_infer``,
+``val_forward``, ``reconstruct``, ``predict_infer`` and the vocoder's
+apply: ``model.infer`` at ``max_infer_frames``, the binarized eval
+forward, ``model.reconstruct`` and the vocoder with its Denoiser
+(``vocoder/utils.vocode_program``) each run through ``Graphed``, warmed up
+at a signature's first call, captured at its second, replayed after. The
+flow's latent (and a WaveGlow's noise) is drawn eagerly from the same
+seeded generator the eager call draws it from, and passed in. Each 1x1's
+inverse is refreshed eagerly before the samples, into storage the graphs
+read (``ops/invertible``), so a validation after training steps replays
+with the current weights' inverses. The host's reads of the results stay
+outside the graphs; Griffin-Lim and the whitening init run eager.
 
 Several cards: one process a card under torchrun (``training/cli.py
 --distributed``), laid out on an (n_data, n_model) mesh
@@ -57,7 +70,7 @@ from radmmm_torch.models.tts import TTSConfig, TTSModel
 from radmmm_torch.ops.conv import set_conv_precision
 from radmmm_torch.parallel.mesh import (Mesh, assert_tp_layout, make_mesh,
                                         shard_state, use_mesh)
-from radmmm_torch.training.step import (LossConfig, TrainState,
+from radmmm_torch.training.step import (LossConfig, TrainState, _tensors,
                                         create_train_state, make_train_step,
                                         make_val_step, make_whitening_init,
                                         phase_flags, step_inputs)
@@ -65,15 +78,14 @@ from radmmm_torch.utils.checkpoint import (CheckpointManager,
                                            ENCODER_SUBMODULES, freeze_wrap,
                                            load_pretrained_submodules)
 from radmmm_torch.utils.device import resolve_device
-from radmmm_torch.utils.graphs import GraphPool
+from radmmm_torch.utils.graphs import GraphPool, Graphed
 from radmmm_torch.utils.logging import (TrainLogger, plot_alignment_to_numpy,
                                         plot_curves_to_numpy,
                                         plot_mel_to_numpy)
 from radmmm_torch.utils.profiling import StepProfiler
 from radmmm_torch.utils.quality import reconstruction_quality
-from radmmm_torch.vocoder.utils import (GriffinLimVocoder,
-                                        get_audio_for_mels, get_vocoder,
-                                        load_hifigan_module)
+from radmmm_torch.vocoder.utils import (GriffinLimVocoder, get_vocoder,
+                                        load_hifigan_module, vocode_program)
 
 
 @dataclasses.dataclass
@@ -243,6 +255,17 @@ class Trainer:
                 self.model, self.loss_cfg, binarize, kl_on, featurizer,
                 pool=self._step_pool())
         return self._step_cache[key]
+
+    def _program(self, name: str, fn):
+        """``fn`` (a dict of tensors -> a tree of tensors) through
+        ``Graphed`` in the steps' pool, called as ``program(inputs,
+        key=())``; eager where the steps are (``_step_pool`` None)."""
+        if name not in self._step_cache:
+            fn, pool = torch.no_grad()(fn), self._step_pool()
+            self._step_cache[name] = (
+                Graphed(fn, pool, name=name) if pool is not None
+                else lambda inputs, key=(): fn(inputs))
+        return self._step_cache[name]
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(int(seed))
@@ -537,6 +560,73 @@ class Trainer:
                 self._log_tts_samples(state, dm, step)
         self.logger.flush()
 
+    # the model's keys of infer's optional speaker ids, by batch key
+    _INFER_IDS = (("decoder_spk_id", "decoder_speaker_ids"),
+                  ("f0_spk_id", "f0_speaker_ids"),
+                  ("energy_spk_id", "energy_speaker_ids"),
+                  ("duration_spk_id", "duration_speaker_ids"))
+
+    def _infer(self, b: dict, generator: torch.Generator) -> dict:
+        """``model.infer`` of the batch ``b`` (``_predict_batch``'s keys;
+        the optional speaker ids default to ``spk_id``) at
+        ``max_infer_frames`` through its graph, the flow's latent drawn
+        eagerly from ``generator``, as infer draws it: -> {'mel', 'lens'
+        (the lengths)}."""
+        # the programs hold the model, not the trainer that holds them
+        c, model, ids = self.cfg, self.model, self._INFER_IDS
+
+        def infer(x):
+            out = model.infer(
+                x["text"], x["text_lens"], x["spk_id"],
+                accent_ids=x["accent_id"], f0_mean=x["speaker_f0_mean"],
+                f0_std=x["speaker_f0_std"], sigma=c.sigma_infer,
+                max_frames=c.max_infer_frames, residual=x["residual"],
+                **{kw: x[k] for k, kw in ids if k in x})
+            return {"mel": out["mel"], "lens": out["lens"].lengths}
+
+        residual = model.decoder.draw_residual(
+            b["text"].shape[0], c.max_infer_frames, c.sigma_infer, generator,
+            self.device)
+        return self._program("tts_infer", infer)(
+            dict(b, residual=residual),
+            key=(model.training, c.max_infer_frames))
+
+    # what reconstruct reads of a featurized batch
+    _RECONSTRUCT_KEYS = ("text", "input_lengths", "mel", "output_lengths",
+                         "speaker_ids", "accent_ids", "attn_prior", "f0",
+                         "energy_avg")
+
+    def _reconstruct(self, batch, generator: torch.Generator) -> dict:
+        """``model.reconstruct`` of a featurized batch through its graph,
+        the latent drawn eagerly from ``generator`` at sigma 1: -> {'mel',
+        'lens' (the lengths)}."""
+        model = self.model
+
+        def reconstruct(x):
+            out = model.reconstruct(x, residual=x["residual"])
+            return {"mel": out["mel"], "lens": out["lens"].lengths}
+
+        x = {k: batch[k] for k in self._RECONSTRUCT_KEYS if k in batch}
+        x["residual"] = model.decoder.draw_residual(
+            x["mel"].shape[0], x["mel"].shape[1], 1.0, generator,
+            x["mel"].device)
+        return self._program("reconstruct", reconstruct)(
+            x, key=(model.training,))
+
+    def _val_forward(self, batch) -> dict:
+        """The binarized eval forward of a batch through its graph: the
+        hard and soft attention and the predictors' {x_hat, x}."""
+        model = self.model
+
+        def forward(x):
+            out = model(x, binarize=True, train=False)
+            keep = {k: v for k, v in out.items() if isinstance(v, dict)}
+            keep.update(attn=out["attn"], attn_soft=out["attn_soft"])
+            return keep
+
+        return self._program("val_forward", forward)(
+            _tensors(batch), key=(model.training,))
+
     @torch.no_grad()
     def _log_tts_samples(self, state: TrainState, dm, step: int,
                          max_prompts: int = 4):
@@ -551,15 +641,14 @@ class Trainer:
         items = self._tts_prompts
         if not items or self.model.duration_predictor is None:
             return
+        # the current weights' inverses, where the graphs read them
+        self.model.cache_inverses()
         b = self._predict_batch(items)
-        out = self.model.infer(
-            b["text"], b["text_lens"], b["spk_id"],
-            accent_ids=b["accent_id"], f0_mean=b["speaker_f0_mean"],
-            f0_std=b["speaker_f0_std"], sigma=self.cfg.sigma_infer,
-            max_frames=self.cfg.max_infer_frames,
-            generator=self._generator(self.cfg.seed))
+        out = self._infer({k: b[k] for k in (
+            "text", "text_lens", "spk_id", "accent_id", "speaker_f0_mean",
+            "speaker_f0_std")}, self._generator(self.cfg.seed))
         audio = _np(self._vocode(out["mel"]))
-        lens = _np(out["lens"].lengths)
+        lens = _np(out["lens"])
         mel = _np(out["mel"])
         for i in range(len(items)):
             self.logger.audio(f"val/tts_sample_{i}",
@@ -572,7 +661,8 @@ class Trainer:
     def _log_val_samples(self, state: TrainState, batch, step: int):
         """Attention images, reconstruction audio and the quality scalars
         (LogDecoderSamplesCallback, training_callbacks.py:36-210)."""
-        outputs = self.model(batch, binarize=True, train=False)
+        self.model.cache_inverses()
+        outputs = self._val_forward(batch)
         attn = _np(outputs["attn"][0])
         attn_soft = _np(outputs["attn_soft"][0])
         in_len = int(batch["input_lengths"][0])
@@ -597,7 +687,7 @@ class Trainer:
         if curves:
             self.logger.image("val/attributes",
                               plot_curves_to_numpy(curves), step)
-        rec = self.model.reconstruct(batch, generator=self._generator(0))
+        rec = self._reconstruct(batch, self._generator(0))
         self.logger.image("val/mel_reconstructed", plot_mel_to_numpy(
             _np(rec["mel"][0, :out_len])), step)
         # MCD of the flow reconstruction, F0 RMSE and voicing F1 over the
@@ -615,6 +705,9 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _vocode(self, mels):
+        """Mels -> audio: the configured vocoder with its Denoiser through
+        its graph (``vocode_program`` in the steps' pool), or Griffin-Lim,
+        eager, from a generator seeded 0."""
         if not hasattr(self, "_vocoder"):
             voc_fn, denoiser = get_vocoder(
                 self.cfg.vocoder_type, self.cfg.vocoder_config_path,
@@ -633,8 +726,11 @@ class Trainer:
         voc_fn, denoiser = self._vocoder
         if isinstance(voc_fn, GriffinLimVocoder):
             return voc_fn(mels, generator=self._generator(0))
-        return get_audio_for_mels(mels, self.cfg.vocoder_type, voc_fn,
-                                  denoiser)
+        key = ("vocode", voc_fn)
+        if key not in self._step_cache:
+            self._step_cache[key] = vocode_program(
+                self.cfg.vocoder_type, voc_fn, denoiser, self._step_pool())
+        return self._step_cache[key](mels)
 
     def _write_wav(self, path: str, wav: np.ndarray) -> None:
         wavfile.write(path, self.cfg.sampling_rate,
@@ -658,20 +754,11 @@ class Trainer:
         os.makedirs(out_dir, exist_ok=True)
         state = self._restored_for_inference(state)
         items = list(dm.predict_items())
-        b = self._predict_batch(items)
         with torch.no_grad():
-            out = self.model.infer(
-                b["text"], b["text_lens"], b["spk_id"],
-                decoder_speaker_ids=b["decoder_spk_id"],
-                f0_speaker_ids=b["f0_spk_id"],
-                energy_speaker_ids=b["energy_spk_id"],
-                duration_speaker_ids=b["duration_spk_id"],
-                accent_ids=b["accent_id"], f0_mean=b["speaker_f0_mean"],
-                f0_std=b["speaker_f0_std"], sigma=self.cfg.sigma_infer,
-                max_frames=self.cfg.max_infer_frames,
-                generator=self._generator(self.cfg.seed))
+            out = self._infer(self._predict_batch(items),
+                              self._generator(self.cfg.seed))
             audio = _np(self._vocode(out["mel"]))
-        lens = _np(out["lens"].lengths)
+        lens = _np(out["lens"])
         self.predicted_frames = lens.tolist()
         paths = []
         for i, item in enumerate(items):
@@ -702,10 +789,10 @@ class Trainer:
         paths = []
         for batch in loader:
             with torch.no_grad():
-                rec = self.model.reconstruct(
-                    batch, generator=self._generator(self.cfg.seed))
+                rec = self._reconstruct(batch,
+                                        self._generator(self.cfg.seed))
                 audio = _np(self._vocode(rec["mel"]))
-            lens = _np(rec["lens"].lengths)
+            lens = _np(rec["lens"])
             idx = _np(batch["idx"])
             for i in range(len(lens)):
                 path = os.path.join(out_dir, f"output_sample_{int(idx[i])}_"

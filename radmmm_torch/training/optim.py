@@ -65,6 +65,36 @@ class Optimizer:
         self.sharded = [False] * len(self.params)
         self.shard_group = None
 
+    def state_dict(self) -> dict:
+        """The count and the moments (lists in the parameters' order), on
+        the host."""
+        return {"count": int(self.count),
+                "exp_avg": [m.detach().cpu() for m in self.exp_avg],
+                "exp_avg_sq": [v.detach().cpu() for v in self.exp_avg_sq]}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """``state_dict``'s, or a ``torch.optim`` Adam or AdamW state dict
+        of the same parameters in the same order, copied into the moments
+        in place (a graph of ``apply`` reads their storage)."""
+        if "param_groups" in sd:
+            states = [sd["state"].get(i, {}) for i in range(len(self.params))]
+            count = int(float(states[0].get("step", 0))) if states else 0
+            sd = {"count": count,
+                  "exp_avg": [s.get("exp_avg") for s in states],
+                  "exp_avg_sq": [s.get("exp_avg_sq") for s in states]}
+        if len(sd["exp_avg"]) != len(self.params):
+            raise ValueError(f"{len(sd['exp_avg'])} moments for "
+                             f"{len(self.params)} parameters")
+        with torch.no_grad():
+            for bufs, saved in ((self.exp_avg, sd["exp_avg"]),
+                                (self.exp_avg_sq, sd["exp_avg_sq"])):
+                for buf, t in zip(bufs, saved):
+                    if t is None:
+                        buf.zero_()
+                    else:
+                        buf.copy_(t)
+        self.count = int(sd["count"])
+
     def freeze(self, frozen) -> None:
         """Freeze the parameters whose entry of ``frozen`` is true."""
         self.frozen = [bool(f) for f in frozen]

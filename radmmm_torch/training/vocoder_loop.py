@@ -19,6 +19,12 @@ dataset. Config shape:
       profile_start_step: 10   # profile_n_steps steps, as the
       profile_n_steps: 2       # trainer's
 
+Each step runs through the trainer's graphed step (``training/
+vocoder_train.py``): the crops are cut on the host and uploaded, their
+mels computed in the step's graph. The trainer's ``stats`` count the
+steps that replayed a graph (``graphed_steps``) and the pool's
+``warmups``, ``captures`` and ``replays``.
+
 The run directory is the port's own: ``ckpt/<step>/state.pt`` (the
 trainer's ``state_dict``: its modules, optimizers and step, through
 ``utils/checkpoint.CheckpointManager``), ``tb/metrics.jsonl`` and, for
@@ -41,7 +47,7 @@ from radmmm_torch.data.loader import DataLoader
 from radmmm_torch.training.vocoder_train import (HiFiGANTrainer,
                                                  VocoderTrainConfig,
                                                  WaveGlowTrainer,
-                                                 random_segments)
+                                                 random_crops)
 from radmmm_torch.utils.checkpoint import CheckpointManager
 from radmmm_torch.utils.logging import TrainLogger
 from radmmm_torch.utils.profiling import StepProfiler
@@ -88,7 +94,8 @@ def vocoder_fit(cfg: Dict[str, Any], dm, device: str = "cuda"):
     # step_starts: each step's start; end: the last step's end, its
     # checkpoint save not included
     stats = trainer.stats = dict(step_starts=[], end=None, ckpt_save_s=0.0,
-                                 ckpt_bytes=0, ckpt_saves=0, restore_s=0.0)
+                                 ckpt_bytes=0, ckpt_saves=0, restore_s=0.0,
+                                 graphed_steps=0)
     t0 = time.perf_counter()
     payload, restored = mgr.load_payload()
     if restored is not None:
@@ -96,6 +103,7 @@ def vocoder_fit(cfg: Dict[str, Any], dm, device: str = "cuda"):
         stats["restore_s"] = time.perf_counter() - t0
         print(f"resumed vocoder training from step {restored}")
     step = trainer.step
+    pool = trainer.pool
     profiler = StepProfiler(vc.get("profile_dir"),
                             vc.get("profile_start_step", 10),
                             vc.get("profile_n_steps", 2), trainer.device)
@@ -106,12 +114,16 @@ def vocoder_fit(cfg: Dict[str, Any], dm, device: str = "cuda"):
             for host_batch in loader:
                 stats["step_starts"].append(time.perf_counter())
                 profiler.before(step)
-                batch = random_segments(host_batch["audio"],
-                                        host_batch["audio_lengths"],
-                                        trainer.mel_loss_fn,
-                                        train_cfg.segment_size, rng,
-                                        trainer.device)
-                metrics = trainer.train_step(batch)
+                # the crops on the host; their mels in the step's graph
+                audio = random_crops(host_batch["audio"],
+                                     host_batch["audio_lengths"],
+                                     train_cfg.hop_length,
+                                     train_cfg.segment_size, rng,
+                                     trainer.device)
+                replays = pool.replays if pool is not None else 0
+                metrics = trainer.train_step({"audio": audio})
+                if pool is not None and pool.replays > replays:
+                    stats["graphed_steps"] += 1
                 profiler.after(step)
                 step += 1
                 if step % log_interval == 0:
@@ -137,5 +149,10 @@ def vocoder_fit(cfg: Dict[str, Any], dm, device: str = "cuda"):
     finally:
         profiler.stop()
     stats.update(profiler.stats)
-    print(f"vocoder training done at step {step}")
+    stats.update(warmups=pool.warmups if pool else 0,
+                 captures=len(pool.captures) if pool else 0,
+                 replays=pool.replays if pool else 0)
+    print(f"vocoder training done at step {step}; {stats['graphed_steps']} "
+          f"steps replayed a graph (warm-ups {stats['warmups']}, captures "
+          f"{stats['captures']}, replays {stats['replays']})")
     return trainer

@@ -12,30 +12,48 @@ Counterpart of ``radmmm_tpu/training/vocoder_train.py``:
   then the generator through the *updated* discriminators;
 * AdamW (b1 0.8, b2 0.99, optax's weight decay 1e-4, not torch's 1e-2)
   at a constant learning rate: ``lr_decay`` is in the config, as in the
-  JAX package, and nothing reads it; WaveGlow trains with Adam;
+  JAX package, and nothing reads it; WaveGlow trains with Adam (optax's
+  defaults, no weight decay). Both are the port's ``training/optim.
+  Optimizer`` with no clip, in optax's order;
 * ``random_segments``: random fixed-length audio crops, their starts
   rounded down to a multiple of the hop, with their mel windows.
 
+The JAX package jits each ``train_step`` with its state donated. Here a
+step runs through ``utils/graphs.Graphed`` in the trainer's pool: on the
+card one CUDA graph per batch shape (and, for HiFi-GAN with ``blur_p``,
+per branch: blurred or not), warmed up at its first step, captured at its
+second, replayed after. The host's half stays outside the graph: the
+optimizers' ``prepare`` (the step's bias corrections), the blur's two
+draws (the chosen kernel goes in as an input tensor) and the step count.
+The crops' mels are computed inside the graph when the batch carries
+audio alone (``vocoder_fit``'s batches, ``random_crops``). With
+``pool=None`` the step runs eagerly; on the CPU it always does.
+
 A trainer holds its modules and optimizers on its device and counts its
 steps; ``state_dict`` / ``load_state_dict`` carry all of it, on the host,
-through a checkpoint.
+through a checkpoint. A checkpoint written before the trainers took the
+port's ``Optimizer`` holds ``torch.optim`` state dicts of the same
+moments, which ``Optimizer.load_state_dict`` still reads.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import weakref
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from radmmm_torch.ops.stft import MelSpectrogram
+from radmmm_torch.training.optim import Optimizer
 from radmmm_torch.utils.device import resolve_device
+from radmmm_torch.utils.graphs import GraphPool, Graphed
 from radmmm_torch.vocoder.hifigan import (Generator, HiFiGANConfig,
                                           MultiPeriodDiscriminator,
                                           MultiScaleDiscriminator,
-                                          blur_generator, discriminator_loss,
+                                          blur_draws, blur_generator,
+                                          blur_mel, discriminator_loss,
                                           feature_loss,
-                                          gaussian_blur_augment,
                                           gaussian_blur_kernels,
                                           generator_adv_loss)
 from radmmm_torch.vocoder.waveglow import WaveGlow, waveglow_loss
@@ -88,10 +106,42 @@ def _seeded(build, seed: int):
         return build()
 
 
+# a trainer's default pool: one of its own
+OWN_POOL = "own"
+
+
+def _graphed(trainer, pool: Union[GraphPool, str, None], name: str):
+    """The trainer's step's device half, ``trainer._device_step(inputs)``
+    -> its metrics, as (pool, ``step(inputs, key=())``): through
+    ``Graphed`` in ``pool`` (``OWN_POOL``: a new one), or eager where
+    ``pool`` is None. The step holds the trainer weakly: the trainer holds
+    the step, and a cycle would keep its graphs' memory until the cyclic
+    collector ran."""
+    ref = weakref.ref(trainer)
+
+    def run(inputs):
+        return ref()._device_step(inputs)
+
+    if pool == OWN_POOL:
+        pool = GraphPool()
+    if pool is None:
+        return None, lambda inputs, key=(): run(inputs)
+    return pool, Graphed(run, pool, name=name)
+
+
+def segment_mels(mel_fn: MelSpectrogram, segs: torch.Tensor,
+                 segment_size: int) -> torch.Tensor:
+    """The crops' mels, trimmed to ``segment_size // hop`` frames."""
+    return mel_fn(segs)[:, :segment_size // mel_fn.hop_length]
+
+
 class HiFiGANTrainer:
+    METRICS = ("disc_loss", "gen_loss", "gen_adv", "gen_fm", "gen_mel")
+
     def __init__(self, gen_config: HiFiGANConfig,
                  cfg: VocoderTrainConfig = VocoderTrainConfig(),
-                 device: str | torch.device = "cuda", seed: int = 0):
+                 device: str | torch.device = "cuda", seed: int = 0,
+                 pool: Union[GraphPool, str, None] = OWN_POOL):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.gen, self.mpd, self.msd = (
@@ -108,24 +158,47 @@ class HiFiGANTrainer:
         self.blur_kernels = (gaussian_blur_kernels(cfg.blur_kernel_size,
                                                    cfg.blur_sigmas)
                              if cfg.blur_p > 0 else None)
+        # the bank on the device: a step's kernel is a row of it
+        self._blur_bank = (self.blur_kernels.to(self.device)
+                           if self.blur_kernels is not None else None)
         self.step = 0
+        self.pool, self._step_fn = _graphed(self, pool, "hifigan_step")
 
     def _adamw(self, params):
-        return torch.optim.AdamW(params, lr=self.cfg.learning_rate,
-                                 betas=(self.cfg.adam_b1, self.cfg.adam_b2),
-                                 eps=1e-8, weight_decay=ADAMW_WEIGHT_DECAY)
+        return Optimizer(params, "Adam", self.cfg.learning_rate,
+                         weight_decay=ADAMW_WEIGHT_DECAY,
+                         b1=self.cfg.adam_b1, b2=self.cfg.adam_b2, eps=1e-8)
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One GAN step: the discriminators' update, then the
-        generator's. -> metrics (0-d tensors on the device)."""
+        generator's. ``batch``: the crops' ``audio`` and, optionally, their
+        ``mel`` (else computed in the step). -> metrics (0-d tensors on
+        the device)."""
         cfg = self.cfg
-        mel, audio = batch["mel"], batch["audio"]
-        if self.blur_kernels is not None:
-            # the generator's input, blurred once a step; the mel-loss
-            # target stays the clean data mel
-            mel = gaussian_blur_augment(
-                mel, blur_generator(cfg.seed, self.step), self.blur_kernels,
-                cfg.blur_p)
+        inputs = {k: batch[k] for k in ("audio", "mel") if k in batch}
+        blurred = False
+        if self._blur_bank is not None:
+            # the generator's input, blurred once a step by a kernel drawn
+            # here; the mel-loss target stays the clean data mel
+            i, blurred = blur_draws(blur_generator(cfg.seed, self.step),
+                                    self._blur_bank.shape[0], cfg.blur_p)
+            if blurred:
+                inputs["kernel"] = self._blur_bank[i]
+        self.disc_opt.prepare()
+        self.gen_opt.prepare()
+        values = self._step_fn(inputs, key=(blurred,))
+        self.step += 1
+        return dict(zip(self.METRICS, values.unbind()))
+
+    def _device_step(self, inputs) -> torch.Tensor:
+        """The step's device work, after both optimizers' ``prepare``."""
+        cfg = self.cfg
+        audio = inputs["audio"]
+        mel = inputs.get("mel")
+        if mel is None:
+            mel = segment_mels(self.mel_loss_fn, audio, audio.shape[1])
+        if "kernel" in inputs:
+            mel = blur_mel(mel, inputs["kernel"])
         y_hat = self.gen(mel)
 
         # discriminators, on the generated audio without its gradient
@@ -133,9 +206,9 @@ class HiFiGANTrainer:
         pr, pg, _, _ = self.mpd(audio, y_sg)
         sr, sg, _, _ = self.msd(audio, y_sg)
         d_loss = discriminator_loss(pr, pg) + discriminator_loss(sr, sg)
-        self.disc_opt.zero_grad(set_to_none=True)
+        self.disc_opt.zero_grad()
         d_loss.backward()
-        self.disc_opt.step()
+        self.disc_opt.apply()
 
         # generator, through the updated discriminators; y_hat's graph is
         # the one the JAX step recomputes with the same parameters
@@ -147,15 +220,13 @@ class HiFiGANTrainer:
         loss_fm = feature_loss(fr, fg) + feature_loss(fr2, fg2)
         total = (loss_adv + cfg.feature_loss_weight / 2.0 * loss_fm
                  + cfg.mel_loss_weight * loss_mel)
-        self.gen_opt.zero_grad(set_to_none=True)
+        self.gen_opt.zero_grad()
         # gradients into the generator only: the discriminators' next step
         # starts from none
         total.backward(inputs=self.gen_params)
-        self.gen_opt.step()
-        self.step += 1
-        return {"disc_loss": d_loss.detach(), "gen_loss": total.detach(),
-                "gen_adv": loss_adv.detach(), "gen_fm": loss_fm.detach(),
-                "gen_mel": loss_mel.detach()}
+        self.gen_opt.apply()
+        return torch.stack([d_loss, total, loss_adv, loss_fm,
+                            loss_mel]).detach()
 
     def state_dict(self) -> Dict[str, Any]:
         return _host({"step": self.step, "gen": self.gen.state_dict(),
@@ -178,7 +249,8 @@ class WaveGlowTrainer:
     def __init__(self, waveglow_config: Optional[Dict[str, Any]],
                  cfg: VocoderTrainConfig = VocoderTrainConfig(),
                  sigma: float = 1.0, device: str | torch.device = "cuda",
-                 seed: int = 0):
+                 seed: int = 0,
+                 pool: Union[GraphPool, str, None] = OWN_POOL):
         self.device = resolve_device(device)
         kw = dict(hop_length=cfg.hop_length,
                   n_mel_channels=cfg.n_mel_channels)
@@ -189,19 +261,29 @@ class WaveGlowTrainer:
         self.mel_loss_fn = MelSpectrogram(
             cfg.filter_length, cfg.hop_length, cfg.win_length,
             cfg.n_mel_channels, cfg.sampling_rate, 0.0, cfg.mel_fmax)
-        self.opt = torch.optim.Adam(self.model.parameters(),
-                                    lr=cfg.learning_rate, eps=1e-8)
+        self.opt = Optimizer(self.model.parameters(), "Adam",
+                             cfg.learning_rate, eps=1e-8)
         self.step = 0
+        self.pool, self._step_fn = _graphed(self, pool, "waveglow_step")
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
-        loss = waveglow_loss(self.model(batch["audio"], batch["mel"]),
-                             sigma=self.sigma)
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        self.opt.step()
+        """One step of the NLL; ``batch`` as ``HiFiGANTrainer``'s."""
+        self.opt.prepare()
+        loss = self._step_fn({k: batch[k] for k in ("audio", "mel")
+                              if k in batch})
         self.step += 1
-        loss = loss.detach()
         return {"gen_loss": loss, "nll": loss}
+
+    def _device_step(self, inputs) -> torch.Tensor:
+        audio = inputs["audio"]
+        mel = inputs.get("mel")
+        if mel is None:
+            mel = segment_mels(self.mel_loss_fn, audio, audio.shape[1])
+        loss = waveglow_loss(self.model(audio, mel), sigma=self.sigma)
+        self.opt.zero_grad()
+        loss.backward()
+        self.opt.apply()
+        return loss.detach()
 
     def state_dict(self) -> Dict[str, Any]:
         return _host({"step": self.step, "model": self.model.state_dict(),
@@ -221,8 +303,17 @@ def random_segments(audio: np.ndarray, audio_lens: np.ndarray,
     """Random fixed-length crops of the host batch's audio, their starts
     rounded down to a multiple of the hop, and their mels trimmed to
     ``segment_size // hop`` frames, on ``device``."""
+    segs = random_crops(audio, audio_lens, mel_fn.hop_length, segment_size,
+                        rng, device)
+    return {"audio": segs, "mel": segment_mels(mel_fn, segs, segment_size)}
+
+
+def random_crops(audio: np.ndarray, audio_lens: np.ndarray, hop: int,
+                 segment_size: int, rng: np.random.Generator,
+                 device: str | torch.device = "cuda") -> torch.Tensor:
+    """``random_segments``'s crops alone, (B, segment_size) on
+    ``device``: the same draws from ``rng``."""
     B = audio.shape[0]
-    hop = mel_fn.hop_length
     segs = np.zeros((B, segment_size), np.float32)
     for b in range(B):
         max_start = max(int(audio_lens[b]) - segment_size, 0)
@@ -230,5 +321,4 @@ def random_segments(audio: np.ndarray, audio_lens: np.ndarray,
         start = (start // hop) * hop
         chunk = audio[b, start:start + segment_size]
         segs[b, :len(chunk)] = chunk
-    segs_t = torch.from_numpy(segs).to(device)
-    return {"audio": segs_t, "mel": mel_fn(segs_t)[:, :segment_size // hop]}
+    return torch.from_numpy(segs).to(device)

@@ -52,6 +52,10 @@ the same code eagerly. On the card:
   captures at the same call, since each sees the same signatures in the
   same order. gloo's cannot be captured (its CUDA tensors go through host
   memory); its callers keep their steps eager.
+- The cyclic garbage collector is off during a capture: a collection
+  there could destroy an unreachable graph of an object that held one in
+  a reference cycle, and a capture refuses that (its stream is
+  invalidated).
 - A failed capture or replay raises: there is no quiet way back to the
   eager path.
 """
@@ -59,6 +63,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -202,9 +207,15 @@ class StepGraph:
             graph.register_generator_state(g)
         # other threads (the loader's uploads, NCCL's watchdog) keep
         # running: only this thread's calls must be legal under capture
-        with torch.cuda.graph(graph, pool=self.pool.handle, stream=side,
-                              capture_error_mode="thread_local"):
-            self.static_out = self.fn(self.static_in)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool.handle, stream=side,
+                                  capture_error_mode="thread_local"):
+                self.static_out = self.fn(self.static_in)
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0

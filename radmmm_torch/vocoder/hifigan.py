@@ -235,10 +235,22 @@ def gaussian_blur_augment(mel: torch.Tensor, generator: torch.Generator,
     host. The reference's kernels are (mel, time) on a (B, 1, n_mel, T)
     image; here the image is (B, 1, T, n_mel), so the kernel is
     transposed."""
-    i = int(torch.randint(0, kernels.shape[0], (), generator=generator))
-    if not float(torch.rand((), generator=generator)) <= p_blurring:
-        return mel
-    k2d = kernels[i].t().to(mel.device, mel.dtype)      # (k_time, k_mel)
+    i, blurred = blur_draws(generator, kernels.shape[0], p_blurring)
+    return blur_mel(mel, kernels[i]) if blurred else mel
+
+
+def blur_draws(generator: torch.Generator, n_kernels: int,
+               p_blurring: float) -> Tuple[int, bool]:
+    """``gaussian_blur_augment``'s two host draws from ``generator``: the
+    kernel's index, then whether to blur."""
+    i = int(torch.randint(0, n_kernels, (), generator=generator))
+    return i, float(torch.rand((), generator=generator)) <= p_blurring
+
+
+def blur_mel(mel: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """The (B, T, n_mel) mel blurred by one (k_mel, k_time) kernel of the
+    bank, reflect-padded."""
+    k2d = kernel.t().to(mel.device, mel.dtype)          # (k_time, k_mel)
     pad_t, pad_m = (k2d.shape[0] - 1) // 2, (k2d.shape[1] - 1) // 2
     x = F.pad(mel[:, None], (pad_m, pad_m, pad_t, pad_t), mode="reflect")
     return F.conv2d(x, k2d[None, None])[:, 0]

@@ -16,6 +16,12 @@ vocoders/vocoder_utils.py:35-143). ``get_vocoder`` loads
 With no checkpoint configured it returns (None, None) and the caller uses
 ``GriffinLimVocoder``, which synthesises through the pseudo-inverse of the
 mel basis. Vocoding is batched, on the device the vocoder was loaded to.
+
+The JAX package jits a vocoder's apply. ``vocode_program`` is the
+counterpart: the apply and the Denoiser as one program through
+``utils/graphs.Graphed`` (one CUDA graph per mel shape on the card, eager
+on the CPU), a WaveGlow's noise drawn eagerly and passed in. Griffin-Lim
+stays eager, as the JAX package runs it.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from radmmm_torch.ops.stft import (MelSpectrogram,
                                    mel_filterbank)
 from radmmm_torch.utils.checkpoint import CheckpointManager
 from radmmm_torch.utils.device import resolve_device
+from radmmm_torch.utils.graphs import GraphPool, Graphed
 from radmmm_torch.vocoder.hifigan import (Denoiser, Generator, HiFiGANConfig,
                                           load_torch_generator_params)
 
@@ -152,22 +159,37 @@ def get_vocoder(vocoder_type: str = "hifigan",
         vocoder_config_path if vocoder_config_path
         and os.path.exists(str(vocoder_config_path)) else None))
     wg.load_state_dict(load_torch_waveglow_params(state_dict, wg))
-    wg = wg.to(device).eval()
-
-    def generator_fn(mel, sigma: float = 0.667,
-                     generator: Optional[torch.Generator] = None):
-        # sigma 0.667: the reference's default (vocoder_utils.py:38); the
-        # noise from a generator seeded 0 unless one is given
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
-        with torch.no_grad():
-            return wg.infer(torch.as_tensor(mel, device=device), sigma=sigma,
-                            generator=generator)
-
+    generator_fn = WaveGlowFn(wg.to(device).eval().cache_inverses(), device)
     denoiser = (Denoiser(lambda mel: generator_fn(mel, sigma=0.0),
                          n_mel_channels=wg.n_mel_channels, device=device)
                 if with_denoiser else None)
     return generator_fn, denoiser
+
+
+class WaveGlowFn:
+    """A loaded WaveGlow's apply, ``fn(mel, sigma=0.667, generator=None,
+    residual=None)`` -> audio: sigma 0.667 is the reference's default
+    (vocoder_utils.py:38), and the noise comes from a generator seeded 0
+    unless a generator or the noise itself (``draw``'s) is given."""
+
+    def __init__(self, wg, device):
+        self.wg, self.device = wg, device
+
+    def draw(self, mel, sigma: float = 0.667,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return self.wg.draw_residual(torch.as_tensor(mel, device=self.device),
+                                     sigma, generator)
+
+    def __call__(self, mel, sigma: float = 0.667,
+                 generator: Optional[torch.Generator] = None,
+                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        mel = torch.as_tensor(mel, device=self.device)
+        if residual is None:
+            residual = self.draw(mel, sigma, generator)
+        with torch.no_grad():
+            return self.wg.infer(mel, sigma=sigma, residual=residual)
 
 
 def get_vocoder_map(vocoder_map: Dict[str, Dict[str, str]],
@@ -216,3 +238,32 @@ def get_audio_for_mels(mels: torch.Tensor, vocoder_type: str, vocoder_fn,
     if denoiser is not None:
         audio = denoiser(audio, strength=denoiser_strength)
     return audio
+
+
+def vocode_program(vocoder_type: str, vocoder_fn, denoiser=None,
+                   pool: Optional[GraphPool] = None,
+                   denoiser_strength: float = 0.005):
+    """``get_audio_for_mels`` as one program, ``vocode(mels)`` -> audio:
+    with a ``pool``, the vocoder's apply and the Denoiser through
+    ``Graphed`` in it (one graph per mel shape on the card); eager
+    without one. A WaveGlow's noise is drawn on the host's side of the
+    graph, as its eager call draws it (``WaveGlowFn.draw``), and passed
+    in."""
+    waveglow = isinstance(vocoder_fn, WaveGlowFn)
+
+    def apply(x):
+        fn = ((lambda m: vocoder_fn(m, residual=x["residual"])) if waveglow
+              else vocoder_fn)
+        return get_audio_for_mels(x["mel"], vocoder_type, fn, denoiser,
+                                  denoiser_strength)
+
+    program = Graphed(apply, pool, name="vocode") if pool is not None \
+        else apply
+
+    def vocode(mels: torch.Tensor) -> torch.Tensor:
+        x = {"mel": mels}
+        if waveglow:
+            x["residual"] = vocoder_fn.draw(mels)
+        return program(x)
+
+    return vocode

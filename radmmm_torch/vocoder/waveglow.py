@@ -154,6 +154,26 @@ class WaveGlow(nn.Module):
         return {"z": torch.cat(z_out, dim=-1), "log_s_list": log_s_list,
                 "log_det_W_list": log_det_W_list}
 
+    def draw_residual(self, mel: torch.Tensor, sigma: float,
+                      generator: Optional[torch.Generator],
+                      n_samples: Optional[int] = None) -> torch.Tensor:
+        """The N(0, sigma^2) noise ``infer`` draws for ``mel``,
+        (B, Tg, n_group), from ``generator``: Tg is the length of
+        ``upsample_mel``'s grouped output, known from the shapes alone."""
+        B, T_mel = mel.shape[:2]
+        if n_samples is None:
+            n_samples = T_mel * self.hop_length
+        up = (T_mel - 1) * self.hop_length + self.upsample_kernel_w.shape[-1]
+        Tg = min(up, n_samples) // self.n_group
+        return torch.randn((B, Tg, self.n_group), generator=generator,
+                           device=mel.device, dtype=mel.dtype) * sigma
+
+    def cache_inverses(self) -> "WaveGlow":
+        """Keep each 1x1's inverse for ``infer`` (fixed weights)."""
+        for i in range(self.n_flows):
+            getattr(self, f"convinv_{i}").cache_inverse()
+        return self
+
     def infer(self, mel: torch.Tensor, sigma: float = 1.0,
               n_samples: Optional[int] = None,
               residual: Optional[torch.Tensor] = None,
@@ -167,8 +187,7 @@ class WaveGlow(nn.Module):
         cond = self.upsample_mel(mel, n_samples)
         B, Tg, _ = cond.shape
         if residual is None:
-            residual = torch.randn((B, Tg, self.n_group), generator=generator,
-                                   device=mel.device, dtype=mel.dtype) * sigma
+            residual = self.draw_residual(mel, sigma, generator, n_samples)
         else:
             residual = residual[:, :Tg]
         n_early_total = len(self.exit_steps) * self.n_early_size

@@ -15,6 +15,8 @@ that changes from run to run (``chip_smoke.py``'s graphs phase measured
 it at full width). The served PCM of the card against the CPU: within 1
 LSB (f32 waveforms that differ in the last bits round to neighbouring
 codes)."""
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -304,3 +306,108 @@ def test_captures_of_one_pool_share_its_memory(card):
     grew = [c.pool_bytes for c in pool.captures]
     assert grew[0] >= 64 * 2**20
     assert grew[1] <= 2 * 2**20
+
+
+VOC_GEN = dict(upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8),
+               upsample_initial_channel=16, resblock_kernel_sizes=(3,),
+               resblock_dilation_sizes=((1, 3),), n_mel_channels=8)
+VOC_WG = dict(n_mel_channels=8, n_flows=4, n_group=4, n_early_every=2,
+              n_early_size=2, wn_channels=8, wn_layers=2, upsample_kernel=32)
+VOC_TRAIN = dict(segment_size=512, hop_length=16, filter_length=64,
+                 win_length=64, n_mel_channels=8, learning_rate=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["hifigan", "waveglow"])
+def test_graphed_vocoder_steps_equal_eager(card, kind):
+    """Six steps of a trainer through its graphs against a trainer built
+    alike with ``pool=None``: every metric and parameter bit for bit.
+    HiFi-GAN blurs with p 0.5 from seed 1 (steps 0, 2 and 4), so both
+    branches (two signatures) run, each warmed up at its first step and
+    captured at its second."""
+    from radmmm_torch.training import vocoder_train as tvt
+    runs = []
+    for pool in (tvt.OWN_POOL, None):
+        if kind == "hifigan":
+            tr = tvt.HiFiGANTrainer(HiFiGANConfig(**VOC_GEN),
+                                    tvt.VocoderTrainConfig(
+                                        **VOC_TRAIN, blur_p=0.5, seed=1),
+                                    device=card, pool=pool)
+        else:
+            tr = tvt.WaveGlowTrainer(VOC_WG, tvt.VocoderTrainConfig(
+                **VOC_TRAIN), device=card, pool=pool)
+        g = torch.Generator(device=card).manual_seed(0)
+        rows = [tr.train_step({"audio": torch.rand(
+            (2, 512), generator=g, device=card) * 0.6 - 0.3})
+            for _ in range(6)]
+        runs.append((tr, rows))
+    (gtr, grows), (etr, erows) = runs
+    for g, e in zip(grows, erows):
+        for name in e:
+            assert torch.equal(g[name], e[name]), name
+    for name in (("gen", "mpd", "msd") if kind == "hifigan" else ("model",)):
+        for a, b in zip(getattr(gtr, name).parameters(),
+                        getattr(etr, name).parameters()):
+            assert torch.equal(a, b), name
+    signatures = 2 if kind == "hifigan" else 1
+    assert gtr.pool.warmups == len(gtr.pool.captures) == signatures
+    assert gtr.pool.replays == 6 - signatures and etr.pool is None
+
+
+def test_trainer_samples_graphed_equal_eager(card, tmp_path):
+    """The trainer's sample programs (infer at its prompts, the binarized
+    eval forward, reconstruct) and the vocoder's apply with its Denoiser,
+    over three validations with a training step between each, through the
+    trainer's pool against a trainer whose pool is None: every output bit
+    for bit; each program warms up at the first validation, captures at
+    the second and replays at the third, with the weights of its step."""
+    from radmmm_torch.training.loop import Trainer, TrainerConfig
+    from radmmm_torch.vocoder.hifigan import Denoiser
+    from radmmm_torch.vocoder.utils import hifigan_fns, vocode_program
+
+    class Eager(Trainer):
+        def _step_pool(self):
+            return None
+
+    stacked = _stacked(card)
+    feat = collate.Featurizer(device=card, **FEAT)
+    batch = feat.featurize_raw({k: v[0] for k, v in stacked.items()}, 0)
+    torch.manual_seed(0)
+    voc, _ = hifigan_fns(Generator(HiFiGANConfig(**VOC_GEN)), False, card)
+    den = Denoiser(voc, n_mel_channels=8, filter_length=64, win_length=64,
+                   device=card)
+    rng = np.random.default_rng(2)
+    b = {"text": torch.from_numpy(rng.integers(1, 30, (2, 6))).to(card),
+         "text_lens": torch.tensor([6, 4], device=card),
+         **{k: torch.tensor([0, 2], device=card)
+            for k in ("spk_id", "accent_id")},
+         "speaker_f0_mean": torch.tensor([5.0, 5.2], device=card),
+         "speaker_f0_std": torch.tensor([0.3, 0.3], device=card)}
+    b["accent_id"] = b["accent_id"] % 2
+    runs = []
+    for cls in (Trainer, Eager):
+        tr = cls(tiny_config(), step.LossConfig(**LOSS), TrainerConfig(
+            output_directory=str(tmp_path / cls.__name__), device=card.type,
+            max_infer_frames=32, learning_rate=1e-2,
+            save_code_snapshot=False))
+        state = tr._init_state(None)
+        vocode = vocode_program("hifigan", voc, den, tr._step_pool())
+        gen = tr._generator(1)
+        outs = []
+        for v in range(3):
+            with torch.no_grad():
+                tr.model.cache_inverses()
+                out = tr._infer(b, tr._generator(0))
+                outs.append([out, tr._val_forward(batch),
+                             tr._reconstruct(batch, tr._generator(0)),
+                             vocode(out["mel"])])
+            state, _ = tr._train_step_fn(False, False)(state, batch, gen)
+        runs.append((tr, outs))
+    (gtr, gouts), (_, eouts) = runs
+    flat = torch.utils._pytree.tree_leaves
+    for g, e in zip(gouts, eouts):
+        for x, y in zip(flat(g), flat(e)):
+            assert torch.equal(x, y)
+    assert not torch.equal(gouts[0][2]["mel"], gouts[2][2]["mel"])
+    names = collections.Counter(c.name for c in gtr._graph_pool.captures)
+    assert all(names[n] == 1 for n in ("tts_infer", "val_forward",
+                                       "reconstruct", "vocode"))

@@ -348,7 +348,7 @@ def test_load_tts_latent_from_the_seed_is_the_generator_path(ported, rng,
 
 _HOST_WAITS = {"_local_scalar_dense", "nonzero", "masked_select", "unique",
                "_unique2", "unique_consecutive", "unique_dim", "equal",
-               "is_nonzero", "allclose"}
+               "is_nonzero", "allclose", "_linalg_check_errors"}
 
 
 class _NoHostWaits(TorchDispatchMode):

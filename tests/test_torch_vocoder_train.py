@@ -5,8 +5,10 @@ state carried across by ``convert.load_jax_vocoder_state``, and the
 whose ``metrics.jsonl`` rows match the JAX package's resume from the same
 step-3 state). The discriminators are at the JAX package's fixed widths
 (32 to 1024 channels); the generator is small (rates 8, 8, 4; 32
-channels), the segments 2,048 samples, batch 2. The trainer test and the
-CLI use one configuration, so the JAX step compiles once.
+channels), the segments 2,048 samples, batch 2. The trainer test blurs
+the generator's input (``BLUR``: every step, by one kernel, so both
+frameworks' different draws blur alike); the port's trainers step on its
+own ``Optimizer`` (Adam in optax's order).
 
 Tolerances: segments bit for bit, their mels within 1e-5 of the largest
 magnitude; each step's losses within rtol 1e-4 (the discriminators' Adam
@@ -91,16 +93,21 @@ def test_random_segments_match_jax(rng):
     assert not got["audio"][2, 1500:].any()
 
 
+# blur_p 1 and one sigma: the blurred branch at every step, one kernel
+BLUR = dict(blur_p=1.0, blur_sigmas=(1.0,))
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_trainer():
     return jvt.HiFiGANTrainer(jh.HiFiGANConfig(**GEN),
-                              jvt.VocoderTrainConfig(**TRAIN))
+                              jvt.VocoderTrainConfig(**TRAIN, **BLUR))
 
 
 def test_hifigan_trainer_matches_jax_over_3_steps(rng):
     """Both trainers from one perturbed JAX state (optimizer moments at
-    zero): each step's five losses, and every parameter of the generator
-    and both discriminators after 3 steps."""
+    zero), the generator's input blurred: each step's five losses, and
+    every parameter of the generator and both discriminators after 3
+    steps."""
     jtr = _jax_trainer()
     audio, lens = _audio(rng, [6000, 5000])
     batch = jvt.random_segments(audio, lens, jtr.mel_loss_fn, SEGMENT,
@@ -114,7 +121,8 @@ def test_hifigan_trainer_matches_jax_over_3_steps(rng):
         disc_opt=jtr.disc_tx.init({"mpd": moved["mpd_params"],
                                    "msd": moved["msd_params"]}))
     port = tvt.HiFiGANTrainer(HiFiGANConfig(**GEN),
-                              tvt.VocoderTrainConfig(**TRAIN), device="cpu")
+                              tvt.VocoderTrainConfig(**TRAIN, **BLUR),
+                              device="cpu")
     load_jax_vocoder_state(port, jax.tree_util.tree_map(np.asarray, state))
     tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
     for step in range(3):
