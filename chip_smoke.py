@@ -1462,16 +1462,139 @@ def _compare_featurized(got: dict, want: dict) -> None:
             fail(f"featurize: card and CPU disagree on {k}")
 
 
+# calls of a host batch each way in the featurize phase's graphed run:
+# the warm-up, the capture, then replays
+FEAT_GRAPH_CALLS = 5
+
+
+def _featurize_graphed(host: dict, card: str) -> dict:
+    """The featurizer's calls through its graphs (a pool of its own)
+    against a featurizer's eager calls (``pool=None``), in turns, with
+    pYIN and with F0 cache tracks (pYIN's own, on the batch): each call's
+    batch bit for bit, key by key; the graph warmed up at the first call,
+    captured at the second and replayed from it; ms a call each way (wall,
+    synchronised, the upload in); warm-ups, captures, replays, capture
+    seconds and the pool's MiB; a traced replay's busy ms, kernels and
+    host launch calls against a traced eager call's. Returns the graphed
+    batch of ``host``."""
+    from radmmm_torch.data import pitch
+    from radmmm_torch.data.collate import Featurizer
+    frames = host["audio"].shape[1] // 256
+    tracks = pitch.pyin_f0(torch.from_numpy(host["audio"]).cuda())
+    cached = dict(host, cached_f0=np.stack(
+        [t.cpu().numpy() for t in tracks], axis=1)[:, :, :frames])
+    eager = Featurizer(device="cuda", pool=None)
+    out = None
+    for tag, h in (("pYIN", host), ("F0 cache", cached)):
+        graphed = Featurizer(device="cuda")
+        pool = graphed.pool
+        ms, replayed, equal = {"graphed": [], "eager": []}, [], True
+        for _ in range(FEAT_GRAPH_CALLS):
+            got = {}
+            for way, feat in (("eager", eager), ("graphed", graphed)):
+                replays = pool.replays
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got[way] = feat(h)
+                torch.cuda.synchronize()
+                ms[way].append(1e3 * (time.perf_counter() - t0))
+            replayed.append(pool.replays > replays)
+            e, g = got["eager"], got["graphed"]
+            equal &= set(g) == set(e) and all(
+                torch.equal(g[k], v) if isinstance(v, torch.Tensor)
+                else g[k] == v for k, v in e.items())
+        out = out or got["graphed"]
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eager.raw_arrays(h)
+        host_ms = 1e3 * (time.perf_counter() - t0) / 3
+        _, prof_g = traced(lambda: graphed(h))
+        _, prof_e = traced(lambda: eager(h))
+        steady = [m for m, r in zip(ms["graphed"], replayed) if r][1:]
+        log(f"[featurize] ({card}) {tag}: the graphed featurize call "
+            f"against eager over {FEAT_GRAPH_CALLS} calls, every key "
+            f"bit-equal {equal}; replayed by call "
+            + "".join("R" if r else "." for r in replayed)
+            + "; ms a call (wall, synchronised, the upload in), graphed "
+            + ", ".join(f"{x:.2f}" for x in ms["graphed"]) + " (warm-up, "
+            f"capture, replays), eager " + ", ".join(
+                f"{x:.2f}" for x in ms["eager"])
+            + f"; the {len(steady)} replays after the capture's: graphed "
+            f"mean {np.mean(steady):.2f}, eager mean "
+            f"{np.mean(ms['eager'][2:]):.2f}; warm-ups {pool.warmups}, "
+            f"captures {len(pool.captures)}, replays {pool.replays}, capture "
+            f"{sum(c.seconds for c in pool.captures):.3f} s, the pool "
+            f"{sum(c.pool_bytes for c in pool.captures) / 2**20:.1f} MiB; "
+            f"of a call, the host's raw_arrays (int16 quantisation) "
+            f"{host_ms:.2f} ms")
+        for way, prof in (("graphed", prof_g), ("eager", prof_e)):
+            log(f"[featurize] {tag}: a traced {way} call: wall "
+                f"{prof['wall_ms']:.2f} ms, the card busy "
+                f"{prof['busy_ms']:.2f} ms (union {prof['union_ms']:.2f}) "
+                f"in {prof['kernels']} kernels, {prof['host_launches']} host "
+                f"launch calls {prof['host_calls']}")
+        if not equal or replayed != [False] + [True] * (
+                FEAT_GRAPH_CALLS - 1) or pool.warmups != 1 or \
+                len(pool.captures) != 1:
+            fail(f"featurize ({tag}): the graphed calls are not the eager "
+                 f"ones (bit-equal {equal}) or did not replay from the "
+                 f"second call (by call {replayed}, warm-ups {pool.warmups}, "
+                 f"captures {len(pool.captures)})")
+    return out
+
+
+def _viterbi_graphed(audio: torch.Tensor, card: str) -> None:
+    """pyin_f0 and its Viterbi DP (at the shape pYIN gives it: 1 + T_audio
+    // 256 frames, 2 x 181 states), each eager and as one CUDA graph: the
+    graph's result bit for bit, CUDA-event ms each way, the graph's
+    kernels (a traced replay)."""
+    from radmmm_torch.data import pitch
+    from radmmm_torch.utils.graphs import Graphed, GraphPool
+    B, T_audio = audio.shape
+    n_bins = int(np.ceil(60 * np.log2(640.0 / 80.0))) + 1
+    log_obs = torch.log(torch.rand((B, 1 + T_audio // 256, 2, n_bins),
+                                   device=audio.device))
+    log_P = torch.log(torch.rand((n_bins, n_bins), device=audio.device))
+    log_V = torch.log(torch.rand((2, 2), device=audio.device))
+    for name, fn, inputs in (
+            ("pyin_f0", lambda x: pitch.pyin_f0(x["audio"]),
+             {"audio": audio}),
+            ("its Viterbi DP and backtrack",
+             lambda x: pitch.viterbi(x["obs"], x["P"], x["V"]),
+             {"obs": log_obs, "P": log_P, "V": log_V})):
+        g = Graphed(fn, GraphPool(), name=name)
+        want = fn(inputs)
+        g(inputs)
+        got = g(inputs)                              # captured, replayed
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        eager_ms = cuda_ms(lambda: fn(inputs), 3)
+        graphed_ms = cuda_ms(lambda: g(inputs), 3)
+        _, prof = traced(lambda: g(inputs))
+        log(f"[featurize] ({card}) {name} ({log_obs.shape[1]} frames): "
+            f"eager {eager_ms:.2f} ms, one CUDA graph {graphed_ms:.2f} ms "
+            f"(CUDA events, mean of 3), {prof['kernels']} kernels a replay, "
+            f"busy {prof['busy_ms']:.2f} ms, {prof['host_launches']} host "
+            f"launch calls; the graph's result bit-equal {equal}")
+        if not equal:
+            fail(f"featurize: {name} replayed from its graph is not its "
+                 f"eager result")
+
+
 @tf32_off()
 def phase_featurize(seed: int) -> dict:
-    """int16 audio -> the training batch on the card, against the CPU;
-    then TRAIN_STEPS training steps from it and one reconstruct at sigma
-    0. Returns the kernels' launches on the timed steps."""
-    from radmmm_torch.data import pitch
+    """int16 audio -> the training batch on the card: the featurizer's
+    eager call, timed; its graphed call against the eager one with pYIN
+    and with the F0 cache (``_featurize_graphed``); the graphed batch
+    against the CPU; pYIN and its Viterbi eager and graphed
+    (``_viterbi_graphed``); then TRAIN_STEPS training steps from the batch
+    and one reconstruct at sigma 0. Returns the kernels' launches on the
+    timed steps."""
     from radmmm_torch.data.collate import Featurizer, collate_host
+    from radmmm_torch.utils.device import card_line
+    card = card_line()
     host = collate_host(featurize_items(seed))
     B, T_audio = host["audio"].shape
-    feat = Featurizer(device="cuda")
+    feat = Featurizer(device="cuda", pool=None)
     batch = feat(host)                               # first use: FFT plans
     torch.cuda.synchronize()
     times = []
@@ -1487,30 +1610,20 @@ def phase_featurize(seed: int) -> dict:
     T_mel = batch["mel"].shape[1]
     log(f"[featurize] B={B}, {T_audio} samples (int16), T_mel={T_mel}, "
         f"T_text={batch['text'].shape[1]}: {feat_ms:.2f} ms on the card "
-        f"(mean of 3: {', '.join(f'{t:.1f}' for t in times)}), "
+        f"eager (mean of 3: {', '.join(f'{t:.1f}' for t in times)}), "
         f"{B * T_mel / feat_ms * 1e3:.0f} mel frames/s; on the host CPU "
         f"{cpu_s:.2f} s; voiced share "
         f"{batch['voiced_mask'].sum().item() / B / T_mel:.3f}")
+    batch = _featurize_graphed(host, card)
     _compare_featurized(batch, cpu)
-    # pYIN and its Viterbi DP alone (the DP at the shape pYIN gives it:
-    # 1 + T_audio // 256 frames, 2 x 181 states)
-    audio = batch["audio"]
-    pyin_ms = cuda_ms(lambda: pitch.pyin_f0(audio), 3)
-    n_bins = int(np.ceil(60 * np.log2(640.0 / 80.0))) + 1
-    log_obs = torch.log(torch.rand((B, 1 + T_audio // 256, 2, n_bins),
-                                   device=audio.device))
-    log_P = torch.log(torch.rand((n_bins, n_bins), device=audio.device))
-    log_V = torch.log(torch.rand((2, 2), device=audio.device))
-    viterbi_ms = cuda_ms(lambda: pitch.viterbi(log_obs, log_P, log_V), 3)
-    log(f"[featurize] of the featurize {feat_ms:.2f} ms: pyin_f0 alone "
-        f"{pyin_ms:.2f} ms, its Viterbi DP and backtrack {viterbi_ms:.2f} "
-        f"ms ({log_obs.shape[1]} frames)")
-    profile(lambda: feat(host), f"one featurize call (B={B}, T_mel={T_mel}, "
-            "traced)", top=10)
+    _viterbi_graphed(batch["audio"], card)
+    profile(lambda: feat(host), f"one eager featurize call (B={B}, "
+            f"T_mel={T_mel}, traced)", top=10)
 
     model, _, _, _, launches, step_ms = _flagship_training(seed, batch,
                                                            "featurize")
-    log(f"[featurize] featurize {feat_ms:.2f} ms + step {step_ms:.2f} ms "
+    log(f"[featurize] featurize {feat_ms:.2f} ms (eager) + step "
+        f"{step_ms:.2f} ms "
         f"per batch of {B} x {T_mel} frames from int16 audio")
     model.eval()
     with torch.inference_mode():
@@ -1707,10 +1820,12 @@ def _counted(target, name, tally: list, seconds: list = None):
     orig = getattr(target, name)
 
     def wrapper(*a, **kw):
+        from radmmm_torch.utils.graphs import synchronize
         before, t0 = _counters(), time.perf_counter()
         out = orig(*a, **kw)
         if seconds is not None:
-            torch.cuda.synchronize()
+            # a loader's thread may be capturing its featurize graph
+            synchronize()
             seconds.append(time.perf_counter() - t0)
         after = _counters()
         tally.append({k: after[k] - before[k] for k in after})
@@ -2473,6 +2588,55 @@ def _caches_features(dm_plain, dm_cached, card: str) -> dict:
     return {k: sum(v) / len(v) for k, v in ms.items()}
 
 
+def _caches_f0(argv: list, path: str, card: str) -> tuple:
+    """The F0 cache of ``argv``'s corpus through the script's entry point,
+    in turns eager, graphed, graphed, eager (each graphed build a pool of
+    its own; the first graphed cache at ``path``, the others beside it):
+    every cache byte for byte the first eager one's (the same records in
+    the same order), the seconds of each build, each graphed build's
+    warm-ups, captures and replays. Returns the first graphed build's
+    (records, seconds)."""
+    import os
+    from radmmm_torch.scripts import build_f0_cache
+    from radmmm_torch.utils.graphs import GraphPool
+    orig, runs = build_f0_cache.build_f0_cache, []
+    try:
+        for i, way in enumerate(("eager", "graphed", "graphed", "eager")):
+            pool = GraphPool() if way == "graphed" else None
+            out = path if i == 1 else f"{path}_{i}"
+            build_f0_cache.build_f0_cache = functools.partial(orig,
+                                                              pool=pool)
+            t0 = time.perf_counter()
+            n = build_f0_cache.main(argv + ["-o", out])
+            torch.cuda.synchronize()
+            runs.append((way, n, time.perf_counter() - t0, out, pool))
+    finally:
+        build_f0_cache.build_f0_cache = orig
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    same = all(read(r[3] + ext) == read(runs[0][3] + ext)
+               for r in runs for ext in (".dat", ".idx"))
+    log(f"[caches] ({card}) build_f0_cache in turns eager, graphed, "
+        f"graphed, eager: records {[r[1] for r in runs]}, every cache "
+        f"byte-equal to the first {same}; seconds "
+        + ", ".join(f"{r[0]} {r[2]:.3f}" for r in runs) + "; pYIN's graphs "
+        "(warm-ups, captures, replays, capture s, pool MiB): " + "; ".join(
+            f"{p.warmups}, {len(p.captures)}, {p.replays}, "
+            f"{sum(c.seconds for c in p.captures):.3f}, "
+            f"{sum(c.pool_bytes for c in p.captures) / 2**20:.1f}"
+            for *_, p in runs if p is not None))
+    if not same or len({r[1] for r in runs}) != 1:
+        fail("the graphed F0 caches are not the eager ones")
+    for r in runs:
+        if r[3] != path:
+            for ext in (".dat", ".idx"):
+                os.remove(r[3] + ext)
+    return runs[1][1:3]
+
+
 def _caches_overlay(root: str, corpus: dict, tag: str,
                     caches: dict = None) -> str:
     """The overlay over stack (2) for one fit of the caches phase: the
@@ -2528,17 +2692,14 @@ def phase_caches(seed: int) -> dict:
         t0 = time.perf_counter()
         n_audio = build_audio_cache.main(plain + ["-o", caches["audio"]])
         audio_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        n_f0 = build_f0_cache.main(plain + ["-o", caches["f0"]])
-        torch.cuda.synchronize()
-        f0_s = time.perf_counter() - t0
+        n_f0, f0_s = _caches_f0(plain, caches["f0"], card)
         n_lines = RADTTS_TRAIN + FIT_VAL
         size = sum(os.path.getsize(caches[k] + ext)
                    for k in caches for ext in (".dat", ".idx"))
         log(f"[caches] ({card}) build_audio_cache: {n_audio} records in "
             f"{audio_s:.2f} s; build_f0_cache (pYIN on the card, batches of "
-            f"8): {n_f0} records in {f0_s:.2f} s; {size / 1e6:.1f} MB on "
-            f"disk")
+            f"8, graphed): {n_f0} records in {f0_s:.2f} s; "
+            f"{size / 1e6:.1f} MB on disk")
         if n_audio != n_lines or n_f0 != n_lines:
             fail(f"expected {n_lines} records in each cache, got audio "
                  f"{n_audio}, F0 {n_f0}")
@@ -4275,14 +4436,18 @@ def traced(fn) -> tuple:
     card's busy time where kernels overlap, as a graph's may)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
+    from radmmm_torch.utils.graphs import no_capture
     from radmmm_torch.utils.profiling import union_length
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
+    # no loader's thread captures while the card is synchronised and the
+    # profiler starts and stops
+    with no_capture():
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
     ev = prof.key_averages()
     dev = [e for e in ev if e.device_type == DeviceType.CUDA
            and e.device_time_total > 0]
@@ -4659,8 +4824,9 @@ GRAPH_NCCL_TIMEOUT = 300    # a run's seconds: a rank left alone in a
 class _EagerSteps:
     """The trainer's eager baseline: inside, ``cli.main`` builds a
     ``Trainer`` whose step factory hands the training and validation
-    steps no graph pool, so every step runs eagerly (the graphs' own
-    code path otherwise: the same loop, bookkeeping and batches)."""
+    steps no graph pool and whose loaders' featurizer gets none, so every
+    step and every featurize call runs eagerly (the graphs' own code path
+    otherwise: the same loop, bookkeeping and batches)."""
 
     def __enter__(self):
         from radmmm_torch.training import cli
@@ -4668,6 +4834,9 @@ class _EagerSteps:
 
         class EagerTrainer(Trainer):
             def _step_pool(self):
+                return None
+
+            def _featurizer_pool(self):
                 return None
 
         self.cli, self.orig = cli, cli.Trainer
@@ -4958,6 +5127,14 @@ def _graphs_mixed(seed: int, work: str, k: int, samples: bool = False
             f"{st['replays']} (steps and validation batches); batch shapes "
             f"{sorted(collections.Counter(r['shape'] for r in steps).items())}"
             f"; validation {st['val_s']:.3f} s in {len(vals)}")
+        log(f"[graphs] {part} {way}: the loaders' featurize calls (the "
+            f"first batch, {'every step, ' if k == 1 else ''}validation): "
+            f"warm-ups {st['featurize_warmups']}, captures "
+            f"{st['featurize_captures']}, replays {st['featurize_replays']},"
+            f" pool {st['featurize_pool_bytes'] / 2**20:.1f} MiB; waiting "
+            f"on the loader {st['loader_wait_s']:.3f} s, "
+            f"{100 * st['loader_wait_s'] / max(st['train_s'], 1e-9):.1f}% "
+            f"of the training seconds")
         if samples:
             log(f"[graphs] {part} {way}: replays by graph {dict(replays)}; "
                 f"the pool's growth at each graph's captures, MiB: "
@@ -4978,6 +5155,14 @@ def _graphs_mixed(seed: int, work: str, k: int, samples: bool = False
                                      g["stats"]["noise_keys"])):
         fail(f"{part} the fit took raw groups {g['sizes']}, not the "
              f"loader's featurized batches")
+    # at megastep_k 1 the loader featurizes every step: its signatures'
+    # later calls replay; the eager run's featurizer has no graphs
+    if (k == 1 and not g["stats"]["featurize_replays"]) or any(
+            e["stats"][f"featurize_{n}"]
+            for n in ("warmups", "captures", "replays")):
+        fail(f"{part} the loaders' featurize replays: graphed "
+             f"{g['stats']['featurize_replays']}, eager "
+             f"{e['stats']['featurize_replays']}")
     if [r["launches"] for r in g["steps"]] != [
             r["launches"] for r in e["steps"]] or g["vals"] != e["vals"] \
             or g["launches"] != e["launches"]:

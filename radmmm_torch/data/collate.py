@@ -14,10 +14,26 @@ is the rank's index in the data group of the active ``parallel.mesh`` (0
 in one process), so ranks that load other batches draw other noise and
 ranks of one model group draw the same. The bits differ from the JAX
 package's, the schedule is the same.
+
+The JAX package jits the featurizer. Here a call on the card
+(``Featurizer.__call__``, the loaders' featurize) runs through
+``utils/graphs.Graphed`` in a pool of the featurizer's own: one CUDA
+graph per signature (the batch's shapes, whether it carries F0 cache
+tracks and mel noise, the F0 method), the first call at a signature its
+eager warm-up, the second its capture, later calls replays. The arrays
+go up from pinned memory, without blocking, on the pool's stream, the mel
+noise is drawn there eagerly and passed in, and the batch is handed to
+the calling thread's stream: that stream waits for the replay, and the
+batch's memory is not reused before that stream is done with it. The
+training and the validation loaders' threads may call one featurizer at
+once, so a call holds the featurizer's lock from the noise key to the
+hand-over.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+import threading
+import weakref
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -27,6 +43,8 @@ from radmmm_torch.parallel import mesh
 from radmmm_torch.ops.priors import beta_binomial_prior
 from radmmm_torch.ops.stft import MelSpectrogram
 from radmmm_torch.utils.device import resolve_device
+from radmmm_torch.utils.graphs import (OWN_POOL, GraphPool, graph_program,
+                                       own_pool)
 
 
 def round_up(n: int, multiple: int) -> int:
@@ -110,7 +128,9 @@ def _key(*entropy: int) -> int:
 class Featurizer:
     """Batched feature extraction on the device -> a training-step batch.
     Runs on ``device`` (the card unless the caller asks for the CPU);
-    ``featurize_raw`` runs on the device of its inputs."""
+    ``featurize_raw`` runs on the device of its inputs. A call on the card
+    replays its CUDA graphs in ``pool`` (``OWN_POOL``: a new pool; None:
+    eager; see the module docstring)."""
 
     def __init__(self, filter_length=1024, hop_length=256, win_length=1024,
                  n_mel_channels=80, sampling_rate=22050, mel_fmin=0.0,
@@ -119,7 +139,8 @@ class Featurizer:
                  use_attn_prior_masking=True,
                  betabinom_scaling_factor=0.05,
                  mel_noise_scale=0.0, distance_tx_unvoiced=False,
-                 f0_method="pyin", seed=0, device="cuda"):
+                 f0_method="pyin", seed=0, device="cuda",
+                 pool: Union[GraphPool, str, None] = OWN_POOL):
         self.device = resolve_device(device)
         self.mel = MelSpectrogram(filter_length, hop_length, win_length,
                                   n_mel_channels, sampling_rate, mel_fmin,
@@ -142,6 +163,23 @@ class Featurizer:
         # the sequence from 0
         self._n_calls = 0
         self._noise_base = 0
+        self._lock = threading.Lock()
+        self.use_pool(pool)
+
+    def use_pool(self, pool: Union[GraphPool, str, None]) -> None:
+        """Replay the calls' graphs in ``pool`` from now (``OWN_POOL``: a
+        new pool; None: run them eagerly). The program holds the
+        featurizer weakly: the featurizer holds the program, and a cycle
+        would keep its graphs' memory until the cyclic collector ran."""
+        ref = weakref.ref(self)
+
+        def program(inputs):
+            return ref().featurize_raw(inputs["raw"], None,
+                                       noise=inputs.get("noise"))
+
+        with self._lock:
+            self.pool = own_pool(pool)
+            self._program = graph_program(program, self.pool, "featurize")
 
     def set_noise_base(self, step: int):
         """Re-key the per-call mel-noise stream from a trainer step (on
@@ -266,15 +304,48 @@ class Featurizer:
                      energy_avg=energy, attn_prior=prior)
         return batch
 
+    def program_inputs(self, raw: Dict[str, torch.Tensor],
+                       noise_key: Optional[int]) -> Dict[str, Any]:
+        """The inputs of a call's graph: the raw batch and its mel noise
+        (absent where the featurizer adds none), drawn eagerly on the
+        current stream, since a fresh generator each call is host work."""
+        noise = self.mel_noise(raw, noise_key)
+        return {"raw": raw} if noise is None else {"raw": raw, "noise": noise}
+
     def __call__(self, host_batch: Dict[str, Any]) -> Dict[str, Any]:
         """Host collate dict -> the full training-step batch on the
-        featurizer's device."""
-        raw = {k: torch.from_numpy(v).to(self.device)
-               for k, v in self.raw_arrays(host_batch).items()}
-        batch = self.featurize_raw(raw, self._next_noise_key())
+        featurizer's device, ready on the calling thread's current
+        stream."""
+        arrays = self.raw_arrays(host_batch)
+        with self._lock:
+            if self.device.type == "cuda" and self.pool is not None:
+                batch = self._replayed(arrays)
+            else:
+                raw = {k: torch.from_numpy(v).to(self.device)
+                       for k, v in arrays.items()}
+                batch = self._program(
+                    self.program_inputs(raw, self._next_noise_key()),
+                    key=(self.f0_method,))
         for k in ("audiopaths", "text_raw", "language"):
             if k in host_batch:
                 batch[k] = host_batch[k]
+        return batch
+
+    def _replayed(self, arrays: Dict[str, np.ndarray]
+                  ) -> Dict[str, torch.Tensor]:
+        """A call through the graphs on the pool's stream, its batch
+        handed to the caller's stream."""
+        caller = torch.cuda.current_stream(self.device)
+        side = self.pool.open()
+        with torch.cuda.stream(side):
+            raw = {k: torch.from_numpy(v).pin_memory().to(
+                self.device, non_blocking=True) for k, v in arrays.items()}
+            batch = self._program(
+                self.program_inputs(raw, self._next_noise_key()),
+                key=(self.f0_method,))
+        caller.wait_stream(side)
+        for t in batch.values():
+            t.record_stream(caller)
         return batch
 
 

@@ -9,6 +9,13 @@ and writes each utterance's (3, n_frames) float32 track
 ``f0::<audiopath>``, as the JAX package does: either package reads the
 other's cache.
 
+The JAX package jits pYIN; here it runs through
+``utils/graphs.Graphed`` in a pool of its own: the batches are
+length-sorted and padded to a multiple of ``frames_multiple`` frames, so
+their shapes repeat, and a shape's second batch is captured and its later
+ones replay (a shape seen once stays an eager warm-up). The tracks are
+read back to the host outside the graph.
+
 Training then skips pYIN for batches whose items all have a track
 (``data/collate.py``). Augmented items transform the cached track
 analytically: pitch scaling multiplies F0, duration scaling resamples the
@@ -17,6 +24,7 @@ frame axis, formant shifting leaves F0 alone (``data/dataset.py``).
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
+from typing import Union
 
 import numpy as np
 import torch
@@ -25,10 +33,11 @@ from radmmm_torch.data.collate import round_up
 from radmmm_torch.data.pitch import pyin_f0, yin_f0
 from radmmm_torch.native import FeatureCacheWriter
 from radmmm_torch.utils.device import resolve_device
+from radmmm_torch.utils.graphs import OWN_POOL, GraphPool, graph_program
 
 
-# each batch's frames padded to a multiple of this, as the JAX package
-# pads them (the Viterbi's horizon, so the tracks match its cache)
+# each batch's frames padded to a multiple of this by default, as the JAX
+# package pads them (the Viterbi's horizon, so the tracks match its cache)
 FRAMES_MULTIPLE = 64
 
 
@@ -40,16 +49,26 @@ def build_f0_cache(datasets, out_path: str, batch_size: int = 8,
                    filter_length: int = 1024, hop_length: int = 256,
                    f0_min: float = 80.0, f0_max: float = 640.0,
                    f0_method: str = "pyin", num_threads: int = 4,
-                   device="cuda") -> int:
+                   frames_multiple: int = FRAMES_MULTIPLE, device="cuda",
+                   pool: Union[GraphPool, str, None] = OWN_POOL) -> int:
     """F0 of every utterance of ``datasets`` (one dataset or a list) into
     one cache at ``out_path``, computed on ``device`` (the card unless the
-    caller asks for the CPU). The datasets must be built without
+    caller asks for the CPU) over batches padded to a multiple of
+    ``frames_multiple`` frames, through graphs in ``pool`` (``OWN_POOL``:
+    a new pool; None: eager). The datasets must be built without
     augmentations: the cache holds the original track. A path seen before
     is skipped. Returns the number of records written."""
     if not isinstance(datasets, (list, tuple)):
         datasets = [datasets]
     dev = resolve_device(device)
     f0_fn = pyin_f0 if f0_method == "pyin" else yin_f0
+
+    def tracks_of(inputs):
+        return f0_fn(inputs["audio"], sampling_rate=inputs["sr"],
+                     frame_length=filter_length, hop_length=hop_length,
+                     f0_min=f0_min, f0_max=f0_max)
+
+    program = graph_program(tracks_of, pool, f0_method)
 
     n_written = 0
     seen = set()
@@ -71,16 +90,14 @@ def build_f0_cache(datasets, out_path: str, batch_size: int = 8,
                     continue
                 lens = [len(x["audio"]) for x in items]
                 frames = round_up(1 + max(lens) // hop_length,
-                                  FRAMES_MULTIPLE)
+                                  frames_multiple)
                 T = frames * hop_length
                 audio = np.zeros((len(items), T), np.float32)
                 for i, x in enumerate(items):
                     audio[i, :lens[i]] = x["audio"][:T]
                 with torch.no_grad():
-                    tracks = f0_fn(
-                        torch.from_numpy(audio).to(dev), sampling_rate=sr,
-                        frame_length=filter_length, hop_length=hop_length,
-                        f0_min=f0_min, f0_max=f0_max)
+                    tracks = program({"audio": torch.from_numpy(audio).to(
+                        dev), "sr": sr})
                 f0, voiced, pvd = (t.cpu().numpy() for t in tracks)
                 for i, x in enumerate(items):
                     n = min(1 + lens[i] // hop_length, f0.shape[1])

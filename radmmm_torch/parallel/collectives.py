@@ -41,7 +41,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from radmmm_torch.utils.launches import TALLIES
+from radmmm_torch.utils.launches import TALLIES, tally
 
 # (kind, "count") and (kind, "bytes") of the collectives issued since the
 # last ``reset_stats``
@@ -54,8 +54,8 @@ def reset_stats() -> None:
 
 
 def _record(kind: str, t: torch.Tensor) -> None:
-    STATS[kind, "count"] += 1
-    STATS[kind, "bytes"] += t.numel() * t.element_size()
+    tally(STATS, (kind, "count"))
+    tally(STATS, (kind, "bytes"), t.numel() * t.element_size())
 
 
 class Group:

@@ -45,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from radmmm_torch.parallel import collectives as C
+from radmmm_torch.utils import graphs
 from radmmm_torch.utils.device import resolve_device
 
 DATA_AXIS = "data"
@@ -197,7 +198,7 @@ class Mesh:
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        graphs.synchronize(device)
 
 
 def _all_reduce_flat(tensors, g: C.Group) -> int:

@@ -21,7 +21,11 @@ eagerly. The batches and their order are the JAX package's (the loader's
 shape runs), each step keys its mel noise by its global step
 (``Featurizer.noise_key_for_step``), and the bookkeeping is the same: a
 whole group of K is logged, validated and saved once, after its last
-step, a partial or phase-straddling group after each step.
+step, a partial or phase-straddling group after each step. Where the
+loader featurizes (``megastep_k`` 1, validation, the first batch,
+``predict_reconstruction``), its calls replay the featurizer's graphs in a
+pool of their own (``data/collate.Featurizer``; ``_graph_featurizer``),
+from the loaders' threads while the steps replay theirs.
 
 The validation samples, ``predict`` and ``predict_reconstruction`` go
 through the same pool, as the JAX package jits ``tts_infer``,
@@ -78,7 +82,7 @@ from radmmm_torch.utils.checkpoint import (CheckpointManager,
                                            ENCODER_SUBMODULES, freeze_wrap,
                                            load_pretrained_submodules)
 from radmmm_torch.utils.device import resolve_device
-from radmmm_torch.utils.graphs import GraphPool, Graphed
+from radmmm_torch.utils.graphs import GraphPool, graph_program
 from radmmm_torch.utils.logging import (TrainLogger, plot_alignment_to_numpy,
                                         plot_curves_to_numpy,
                                         plot_mel_to_numpy)
@@ -175,6 +179,8 @@ class Trainer:
         # the memory pool of the graphed steps (on the card), kept with the
         # model
         self._graph_pool = GraphPool()
+        # the pool of the loaders' featurize graphs (``_graph_featurizer``)
+        self._feature_pool: Optional[GraphPool] = None
         self.frozen_prefixes = []
         if c.decoder_path:
             self.frozen_prefixes.append("decoder")
@@ -246,6 +252,20 @@ class Trainer:
         cannot hold."""
         return self._graph_pool if self.mesh.capturable else None
 
+    def _featurizer_pool(self) -> Optional[GraphPool]:
+        """A new pool for the graphs of the loaders' featurize calls, apart
+        from the steps' pool: the loaders' threads replay them while the
+        steps replay theirs. None where they run eager."""
+        return GraphPool()
+
+    def _graph_featurizer(self, dm) -> None:
+        """The loaders' featurize calls (``dm.featurizer``, from the
+        loaders' threads and ``first_batch``) replay their graphs in
+        ``_featurizer_pool()`` from now."""
+        if getattr(dm, "featurizer", None) is not None:
+            self._feature_pool = self._featurizer_pool()
+            dm.featurizer.use_pool(self._feature_pool)
+
     def _train_step_fn(self, binarize: bool, kl_on: bool, featurizer=None):
         """The training step of one phase, over a featurized batch or,
         with ``featurizer``, featurizing a raw one."""
@@ -261,10 +281,8 @@ class Trainer:
         ``Graphed`` in the steps' pool, called as ``program(inputs,
         key=())``; eager where the steps are (``_step_pool`` None)."""
         if name not in self._step_cache:
-            fn, pool = torch.no_grad()(fn), self._step_pool()
-            self._step_cache[name] = (
-                Graphed(fn, pool, name=name) if pool is not None
-                else lambda inputs, key=(): fn(inputs))
+            self._step_cache[name] = graph_program(
+                torch.no_grad()(fn), self._step_pool(), name)
         return self._step_cache[name]
 
     def _generator(self, seed: int) -> torch.Generator:
@@ -308,6 +326,7 @@ class Trainer:
 
     def _fit_loop(self, dm, resume: bool):
         c = self.cfg
+        self._graph_featurizer(dm)
         train_loader = dm.train_dataloader()
         t0 = time.perf_counter()
         first_batch = self.mesh.broadcast_batch(train_loader.first_batch())
@@ -420,6 +439,12 @@ class Trainer:
         s["warmups"], s["captures"] = pool.warmups, len(pool.captures)
         s["replays"] = pool.replays
         s["graph_pool_bytes"] = sum(c.pool_bytes for c in pool.captures)
+        # the loaders' featurize graphs, first batch and validation in
+        feat = self._feature_pool or GraphPool()
+        s["featurize_warmups"] = feat.warmups
+        s["featurize_captures"] = len(feat.captures)
+        s["featurize_replays"] = feat.replays
+        s["featurize_pool_bytes"] = sum(c.pool_bytes for c in feat.captures)
         s["peak_reserved_bytes"] = (
             torch.cuda.max_memory_reserved(self.device)
             if self.device.type == "cuda" else 0)
@@ -433,7 +458,11 @@ class Trainer:
                   f"{s['graphed_steps']} replayed a graph (graph warm-ups "
                   f"{s['warmups']}, captures {s['captures']}, replays "
                   f"{s['replays']}, pool "
-                  f"{s['graph_pool_bytes'] / 2**20:.1f} MiB); peak "
+                  f"{s['graph_pool_bytes'] / 2**20:.1f} MiB; the loaders' "
+                  f"featurize: warm-ups {s['featurize_warmups']}, captures "
+                  f"{s['featurize_captures']}, replays "
+                  f"{s['featurize_replays']}, pool "
+                  f"{s['featurize_pool_bytes'] / 2**20:.1f} MiB); peak "
                   f"reserved {s['peak_reserved_bytes'] / 2**20:.1f} MiB")
         return state
 
@@ -779,6 +808,7 @@ class Trainer:
         out_dir = (self.cfg.prediction_output_dir
                    or os.path.join(self.cfg.output_directory, "predictions"))
         os.makedirs(out_dir, exist_ok=True)
+        self._graph_featurizer(dm)
         loader = dm.train_dataloader()
         if state is None:
             # the JAX package draws a first batch to build its state: the

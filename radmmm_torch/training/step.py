@@ -213,8 +213,7 @@ def step_inputs(featurizer, raw, noise_key) -> dict:
     tensors on the model's device) and the mel noise of ``noise_key``
     (absent where the featurizer adds none), drawn on the host's side of
     the step so a graph of it replays with each step's noise."""
-    noise = featurizer.mel_noise(raw, noise_key)
-    return {"raw": raw} if noise is None else {"raw": raw, "noise": noise}
+    return featurizer.program_inputs(raw, noise_key)
 
 
 def _tensors(batch) -> dict:

@@ -47,7 +47,8 @@ import torch
 from radmmm_torch.ops.stft import MelSpectrogram
 from radmmm_torch.training.optim import Optimizer
 from radmmm_torch.utils.device import resolve_device
-from radmmm_torch.utils.graphs import GraphPool, Graphed
+from radmmm_torch.utils.graphs import (OWN_POOL, GraphPool, graph_program,
+                                       own_pool)
 from radmmm_torch.vocoder.hifigan import (Generator, HiFiGANConfig,
                                           MultiPeriodDiscriminator,
                                           MultiScaleDiscriminator,
@@ -106,10 +107,6 @@ def _seeded(build, seed: int):
         return build()
 
 
-# a trainer's default pool: one of its own
-OWN_POOL = "own"
-
-
 def _graphed(trainer, pool: Union[GraphPool, str, None], name: str):
     """The trainer's step's device half, ``trainer._device_step(inputs)``
     -> its metrics, as (pool, ``step(inputs, key=())``): through
@@ -122,11 +119,8 @@ def _graphed(trainer, pool: Union[GraphPool, str, None], name: str):
     def run(inputs):
         return ref()._device_step(inputs)
 
-    if pool == OWN_POOL:
-        pool = GraphPool()
-    if pool is None:
-        return None, lambda inputs, key=(): run(inputs)
-    return pool, Graphed(run, pool, name=name)
+    pool = own_pool(pool)
+    return pool, graph_program(run, pool, name)
 
 
 def segment_mels(mel_fn: MelSpectrogram, segs: torch.Tensor,

@@ -41,21 +41,36 @@ the same code eagerly. On the card:
   (``CUDAGraph.register_generator_state``): a replay draws the bits the
   same calls would draw eagerly from the generator's current offset, and
   advances it as they would.
-- The ledger (``LEDGER``): the host-side counters that tick where a call
-  queues work on the card (``utils/launches.TALLIES``: the kernel
-  wrappers' launches, the collectives' counts and bytes) tick while a
-  graph is captured and never while it replays. A capture takes back
-  what it added and records it; each replay adds it again, so the
+- The ledger: the host-side counters that tick where a call queues work
+  on the card (``utils/launches.TALLIES``: the kernel wrappers' launches,
+  the collectives' counts and bytes) tick while a graph is captured and
+  never while it replays. What goes into the graph ticks the capture's
+  record instead of the counters (``launches.begin_capture`` to
+  ``end_capture``: the capturing thread's calls and the autograd
+  engine's on the capture's stream; another thread's replays and
+  launches meanwhile count as ever); each replay adds the record, so the
   counters stay the work the card ran.
 - Collectives inside ``fn`` (NCCL's) are captured with it: the warm-up's
   eager collectives create the communicators first, and every rank
   captures at the same call, since each sees the same signatures in the
   same order. gloo's cannot be captured (its CUDA tensors go through host
   memory); its callers keep their steps eager.
-- The cyclic garbage collector is off during a capture: a collection
-  there could destroy an unreachable graph of an object that held one in
-  a reference cycle, and a capture refuses that (its stream is
-  invalidated).
+- Several threads (the trainer's and its loaders', each with its own
+  pool: ``data/collate.Featurizer``) may warm up, capture and replay.
+  One process-wide lock is held by every warm-up and every capture and by
+  no replay, so no two threads warm up or capture at once: a warm-up and
+  a capture synchronise and empty the allocator's cache device-wide,
+  which CUDA refuses while another thread captures, and a replay
+  on another thread is legal under a capture (``thread_local`` mode) and
+  need not wait. Other code that synchronises the whole device, or starts
+  or stops a profiler, while a loader may capture takes the lock too
+  (``synchronize``, ``no_capture``). A pool's graphs are still never run
+  at once by two threads: its owner serialises its calls.
+- The cyclic garbage collector is off during a capture (under the lock,
+  so two captures never turn it on and off across each other): a
+  collection there could destroy an unreachable graph of an object that
+  held one in a reference cycle, and a capture refuses that (its stream
+  is invalidated).
 - A failed capture or replay raises: there is no quiet way back to the
   eager path.
 """
@@ -64,44 +79,32 @@ from __future__ import annotations
 import collections
 import dataclasses
 import gc
+import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 from torch.utils import _pytree as pytree
 
 from radmmm_torch.ops.conv import get_conv_precision
-from radmmm_torch.utils.launches import TALLIES
+from radmmm_torch.utils import launches
 
 
-class Ledger:
-    """Host-side counters (a list of ``collections.Counter``s, read at
-    each call, so counters added later are kept too) that tick where a
-    call queues work on the card. ``taken = begin()`` before a capture and
-    ``end(taken)`` after it take back what the capture added, counter by
-    counter, and return it; ``replay(added)`` adds it again."""
-
-    def __init__(self, counters: List[collections.Counter]):
-        self.counters = counters
-
-    def begin(self) -> List[collections.Counter]:
-        return [collections.Counter(c) for c in self.counters]
-
-    def end(self, taken) -> List[collections.Counter]:
-        added = []
-        for c, before in zip(self.counters, taken):
-            added.append(c - before)
-            c.clear()
-            c.update(before)
-        return added
-
-    def replay(self, added) -> None:
-        for c, a in zip(self.counters, added):
-            c.update(a)
+# held by every warm-up and capture of the process, by no replay
+_CAPTURING = threading.RLock()
 
 
-# the kernel wrappers' launches first, then the other tallies
-LEDGER = Ledger(TALLIES)
+def no_capture():
+    """A context in which no other thread warms up or captures, for what
+    must not meet another thread's capture: CUDA refuses a
+    device-wide synchronisation while any stream captures."""
+    return _CAPTURING
+
+
+def synchronize(device=None) -> None:
+    """``torch.cuda.synchronize(device)`` once no other thread captures."""
+    with _CAPTURING:
+        torch.cuda.synchronize(device)
 
 
 @dataclasses.dataclass
@@ -136,6 +139,26 @@ class GraphPool:
             self.handle = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream()
         return self.stream
+
+
+# a ``pool=`` argument's default where its owner takes a pool of its own
+OWN_POOL = "own"
+
+
+def own_pool(pool: Union[GraphPool, str, None]) -> Optional[GraphPool]:
+    """``pool``, ``OWN_POOL`` made a new ``GraphPool`` (None: eager)."""
+    return GraphPool() if pool == OWN_POOL else pool
+
+
+def graph_program(fn: Callable, pool: Union[GraphPool, str, None],
+                  name: str = "") -> Callable:
+    """``fn`` as ``program(inputs, key=())``: through ``Graphed`` in
+    ``pool`` (``OWN_POOL``: a new pool), or ``fn`` itself where ``pool``
+    is None."""
+    pool = own_pool(pool)
+    if pool is None:
+        return lambda inputs, key=(): fn(inputs)
+    return Graphed(fn, pool, name=name)
 
 
 def _signature(tree) -> tuple:
@@ -174,20 +197,22 @@ class StepGraph:
                     s.copy_(x)
         self.graph.replay()
         self.pool.replays += 1
-        LEDGER.replay(self.added)
+        launches.add_record(self.added)
         return _clone(self.static_out)
 
     def _warm_up(self, inputs):
         side = self.pool.open()
-        # the warm-up allocates on the side stream, which cannot take the
-        # blocks the allocator keeps for the other streams: those go back
-        # first, so the card never holds two steps' worth of cached blocks
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            out = self.fn(inputs)
-        torch.cuda.synchronize()
+        with _CAPTURING:
+            # the warm-up allocates on the side stream, which cannot take
+            # the blocks the allocator keeps for the other streams: those
+            # go back first, so the card never holds two steps' worth of
+            # cached blocks
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                out = self.fn(inputs)
+            torch.cuda.synchronize()
         self.warmed = True
         self.pool.warmups += 1
         return out
@@ -195,35 +220,38 @@ class StepGraph:
     def _capture(self, inputs):
         self.static_in = _clone(inputs)
         side = self.pool.open()
-        torch.cuda.synchronize()
-        # what the allocator caches outside the graphs goes back, so the
-        # reserved bytes grow by the pool's share alone
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved()
-        taken = LEDGER.begin()
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        for g in self.generators:
-            graph.register_generator_state(g)
-        # other threads (the loader's uploads, NCCL's watchdog) keep
-        # running: only this thread's calls must be legal under capture
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool.handle, stream=side,
-                                  capture_error_mode="thread_local"):
-                self.static_out = self.fn(self.static_in)
-        finally:
-            if collecting:
-                gc.enable()
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        self.added = LEDGER.end(taken)
+        with _CAPTURING:
+            torch.cuda.synchronize()
+            # what the allocator caches outside the graphs goes back, so
+            # the reserved bytes grow by the pool's share alone
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            for g in self.generators:
+                graph.register_generator_state(g)
+            # other threads (the loaders' uploads and replays, NCCL's
+            # watchdog) keep running: only this thread's calls must be
+            # legal under capture
+            collecting = gc.isenabled()
+            gc.disable()
+            launches.begin_capture()
+            try:
+                with torch.cuda.graph(graph, pool=self.pool.handle,
+                                      stream=side,
+                                      capture_error_mode="thread_local"):
+                    self.static_out = self.fn(self.static_in)
+            finally:
+                self.added = launches.end_capture()
+                if collecting:
+                    gc.enable()
+            torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            grown = torch.cuda.memory_reserved() - reserved
         self.graph = graph
         self.pool.captures.append(Capture(
-            self.name, self.signature, seconds,
-            torch.cuda.memory_reserved() - reserved, dict(self.added[0])))
+            self.name, self.signature, seconds, grown, dict(self.added[0])))
 
 
 def _clone(tree):

@@ -7,6 +7,8 @@ from typing import Optional
 
 import torch
 
+from radmmm_torch.utils.graphs import no_capture
+
 
 def union_length(spans) -> float:
     """The length of the union of (start, end) intervals."""
@@ -40,7 +42,9 @@ class StepProfiler:
             if self.device.type == "cuda":
                 acts.append(ProfilerActivity.CUDA)
             self._prof = profile(activities=acts)
-            self._prof.start()
+            # a loader's thread may be capturing its featurize graph
+            with no_capture():
+                self._prof.start()
             self._t0 = time.perf_counter()
 
     def after(self, step: int) -> None:
@@ -51,16 +55,18 @@ class StepProfiler:
     def stop(self) -> None:
         """Stop a window the run left open, recording nothing."""
         if self._prof is not None:
-            self._prof.stop()
+            with no_capture():
+                self._prof.stop()
             self._prof = None
 
     def _finish(self) -> None:
         from torch.autograd import DeviceType
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        wall = time.perf_counter() - self._t0
-        prof, self._prof = self._prof, None
-        prof.stop()
+        with no_capture():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            wall = time.perf_counter() - self._t0
+            prof, self._prof = self._prof, None
+            prof.stop()
         os.makedirs(self.directory, exist_ok=True)
         path = os.path.join(self.directory, "trace.json")
         prof.export_chrome_trace(path)

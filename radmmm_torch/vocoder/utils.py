@@ -37,7 +37,7 @@ from radmmm_torch.ops.stft import (MelSpectrogram,
                                    mel_filterbank)
 from radmmm_torch.utils.checkpoint import CheckpointManager
 from radmmm_torch.utils.device import resolve_device
-from radmmm_torch.utils.graphs import GraphPool, Graphed
+from radmmm_torch.utils.graphs import GraphPool, graph_program
 from radmmm_torch.vocoder.hifigan import (Denoiser, Generator, HiFiGANConfig,
                                           load_torch_generator_params)
 
@@ -257,8 +257,7 @@ def vocode_program(vocoder_type: str, vocoder_fn, denoiser=None,
         return get_audio_for_mels(x["mel"], vocoder_type, fn, denoiser,
                                   denoiser_strength)
 
-    program = Graphed(apply, pool, name="vocode") if pool is not None \
-        else apply
+    program = graph_program(apply, pool, "vocode")
 
     def vocode(mels: torch.Tensor) -> torch.Tensor:
         x = {"mel": mels}

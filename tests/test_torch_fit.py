@@ -306,14 +306,17 @@ def test_every_fit_step_runs_through_the_graphed_step(runs):
     7-8) and in groups that straddle the binarization (step 3) and KL
     (step 5) switches, through the one graphed step, every batch of the
     two validations (4 batches each) through the graphed validation step,
-    and each validation's samples (the binarized eval forward and
-    ``reconstruct``) through their programs."""
+    each validation's samples (the binarized eval forward and
+    ``reconstruct``) through their programs, and every batch the loaders
+    featurize (each fit's first batch and the three after it, every
+    validation batch) through the featurizer's program."""
     graphed = runs["graphed"]
     assert graphed.count("train_step") == 8
     assert graphed.count("val_step") == 2 * 4
     assert graphed.count("val_forward") == graphed.count("reconstruct") == 2
+    assert graphed.count("featurize") == 2 * 4 + 2 * 4
     assert set(graphed) == {"train_step", "val_step", "val_forward",
-                            "reconstruct"}
+                            "reconstruct", "featurize"}
     assert runs["stats6"]["megastep_steps"] == 2
     assert runs["torch"][1].stats["megastep_steps"] == 2
 

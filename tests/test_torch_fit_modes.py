@@ -134,8 +134,12 @@ def test_plain_and_partial_fits_run_through_the_graphed_step(
     3 (a whole group of 3, then a partial group of the epoch's fourth
     batch), every step goes through the graphed step, every validation
     batch through the graphed validation step and the validation's
-    samples through their programs; one row a step (a whole group's last
-    step only), every logged value finite."""
+    samples through their programs, and every batch the loaders
+    featurize through the featurizer's program (from their threads, so
+    counted apart: the first batch's four, the batches the JAX package's
+    first loader fills its queue with, validation's four and, at
+    megastep_k 1, the training loader's four); one row a step (a whole
+    group's last step only), every logged value finite."""
     path, _, _ = cfg_files
     cfg = load_configs([path])
     cfg["model"]["output_directory"] = str(tmp_path / "run")
@@ -146,8 +150,9 @@ def test_plain_and_partial_fits_run_through_the_graphed_step(
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(Graphed, "__call__", _spy(graphed))
         tr.fit(dm)
-    assert graphed == (["train_step"] * 4 + ["val_step"] * 4
-                       + ["val_forward", "reconstruct"])
+    assert [n for n in graphed if n != "featurize"] == (
+        ["train_step"] * 4 + ["val_step"] * 4 + ["val_forward", "reconstruct"])
+    assert graphed.count("featurize") == (12 if megastep_k == 1 else 8)
     s = tr.stats
     assert s["steps"] == 4 and s["graphed_steps"] == 0     # the CPU: eager
     assert s["megastep_steps"] == (3 if megastep_k == 3 else 0)

@@ -16,6 +16,8 @@ it at full width). The served PCM of the card against the CPU: within 1
 LSB (f32 waveforms that differ in the last bits round to neighbouring
 codes)."""
 import collections
+import gc
+import threading
 
 import numpy as np
 import pytest
@@ -411,3 +413,169 @@ def test_trainer_samples_graphed_equal_eager(card, tmp_path):
     names = collections.Counter(c.name for c in gtr._graph_pool.captures)
     assert all(names[n] == 1 for n in ("tts_infer", "val_forward",
                                        "reconstruct", "vocode"))
+
+
+# the featurizer's kinds of signature: F0 method, cached F0 tracks, mel
+# noise, the distance transform
+FEAT_QUIET = dict(FEAT, mel_noise_scale=0.0)
+FEAT_KINDS = {"pyin": dict(f0_method="pyin"), "yin": dict(f0_method="yin"),
+              "cached_f0": dict(f0_method="pyin"),
+              "noise": dict(f0_method="pyin", mel_noise_scale=0.05),
+              "distance": dict(f0_method="pyin", distance_tx_unvoiced=True)}
+
+
+def _feat_host(seed: int, seconds=(0.19, 0.16), cached: bool = False):
+    """A host batch of voiced utterances of ``seconds``, with F0 cache
+    tracks where ``cached``."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for b, sec in enumerate(seconds):
+        t = np.arange(int(sec * SR)) / SR
+        audio = (0.5 * np.sin(2 * np.pi * (150.0 + 30 * b + seed) * t)
+                 + 0.003 * rng.standard_normal(t.size)).astype(np.float32)
+        n = 1 + len(audio) // FEAT["hop_length"]
+        items.append({
+            "audio": audio, "text_encoded": rng.integers(1, 30, 7 - b),
+            "speaker_id": b, "accent_id": b % 2, "speaker_f0_mean": 5.0,
+            "speaker_f0_std": 0.3, "speaker_energy_mean": 0.5,
+            "speaker_energy_std": 0.15, "audiopath": f"u{b}.wav",
+            "text_raw": "x", "language": "en_US", "idx": b,
+            "cached_f0": np.stack([
+                rng.uniform(100, 300, n), rng.integers(0, 2, n),
+                rng.uniform(0, 1, n)]).astype(np.float32) if cached
+            else None})
+    return collate.collate_host(items, hop_length=FEAT["hop_length"],
+                                audio_frames_multiple=16)
+
+
+def _same_batch(got: dict, want: dict) -> None:
+    assert set(got) == set(want)
+    for k, v in want.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(got[k], v), k
+        else:
+            assert got[k] == v, k
+
+
+@pytest.mark.parametrize("kind", sorted(FEAT_KINDS))
+def test_graphed_featurizer_equals_eager(card, kind):
+    """A featurizer's calls through its graphs (its own pool) against a
+    featurizer built alike with ``pool=None``, four host batches of one
+    shape: every key bit for bit (the mel noise from the same keys); the
+    first call warms up, the second captures, and every call from the
+    second replays."""
+    kw = dict(FEAT_QUIET, **FEAT_KINDS[kind])
+    graphed = collate.Featurizer(device=card, **kw)
+    eager = collate.Featurizer(device=card, pool=None, **kw)
+    for seed in range(4):
+        host = _feat_host(seed, cached=kind == "cached_f0")
+        _same_batch(graphed(host), eager(host))
+    pool = graphed.pool
+    assert (pool.warmups, len(pool.captures), pool.replays) == (1, 1, 3)
+    assert eager.pool is None
+
+
+def test_loader_threads_replay_while_a_step_captures(card):
+    """Two threads call one featurizer at two batch shapes (warming up,
+    capturing and replaying its graphs) while this thread warms up,
+    captures and replays a training step in another pool: every batch is
+    the eager featurizer's, the steps' metrics and parameters an eager
+    model's bit for bit, the step's launches counted as the eager steps
+    count them, and the cyclic collector on again after the captures."""
+    feat = collate.Featurizer(device=card, **FEAT_QUIET)
+    eager = collate.Featurizer(device=card, pool=None, **FEAT_QUIET)
+    hosts = [_feat_host(1), _feat_host(2, seconds=(0.31, 0.22))]
+    want = [{k: v.cpu() if isinstance(v, torch.Tensor) else v
+             for k, v in eager(h).items()} for h in hosts]
+    batch = eager.featurize_raw({k: torch.from_numpy(v).to(card) for k, v in
+                                 eager.raw_arrays(_feat_host(3)).items()}, 0)
+    g_model, e_model = _models(2)
+    loss = step.LossConfig(**LOSS)
+    gstate = step.create_train_state(g_model, device=card, **OPT)
+    estate = step.create_train_state(e_model, device=card, **OPT)
+    pool = graphs.GraphPool()
+    gfn = step.make_train_step(g_model, loss, False, False, pool=pool)
+    efn = step.make_train_step(e_model, loss, False, False)
+    ggen = torch.Generator(device=card).manual_seed(1)
+    egen = torch.Generator(device=card).manual_seed(1)
+    start = threading.Barrier(3)
+    got, errors = [[], []], []
+
+    def load(i):
+        try:
+            start.wait(30)
+            for _ in range(6):
+                b = feat(hosts[i])
+                got[i].append({k: v.cpu() if isinstance(v, torch.Tensor)
+                               else v for k, v in b.items()})
+        except BaseException as e:       # raised below, in the test
+            errors.append(e)
+
+    threads = [threading.Thread(target=load, args=(i,))
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    launch_counts.clear()
+    start.wait(30)
+    gmet = [gfn(gstate, batch, ggen)[1] for _ in range(3)]
+    for t in threads:
+        t.join(120)
+    glaunch = dict(launch_counts)
+    assert not errors and gc.isenabled()
+    launch_counts.clear()
+    emet = [efn(estate, batch, egen)[1] for _ in range(3)]
+    assert glaunch == dict(launch_counts)
+    for g, e in zip(gmet, emet):
+        for name in e:
+            assert torch.equal(g[name], e[name]), name
+    for a, b in zip(g_model.parameters(), e_model.parameters()):
+        assert torch.equal(a, b)
+    for i in range(2):
+        assert len(got[i]) == 6
+        for b in got[i]:
+            _same_batch(b, want[i])
+    assert (feat.pool.warmups, len(feat.pool.captures),
+            feat.pool.replays) == (2, 2, 10)
+    assert (pool.warmups, len(pool.captures), pool.replays) == (1, 1, 2)
+
+
+class _Utterances:
+    """An un-augmented dataset as ``build_f0_cache`` reads one: eight
+    voiced utterances of 0.30-0.58 s at 22,050 Hz (one padded shape at 64
+    frames a multiple, so four batches of two)."""
+    augmentations = None
+    sampling_rate = SR
+
+    def __init__(self):
+        from types import SimpleNamespace
+        rng = np.random.default_rng(6)
+        self.audio = []
+        for i in range(8):
+            t = np.arange(int((0.30 + 0.04 * i) * SR)) / SR
+            self.audio.append((0.5 * np.sin(2 * np.pi * (140 + 15 * i) * t)
+                               + 0.003 * rng.standard_normal(t.size)
+                               ).astype(np.float32))
+        self.data = [SimpleNamespace(duration=len(a) / SR)
+                     for a in self.audio]
+
+    def __getitem__(self, i):
+        return {"audio": self.audio[i], "audiopath": f"utt{i}.wav"}
+
+
+def test_graphed_f0_cache_equals_eager(card, tmp_path):
+    """``build_f0_cache`` through its graphs (pYIN) against the eager
+    build: the same records bit for bit; of its four batches of one shape
+    the first warms up, the second captures and the last three replay."""
+    from radmmm_torch.data.f0_cache import build_f0_cache, f0_key
+    from radmmm_torch.native import FeatureCache
+    data = _Utterances()
+    pool = graphs.GraphPool()
+    paths = [str(tmp_path / way) for way in ("graphed", "eager")]
+    for path, p in zip(paths, (pool, None)):
+        assert build_f0_cache(data, path, batch_size=2, device=card,
+                              pool=p) == 8
+    assert (pool.warmups, len(pool.captures), pool.replays) == (1, 1, 3)
+    g, e = (FeatureCache(p) for p in paths)
+    for i in range(8):
+        key = f0_key(f"utt{i}.wav")
+        assert np.array_equal(g.get_array(key), e.get_array(key)), key

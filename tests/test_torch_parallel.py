@@ -238,22 +238,22 @@ def test_graph_ledger_adds_a_captured_steps_collectives_at_replay():
     launches: driven here by hand as ``StepGraph`` drives it on the card,
     ``collective_stats`` stays what the cards ran."""
     from radmmm_torch.parallel import collectives as C
-    from radmmm_torch.utils.graphs import LEDGER
+    from radmmm_torch.utils import launches
     from radmmm_torch.utils.launches import launch_counts, launched
     mesh.reset_collective_stats()
     launch_counts.clear()
     C._record("all_reduce", torch.zeros(4))          # an eager step's
-    taken = LEDGER.begin()
+    launches.begin_capture()
     for _ in range(2):                                # the capture's
         C._record("all_reduce", torch.zeros(8))
     C._record("all_gather", torch.zeros(2, 3))
     launched("ctc_alpha")
-    added = LEDGER.end(taken)
+    added = launches.end_capture()
     assert mesh.collective_stats() == {
         "all_reduce": {"count": 1, "bytes": 16}}
     assert launch_counts == {}
     for _ in range(3):
-        LEDGER.replay(added)
+        launches.add_record(added)
     assert mesh.collective_stats() == {
         "all_reduce": {"count": 7, "bytes": 16 + 3 * 64},
         "all_gather": {"count": 3, "bytes": 3 * 24}}
