@@ -39,10 +39,14 @@ from typing import Optional
 
 import numpy as np
 
+from radmmm_torch.utils import profiling
+
 
 class DeviceDispatcher:
     """Runs every call of ``fn`` on one thread, in arrival order; callers
-    wait on their own future (bounded by ``timeout``)."""
+    wait on their own future (bounded by ``timeout``). While a profiler
+    runs, a call's wait in the queue is span ``dispatch.queue`` and its
+    spans join the caller's request (``utils/profiling``)."""
 
     def __init__(self, fn, depth: int = 8, timeout: float = 120.0):
         self._fn = fn
@@ -57,17 +61,18 @@ class DeviceDispatcher:
             item = self._q.get()
             if item is None:
                 return
-            args, fut = item
-            try:
-                fut.set_result(self._fn(*args))
-            except Exception as e:  # noqa: BLE001 - delivered to the caller
-                fut.set_exception(e)
+            args, fut, handoff = item
+            with profiling.handed("dispatch.queue", handoff):
+                try:
+                    fut.set_result(self._fn(*args))
+                except Exception as e:  # noqa: BLE001 - to the caller
+                    fut.set_exception(e)
 
     def __call__(self, *args):
         if self._closed:
             raise RuntimeError("DeviceDispatcher is closed")
         fut: concurrent.futures.Future = concurrent.futures.Future()
-        self._q.put((args, fut))
+        self._q.put((args, fut, profiling.handoff()))
         return fut.result(timeout=self._timeout)
 
     def close(self):
@@ -139,6 +144,10 @@ class TTSService:
             for t in texts]
 
     def synthesize(self, req: dict):
+        with profiling.span("service.request", new_request=True):
+            return self._synthesize(req)
+
+    def _synthesize(self, req: dict):
         seqs = self.encode(req)
         b = len(seqs)
         t = max(len(s) for s in seqs)
@@ -164,14 +173,15 @@ class TTSService:
             per_item("f0_mean", np.float32),
             per_item("f0_std", np.float32),
             int(req.get("seed", self.defaults["seed"])))
-        # the blocking device-to-host copy happens here, on the handler
-        # thread, while the dispatcher queues the next request
-        out, out_lens = out.cpu().numpy(), out_lens.cpu().numpy()
-        items = []
-        for i in range(b):
-            n = int(out_lens[i])
-            items.append(out[i, :n * self.hop] if self.output_kind == "audio"
-                         else out[i, :n])
+        with profiling.span("service.fetch"):
+            # the blocking device-to-host copy happens here, on the
+            # handler thread, while the dispatcher queues the next request
+            out, out_lens = out.cpu().numpy(), out_lens.cpu().numpy()
+            items = []
+            for i in range(b):
+                n = int(out_lens[i])
+                items.append(out[i, :n * self.hop]
+                             if self.output_kind == "audio" else out[i, :n])
         return items, out_lens
 
 

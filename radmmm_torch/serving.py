@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from radmmm_torch.models.tts import TTSConfig, TTSModel
+from radmmm_torch.utils import profiling
 from radmmm_torch.utils.device import resolve_device
 from radmmm_torch.utils.graphs import Graphed, GraphPool
 from radmmm_torch.vocoder.hifigan import Generator, HiFiGANConfig
@@ -141,7 +142,8 @@ def make_two_stage_fns(model: TTSModel, *, sigma: float = 0.8,
                        pool: Optional[GraphPool] = None):
     """Two-stage serving: (dur_fn, make_decode), each stage a CUDA graph
     per input shape on the card (in ``pool``, one of their own by
-    default).
+    default), its body between the device marks ``serve.stage_a`` or
+    ``serve.stage_b`` (``utils/profiling.device_span``).
 
     Stage A ``dur_fn(text, text_lens, speaker_ids, accent_ids)`` ->
     (txt_enc, durations, n_frames). Stage B ``make_decode(max_frames)`` ->
@@ -150,8 +152,9 @@ def make_two_stage_fns(model: TTSModel, *, sigma: float = 0.8,
     device = _device_of(model)
 
     def durations(x):
-        out = model.infer_durations(x["text"], x["text_lens"], x["spk"],
-                                    accent_ids=x["acc"])
+        with profiling.device_span("serve.stage_a", device):
+            out = model.infer_durations(x["text"], x["text_lens"], x["spk"],
+                                        accent_ids=x["acc"])
         return out["txt_enc"], out["durations"], out["n_frames"]
 
     stage_a = Graphed(durations, pool, name="stage_a")
@@ -165,8 +168,13 @@ def make_two_stage_fns(model: TTSModel, *, sigma: float = 0.8,
                             acc=acc))
 
     def make_decode(max_frames: int):
-        stage_b = Graphed(_decode(model, vocoder, pcm_int16, sigma,
-                                  int(max_frames)), stage_a.pool,
+        body = _decode(model, vocoder, pcm_int16, sigma, int(max_frames))
+
+        def marked(x):
+            with profiling.device_span("serve.stage_b", device):
+                return body(x)
+
+        stage_b = Graphed(marked, stage_a.pool,
                           name=f"stage_b_{int(max_frames)}")
 
         @torch.inference_mode()
@@ -185,6 +193,12 @@ def make_two_stage_fns(model: TTSModel, *, sigma: float = 0.8,
     return dur_fn, make_decode
 
 
+def pick_bucket(frame_buckets: Sequence[int], need: int) -> int:
+    """The smallest of the sorted ``frame_buckets`` that holds ``need``
+    frames; over the largest, the largest (the decode clamps there)."""
+    return next((f for f in frame_buckets if f >= need), frame_buckets[-1])
+
+
 class TwoStageTTS:
     """In-process two-stage bucketed TTS (same 7-argument call as
     make_tts_fn's function): stage A, a fetch of n_frames, stage B at the
@@ -197,10 +211,8 @@ class TwoStageTTS:
         self.decode = {f: make_decode(f) for f in self.frame_buckets}
 
     def pick_bucket(self, n_frames) -> int:
-        need = int(torch.as_tensor(n_frames).max())
-        # over the largest bucket the decode clamps there
-        return next((f for f in self.frame_buckets if f >= need),
-                    self.frame_buckets[-1])
+        return pick_bucket(self.frame_buckets,
+                           int(torch.as_tensor(n_frames).max()))
 
     def __call__(self, text, text_lens, speaker_ids, accent_ids, f0_mean,
                  f0_std, seed):
@@ -308,14 +320,19 @@ def load_tts(path: str, device: str = "cuda"):
         decodes = {f: make_decode(f) for f in frame_buckets}
 
         def run(text_p, text_lens, spk, acc, f0m, f0s, seed, b):
-            txt_enc, durations, n_frames = dur_fn(text_p, text_lens, spk,
-                                                  acc)
-            # only n_frames crosses to the host; real rows only (the batch
-            # fill repeats row 0, already covered by it)
-            need = int(n_frames[:b].max())
-            F = next((f for f in frame_buckets if f >= need),
-                     frame_buckets[-1])
-            return decodes[F](txt_enc, durations, spk, acc, f0m, f0s, seed)
+            with profiling.span("serving.stage_a"):
+                txt_enc, durations, n_frames = dur_fn(text_p, text_lens,
+                                                      spk, acc)
+            with profiling.span("serving.bucket_pick"):
+                # only n_frames crosses to the host; real rows only (the
+                # batch fill repeats row 0, already covered by it)
+                need = int(n_frames[:b].max())
+                F = pick_bucket(frame_buckets, need)
+                profiling.count("serve.frames_needed", need)
+                profiling.count("serve.frames_bucket", F)
+            with profiling.span("serving.stage_b"):
+                return decodes[F](txt_enc, durations, spk, acc, f0m, f0s,
+                                  seed)
     else:
         tts = make_tts_fn(model, sigma=sigma,
                           max_frames=bundle["max_frames"], vocoder=vocoder,
@@ -326,9 +343,10 @@ def load_tts(path: str, device: str = "cuda"):
 
     def call(text, text_lens, speaker_ids, accent_ids, f0_mean, f0_std,
              seed):
-        _, b, text_p, per_item = _pad_request(
-            buckets, text, (text_lens, speaker_ids, accent_ids, f0_mean,
-                            f0_std))
+        with profiling.span("serving.pad"):
+            _, b, text_p, per_item = _pad_request(
+                buckets, text, (text_lens, speaker_ids, accent_ids, f0_mean,
+                                f0_std))
         out, lens = run(text_p, *per_item, seed, b)
         return out[:b], lens[:b]
 

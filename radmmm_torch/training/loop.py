@@ -78,6 +78,7 @@ from radmmm_torch.training.step import (LossConfig, TrainState, _tensors,
                                         create_train_state, make_train_step,
                                         make_val_step, make_whitening_init,
                                         phase_flags, step_inputs)
+from radmmm_torch.utils import profiling
 from radmmm_torch.utils.checkpoint import (CheckpointManager,
                                            ENCODER_SUBMODULES, freeze_wrap,
                                            load_pretrained_submodules)
@@ -90,6 +91,9 @@ from radmmm_torch.utils.profiling import StepProfiler
 from radmmm_torch.utils.quality import reconstruction_quality
 from radmmm_torch.vocoder.utils import (GriffinLimVocoder, get_vocoder,
                                         load_hifigan_module, vocode_program)
+
+# an exhausted iterator's item in Trainer._timed
+_END = object()
 
 
 @dataclasses.dataclass
@@ -433,8 +437,8 @@ class Trainer:
         finally:
             self._profiler.stop()
         s = self.stats
-        s["fit_s"] = time.perf_counter() - t_fit
-        s["train_s"] = s["fit_s"] - s["val_s"] - s["ckpt_save_s"]
+        s["train_s"] = (time.perf_counter() - t_fit - s["val_s"]
+                        - s["ckpt_save_s"])
         pool = self._graph_pool
         s["warmups"], s["captures"] = pool.warmups, len(pool.captures)
         s["replays"] = pool.replays
@@ -495,29 +499,31 @@ class Trainer:
         key = (None if featurizer is None
                else featurizer.noise_key_for_step(step))
         self._before_step(step, key)
-        # the model group's batch, outside the graph
-        batch = self.mesh.broadcast_batch(batch)
-        if featurizer is not None:
-            batch = step_inputs(featurizer, batch, key)
+        with profiling.span("train.inputs"):
+            # the model group's batch, outside the graph
+            batch = self.mesh.broadcast_batch(batch)
+            if featurizer is not None:
+                batch = step_inputs(featurizer, batch, key)
         replays = self._graph_pool.replays
-        state, metrics = self._train_step_fn(
-            *phase_flags(step, self.loss_cfg), featurizer)(state, batch, gen)
+        with profiling.span("train.step"):
+            state, metrics = self._train_step_fn(
+                *phase_flags(step, self.loss_cfg), featurizer)(state, batch,
+                                                               gen)
         if self._graph_pool.replays > replays:
             self.stats["graphed_steps"] += 1
         self._after_step(step)
         return state, metrics
 
     def _timed(self, it):
-        """Iterate ``it``, adding the time spent waiting on it to the
-        loader's share."""
+        """Iterate ``it``, adding the time spent waiting on it (span
+        ``train.loader_wait``) to the loader's share."""
         it = iter(it)
         while True:
-            t0 = time.perf_counter()
-            try:
-                item = next(it)
-            except StopIteration:
+            with profiling.timed("train.loader_wait") as wait:
+                item = next(it, _END)
+            if item is _END:
                 return
-            self.stats["loader_wait_s"] += time.perf_counter() - t0
+            self.stats["loader_wait_s"] += wait.seconds
             yield item
 
     def _fit_loop_plain(self, loader, state, gen, step, post_step):

@@ -60,6 +60,7 @@ from radmmm_torch.training.optim import Optimizer, build_optimizer
 from radmmm_torch.utils.device import resolve_device
 from radmmm_torch.utils.graphs import Graphed, GraphPool
 from radmmm_torch.utils.masking import SeqLens
+from radmmm_torch.utils.profiling import device_span
 
 
 @dataclasses.dataclass
@@ -246,8 +247,12 @@ def make_train_step(model: TTSModel, cfg: LossConfig, binarize: bool,
 
     def device_step(state, inputs, generator):
         if featurizer is not None:
-            inputs = featurizer.featurize_raw(inputs["raw"], None,
-                                              noise=inputs.get("noise"))
+            # between the device marks train.featurize, in the step's
+            # graph too (utils/profiling.device_span)
+            raw = inputs["raw"]
+            with device_span("train.featurize", raw["audio_i16"].device):
+                inputs = featurizer.featurize_raw(raw, None,
+                                                  noise=inputs.get("noise"))
         return run(state, inputs, generator)
 
     if pool is None:

@@ -18,8 +18,10 @@ import pytest
 import torch
 
 from radmmm_tpu import serving as jax_serving
+from radmmm_torch.server import TTSService
 from radmmm_torch.serving import (TwoStageTTS, export_tts, load_tts,
-                                  make_tts_fn)
+                                  make_tts_fn, pick_bucket)
+from radmmm_torch.utils import profiling
 from tests.test_torch_convert import (jax_small_vocoder, jax_tiny_tts,
                                       torch_tts, torch_vocoder)
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
@@ -77,6 +79,43 @@ def test_two_stage_bucketed_audio_matches_jax(ported, rng, tmp_path):
         np.testing.assert_array_equal(got_lens.numpy(), np.asarray(want_lens))
         diff = np.abs(got.numpy().astype(np.int32) - want.astype(np.int32))
         assert diff.max() <= 1
+
+
+def test_a_request_records_its_spans_and_frames(ported, rng, tmp_path):
+    """Under a profiler, a request through TTSService records its spans,
+    all of one request, the service's holding the rest, and the frame
+    counters of its bucket pick."""
+    *_, port, voc = ported
+    path = str(tmp_path / "tts.pt")
+    export_tts(port, path, vocoder=voc, sigma=0.0, buckets=TEXT_BUCKETS,
+               frame_buckets=FRAME_BUCKETS)
+    service = TTSService(path, hop_length=8, device="cpu")
+    text, lens, spk, acc, f0m, f0s = _requests(rng)[1]
+    req = {"text_ids": [t[:n].tolist() for t, n in zip(text, lens)],
+           "speaker_id": spk.tolist(), "accent_id": acc.tolist(),
+           "f0_mean": f0m.tolist(), "f0_std": f0s.tolist()}
+    profiling.clear()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            _, out_lens = service.synthesize(req)
+    finally:
+        service._dispatch.close()
+    recs = {r.name: r for r in profiling.records()}
+    top = recs["service.request"]
+    for name in ("dispatch.queue", "serving.pad", "serving.stage_a",
+                 "serving.bucket_pick", "serving.stage_b", "service.fetch",
+                 "serve.frames_needed", "serve.frames_bucket"):
+        r = recs[name]
+        assert r.request == top.request, name
+        assert top.start_ns <= r.start_ns <= r.end_ns <= top.end_ns, name
+    for name in ("serving.pad", "serving.stage_a", "serving.bucket_pick",
+                 "serving.stage_b", "service.fetch"):
+        assert recs[name].parent == top.id, name
+    need = int(out_lens.max())
+    assert recs["serve.frames_needed"].value == need
+    assert recs["serve.frames_bucket"].value == pick_bucket(FRAME_BUCKETS,
+                                                            need)
 
 
 def test_single_stage_bucketed_mel_matches_jax(ported, rng, tmp_path):
