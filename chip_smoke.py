@@ -45,6 +45,11 @@ Phases (all by default):
               timed with cudnn.benchmark on (and its default algorithm
               logged beside); gemm_ms: a bf16 torch.matmul of the same
               (B T, K Cin) x (K Cin, Cout) size;
+            - K6, pYIN's Viterbi, at (8, 513, 2, 181) on random tables, bit
+              for bit against its twin; no PyTorch call computes a Viterbi
+              path, so no library time; its bound the chain of dependent
+              frames (or its bytes and operations, whichever is longer),
+              its cluster and us a frame;
 3. serve    the full-width RADMMM model and HiFi-GAN v1 (22,050 Hz) with
             random weights from --seed, exported as a serving artifact,
             served over HTTP by radmmm_torch.server on 127.0.0.1; four
@@ -59,7 +64,7 @@ Phases (all by default):
             make_train_step(binarize=True, kl_on=True) with RAdam, in full
             f32 (TF32 off); every loss term and the grad norm finite, the
             launches per step exactly K1 1, K2 1, K3 1, K4 forward 4, K4
-            backward 4; ms/step, mel frames/s and a profile of one step;
+            backward 4, K6 0; ms/step, mel frames/s and a profile of one step;
 6. train_parity  one step at full width and short lengths (B=2, T_text 12,
             T_mel 64, dropout off) on the card and on the CPU from the same
             weights and batch, TF32 off: loss terms, grad norm and every
@@ -90,7 +95,7 @@ Phases (all by default):
             C8C8I generator and an upstream-format WaveGlow file at sigma
             0, both from random weights of --seed; and cuFFT's inverse real
             FFT against the CPU's on spectra with imaginary DC and Nyquist
-            parts. No kernel of K1-K5 runs on this path: its launches are
+            parts. No kernel of K1-K6 runs on this path: its launches are
             counted from zero and must stay 0;
 10. fit     the shipped 7-language recipe (configs/radmmm_model.yaml,
             radmmm_attributes.yaml, radmmm_opensource_data_phonemizerless
@@ -232,7 +237,8 @@ Phases (all by default):
             branches) and 14 replays, their shared pool at most 64 MiB
             larger than the larger graph (the rectified branch) captured
             alone into a pool of its own, the launch ledger's counts (K4
-            4 + 4, K1 1, K2 1, K3 1 a step); then at cuDNN's defaults, a
+            4 + 4, K1 1, K2 1, K3 1, K6 1 a step: each step featurizes
+            with pYIN inside its graph); then at cuDNN's defaults, a
             new capture and ms a step graphed against eager over 8 steps
             each, one step of each profiled (busy, kernels, the host's
             launch calls), capture seconds, the pool's bytes, peak memory;
@@ -722,6 +728,57 @@ def _mas_rows(gen, dev) -> list:
                  bound_ms=b_ms, bound_by=b_by)]
 
 
+# the SM clock at boost (H100 SXM) and the fewest cycles of a dependent f32
+# add or max, for a bound set by a chain of dependent operations
+SM_CLOCK_HZ = 1.98e9
+F32_DEP_CYCLES = 4
+
+
+def _viterbi_rows(gen, dev) -> list:
+    """K6 at the training cell's shape (B 8, 513 frames, 181 pitch bins)
+    on random, non-banded tables: its paths against the twin's bit for
+    bit, the times of kernel and twin, the bound."""
+    from radmmm_torch.data import pitch
+    from radmmm_torch.utils import cuda_build
+    B, F, K = TRAIN_B, TRAIN_T_MEL + 1, 181
+    obs, P, V = (torch.log(torch.rand(shape, generator=gen, device=dev))
+                 for shape in ((B, F, 2, K), (K, K), (2, 2)))
+    got = pitch.viterbi(obs, P, V)
+    want = pitch.viterbi_reference(obs, P, V)
+    ok = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    k_ms = cuda_ms(lambda: pitch._launch(obs, P, V), 20)
+    p_ms = cuda_ms(lambda: pitch.viterbi_reference(obs, P, V), 2)
+    # read log_obs, log_P and the first score once, write both paths once;
+    # an add and a max a (state, previous bin) pair of every frame after
+    # the first
+    t_io, io_by = _bound(4 * (B * F * 2 * K + K * K + B * 2 * K)
+                         + 8 * 2 * B * F, 2.0 * B * (F - 1) * 2 * K * K)
+    # each frame waits on the one before: an add, a tree max over K, the
+    # voicing add and max, the observation's add, a tree max over 2 K and
+    # the subtract, one after another (the backtrack's reads not counted)
+    chain = 5 + math.ceil(math.log2(K)) + math.ceil(math.log2(2 * K))
+    t_chain = (F - 1) * chain * F32_DEP_CYCLES / SM_CLOCK_HZ * 1e3
+    b_ms, b_by = (t_chain, "frame chain") if t_chain >= t_io else (t_io,
+                                                                   io_by)
+    C = cuda_build.load("pyin_viterbi", pitch._declare).pyin_viterbi_cluster(K)
+    log(f"[kernels] K6 pyin_viterbi B={B} F={F} K={K}: bit for bit "
+        f"{'yes' if ok else 'NO'} (max_abs_err {err:.3e}), kernel_ms "
+        f"{k_ms:.4f} (its first score's two elementwise kernels in), "
+        f"plain_ms {p_ms:.3f}, library_ms none (no PyTorch call computes a "
+        f"Viterbi path), bound_ms {b_ms:.5f} ({b_by}: {F - 1} frames x "
+        f"{chain} dependent f32 ops x {F32_DEP_CYCLES} cycles at "
+        f"{SM_CLOCK_HZ / 1e9:.2f} GHz; bytes and operations {t_io:.5f} ms, "
+        f"{io_by}); a cluster of {C} CTAs an item, "
+        f"{k_ms * 1e3 / (F - 1):.3f} us a frame")
+    if not ok:
+        fail("pyin_viterbi disagrees with its twin")
+    return [dict(kernel="pyin_viterbi", src="radmmm_tpu/data/pitch.py:233",
+                 B=B, F=F, K=K, cluster=C, max_abs_err=err, ms=k_ms,
+                 plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                 bound_by=b_by)]
+
+
 @contextlib.contextmanager
 def cudnn_benchmark():
     """cuDNN picks each convolution's algorithm by timing them
@@ -821,6 +878,7 @@ def phase_kernels(seed: int) -> list:
     rows.extend(_ctc_rows(gen, dev))
     rows.extend(_mas_rows(gen, dev))
     rows.extend(_conv_softplus_rows(gen, dev))
+    rows.extend(_viterbi_rows(gen, dev))
     return rows
 
 
@@ -880,7 +938,7 @@ def phase_serve(seed: int, model, vocoder, model_gpu, tag: str = "serve",
     """Four HTTP requests to the daemon over an artifact of ``model`` and
     ``vocoder``, checked, at the conv precision set; returns the
     launches of ``kernel`` (K4, or its bf16 variant) on them, the only
-    kernel of K1-K5 the path may launch."""
+    kernel of K1-K6 the path may launch."""
     from radmmm_torch.serving import (_pad_request, export_tts,
                                       make_two_stage_fns)
     from radmmm_torch.server import serve
@@ -1083,17 +1141,26 @@ def phase_parity(seed: int, model, model_gpu):
 
 
 # the kernels' names in the launch registry (radmmm_torch/utils/launches.py)
+# that the script's steps, requests and validations count
 COUNTED = ("lstm_recurrence", "lstm_recurrence_bwd", "lstm_recurrence_bf16",
            "lstm_recurrence_bwd_bf16", "ctc_alpha", "ctc_beta", "mas_width1",
-           "conv_softplus")
+           "conv_softplus", "pyin_viterbi")
+# the featurizer's kernels (pYIN's Viterbi): where a fit's data loader
+# threads featurize beside the counted steps, at times no count can pin
+# (the fit, bf16 and caches phases, the ddp phase's part (c) and the graphs
+# phase's parts (e) and (f)), the counts leave them out
+LOADER_FEATURIZED = ("pyin_viterbi",)
 
 
-def _counters() -> dict:
+def _counters(loaders: bool = False) -> dict:
+    """The kernels' launches so far; with ``loaders``, those of a phase
+    whose loader threads featurize, without LOADER_FEATURIZED."""
     from radmmm_torch.utils.launches import launch_counts
     if set(launch_counts) - set(COUNTED):
         fail(f"launches of kernels the script does not know: "
              f"{sorted(set(launch_counts) - set(COUNTED))}")
-    return {k: launch_counts[k] for k in COUNTED}
+    return {k: launch_counts[k] for k in COUNTED
+            if not (loaders and k in LOADER_FEATURIZED)}
 
 
 def _zero_counters() -> None:
@@ -1104,14 +1171,20 @@ def _zero_counters() -> None:
 # launches of each kernel in one step of make_train_step(binarize=True):
 # the encoder, duration-DAP, ganged frame-DAP and flow-context recurrences
 # forward and backward, one CTC loss (alpha; beta in its backward), one
-# MAS; the package's WN layers do not run K5; in f32 the bf16 variants of
-# K4 never run (PER_STEP_BF16: in bf16 mode the reverse)
+# MAS; the package's WN layers do not run K5; it featurizes nothing, so no
+# pYIN (a megastep's step featurizes with pYIN: one pyin_viterbi more); in
+# f32 the bf16 variants of K4 never run (PER_STEP_BF16: in bf16 mode the
+# reverse)
 PER_STEP = {"lstm_recurrence": 4, "lstm_recurrence_bwd": 4,
             "lstm_recurrence_bf16": 0, "lstm_recurrence_bwd_bf16": 0,
             "ctc_alpha": 1, "ctc_beta": 1, "mas_width1": 1,
-            "conv_softplus": 0}
+            "conv_softplus": 0, "pyin_viterbi": 0}
 PER_STEP_BF16 = dict(PER_STEP, lstm_recurrence=0, lstm_recurrence_bwd=0,
                      lstm_recurrence_bf16=4, lstm_recurrence_bwd_bf16=4)
+# the same, as a fit's steps are counted (``_counters(loaders=True)``)
+FIT_STEP = {k: n for k, n in PER_STEP.items() if k not in LOADER_FEATURIZED}
+FIT_STEP_BF16 = {k: n for k, n in PER_STEP_BF16.items()
+                 if k not in LOADER_FEATURIZED}
 
 
 def train_batch(seed: int, B: int, T_text: int, T_mel: int, device,
@@ -1544,40 +1617,77 @@ def _featurize_graphed(host: dict, card: str) -> dict:
 
 
 def _viterbi_graphed(audio: torch.Tensor, card: str) -> None:
-    """pyin_f0 and its Viterbi DP (at the shape pYIN gives it: 1 + T_audio
-    // 256 frames, 2 x 181 states), each eager and as one CUDA graph: the
-    graph's result bit for bit, CUDA-event ms each way, the graph's
-    kernels (a traced replay)."""
+    """pyin_f0 eager and as one CUDA graph: the graph's result bit for bit,
+    CUDA-event ms each way, its kernels (a traced replay) and one
+    ``pyin_viterbi`` launch a call, replays included. Then its Viterbi DP
+    at the shape pYIN gives it (1 + T_audio // 256 frames, 2 x 181
+    states, a random non-banded log_P): the kernel against its plain twin
+    eager and as one CUDA graph, bit for bit, CUDA-event ms of each."""
     from radmmm_torch.data import pitch
     from radmmm_torch.utils.graphs import Graphed, GraphPool
+    from radmmm_torch.utils.launches import launch_counts
+
+    def launches(fn, calls: int) -> float:
+        before = launch_counts["pyin_viterbi"]
+        for _ in range(calls):
+            fn()
+        return (launch_counts["pyin_viterbi"] - before) / calls
+
+    def graphed(fn, inputs: dict, name: str):
+        g = Graphed(fn, GraphPool(), name=name)
+        g(inputs)                                     # warm-up
+        got = g(inputs)                               # captured, replayed
+        return (lambda: g(inputs)), got
+
+    pyin = lambda x: pitch.pyin_f0(x["audio"])
+    inputs = {"audio": audio}
+    want = pyin(inputs)
+    g, got = graphed(pyin, inputs, "pyin_f0")
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    eager_ms = cuda_ms(lambda: pyin(inputs), 3)
+    graphed_ms = cuda_ms(g, 3)
+    a_call = (launches(lambda: pyin(inputs), 2), launches(g, 2))
+    _, prof = traced(g)
+    log(f"[featurize] ({card}) pyin_f0 (B={audio.shape[0]}, "
+        f"{1 + audio.shape[1] // 256} frames): eager {eager_ms:.2f} ms, one "
+        f"CUDA graph {graphed_ms:.2f} ms (CUDA events, mean of 3), "
+        f"{prof['kernels']} kernels a replay, busy {prof['busy_ms']:.2f} ms, "
+        f"{prof['host_launches']} host launch calls; pyin_viterbi "
+        f"launches a call eager {a_call[0]:g}, a replay {a_call[1]:g}; the "
+        f"graph's result bit-equal {equal}")
+    if not equal or a_call != (1, 1):
+        fail("featurize: pyin_f0 replayed from its graph is not its eager "
+             "result, or a call did not launch pYIN's Viterbi once")
+
     B, T_audio = audio.shape
     n_bins = int(np.ceil(60 * np.log2(640.0 / 80.0))) + 1
-    log_obs = torch.log(torch.rand((B, 1 + T_audio // 256, 2, n_bins),
-                                   device=audio.device))
-    log_P = torch.log(torch.rand((n_bins, n_bins), device=audio.device))
-    log_V = torch.log(torch.rand((2, 2), device=audio.device))
-    for name, fn, inputs in (
-            ("pyin_f0", lambda x: pitch.pyin_f0(x["audio"]),
-             {"audio": audio}),
-            ("its Viterbi DP and backtrack",
-             lambda x: pitch.viterbi(x["obs"], x["P"], x["V"]),
-             {"obs": log_obs, "P": log_P, "V": log_V})):
-        g = Graphed(fn, GraphPool(), name=name)
-        want = fn(inputs)
-        g(inputs)
-        got = g(inputs)                              # captured, replayed
-        equal = all(torch.equal(a, b) for a, b in zip(got, want))
-        eager_ms = cuda_ms(lambda: fn(inputs), 3)
-        graphed_ms = cuda_ms(lambda: g(inputs), 3)
-        _, prof = traced(lambda: g(inputs))
-        log(f"[featurize] ({card}) {name} ({log_obs.shape[1]} frames): "
-            f"eager {eager_ms:.2f} ms, one CUDA graph {graphed_ms:.2f} ms "
-            f"(CUDA events, mean of 3), {prof['kernels']} kernels a replay, "
-            f"busy {prof['busy_ms']:.2f} ms, {prof['host_launches']} host "
-            f"launch calls; the graph's result bit-equal {equal}")
-        if not equal:
-            fail(f"featurize: {name} replayed from its graph is not its "
-                 f"eager result")
+    dev = audio.device
+    x = {"obs": torch.log(torch.rand((B, 1 + T_audio // 256, 2, n_bins),
+                                     device=dev)),
+         "P": torch.log(torch.rand((n_bins, n_bins), device=dev)),
+         "V": torch.log(torch.rand((2, 2), device=dev))}
+    kernel = lambda: pitch.viterbi(x["obs"], x["P"], x["V"])
+    twin_fn = lambda y: pitch.viterbi_reference(y["obs"], y["P"], y["V"])
+    got = kernel()
+    twin = twin_fn(x)
+    twin_g, twin_got = graphed(twin_fn, x, "viterbi_reference")
+    equal = all(torch.equal(a, b) and torch.equal(a, c)
+                for a, b, c in zip(got, twin, twin_got))
+    kernel_ms = cuda_ms(kernel, 20)
+    twin_ms = cuda_ms(lambda: twin_fn(x), 3)
+    twin_graphed_ms = cuda_ms(twin_g, 3)
+    a_call = launches(kernel, 2)
+    _, prof = traced(kernel)
+    log(f"[featurize] ({card}) pYIN's Viterbi ({tuple(x['obs'].shape)}): "
+        f"the kernel {kernel_ms:.4f} ms (CUDA events, mean of 20, the "
+        f"wrapper included; {prof['kernels']} kernels, busy "
+        f"{prof['busy_ms']:.4f} ms traced), {a_call:g} pyin_viterbi launch "
+        f"a call; its twin eager {twin_ms:.2f} ms, one CUDA graph "
+        f"{twin_graphed_ms:.2f} ms (mean of 3); the kernel's paths and the "
+        f"graphed twin's bit-equal to the eager twin's: {equal}")
+    if not equal or a_call != 1:
+        fail("featurize: pYIN's Viterbi kernel is not its twin bit for bit, "
+             "or did not launch once a call")
 
 
 @tf32_off()
@@ -1815,19 +1925,20 @@ def _run_cli(argv, tag: str, phase: str = "fit"):
 @contextlib.contextmanager
 def _counted(target, name, tally: list, seconds: list = None):
     """Record the kernels' launches of every call of ``target.name`` (a
-    method) into ``tally``, one dict per call, and, given ``seconds``,
-    each call's seconds, the card synchronised at its end."""
+    method of a fit, whose loaders featurize: ``_counters(loaders=True)``)
+    into ``tally``, one dict per call, and, given ``seconds``, each call's
+    seconds, the card synchronised at its end."""
     orig = getattr(target, name)
 
     def wrapper(*a, **kw):
         from radmmm_torch.utils.graphs import synchronize
-        before, t0 = _counters(), time.perf_counter()
+        before, t0 = _counters(loaders=True), time.perf_counter()
         out = orig(*a, **kw)
         if seconds is not None:
             # a loader's thread may be capturing its featurize graph
             synchronize()
             seconds.append(time.perf_counter() - t0)
-        after = _counters()
+        after = _counters(loaders=True)
         tally.append({k: after[k] - before[k] for k in after})
         return out
 
@@ -1941,7 +2052,7 @@ def phase_fit(seed: int, tag: str, configs: tuple, sr: int, overlay,
                     f"--trainer.profile_n_steps="
                     f"{FIT_RESUME_STEPS - FIT_STEPS}"],
                 f"resume to step {FIT_RESUME_STEPS}, profiled", tag)
-        launches = _counters()
+        launches = _counters(loaders=True)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         counted = {k: sum(d[k] for d in steps + vals) for k in launches}
         if counted != launches:
@@ -1975,14 +2086,14 @@ def phase_fit(seed: int, tag: str, configs: tuple, sr: int, overlay,
         if not all("train/duration_loss" in r for r in train_rows):
             fail("a training step logged no duration loss")
         for i, got in enumerate(steps):
-            want = dict(PER_STEP)
+            want = dict(FIT_STEP)
             if i < FIT_BINARIZE_FROM:
                 want["mas_width1"] = 0
             if got != want:
                 fail(f"training step {i + 1} launched {got}, expected "
                      f"{want}")
         log(f"[{tag}] kernel launches on each of the {len(steps)} training "
-            f"steps as expected: {PER_STEP} (mas_width1 0 before step "
+            f"steps as expected: {FIT_STEP} (mas_width1 0 before step "
             f"{FIT_BINARIZE_FROM + 1}, binarization off); on each of "
             f"{len(vals)} validations: {vals[0]}")
         ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
@@ -2379,7 +2490,7 @@ def _bf16_fit(seed: int) -> dict:
         finally:
             from radmmm_torch.ops.conv import set_conv_precision
             set_conv_precision("f32")
-        launches = _counters()
+        launches = _counters(loaders=True)
         rows = _metrics_rows(os.path.join(root, "run"))
         train_rows = [r for r in rows if "train/loss" in r]
         bad = [r for r in rows for k, v in r.items()
@@ -2387,7 +2498,7 @@ def _bf16_fit(seed: int) -> dict:
         if bad or len(train_rows) != BF16_FIT_STEPS:
             fail(f"bf16 fit: non-finite losses or missing steps {bad}")
         for i, got in enumerate(steps):
-            want = dict(PER_STEP_BF16)
+            want = dict(FIT_STEP_BF16)
             if i < FIT_BINARIZE_FROM:
                 want["mas_width1"] = 0
             if got != want:
@@ -2761,7 +2872,7 @@ def phase_caches(seed: int) -> dict:
                                    and dm.trainset.audio_cache is not None):
                 fail(f"fit {tag} the caches read the wrong dataset")
             for i, got in enumerate(steps):
-                want = dict(PER_STEP)
+                want = dict(FIT_STEP)
                 if i < FIT_BINARIZE_FROM:
                     want["mas_width1"] = 0
                 if got != want:
@@ -2782,7 +2893,7 @@ def phase_caches(seed: int) -> dict:
                 busy=s.get("profile_busy_s"), wall=s.get("profile_wall_s"),
                 top=s.get("profile_top_ms", [])[:6],
                 loss=[r["train/loss"] for r in rows])
-        launches = _counters()
+        launches = _counters(loaders=True)
         for tag, r in runs.items():
             n = CACHE_STEPS - CACHE_PROFILE_FROM
             step_ms = sum(r["walls"]) / len(r["walls"])
@@ -2806,7 +2917,7 @@ def phase_caches(seed: int) -> dict:
                 f"kernels, ms summed: " + "; ".join(
                     f"{name[:60]} {ms:.2f}" for name, ms in r["top"]))
         log(f"[caches] kernel launches on each of the {CACHE_STEPS} "
-            f"training steps of both fits as expected: {PER_STEP} "
+            f"training steps of both fits as expected: {FIT_STEP} "
             f"(mas_width1 0 before step {FIT_BINARIZE_FROM + 1}); the two "
             f"fits launched {launches}")
         log(f"[caches] phase in {time.perf_counter() - t_phase:.1f} s")
@@ -4153,7 +4264,7 @@ def ddp_fit_child(result_dir: str, argv: list, opts: list) -> int:
         _, tr = cli.main(argv)
     st = tr.stats
     out = dict(rank=int(os.environ["RANK"]), device=str(tr.device),
-               launches=_counters(), steps=[r["launches"] for r in records],
+               launches=_counters(loaders=True), steps=[r["launches"] for r in records],
                graphed=[r["graphed"] and not r["captured"]
                         for r in records],
                profile=next((r["profile"] for r in records
@@ -4186,7 +4297,7 @@ def _ddp_fit(seed: int, backend: str, work: str) -> dict:
              "--model.iters_per_checkpoint=100"]
     if backend == "gloo":
         base += ["--dist-backend", "gloo"]
-    total = dict.fromkeys(PER_STEP, 0)
+    total = dict.fromkeys(FIT_STEP, 0)
     ckpt_dir = os.path.join(root, "run", "ckpt")
     rows_before = 0
     for tag, steps in (("fit", DDP_FIT_STEPS), ("resume", DDP_RESUME_STEPS)):
@@ -4234,7 +4345,7 @@ def _ddp_fit(seed: int, backend: str, work: str) -> dict:
             fail("ddp (c): both ranks should resume from step "
                  f"{DDP_FIT_STEPS}")
         for i, got in enumerate(res[0]["steps"]):
-            want = dict(PER_STEP)
+            want = dict(FIT_STEP)
             if first + i < FIT_BINARIZE_FROM:
                 want["mas_width1"] = 0
             if got != want:
@@ -4402,7 +4513,7 @@ def phase_ddp(seed: int) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[ddp] phase in {time.perf_counter() - t0:.1f} s")
-    return {k: total[k] + fit[k] for k in total}
+    return {k: total[k] + fit[k] for k in fit}
 
 
 # the graphs phase: the JAX package's compiled programs as CUDA graphs
@@ -4556,8 +4667,10 @@ def _graphs_train(seed: int, tag: str) -> dict:
         launches = _counters()
         e_met = [eager_steps(i, 2 * GRAPH_K) for i in (1, 2)]
         torch.cuda.synchronize()
-    want = {k: n * 2 * GRAPH_K for k, n in (
-        PER_STEP_BF16 if tag == "bf16" else PER_STEP).items()}
+    # each graphed step featurizes its raw batch with pYIN inside the graph
+    want = {k: n * 2 * GRAPH_K for k, n in dict(
+        PER_STEP_BF16 if tag == "bf16" else PER_STEP,
+        pyin_viterbi=1).items()}
     log(f"[graphs] ({tag}) graphed: kernel launches on {2 * GRAPH_K} steps "
         f"{launches} (expected {want})")
     if launches != want:
@@ -4804,7 +4917,7 @@ GRAPH_MIXED_BINARIZE, GRAPH_MIXED_KL, GRAPH_MIXED_VAL = 3, 12, 8
 # validation launches the losses' and samples' K4 10, K1 1 and K3 3 (its
 # binarized eval forward and reconstruct), and the prompts' infer K4 4
 GRAPH_SAMPLE_SPEAKERS = ("ljs-other", "mailabs-tux-other")
-VAL_LAUNCHES = dict.fromkeys(COUNTED, 0)
+VAL_LAUNCHES = dict.fromkeys(FIT_STEP, 0)
 VAL_LAUNCHES.update(lstm_recurrence=10 + 4, ctc_alpha=1, mas_width1=3)
 # the trainer's inference programs (utils/graphs names)
 SAMPLE_PROGRAMS = ("tts_infer", "val_forward", "reconstruct", "vocode")
@@ -4850,7 +4963,7 @@ class _EagerSteps:
 @contextlib.contextmanager
 def _per_step(records: list, profiled: int = -1):
     """Record every training step of a fit into ``records``: its step,
-    the kernels' launches, whether it replayed a graph and whether it
+    the kernels' launches (``_counters(loaders=True)``), whether it replayed a graph and whether it
     captured one first (its signature's second sighting), its batch's shape
     (the audio's, the raw batch's where the step featurizes, and the
     text's) and, for step ``profiled``, ``traced``'s profile of it."""
@@ -4859,7 +4972,7 @@ def _per_step(records: list, profiled: int = -1):
 
     def run_step(self, state, batch, step, gen, featurizer=None):
         pool = self._graph_pool
-        before, replays, captures = (_counters(), pool.replays,
+        before, replays, captures = (_counters(loaders=True), pool.replays,
                                      len(pool.captures))
         audio = batch.get("audio_i16", batch.get("audio"))
         rec = dict(step=step, shape=(tuple(audio.shape),
@@ -4869,7 +4982,7 @@ def _per_step(records: list, profiled: int = -1):
                 lambda: orig(self, state, batch, step, gen, featurizer))
         else:
             out = orig(self, state, batch, step, gen, featurizer)
-        after = _counters()
+        after = _counters(loaders=True)
         rec.update(launches={k: after[k] - before[k] for k in after},
                    graphed=pool.replays > replays,
                    captured=len(pool.captures) > captures)
@@ -4999,7 +5112,7 @@ def _graphs_fit(seed: int, work: str) -> dict:
         lo, hi = 12, 12 + 2 * GRAPH_FIT_K
         wall = float(np.mean(_step_walls(tr.stats, range(lo, hi))))
         st = tr.stats
-        runs[way] = dict(launches=_counters(), rows=[
+        runs[way] = dict(launches=_counters(loaders=True), rows=[
             r for r in _metrics_rows(run_dir) if "train/loss" in r],
             wall=wall, fit_s=fit_s, **{k: st[k] for k in (
                 "warmups", "captures", "replays", "graphed_steps",
@@ -5011,7 +5124,7 @@ def _graphs_fit(seed: int, work: str) -> dict:
             f"{st['captures']}, replays {st['replays']}; launches "
             f"{runs[way]['launches']}")
     g, e = runs["graphed"], runs["eager"]
-    want = {name: n * GRAPH_FIT_STEPS for name, n in PER_STEP.items()}
+    want = {name: n * GRAPH_FIT_STEPS for name, n in FIT_STEP.items()}
     want["mas_width1"] = GRAPH_FIT_STEPS - FIT_BINARIZE_FROM
     if g["launches"] != want or e["launches"] != want:
         fail(f"(e) the fits' launches {g['launches']} (graphed), "
@@ -5114,7 +5227,8 @@ def _graphs_mixed(seed: int, work: str, k: int, samples: bool = False
                   else "whole"] += 1
             at += n
         runs[way] = dict(
-            steps=steps, vals=vals, val_s=val_s, launches=_counters(),
+            steps=steps, vals=vals, val_s=val_s,
+            launches=_counters(loaders=True),
             stats=st, recs=recs, replays=replays, pool_mib=pool_mib,
             kinds=kinds, sizes=sizes,
             rows=[r for r in _metrics_rows(run_dir) if "train/loss" in r],
@@ -5477,19 +5591,19 @@ def kernel_entries(rows: list, serve_launches, train_launches,
     """The kernels' JSON entries. K4 forward keeps its serving numbers (one
     B=1 request at text bucket 96 / frame bucket 800 makes one launch at
     each serving shape: the sums of those rows) and lists every shape; K4
-    backward sums the four training shapes (one step's launches); K1-K3 are
-    one launch each at the training batch; K5 sums its four dilations (one
-    WN stack's launches) and lists each. ``launches`` sums the main
-    paths' runs, listed under ``launches_by_path``: serving, training and
-    fit (its training steps and validations) for K4 forward, the wn phase
-    and fit for K5, training and fit for the rest, and ``path_launches``'
-    paths (fit, the vocoder path, which runs none of them, radtts_fit, m12,
-    ddp, rank 0's counted steps, caches, its two fits, the bf16 phase's
-    training steps, fit and serving, and the graphs phase's graphed steps,
-    requests and fits (whole groups, mixed groups, megastep_k 1, and rank
-    0's steps over NCCL), counted through the graphs' launch ledger; None
-    for a
-    phase or part not run).
+    backward sums the four training shapes (one step's launches); K1-K3 and
+    K6 are one launch each at the training batch; K5 sums its four
+    dilations (one WN stack's launches) and lists each. ``launches`` sums
+    the main paths' runs, listed under ``launches_by_path``: serving,
+    training and fit (its training steps and validations) for K4 forward,
+    the wn phase and fit for K5, training and fit for the rest, and
+    ``path_launches``' paths (fit, the vocoder path, which runs none of
+    them, radtts_fit, m12, ddp, rank 0's counted steps, caches, its two
+    fits, the bf16 phase's training steps, fit and serving, and the graphs
+    phase's graphed steps, requests and fits (whole groups, mixed groups,
+    megastep_k 1, and rank 0's steps over NCCL), counted through the
+    graphs' launch ledger; None for a phase or part not run, and for K6 on
+    the paths whose loaders featurize, LOADER_FEATURIZED).
     The bf16 variants of K4 and its backward (rows of the bf16 phase) are
     listed after them the same way, each with the f32 kernel's ms at its
     shapes beside it."""
@@ -5538,7 +5652,8 @@ def kernel_entries(rows: list, serve_launches, train_launches,
                 else {} if e["name"].endswith("_bf16")
                 else {"train": trained(e["name"])}))
             for path, counts in path_launches.items():
-                paths[path] = None if counts is None else counts[e["name"]]
+                paths[path] = None if counts is None else counts.get(
+                    e["name"])
             counts = [n for n in paths.values() if n is not None]
             e["launches"] = sum(counts) if counts else None
             e["launches_by_path"] = paths
@@ -5584,6 +5699,12 @@ def kernel_entries(rows: list, serve_launches, train_launches,
         max_abs_err=max(r["max_abs_err"] for r in k5), **summed(k5),
         bound_by=max(k5, key=lambda r: r["bound_ms"])["bound_by"],
         shapes=k5))
+    (k6,) = by("pyin_viterbi")
+    entries.append(dict(
+        name="pyin_viterbi", route="cuda",
+        source="radmmm_torch/csrc/pyin_viterbi.cu", replaces=k6["src"],
+        **{k: k6[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "cluster")}))
     entries[2:2] = bf16_entries
     return finish(entries)
 

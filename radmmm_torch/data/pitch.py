@@ -6,20 +6,27 @@ for the reference's per-utterance librosa.pyin): an FFT difference
 function, cumulative-mean normalisation, a pYIN threshold sweep (beta
 threshold prior, Boltzmann trough-rank prior) and a Viterbi pass over
 (voiced, pitch bin) states with a triangular pitch-transition band and a
-0.01 voicing switch probability. The static lag and bin tables are numpy;
-the Viterbi DP and its backtrack are loops over frames in torch. Ties go to
-the first index, as ``jnp.argmax`` does.
+0.01 voicing switch probability. The static lag and bin tables are numpy.
+The Viterbi DP and its backtrack are one hand-written CUDA kernel on the
+card (``csrc/pyin_viterbi.cu``, counted as ``pyin_viterbi``); on the CPU
+they are its plain twin ``viterbi_reference``, loops over frames in torch.
+Both give the same paths bit for bit. Ties go to the first index, as
+``jnp.argmax`` does.
 
 The JAX package's divergences from librosa.pyin are kept: 20 thresholds
 instead of 100, 5 pitch bins per semitone instead of 10.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from radmmm_torch.ops.stft import frame_signal
+from radmmm_torch.utils import cuda_build
+from radmmm_torch.utils.launches import launched
 
 
 def _cmndf(audio: torch.Tensor, frame_length: int, hop_length: int):
@@ -124,16 +131,21 @@ def _beta_pmf(x: np.ndarray, a: float, b: float) -> np.ndarray:
     return pdf / pdf.sum()
 
 
-def viterbi(log_obs: torch.Tensor, log_P: torch.Tensor,
-            log_V: torch.Tensor):
-    """The pYIN HMM's best path: log_obs (B, F, 2, K) over (voiced,
-    unvoiced) x pitch bin, log_P (K, K) pitch transitions, log_V (2, 2)
-    voicing flips. Returns (voicing (B, F), 0 voiced; bin (B, F)). A loop
-    over frames keeps the back pointers, then one walks them back."""
+def _first_score(log_obs: torch.Tensor) -> torch.Tensor:
+    """The score of the first frame: a uniform prior over the 2 K states
+    plus the first observation."""
+    B, _, _, n_bins = log_obs.shape
+    return (torch.log(torch.full((B, 2, n_bins), 1.0 / (2 * n_bins),
+                                 device=log_obs.device)) + log_obs[:, 0])
+
+
+def viterbi_reference(log_obs: torch.Tensor, log_P: torch.Tensor,
+                      log_V: torch.Tensor):
+    """Plain twin of the kernel (``viterbi``): a loop over frames keeps the
+    back pointers, then one walks them back."""
     B, n_frames, _, n_bins = log_obs.shape
     dev = log_obs.device
-    score = (torch.log(torch.full((B, 2, n_bins), 1.0 / (2 * n_bins),
-                                  device=dev)) + log_obs[:, 0])
+    score = _first_score(log_obs)
     kptrs, vptrs = [], []
     for t in range(1, n_frames):
         # pitch move, then voicing flip (separable max-plus)
@@ -157,6 +169,71 @@ def viterbi(log_obs: torch.Tensor, log_P: torch.Tensor,
         k_path.append(k)
     return (torch.stack(v_path[::-1], dim=1),
             torch.stack(k_path[::-1], dim=1))
+
+
+def viterbi(log_obs: torch.Tensor, log_P: torch.Tensor,
+            log_V: torch.Tensor):
+    """The pYIN HMM's best path: log_obs (B, F, 2, K) over (voiced,
+    unvoiced) x pitch bin, log_P (K, K) pitch transitions, log_V (2, 2)
+    voicing flips, all float32. Returns (voicing (B, F), 0 voiced; bin (B,
+    F)), int64. CPU tensors run ``viterbi_reference``; CUDA tensors launch
+    ``csrc/pyin_viterbi.cu`` (built by ``utils/cuda_build``) or raise."""
+    B, n_frames, two, n_bins = log_obs.shape
+    if (two != 2 or n_frames < 1 or log_P.shape != (n_bins, n_bins)
+            or log_V.shape != (2, 2)):
+        raise TypeError(f"viterbi: log_obs must be (B, F >= 1, 2, K), log_P "
+                        f"(K, K), log_V (2, 2); got {tuple(log_obs.shape)}, "
+                        f"{tuple(log_P.shape)}, {tuple(log_V.shape)}")
+    for t in (log_obs, log_P, log_V):
+        if t.dtype != torch.float32 or t.device != log_obs.device:
+            raise TypeError(f"viterbi: every input must be float32 on "
+                            f"{log_obs.device}, got {t.dtype} on {t.device}")
+    if log_obs.device.type == "cpu":
+        return viterbi_reference(log_obs, log_P, log_V)
+    if log_obs.device.type != "cuda":
+        raise RuntimeError(f"viterbi: no kernel for device {log_obs.device}")
+    return _launch(log_obs.contiguous(), log_P.contiguous(),
+                   log_V.contiguous())
+
+
+def _launch(log_obs: torch.Tensor, log_P: torch.Tensor,
+            log_V: torch.Tensor):
+    """The kernel: the forward DP over every frame and the backtrack in one
+    launch, a cluster of CTAs an item, with back pointers in a scratch of
+    (B, F - 1, 2 K) int16."""
+    B, n_frames, _, n_bins = log_obs.shape
+    dev = log_obs.device
+    v_path = torch.empty((B, n_frames), dtype=torch.int64, device=dev)
+    k_path = torch.empty_like(v_path)
+    if B == 0:
+        return v_path, k_path
+    lib = cuda_build.load("pyin_viterbi", _declare)
+    most = lib.pyin_viterbi_max_bins()
+    if n_bins > most:
+        raise ValueError(f"viterbi: {n_bins} pitch bins do not fit the "
+                         f"kernel's shared memory (at most {most} bins)")
+    score0 = _first_score(log_obs)
+    pred = torch.empty((B, max(n_frames - 1, 1), 2 * n_bins),
+                       dtype=torch.int16, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pyin_viterbi_launch(
+            score0.data_ptr(), log_obs.data_ptr(), log_P.data_ptr(),
+            log_V.data_ptr(), pred.data_ptr(), v_path.data_ptr(),
+            k_path.data_ptr(), B, n_frames, n_bins,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(lib, err, "pyin_viterbi")
+    launched("pyin_viterbi")
+    return v_path, k_path
+
+
+def _declare(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.pyin_viterbi_launch.argtypes = [vp] * 7 + [ci] * 3 + [vp]
+    lib.pyin_viterbi_launch.restype = ci
+    lib.pyin_viterbi_max_bins.argtypes = []
+    lib.pyin_viterbi_max_bins.restype = ci
+    lib.pyin_viterbi_cluster.argtypes = [ci]
+    lib.pyin_viterbi_cluster.restype = ci
 
 
 def pyin_f0(audio: torch.Tensor, sampling_rate: int = 22050,

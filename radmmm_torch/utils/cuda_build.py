@@ -21,7 +21,8 @@ from typing import Callable, Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "radmmm_torch"
 SOURCES = ("lstm_recurrence", "lstm_recurrence_bwd", "lstm_recurrence_bf16",
-           "ctc_band_dp", "mas_width1", "conv_softplus", "marks")
+           "ctc_band_dp", "mas_width1", "conv_softplus", "marks",
+           "pyin_viterbi")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -32,6 +32,7 @@ from radmmm_torch.data import collate, pitch
 from radmmm_torch.models.tts import TTSConfig, TTSModel
 from radmmm_torch.ops import priors, stft
 from radmmm_torch.training import step
+from radmmm_torch.utils.launches import launch_counts
 from tests.test_torch_convert import perturb
 from tests.test_tts_model import tiny_config
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
@@ -138,6 +139,20 @@ def test_f0_matches_jax(rng, method):
     got = getattr(pitch, method)(torch.from_numpy(sig), sampling_rate=SR)
     v = _assert_f0_close(got, want, method)
     assert v[0, 5:-5].mean() > 0.8 and v[1].max() == 0     # voiced; silent
+
+
+def test_viterbi_takes_its_twin_on_the_cpu():
+    """CPU tensors run ``viterbi_reference`` and launch no kernel."""
+    g = torch.Generator().manual_seed(0)
+    log_obs, log_P, log_V = (torch.log(torch.rand(shape, generator=g))
+                             for shape in ((2, 6, 2, 7), (7, 7), (2, 2)))
+    before = launch_counts["pyin_viterbi"]
+    got = pitch.viterbi(log_obs, log_P, log_V)
+    want = pitch.viterbi_reference(log_obs, log_P, log_V)
+    assert launch_counts["pyin_viterbi"] == before
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int64 and a.shape == (2, 6)
+        assert torch.equal(a, b)
 
 
 def _items(rng, B=3, n_text=12, seconds=(0.5, 0.35, 0.42)):

@@ -481,7 +481,9 @@ def test_loader_threads_replay_while_a_step_captures(card):
     captures and replays a training step in another pool: every batch is
     the eager featurizer's, the steps' metrics and parameters an eager
     model's bit for bit, the step's launches counted as the eager steps
-    count them, and the cyclic collector on again after the captures."""
+    count them beside one pYIN Viterbi launch a featurize call (warm-up,
+    capture and replays alike), and the cyclic collector on again after
+    the captures."""
     feat = collate.Featurizer(device=card, **FEAT_QUIET)
     eager = collate.Featurizer(device=card, pool=None, **FEAT_QUIET)
     hosts = [_feat_host(1), _feat_host(2, seconds=(0.31, 0.22))]
@@ -524,6 +526,7 @@ def test_loader_threads_replay_while_a_step_captures(card):
     assert not errors and gc.isenabled()
     launch_counts.clear()
     emet = [efn(estate, batch, egen)[1] for _ in range(3)]
+    assert glaunch.pop("pyin_viterbi") == 2 * 6
     assert glaunch == dict(launch_counts)
     for g, e in zip(gmet, emet):
         for name in e:

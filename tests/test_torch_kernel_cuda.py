@@ -9,15 +9,18 @@ runs where JAX is not installed:
 Tolerances: the LSTM kernels 1e-5 (f32 on both sides, TF32 off, the kernel
 sums its products in another order than torch.bmm); the CTC DPs 1e-5
 relative to the magnitude (alphas reach -2,500 at 512 frames, where one
-f32 ulp is 2.4e-4; both sides do the same ops in the same order); MAS bit
-for bit (adds and compares of the same f32 values); the fused conv +
-softplus 1e-4 (the same exact bf16 products, up to 5,120 per output, summed
-in f32 in another order); the LSTM kernels' bf16 variants BF16_ATOL."""
+f32 ulp is 2.4e-4; both sides do the same ops in the same order); MAS and
+pYIN's Viterbi bit for bit (adds and compares of the same f32 values); the
+fused conv + softplus 1e-4 (the same exact bf16 products, up to 5,120 per
+output, summed in f32 in another order); the LSTM kernels' bf16 variants
+BF16_ATOL."""
 import copy
 
+import numpy as np
 import pytest
 import torch
 
+from radmmm_torch.data import pitch
 from radmmm_torch.losses import ctc_kernel
 from radmmm_torch.losses.ctc import _ctc_setup
 from radmmm_torch.ops import alignment, lstm_kernel, wn_kernel
@@ -445,6 +448,149 @@ def test_mas_accepts_the_shapes_of_its_shared_memory_rule(cuda, T_text):
     want = alignment.mas_width1_reference(alignment._log_attention(a, tl),
                                           tl, ml)
     assert torch.equal(got, want)
+
+
+def _voiced_audio(B: int, T: int, sr: int, seed: int = 0) -> torch.Tensor:
+    """B utterances of T samples at ``sr``: a three-harmonic tone with
+    vibrato (110-250 Hz, a fifth higher after a noise burst), then
+    silence."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T) / sr
+    out = np.zeros((B, T), np.float32)
+    for b in range(B):
+        f0 = 110.0 + 140.0 * b / max(B - 1, 1)
+        for lo, hi, f in ((0.0, 0.35, f0), (0.45, 0.75, 1.5 * f0)):
+            on = (t >= lo * t[-1]) & (t < hi * t[-1])
+            ph = 2 * np.pi * f * t + 0.03 * f / 5 * np.sin(2 * np.pi * 5 * t)
+            out[b, on] = (0.4 * np.sin(ph) + 0.2 * np.sin(2 * ph)
+                          + 0.1 * np.sin(3 * ph))[on]
+        burst = (t >= 0.35 * t[-1]) & (t < 0.45 * t[-1])
+        out[b, burst] = 0.05 * rng.standard_normal(int(burst.sum()))
+    return torch.from_numpy(out)
+
+
+def _pyin_tables(monkeypatch, audio: torch.Tensor, sr: int) -> tuple:
+    """The (log_obs, log_P, log_V) that ``pyin_f0`` hands its Viterbi."""
+    seen = []
+    real = pitch.viterbi
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(pitch, "viterbi", record)
+    pitch.pyin_f0(audio, sampling_rate=sr)
+    monkeypatch.setattr(pitch, "viterbi", real)
+    return seen[0]
+
+
+def _viterbi_equals_twin(log_obs, log_P, log_V) -> None:
+    """The kernel's paths against the twin's on the card and on the CPU,
+    bit for bit, and one launch a call."""
+    before = launch_counts["pyin_viterbi"]
+    got = pitch.viterbi(log_obs, log_P, log_V)
+    assert launch_counts["pyin_viterbi"] == before + 1
+    card = pitch.viterbi_reference(log_obs, log_P, log_V)
+    cpu = pitch.viterbi_reference(log_obs.cpu(), log_P.cpu(), log_V.cpu())
+    for g, c, h in zip(got, card, cpu):
+        assert g.dtype == torch.int64 and g.shape == log_obs.shape[:2]
+        assert torch.equal(g, c)
+        assert torch.equal(g.cpu(), h)
+
+
+@pytest.mark.parametrize("sr", [16000, 22050])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_pyin_viterbi_matches_twin_on_pyins_tables(cuda, monkeypatch, sr, B):
+    """K 181 at 513 frames with the tables pYIN builds: 16 kHz (a band of
+    width 34) and 22,050 Hz (25), a constant log 1e-12 outside it."""
+    audio = _voiced_audio(B, 256 * 512, sr).to(cuda)
+    log_obs, log_P, log_V = _pyin_tables(monkeypatch, audio, sr)
+    assert log_obs.shape == (B, 513, 2, 181)
+    _viterbi_equals_twin(log_obs, log_P, log_V)
+
+
+@pytest.mark.parametrize("K", [181, 37])
+@pytest.mark.parametrize("F", [1, 2, 513])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_pyin_viterbi_matches_twin_on_random_tables(cuda, B, F, K):
+    """A random, non-banded log_P and random observations and flips."""
+    g = torch.Generator(device=cuda).manual_seed(B * 1000 + F + K)
+    log_obs, log_P, log_V = (
+        torch.log(torch.rand(shape, generator=g, device=cuda))
+        for shape in ((B, F, 2, K), (K, K), (2, 2)))
+    _viterbi_equals_twin(log_obs, log_P, log_V)
+
+
+@pytest.mark.parametrize("K", [181, 37])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_pyin_viterbi_breaks_ties_as_its_twin(cuda, B, K):
+    """Every table a multiple of 0.5 in [-4, 0], so sums are exact and
+    many maxima tie: the first k, the first v and the first state win."""
+    g = torch.Generator(device=cuda).manual_seed(B + K)
+
+    def halves(shape):
+        return -torch.randint(0, 9, shape, generator=g,
+                              device=cuda).float() / 2
+
+    _viterbi_equals_twin(halves((B, 513, 2, K)), halves((K, K)),
+                         halves((2, 2)))
+
+
+@pytest.mark.parametrize("sr", [16000, 22050])
+def test_pyin_on_the_card_equals_pyin_with_the_twin(cuda, monkeypatch, sr):
+    """``pyin_f0``'s f0, voicing and p_voiced through the kernel equal its
+    results with the twin forced; one launch a call, and one a replay of
+    a CUDA graph of it."""
+    from radmmm_torch.utils import graphs
+    audio = _voiced_audio(8, 256 * 512, sr, seed=1).to(cuda)
+    before = launch_counts["pyin_viterbi"]
+    got = pitch.pyin_f0(audio, sampling_rate=sr)
+    assert launch_counts["pyin_viterbi"] == before + 1
+    with monkeypatch.context() as m:
+        m.setattr(pitch, "viterbi", pitch.viterbi_reference)
+        want = pitch.pyin_f0(audio, sampling_rate=sr)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    g = graphs.Graphed(lambda x: pitch.pyin_f0(x["a"], sampling_rate=sr),
+                       graphs.GraphPool(), name="pyin_f0")
+    before = launch_counts["pyin_viterbi"]
+    for _ in range(3):                  # warm-up, capture and replay, replay
+        for a, b in zip(g({"a": audio}), want):
+            assert torch.equal(a, b)
+    assert launch_counts["pyin_viterbi"] == before + 3
+
+
+def test_pyin_viterbi_takes_431_bins_and_refuses_432(cuda):
+    """A CTA's columns of log_P, the backtrack's staging, the score and
+    the receive buffers fit its 227 KB up to K 431 (a cluster of 8); one
+    more bin raises, naming the limit the library reports."""
+    lib = cuda_build.load("pyin_viterbi", pitch._declare)
+    assert lib.pyin_viterbi_max_bins() == 431
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for K in (431, 432):
+        log_obs, log_P, log_V = (
+            torch.log(torch.rand(shape, generator=g, device=cuda))
+            for shape in ((2, 40, 2, K), (K, K), (2, 2)))
+        if K == 431:
+            _viterbi_equals_twin(log_obs, log_P, log_V)
+            continue
+        before = launch_counts["pyin_viterbi"]
+        with pytest.raises(ValueError, match="shared memory.*431 bins"):
+            pitch.viterbi(log_obs, log_P, log_V)
+        assert launch_counts["pyin_viterbi"] == before
+
+
+@pytest.mark.parametrize("K", [1, 2, 9, 64])
+def test_pyin_viterbi_plans_a_cluster_whose_every_cta_owns_a_column(cuda, K):
+    """Small K take a smaller cluster (K 9: 5 CTAs of 2 columns), and
+    still match the twin."""
+    lib = cuda_build.load("pyin_viterbi", pitch._declare)
+    C = lib.pyin_viterbi_cluster(K)
+    assert 1 <= C <= 8 and (C - 1) * -(-K // C) < K
+    g = torch.Generator(device=cuda).manual_seed(K)
+    _viterbi_equals_twin(*(torch.log(torch.rand(shape, generator=g,
+                                                device=cuda))
+                           for shape in ((3, 17, 2, K), (K, K), (2, 2))))
 
 
 # K5 is CUDA C++, not Triton: a tensor-core implicit GEMM whose tap rows
