@@ -16,7 +16,7 @@
 // the same order (the loader compares them).
 #include <cuda_runtime.h>
 
-#define RADMMM_MARKS(X) X(train_featurize) X(serve_stage_a) X(serve_stage_b)
+#define RADMMM_MARKS(X) X(train_featurize) X(serve_stage_a) X(serve_stage_b) X(train_align) X(train_attributes)
 
 #define RADMMM_MARK_KERNELS(name)                               \
   extern "C" __global__ void radmmm_mark_##name##_begin() {}    \

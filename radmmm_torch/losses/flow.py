@@ -26,6 +26,7 @@ from radmmm_torch.losses.ctc import attention_ctc_loss
 from radmmm_torch.losses.stft_loss import MultiResolutionSTFTLoss
 from radmmm_torch.parallel import mesh
 from radmmm_torch.utils.masking import SeqLens
+from radmmm_torch.utils.profiling import train_span
 
 
 def compute_flow_loss(z, log_det_W_list, log_s_list, n_elements, n_dims,
@@ -60,8 +61,10 @@ def attention_loss(attn, attn_soft, attn_logprob, binarization_on: bool,
                    ctc_loss_weight=0.1):
     """{'loss_ctc', 'binarization_loss'}; the latter is 0 until
     ``binarization_on``."""
-    ctc = attention_ctc_loss(attn_logprob, in_lens.lengths, out_lens.lengths,
-                             blank_logprob=ctc_blank_logprob)
+    with train_span("train.align", attn_logprob.device):
+        ctc = attention_ctc_loss(attn_logprob, in_lens.lengths,
+                                 out_lens.lengths,
+                                 blank_logprob=ctc_blank_logprob)
     b = (attention_binarization_loss(attn, attn_soft) if binarization_on
          else attn_soft.new_zeros(()))
     return {"loss_ctc": (ctc, ctc_loss_weight),

@@ -32,6 +32,7 @@ from radmmm_torch.ops.invertible import InvertibleLU, WhiteningConv
 from radmmm_torch.ops.length_regulator import regulate_length
 from radmmm_torch.ops.lstm import multi_bilstm_scan
 from radmmm_torch.utils.masking import SeqLens
+from radmmm_torch.utils.profiling import train_span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,9 +263,10 @@ class TTSModel(nn.Module):
                        if c.use_accent else None)
         txt_enc, txt_emb = self.encode_text(batch["text"], in_lens,
                                             accent_vecs, train, generator)
-        attn, attn_soft, _, attn_logprob = self.compute_attention(
-            mel, txt_emb, spk_vecs, accent_vecs, out_lens, in_lens,
-            batch.get("attn_prior"), binarize)
+        with train_span("train.align", mel.device):
+            attn, attn_soft, _, attn_logprob = self.compute_attention(
+                mel, txt_emb, spk_vecs, accent_vecs, out_lens, in_lens,
+                batch.get("attn_prior"), binarize)
         context = torch.bmm(attn, txt_enc)                    # (B, Tm, C)
 
         outputs = self.decoder(mel, spk_vecs, context, out_lens,
@@ -280,39 +282,42 @@ class TTSModel(nn.Module):
         ctx_d, spk_d = context.detach(), spk_vecs.detach()
         acc_d = accent_vecs.detach() if accent_vecs is not None else None
         kw = dict(train=train, generator=generator)
-        frame_preds = []          # (output key, module, target)
-        if self.f0_predictor is not None:
-            frame_preds.append(("f0_outputs", self.f0_predictor,
-                                self.f0_predictor.targets(
-                                    batch["f0"][..., None],
-                                    batch.get("speaker_f0_mean"),
-                                    batch.get("speaker_f0_std"))))
-        if self.energy_predictor is not None:
-            frame_preds.append(("energy_outputs", self.energy_predictor,
-                                self.energy_predictor.targets(
-                                    batch["energy_avg"][..., None])))
-        if self.voiced_predictor is not None:
-            frame_preds.append(("voiced_outputs", self.voiced_predictor,
-                                self.voiced_predictor.targets(
-                                    batch["voiced_mask"][..., None])))
-        mods = [m for _, m, _ in frame_preds]
-        if self._gangable(mods):
-            hats = self._gang_frame_predictors(
-                mods, ctx_d, [spk_d] * len(mods), out_lens,
-                accent_emb=acc_d, **kw)
-            for (key, _, target), x_hat in zip(frame_preds, hats):
-                outputs[key] = {"x_hat": x_hat, "x": target}
-        else:
-            for key, m, target in frame_preds:
-                outputs[key] = {"x_hat": m(ctx_d, spk_d, out_lens,
-                                           accent_emb=acc_d, **kw),
-                                "x": target}
-        if self.duration_predictor is not None:
-            dur_target = attn.detach().sum(dim=1)[..., None]  # (B, Tt, 1)
-            outputs["duration_outputs"] = {
-                "x_hat": self.duration_predictor(
-                    txt_enc.detach(), spk_d, in_lens, accent_emb=acc_d, **kw),
-                "x": self.duration_predictor.targets(dur_target)}
+        with train_span("train.attributes", ctx_d.device):
+            frame_preds = []          # (output key, module, target)
+            if self.f0_predictor is not None:
+                frame_preds.append(("f0_outputs", self.f0_predictor,
+                                    self.f0_predictor.targets(
+                                        batch["f0"][..., None],
+                                        batch.get("speaker_f0_mean"),
+                                        batch.get("speaker_f0_std"))))
+            if self.energy_predictor is not None:
+                frame_preds.append(("energy_outputs", self.energy_predictor,
+                                    self.energy_predictor.targets(
+                                        batch["energy_avg"][..., None])))
+            if self.voiced_predictor is not None:
+                frame_preds.append(("voiced_outputs", self.voiced_predictor,
+                                    self.voiced_predictor.targets(
+                                        batch["voiced_mask"][..., None])))
+            mods = [m for _, m, _ in frame_preds]
+            if self._gangable(mods):
+                hats = self._gang_frame_predictors(
+                    mods, ctx_d, [spk_d] * len(mods), out_lens,
+                    accent_emb=acc_d, **kw)
+                for (key, _, target), x_hat in zip(frame_preds, hats):
+                    outputs[key] = {"x_hat": x_hat, "x": target}
+            else:
+                for key, m, target in frame_preds:
+                    outputs[key] = {"x_hat": m(ctx_d, spk_d, out_lens,
+                                               accent_emb=acc_d, **kw),
+                                    "x": target}
+            if self.duration_predictor is not None:
+                # (B, Tt, 1)
+                dur_target = attn.detach().sum(dim=1)[..., None]
+                outputs["duration_outputs"] = {
+                    "x_hat": self.duration_predictor(
+                        txt_enc.detach(), spk_d, in_lens, accent_emb=acc_d,
+                        **kw),
+                    "x": self.duration_predictor.targets(dur_target)}
         return outputs
 
     # ---- inference --------------------------------------------------------

@@ -31,6 +31,10 @@ in the same process.
   of the graph puts them on the device's timeline, whether a profiler
   runs or not: the only way to mark a phase inside a CUDA graph. They
   tick no launch counter; on the CPU they do nothing.
+- ``train_span(name, device)``: ``device_span`` where autograd records,
+  so in a training step's forward alone: validation and inference run
+  under ``no_grad`` and carry none of these marks. They cover the
+  forward's work, never its backward's.
 
 The port's spans, counters and marks:
 
@@ -51,6 +55,8 @@ The port's spans, counters and marks:
 | ``train.featurize`` | device marks | ``training/step.make_train_step``: ``featurize_raw`` inside the step |
 | ``serve.stage_a`` | device marks | ``serving.make_two_stage_fns``: the body of stage A's graph |
 | ``serve.stage_b`` | device marks | the same: the body of stage B's graph |
+| ``train.align`` | device marks, ``train_span`` | ``models/tts.TTSModel.forward``: the attention (projections, distance, prior, MAS); ``losses/flow.attention_loss``: the CTC loss's forward. Two runs a step |
+| ``train.attributes`` | device marks, ``train_span`` | ``models/tts.TTSModel.forward``: the four attribute predictors' forward |
 """
 from __future__ import annotations
 
@@ -72,7 +78,8 @@ from radmmm_torch.utils.graphs import no_capture
 # the records kept: the newest, older ones dropped
 MAX_RECORDS = 65536
 # the device marks' names, in the order of csrc/marks.cu's RADMMM_MARKS
-MARKS = ("train.featurize", "serve.stage_a", "serve.stage_b")
+MARKS = ("train.featurize", "serve.stage_a", "serve.stage_b", "train.align",
+         "train.attributes")
 
 
 class Record(NamedTuple):
@@ -255,6 +262,14 @@ def device_span(name: str, device):
     if device.type != "cuda":
         return _NOOP
     return _Marks(index, device)
+
+
+def train_span(name: str, device):
+    """``device_span(name, device)`` inside a training step (autograd
+    recording), nothing under ``no_grad``."""
+    if not torch.is_grad_enabled():
+        return _NOOP
+    return device_span(name, device)
 
 
 def union_length(spans) -> float:
