@@ -50,6 +50,14 @@ Phases (all by default):
               path, so no library time; its bound the chain of dependent
               frames (or its bytes and operations, whichever is longer),
               its cluster and us a frame;
+            - K7, the WN stacks' f32 convolutions, forward, dgrad and
+              wgrad at the flagship's WN shapes (B 8, T/2 256: in_i at
+              dilations 1 and 8, res_skip, start at 1,136 and 1,135
+              inputs, end at 160 and 158 outputs) and at
+              radtts.train.f0cache's largest batch (T/2 448), forward at
+              serving's four B = 1 buckets: its error against the twin,
+              two runs bit for bit, kernel and library (cuDNN's f32
+              convolution with cudnn.benchmark on) timed as CUDA graphs;
 3. serve    the full-width RADMMM model and HiFi-GAN v1 (22,050 Hz) with
             random weights from --seed, exported as a serving artifact,
             served over HTTP by radmmm_torch.server on 127.0.0.1; four
@@ -391,6 +399,34 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device ms of one call of ``fn``: ``reps`` calls captured in one CUDA
+    graph (after two eager warm-up calls on the capture's stream, which
+    take any autotuning), the graph replayed twice between events. The
+    host's launch time, which a graphed step does not pay, stays out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (2 * reps)
 
 
 def phase_build():
@@ -863,6 +899,125 @@ def _conv_softplus_rows(gen, dev) -> list:
     return rows
 
 
+# K7 against its twins: the same f32 products (up to 5,120 an output)
+# summed in another order, over the largest output's magnitude
+K7_RTOL = 1e-5
+# K7's shapes: (cell, conv, B, T, C_in, C_out, K, dilation, masked). The
+# flagship's WN at B 8 x T/2 256 (in_i at dilations 1 and 8; start at the
+# first flow's 1,136 inputs and a later flow's odd 1,135; end at 160 and
+# 158 outputs), radtts.train.f0cache's largest batch (B 8 x T/2 448;
+# start at 1,128), forward, dgrad and wgrad; serving's four B = 1 frame
+# buckets (T/2 96, 192, 288, 400), forward only
+WN_CONV_TRAIN = (("train", 8, 256, (("in_0", 1024, 1024, 5, 1, True),
+                                    ("in_3", 1024, 1024, 5, 8, True),
+                                    ("res_skip", 1024, 1024, 1, 1, False),
+                                    ("start", 1136, 1024, 1, 1, False),
+                                    ("start_odd", 1135, 1024, 1, 1, False),
+                                    ("end", 1024, 160, 1, 1, False),
+                                    ("end_odd", 1024, 158, 1, 1, False))),
+                 ("radtts", 8, 448, (("in_0", 1024, 1024, 5, 1, True),
+                                     ("res_skip", 1024, 1024, 1, 1, False),
+                                     ("start", 1128, 1024, 1, 1, False),
+                                     ("end", 1024, 160, 1, 1, False))))
+WN_CONV_SERVE = tuple(
+    ("serve", 1, t, (("in_0", 1024, 1024, 5, 1, True),
+                     ("res_skip", 1024, 1024, 1, 1, False),
+                     ("start", 1136, 1024, 1, 1, False),
+                     ("end", 1024, 160, 1, 1, False)))
+    for t in (96, 192, 288, 400))
+
+
+def _wn_conv_rows(gen, dev) -> list:
+    """K7 at the WN shapes the cells run: for each direction the error
+    against the twin, run-to-run bit equality, and the times of the
+    kernel, its bound (FLOP at 67 TFLOP/s or bytes at 3.35 TB/s), the twin
+    and cuDNN's f32 convolution with cudnn.benchmark on (the library time;
+    its (B, C, T) operands made outside the timed call). Kernel and library
+    are timed as graphs (``graph_ms``), as the cells run them. The bound
+    and ``peak_share`` count the operations of the valid rows alone (a
+    masked row's output is zero and adds nothing to the wgrad);
+    ``padded_share`` is the rate of the padded GEMM that the kernel runs,
+    all B T rows, as a share of 67 TFLOP/s."""
+    import torch.nn.functional as F
+    from radmmm_torch.ops import wn_conv as k7
+    rows = []
+    for cell, B, T, convs in WN_CONV_TRAIN + WN_CONV_SERVE:
+        for conv, cin, cout, K, d, masked in convs:
+            pad = d * (K - 1) // 2
+            x = torch.randn((B, T, cin), generator=gen, device=dev)
+            w = torch.randn((cout, cin, K), generator=gen,
+                            device=dev) / math.sqrt(cin * K)
+            bias = torch.randn((cout,), generator=gen, device=dev) * 0.1
+            dy = torch.randn((B, T, cout), generator=gen, device=dev)
+            mask = None
+            if masked:
+                mask = (torch.arange(T)[None, :] < _lengths(T, B)[:, None]
+                        ).float().to(dev)
+            xm = x if mask is None else x * mask[..., None]
+            wt = w.permute(2, 1, 0).contiguous()
+            wd = (w.flip(2) if K > 1 else w).permute(2, 0, 1).contiguous()
+            x_ncw, dy_ncw = xm.transpose(1, 2).contiguous(), \
+                dy.transpose(1, 2).contiguous()
+            dirs = {
+                "fwd": (lambda: k7.conv_f32(x, wt, bias, mask, d, True,
+                                            masked, row_scales=masked)[0],
+                        lambda: k7.conv_reference(x, wt, bias, mask, d, True,
+                                                  masked),
+                        lambda: F.conv1d(x_ncw, w, padding=pad, dilation=d)),
+                "dgrad": (lambda: k7.conv_f32(dy, wd, None, mask, d, False,
+                                              False, name="wn_conv_dgrad")[0],
+                          lambda: k7.conv_reference(dy, wd, None, mask, d,
+                                                    False, False),
+                          lambda: torch.nn.grad.conv1d_input(
+                              x_ncw.shape, w, dy_ncw, padding=pad,
+                              dilation=d)),
+                "wgrad": (lambda: k7.wgrad_f32(dy, x, mask, K, d),
+                          lambda: k7.wgrad_reference(dy, x, mask, K, d),
+                          lambda: torch.nn.grad.conv1d_weight(
+                              x_ncw, w.shape, dy_ncw, padding=pad,
+                              dilation=d))}
+            if cell == "serve":
+                dirs = {"fwd": dirs["fwd"]}
+            rows_valid = B * T if mask is None else int(mask.sum())
+            flops = 2.0 * rows_valid * cin * cout * K
+            padded_flops = 2.0 * B * T * cin * cout * K
+            n_bytes = 4.0 * (B * T * (cin + cout) + K * cin * cout)
+            for direction, (kernel, plain, library) in dirs.items():
+                got, again, want = kernel(), kernel(), plain()
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max() / want.abs().max())
+                same = bool(torch.equal(got, again))
+                k_ms = graph_ms(kernel, 20)
+                p_ms = cuda_ms(plain, 5)
+                with cudnn_benchmark():
+                    lib_ms = graph_ms(library, 20)
+                b_ms, b_by = _bound(n_bytes, flops)
+                share = flops / (k_ms * 1e-3) / PEAK_F32_FLOP_PER_S
+                padded = padded_flops / (k_ms * 1e-3) / PEAK_F32_FLOP_PER_S
+                log(f"[kernels] K7 wn_conv {direction} {cell} {conv} B={B} "
+                    f"T={T} {cin}->{cout} K={K} d={d}: rel_err {err:.2e} "
+                    f"(rtol {K7_RTOL:g}), same bits twice "
+                    f"{'yes' if same else 'NO'}, kernel_ms {k_ms:.4f} "
+                    f"({share:.1%} of 67 TFLOP/s over the {rows_valid} "
+                    f"valid rows; the padded GEMM of {B * T} rows "
+                    f"{padded:.1%}), "
+                    f"bound_ms {b_ms:.4f} ({b_by}), plain_ms {p_ms:.4f}, "
+                    f"library_ms {lib_ms:.4f} (cuDNN f32, cudnn.benchmark; "
+                    f"kernel {'no slower' if k_ms <= lib_ms else 'SLOWER'})")
+                if err > K7_RTOL or not same:
+                    fail(f"wn_conv {direction} at {cell} {conv} disagrees "
+                         "with its twin or with itself")
+                rows.append(dict(
+                    kernel=f"wn_conv_{direction}", cell=cell, conv=conv, B=B,
+                    T=T, C_in=cin, C_out=cout, K=K, dilation=d,
+                    max_abs_err=err, same_bits=same, ms=k_ms, plain_ms=p_ms,
+                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                    rows_valid=rows_valid, peak_share=share,
+                    padded_share=padded))
+            del x, w, dy, x_ncw, dy_ncw, xm, wt, wd
+    return rows
+
+
 @tf32_off()
 def phase_kernels(seed: int) -> list:
     dev = torch.device("cuda")
@@ -879,6 +1034,7 @@ def phase_kernels(seed: int) -> list:
     rows.extend(_mas_rows(gen, dev))
     rows.extend(_conv_softplus_rows(gen, dev))
     rows.extend(_viterbi_rows(gen, dev))
+    rows.extend(_wn_conv_rows(gen, dev))
     return rows
 
 
@@ -1022,6 +1178,7 @@ def phase_serve(seed: int, model, vocoder, model_gpu, tag: str = "serve",
                 f"tokens, frames {expect[k].tolist()}, {ms:.1f} ms")
         counts = _counters()
         launches = counts.pop(kernel)
+        k7 = counts.pop("wn_conv_fwd")
         other = {k: v for k, v in counts.items() if v}
         # where the device time of one warm 96-token request goes, through
         # the callable the daemon dispatches to
@@ -1032,10 +1189,14 @@ def phase_serve(seed: int, model, vocoder, model_gpu, tag: str = "serve",
         httpd.server_close()
         th.join(timeout=10)
     want = 4 * len(requests)   # encoder + duration DAP + frame DAPs + context
+    # stage B's flow inverse: 8 WN stacks through K7 in f32 mode
+    want_k7 = len(requests) * _wn_launches(model, False).get("wn_conv_fwd", 0)
     log(f"[{tag}] {kernel} launches on the main path: {launches} "
-        f"(expected {want}), other kernels {other or 'none'}")
-    if launches < want or other:
-        fail(f"the {tag} path did not go through its LSTM kernel alone")
+        f"(expected {want}), K7 forward {k7} (expected {want_k7}), other "
+        f"kernels {other or 'none'}")
+    if launches < want or other or k7 != want_k7:
+        fail(f"the {tag} path did not go through its LSTM kernel and K7 "
+             "alone")
     return launches
 
 
@@ -1144,7 +1305,8 @@ def phase_parity(seed: int, model, model_gpu):
 # that the script's steps, requests and validations count
 COUNTED = ("lstm_recurrence", "lstm_recurrence_bwd", "lstm_recurrence_bf16",
            "lstm_recurrence_bwd_bf16", "ctc_alpha", "ctc_beta", "mas_width1",
-           "conv_softplus", "pyin_viterbi")
+           "conv_softplus", "pyin_viterbi", "wn_conv_fwd", "wn_conv_dgrad",
+           "wn_conv_wgrad")
 # the featurizer's kernels (pYIN's Viterbi): where a fit's data loader
 # threads featurize beside the counted steps, at times no count can pin
 # (the fit, bf16 and caches phases, the ddp phase's part (c) and the graphs
@@ -1168,19 +1330,42 @@ def _zero_counters() -> None:
     launch_counts.clear()
 
 
+# K7's launches in one forward of a WN stack of 4 layers (start, in_0-3,
+# res_skip_0-3, end), in f32 conv precision; its backward launches as many
+# dgrads and wgrads
+WN_CONVS = 10
 # launches of each kernel in one step of make_train_step(binarize=True):
 # the encoder, duration-DAP, ganged frame-DAP and flow-context recurrences
 # forward and backward, one CTC loss (alpha; beta in its backward), one
-# MAS; the package's WN layers do not run K5; it featurizes nothing, so no
-# pYIN (a megastep's step featurizes with pYIN: one pyin_viterbi more); in
-# f32 the bf16 variants of K4 never run (PER_STEP_BF16: in bf16 mode the
-# reverse)
+# MAS, K7 through the 8 flows' WN stacks forward and backward; the
+# package's WN layers do not run K5; it featurizes nothing, so no pYIN (a
+# megastep's step featurizes with pYIN: one pyin_viterbi more); in f32 the
+# bf16 variants of K4 never run (PER_STEP_BF16: in bf16 mode the reverse,
+# and no K7)
 PER_STEP = {"lstm_recurrence": 4, "lstm_recurrence_bwd": 4,
             "lstm_recurrence_bf16": 0, "lstm_recurrence_bwd_bf16": 0,
             "ctc_alpha": 1, "ctc_beta": 1, "mas_width1": 1,
-            "conv_softplus": 0, "pyin_viterbi": 0}
+            "conv_softplus": 0, "pyin_viterbi": 0,
+            "wn_conv_fwd": 8 * WN_CONVS, "wn_conv_dgrad": 8 * WN_CONVS,
+            "wn_conv_wgrad": 8 * WN_CONVS}
 PER_STEP_BF16 = dict(PER_STEP, lstm_recurrence=0, lstm_recurrence_bwd=0,
-                     lstm_recurrence_bf16=4, lstm_recurrence_bwd_bf16=4)
+                     lstm_recurrence_bf16=4, lstm_recurrence_bwd_bf16=4,
+                     wn_conv_fwd=0, wn_conv_dgrad=0, wn_conv_wgrad=0)
+
+
+def _wn_launches(model, backward: bool) -> dict:
+    """K7's launches in one forward (and, with ``backward``, backward) of
+    ``model``'s WN stacks in f32 conv precision: one a conv and direction,
+    but for a stack split over a tensor-parallel group, whose row-parallel
+    ``end`` partial stays on ``conv1d`` (``WN._forward_split``)."""
+    from radmmm_torch.ops.conv import get_conv_precision
+    from radmmm_torch.ops.coupling import WN
+    if get_conv_precision() != "f32":
+        return {}
+    n = sum(1 + 2 * m.n_layers + (m.tp is None)
+            for m in model.modules() if isinstance(m, WN))
+    return {"wn_conv_fwd": n, **({"wn_conv_dgrad": n, "wn_conv_wgrad": n}
+                                if backward else {})}
 # the same, as a fit's steps are counted (``_counters(loaders=True)``)
 FIT_STEP = {k: n for k, n in PER_STEP.items() if k not in LOADER_FEATURIZED}
 FIT_STEP_BF16 = {k: n for k, n in PER_STEP_BF16.items()
@@ -3063,13 +3248,15 @@ def _m12_flow(seed: int, launches: _Launches, card: str) -> None:
         a = {k: torch.from_numpy(v).to(where) for k, v in arrays.items()}
         t0 = time.perf_counter()
         with (launches.part("the flow's training step",
-                            {"lstm_recurrence": 1, "lstm_recurrence_bwd": 1})
+                            {"lstm_recurrence": 1, "lstm_recurrence_bwd": 1,
+                             **_wn_launches(cpu, True)})
               if where == "cuda" else contextlib.nullcontext()):
             loss, prior = train_step(m, a)
         if where == "cuda":
             torch.cuda.synchronize()
         t1 = time.perf_counter()
-        with (launches.part("the flow's infer", {"lstm_recurrence": 1})
+        with (launches.part("the flow's infer", {"lstm_recurrence": 1,
+                                                 **_wn_launches(cpu, False)})
               if where == "cuda" else contextlib.nullcontext()):
             mel = infer(m, a)
         if where == "cuda":
@@ -3110,8 +3297,10 @@ def _m12_flow(seed: int, launches: _Launches, card: str) -> None:
     # timing on a copy of the card's model, so the compared one is intact
     m = copy.deepcopy(models["cuda"])
     a = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+    k7 = _wn_launches(cpu, True)
     with launches.part("the timed flow steps and infers",
-                       {"lstm_recurrence": 2, "lstm_recurrence_bwd": 1},
+                       {"lstm_recurrence": 2, "lstm_recurrence_bwd": 1, **k7,
+                        "wn_conv_fwd": 2 * k7.get("wn_conv_fwd", 0)},
                        1 + M12_TIMED):
         step_ms = cuda_ms(lambda: train_step(m, a), M12_TIMED)
         infer_ms = cuda_ms(lambda: infer(m, a), M12_TIMED)
@@ -3908,6 +4097,7 @@ def ddp_train(seed: int, batch: dict, n_steps: int, mesh) -> dict:
     if out["split"]:
         out["tp_layout"] = M.assert_tp_layout(model, mesh,
                                               min_sharded=len(out["split"]))
+    out["wn_launches"] = _wn_launches(model, True)
     out["whiten"] = [t.cpu() for t in _whitening_moments(model, batch)]
     make_whitening_init(model)(state, batch)
     step = make_train_step(model, _loss_config(), binarize=True, kl_on=True)
@@ -4147,9 +4337,12 @@ def _ddp_check(part: str, res: list, ref: dict, n_model: int) -> None:
     """Every rank's numbers printed; rank 0's loss terms, gradients and
     whitening moments held against the one-rank reference; the ranks'
     metrics and parameters alike bit for bit (a split one across the
-    ranks of one model index)."""
-    want_launches = {k: n * DDP_STEPS for k, n in PER_STEP.items()}
+    ranks of one model index). A step's K7 launches are counted from the
+    rank's own WN stacks (9 a flow where they are split)."""
     for r in res:
+        per_step = {**PER_STEP, "wn_conv_fwd": 0, "wn_conv_dgrad": 0,
+                    "wn_conv_wgrad": 0, **r["wn_launches"]}
+        want_launches = {k: n * DDP_STEPS for k, n in per_step.items()}
         syncs = r["sync"]
         log(f"[ddp] ({part}) rank {r['rank']} on {r['device']}: "
             f"{r['frames']} valid mel frames, ms a step "
@@ -4915,10 +5108,14 @@ GRAPH_MIXED_BINARIZE, GRAPH_MIXED_KL, GRAPH_MIXED_VAL = 3, 12, 8
 # prompts of the corpus's two speakers (their own languages), vocoded by a
 # HiFi-GAN v1 g_* file of random weights with its Denoiser; each
 # validation launches the losses' and samples' K4 10, K1 1 and K3 3 (its
-# binarized eval forward and reconstruct), and the prompts' infer K4 4
+# binarized eval forward and reconstruct), and the prompts' infer K4 4;
+# K7 forwards run in four passes of the flow (``_val_launches``)
 GRAPH_SAMPLE_SPEAKERS = ("ljs-other", "mailabs-tux-other")
 VAL_LAUNCHES = dict.fromkeys(FIT_STEP, 0)
 VAL_LAUNCHES.update(lstm_recurrence=10 + 4, ctc_alpha=1, mas_width1=3)
+# the flow's passes in one validation with samples: the losses' forward,
+# the eval forward, reconstruct's inverse and the prompts' infer
+VAL_FLOW_PASSES = 4
 # the trainer's inference programs (utils/graphs names)
 SAMPLE_PROGRAMS = ("tts_infer", "val_forward", "reconstruct", "vocode")
 # RAdam's rectified branch from the sixth update (N_sma >= 5 at b2 0.999)
@@ -5228,6 +5425,7 @@ def _graphs_mixed(seed: int, work: str, k: int, samples: bool = False
             at += n
         runs[way] = dict(
             steps=steps, vals=vals, val_s=val_s,
+            val_launches=_val_launches(tr.model),
             launches=_counters(loaders=True),
             stats=st, recs=recs, replays=replays, pool_mib=pool_mib,
             kinds=kinds, sizes=sizes,
@@ -5339,13 +5537,21 @@ def _graphs_mixed(seed: int, work: str, k: int, samples: bool = False
     return g["launches"]
 
 
+def _val_launches(model) -> dict:
+    """A validation's launches with samples: VAL_LAUNCHES, and K7's
+    forwards of ``model``'s WN stacks in each of the flow's passes."""
+    k7 = _wn_launches(model, False).get("wn_conv_fwd", 0)
+    return dict(VAL_LAUNCHES, wn_conv_fwd=VAL_FLOW_PASSES * k7)
+
+
 def _check_samples(part: str, g: dict, e: dict) -> None:
     """(f)'s samples and predict_reconstruction, graphed against eager."""
-    if any(v != VAL_LAUNCHES for v in g["vals"] + e["vals"]) or \
+    want = g["val_launches"]
+    if any(v != want for v in g["vals"] + e["vals"]) or \
             len(g["vals"]) < 3:
         fail(f"{part} a validation's launches: graphed {g['vals']}, eager "
              f"{e['vals']}, expected {len(g['vals'])} (3 or more) of "
-             f"{VAL_LAUNCHES}")
+             f"{want}")
     equal = _records_equal(g["recs"], e["recs"])
     log(f"[graphs] {part} the validations' samples ("
         + ", ".join(f"{n} {c}" for n, c in collections.Counter(
@@ -5353,7 +5559,7 @@ def _check_samples(part: str, g: dict, e: dict) -> None:
         + " calls: mels, attention maps, predictor outputs, audio) graphed "
         f"against eager, bit-equal {equal}; the quality scalars are in the "
         f"validation rows compared above; each validation launched "
-        f"{VAL_LAUNCHES}")
+        f"{want}")
     if not equal:
         fail(f"{part} the graphed validation samples are not the eager ones")
     missing = [n for n in SAMPLE_PROGRAMS if not g["replays"][n]]
@@ -5705,6 +5911,20 @@ def kernel_entries(rows: list, serve_launches, train_launches,
         source="radmmm_torch/csrc/pyin_viterbi.cu", replaces=k6["src"],
         **{k: k6[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms", "cluster")}))
+    # K7: its numbers at the flagship's in_0 (B 8 x T/2 256, 1,024 -> 1,024,
+    # K 5), every shape's row listed
+    for name in ("wn_conv_fwd", "wn_conv_dgrad", "wn_conv_wgrad"):
+        k7 = by(name)
+        (flag,) = by(name, cell="train", conv="in_0")
+        entries.append(dict(
+            name=name, route="cuda",
+            source="radmmm_torch/csrc/wn_conv_f32.cu",
+            replaces="none: XLA's conv1d_same (radmmm_tpu/ops/conv.py)",
+            max_abs_err=max(r["max_abs_err"] for r in k7),
+            **{k: flag[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "peak_share",
+                                    "padded_share")},
+            shapes=k7))
     entries[2:2] = bf16_entries
     return finish(entries)
 

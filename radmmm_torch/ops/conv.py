@@ -198,35 +198,46 @@ class MaskedConv1d(nn.Module):
             return weight_norm_kernel(self.v, self.g)
         return self.weight
 
-    def _conv(self, x_bct: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        return conv1d(x_bct, w, self.padding, self.dilation)
-
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        fmask = None
-        if mask is not None:
-            fmask = mask.to(x.dtype)[..., None]                  # (B, T, 1)
-            if self.premask_input or self.use_partial_padding:
-                x = x * fmask
-        raw = self._conv(x.transpose(1, 2), self.kernel()).transpose(1, 2)
+        return masked_conv1d(x, self.kernel(), self.bias, mask, self.padding,
+                             self.dilation, self.use_partial_padding,
+                             self.premask_input)
 
-        if self.use_partial_padding:
-            m = (fmask if fmask is not None
-                 else x.new_ones((1, x.shape[1], 1)))
-            ones = x.new_ones((1, 1, self.kernel_size))
-            update_mask = self._conv(m.transpose(1, 2), ones).transpose(1, 2)
-            mask_ratio = self.kernel_size / (update_mask + 1e-6)
-            update_mask = update_mask.clamp(0.0, 1.0)
-            mask_ratio = mask_ratio * update_mask
-            out = raw * mask_ratio
-            if self.bias is not None:
-                out = out + self.bias * update_mask
-        else:
-            out = raw if self.bias is None else raw + self.bias
 
-        if fmask is not None:
-            out = out * fmask
-        return out
+def masked_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor], mask: Optional[torch.Tensor],
+                  padding: int, dilation: int, use_partial_padding: bool,
+                  premask_input: bool) -> torch.Tensor:
+    """``MaskedConv1d``'s arithmetic: x (B, T, C_in), w (C_out, C_in, K),
+    mask (B, T) or None -> (B, T', C_out), the convolution at the conv
+    precision."""
+    kernel_size = w.shape[2]
+    fmask = None
+    if mask is not None:
+        fmask = mask.to(x.dtype)[..., None]                      # (B, T, 1)
+        if premask_input or use_partial_padding:
+            x = x * fmask
+    raw = conv1d(x.transpose(1, 2), w, padding, dilation).transpose(1, 2)
+
+    if use_partial_padding:
+        m = (fmask if fmask is not None
+             else x.new_ones((1, x.shape[1], 1)))
+        ones = x.new_ones((1, 1, kernel_size))
+        update_mask = conv1d(m.transpose(1, 2), ones, padding,
+                             dilation).transpose(1, 2)
+        mask_ratio = kernel_size / (update_mask + 1e-6)
+        update_mask = update_mask.clamp(0.0, 1.0)
+        mask_ratio = mask_ratio * update_mask
+        out = raw * mask_ratio
+        if bias is not None:
+            out = out + bias * update_mask
+    else:
+        out = raw if bias is None else raw + bias
+
+    if fmask is not None:
+        out = out * fmask
+    return out
 
 
 def dropout(x: torch.Tensor, p: float,

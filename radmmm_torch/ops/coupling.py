@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from radmmm_torch.ops import splines as S
+from radmmm_torch.ops import wn_conv
 from radmmm_torch.parallel import collectives as C
 from radmmm_torch.ops.conv import MaskedConv1d, conv1d
 from radmmm_torch.ops.norms import MaskedBatchNorm
@@ -35,7 +36,9 @@ class WN(nn.Module):
     ``res_skip_i`` and ``in_{i+1}``), and ``end`` holds a slice of its
     input channels (row-parallel): its partial products are summed over
     the group, then the bias added. The stack's input is replicated, so
-    its gradient is summed over the group."""
+    its gradient is summed over the group. Its convolutions go through
+    ``wn_conv.conv``: K7 on the card in f32 conv precision, the modules
+    otherwise."""
 
     def __init__(self, n_in_channels: int, n_context_channels: int,
                  n_layers: int = 4, n_channels: int = 1024,
@@ -61,22 +64,24 @@ class WN(nn.Module):
     def forward(self, z, context, mask=None):
         if self.tp is not None:
             return self._forward_split(z, context, mask)
-        h = self.start(torch.cat([z, context], dim=-1))
+        h = wn_conv.conv(self.start, torch.cat([z, context], dim=-1))
         output = torch.zeros_like(h)
         for i in range(self.n_layers):
-            h = self.act(getattr(self, f"in_{i}")(h, mask))
-            output = output + self.act(getattr(self, f"res_skip_{i}")(h))
-        return self.end(output)
+            h = self.act(wn_conv.conv(getattr(self, f"in_{i}"), h, mask))
+            output = output + self.act(
+                wn_conv.conv(getattr(self, f"res_skip_{i}"), h))
+        return wn_conv.conv(self.end, output)
 
     def _forward_split(self, z, context, mask):
         g = self.tp
         x = C.copy_to_group(torch.cat([z, context], dim=-1), g)
-        h = C.gather(self.start(x), g, dim=-1)
+        h = C.gather(wn_conv.conv(self.start, x), g, dim=-1)
         output = 0.0
         for i in range(self.n_layers):
-            h = C.gather(self.act(getattr(self, f"in_{i}")(h, mask)), g,
-                         dim=-1)
-            output = output + self.act(getattr(self, f"res_skip_{i}")(h))
+            h = C.gather(self.act(wn_conv.conv(getattr(self, f"in_{i}"), h,
+                                               mask)), g, dim=-1)
+            output = output + self.act(
+                wn_conv.conv(getattr(self, f"res_skip_{i}"), h))
         partial = conv1d(output.transpose(1, 2),
                          self.end.kernel()).transpose(1, 2)
         return C.reduce_from_group(partial, g) + self.end.bias

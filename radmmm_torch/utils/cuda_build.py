@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "radmmm_torch"
 SOURCES = ("lstm_recurrence", "lstm_recurrence_bwd", "lstm_recurrence_bf16",
            "ctc_band_dp", "mas_width1", "conv_softplus", "marks",
-           "pyin_viterbi")
+           "pyin_viterbi", "wn_conv_f32")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

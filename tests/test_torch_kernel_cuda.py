@@ -12,8 +12,9 @@ relative to the magnitude (alphas reach -2,500 at 512 frames, where one
 f32 ulp is 2.4e-4; both sides do the same ops in the same order); MAS and
 pYIN's Viterbi bit for bit (adds and compares of the same f32 values); the
 fused conv + softplus 1e-4 (the same exact bf16 products, up to 5,120 per
-output, summed in f32 in another order); the LSTM kernels' bf16 variants
-BF16_ATOL."""
+output, summed in f32 in another order); the WN convolutions (K7) 1e-5 of
+the largest magnitude (f32 products, up to 5,120 per output, summed in
+another order); the LSTM kernels' bf16 variants BF16_ATOL."""
 import copy
 
 import numpy as np
@@ -23,7 +24,7 @@ import torch
 from radmmm_torch.data import pitch
 from radmmm_torch.losses import ctc_kernel
 from radmmm_torch.losses.ctc import _ctc_setup
-from radmmm_torch.ops import alignment, lstm_kernel, wn_kernel
+from radmmm_torch.ops import alignment, lstm_kernel, wn_conv, wn_kernel
 from radmmm_torch.ops.lstm import MaskedLSTM
 from radmmm_torch.ops.lstm_kernel import (_backward_kernel,
                                           _forward_kernel,
@@ -51,7 +52,8 @@ LSTM_KERNELS = ("lstm_recurrence", "lstm_recurrence_bwd",
                 "lstm_recurrence_bf16", "lstm_recurrence_bwd_bf16")
 # the kernels of a binarized training step
 STEP_KERNELS = ("lstm_recurrence", "lstm_recurrence_bwd", "ctc_alpha",
-                "ctc_beta", "mas_width1")
+                "ctc_beta", "mas_width1", "wn_conv_fwd", "wn_conv_dgrad",
+                "wn_conv_wgrad")
 
 
 def _counts(*names) -> tuple:
@@ -647,6 +649,104 @@ def test_conv_softplus_refuses_channel_counts_on_the_card(cuda, C_in, C_out):
     assert launch_counts["conv_softplus"] == before
 
 
+# K7: ragged masks that are not prefixes, tiles that straddle items, odd
+# channel counts (padded to 4 by the wrapper), every dilation, small grids
+# whose reduction the plan splits, and items of length 1
+@pytest.mark.parametrize("B,T,C_in,C_out,K,dilation,masked,pp", [
+    (8, 256, 1024, 1024, 5, 1, True, True),
+    (8, 448, 1024, 1024, 5, 8, True, True),
+    (3, 50, 131, 130, 5, 4, True, True),
+    (2, 37, 12, 8, 5, 2, True, False),
+    (1, 96, 1024, 1024, 5, 2, False, True),
+    (4, 1, 20, 20, 5, 1, True, True),
+    (8, 256, 1135, 1024, 1, 1, False, False),
+    (8, 256, 1024, 158, 1, 1, False, False),
+    (1, 400, 1136, 1024, 1, 1, False, False)])
+def test_wn_conv_matches_twin(cuda, B, T, C_in, C_out, K, dilation, masked,
+                              pp):
+    """K7's forward (with its row scales), dgrad and wgrad against their
+    twins, each launch counted once, and two runs bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(B * T + K)
+    x = torch.randn((B, T, C_in), generator=g, device=cuda)
+    w = torch.randn((C_out, C_in, K), generator=g, device=cuda) / (
+        C_in * K) ** 0.5
+    b = torch.randn((C_out,), generator=g, device=cuda)
+    dy = torch.randn((B, T, C_out), generator=g, device=cuda)
+    mask = None
+    if masked:
+        lens = torch.arange(B) * 7 % T + 1
+        mask = (torch.arange(T)[None] < lens[:, None]).float().to(cuda)
+        mask[0, T // 3] = 0.0
+    wt = w.permute(2, 1, 0).contiguous()
+    wd = (w.flip(2) if K > 1 else w).permute(2, 0, 1).contiguous()
+    calls = {
+        "wn_conv_fwd": (
+            lambda: wn_conv.conv_f32(x, wt, b, mask, dilation, True, pp,
+                                     row_scales=masked or pp),
+            lambda: (wn_conv.conv_reference(x, wt, b, mask, dilation, True,
+                                            pp),
+                     wn_conv.row_scales_reference(
+                         mask, B, T, K, dilation, pp, torch.float32, cuda)
+                     if masked or pp else None)),
+        "wn_conv_dgrad": (
+            lambda: wn_conv.conv_f32(dy, wd, None, mask, dilation, False,
+                                     False, name="wn_conv_dgrad"),
+            lambda: (wn_conv.conv_reference(dy, wd, None, mask, dilation,
+                                            False, False), None)),
+        "wn_conv_wgrad": (
+            lambda: (wn_conv.wgrad_f32(dy, x, mask, K, dilation), None),
+            lambda: (wn_conv.wgrad_reference(dy, x, mask, K, dilation),
+                     None))}
+    for name, (kernel, twin) in calls.items():
+        before = launch_counts[name]
+        got, rs = kernel()
+        again, _ = kernel()
+        assert launch_counts[name] == before + 2
+        want, want_rs = twin()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+        assert torch.equal(got, again), name
+        if want_rs is not None:
+            torch.testing.assert_close(rs, want_rs, rtol=1e-6, atol=0)
+
+
+def test_wn_stack_through_k7_matches_the_modules(cuda, monkeypatch):
+    """A WN stack at full width, forward and backward through K7 against
+    the same stack through its modules (cuDNN): the output and every
+    gradient within 1e-5 of its largest magnitude."""
+    from radmmm_torch.ops.coupling import WN
+    torch.manual_seed(0)
+    wn = WN(79, 1040, 4, 1024, 5).to(cuda)
+    with torch.no_grad():
+        wn.end.weight.normal_(0, 1e-2)
+        wn.end.bias.normal_(0, 1e-2)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    z = torch.randn((4, 200, 79), generator=g, device=cuda,
+                    requires_grad=True)
+    c = torch.randn((4, 200, 1040), generator=g, device=cuda,
+                    requires_grad=True)
+    mask = (torch.arange(200)[None] < torch.tensor([200, 150, 60, 1])[:, None]
+            ).to(cuda)
+    probe = torch.randn((4, 200, 158), generator=g, device=cuda)
+
+    def run():
+        wn.zero_grad()
+        z.grad = c.grad = None
+        out = wn(z, c, mask)
+        (out * probe).sum().backward()
+        return [out.detach().clone(), z.grad.clone(), c.grad.clone()] + [
+            p.grad.clone() for p in wn.parameters()]
+
+    before = launch_counts["wn_conv_fwd"]
+    fused = run()
+    assert launch_counts["wn_conv_fwd"] == before + 10
+    monkeypatch.setattr(wn_conv, "_routes_to_kernel", lambda m, x: False)
+    plain = run()
+    for a, b in zip(fused, plain):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * b.abs().max().item())
+
+
 def _tiny_tts_config():
     """The CPU tests' tiny model shape, dropout off."""
     from radmmm_torch.models.tts import TTSConfig
@@ -705,7 +805,9 @@ def test_training_step_on_the_card_matches_the_cpu(cuda):
         before = _counts(*STEP_KERNELS)
         _, met = fn(state, b, torch.Generator(device=where))
         after = _counts(*STEP_KERNELS)
-        want = (4, 4, 1, 1, 1) if where == "cuda" else (0, 0, 0, 0, 0)
+        # K7: 2 flows of one WN layer, 4 convs each way
+        want = ((4, 4, 1, 1, 1, 8, 8, 8) if where == "cuda"
+                else (0,) * len(STEP_KERNELS))
         assert tuple(a - b for a, b in zip(after, before)) == want
         metrics[where] = {k: v.item() for k, v in met.items()}
     for k, want in metrics["cpu"].items():
